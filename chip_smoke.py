@@ -5,33 +5,53 @@ Usage, from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-Phases, each failing the run (non-zero exit) at its first fault:
+Phases, each failing the run (non-zero exit) at its first fault, each
+printing its wall time:
 
 1. versions, the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``sydr_tpu_torch/csrc`` with ``nvcc``;
+2. build the CUDA kernels from ``sydr_tpu_torch/csrc`` with ``nvcc``, one
+   process per source, all at once;
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the receiver gives it, with its error bound and CUDA-event times;
+   the receiver gives it, with its error bound and CUDA-event times: K1
+   ``epoch_correlate``, K2 ``pcps_bins``, K3 ``block_cumsum_streams``;
 4. the production parity gate: 4 closed-loop blocks against the committed
-   CPU truth ``tools/parity_truth.npz`` (read with numpy);
-5. the receiver's device path end to end: a 32-channel ``TrackingSession``
-   on 5 s of a synthetic 10 Msps capture (12 visible satellites at
-   45 dB-Hz, 20 absent PRNs), decimate 4, kaplan pull-in at 5 ms blocks,
-   promotion to the narrow-only cruise at 20 ms blocks x 50-block
-   superblocks, quantised taps; acquisition, promotion, bit sync, carrier
-   error and the kernels' launch counts are checked.
+   CPU truth ``tools/parity_truth.npz`` (read with numpy), in both boundary
+   forms of pass B (K1 row sums, K3 prefix);
+5. the receiver's device path: a 32-channel ``TrackingSession`` on 3 s of
+   a synthetic 10 Msps capture (12 visible satellites at 45 dB-Hz, 20
+   absent PRNs), decimate 4, kaplan pull-in at 5 ms blocks, promotion to
+   the narrow-only cruise at 20 ms blocks x 50-block superblocks, quantised
+   taps; acquisition, promotion, bit sync, carrier error and the kernels'
+   launch counts are checked;
+6. the receiver through its CLI, in process: ``sydr_tpu_torch.main.main``
+   on the demo sky at the bench's input rate (10 Msps, decimate 4,
+   quantised taps, 16 s): a position fix within 10 m of truth (K1 + K2);
+7. the receiver at full width on the prefix form (K3 + K2): 16 s of the
+   demo sky written to an int8 IQ file (by a child process, during phase
+   6) and read back through ``RFFileSource``, 32 channels (6 visible),
+   ``use_pallas=True, boundary_mode="prefix"`` in both loop shapes:
+   acquisition against the scenario's truth, promotion, TOW, fixes within
+   10 m, absent PRNs idle, and no K1 launch.
 
-The last three lines are the kernels' JSON record, the ``nvidia-smi`` line
-and ``{"ok": true, "device": {...}}``. Without a CUDA device the script
-exits non-zero before printing any result. It imports no JAX.
+Each of phases 5-7 sets every kernel's launch count to 0 just before it
+and reads the counts just after. The last three lines are the kernels'
+JSON record, the ``nvidia-smi`` line and ``{"ok": true, "device":
+{...}}``. Without a CUDA device the script exits non-zero before printing
+any result. It imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import multiprocessing
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -47,15 +67,24 @@ DECIMATE = 4
 N_CHANNELS = 32
 N_VISIBLE = 12
 CN0_DBHZ = 45.0
-SIGNAL_MS = 5000
+SIGNAL_MS = 3000
 CRUISE_SUPERBLOCK = 50
+# The demo sky (sydr_tpu_torch/main.py's --demo) for phases 6 and 7.
+RX_MS = 16000
+DEMO_T0, DEMO_WEEK = 302400.0, 2190
+FIX_BOUND_M = 10.0   # 2.5 Msps code noise + a few seconds of Hatch filter
 
 # Kernel-vs-plain bounds. K1: identical chips (same rounding of the index
 # arithmetic), sums in another order: 1e-2 + 1e-4 of the largest correlator.
 # K2: a direct-summation four-step DFT against cuFFT, both float32:
 # 1e-4 of the map's maximum.
+# K3: the same per-sample values as K1, scanned in another order than
+# torch.cumsum: the raw prefix within 4 * sqrt(n_win) * 2^-24 of its largest
+# magnitude (a random walk of float32 roundings, four sigma); the epoch
+# correlators picked from it within K1's bound.
 K1_ATOL, K1_RTOL = 1e-2, 1e-4
 K2_RTOL = 1e-4
+K3_PREFIX_SIGMAS = 4.0
 
 
 def fail(msg: str) -> None:
@@ -96,14 +125,13 @@ def cuda_ms(fn, reps: int) -> float:
 # Kernel checks
 # ---------------------------------------------------------------------------
 
-def k1_case(name, fs, block_ms, profile, quantize, device, rng):
-    """Kernel vs plain ``epoch_correlate`` on a random tracking state."""
+def random_block(fs, block_ms, profile, quantize, device, rng):
+    """A random 32-channel tracking state and window: the K1 arguments."""
     import torch
 
     from sydr_tpu_torch.channels import batch_runtime as br
     from sydr_tpu_torch.channels.runtime import TrackingConfig
     from sydr_tpu_torch.channels.state import MODE_TRACKING, init_state
-    from sydr_tpu_torch.ops import correlator_kernel as ck
 
     cfg = TrackingConfig(
         sampling_frequency=fs, block_ms=block_ms, tail_ms=4,
@@ -129,9 +157,18 @@ def k1_case(name, fs, block_ms, profile, quantize, device, rng):
     bits = dev(br.tiled_code_bits(list(range(1, n + 1))), np.float32)
     geo = br._pass_a_closed(cfg, st)
     bg = br.block_geometry(cfg, st, geo)
-    args = (wre, wim, bits, bg["c_int"], geo["omega"], geo["code_step"],
+    return (wre, wim, bits, bg["c_int"], geo["omega"], geo["code_step"],
             bg["fb_q"].contiguous(), bg["phic_q"].contiguous(),
             br.epoch_bounds(cfg, geo, bg["base"]), br.taps_for(cfg), spms)
+
+
+def k1_case(name, fs, block_ms, profile, quantize, device, rng):
+    """Kernel vs plain ``epoch_correlate`` on a random tracking state."""
+    import torch
+
+    from sydr_tpu_torch.ops import correlator_kernel as ck
+
+    args = random_block(fs, block_ms, profile, quantize, device, rng)
     got = ck.epoch_correlate(*args)
     ref = ck.epoch_correlate_ref(*args)
     torch.cuda.synchronize()
@@ -144,6 +181,43 @@ def k1_case(name, fs, block_ms, profile, quantize, device, rng):
           flush=True)
     check(bool(torch.isfinite(got).all()), f"K1 {name}: non-finite output")
     check(err <= bound, f"K1 {name}: error {err} above bound {bound}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def k3_case(name, fs, block_ms, profile, device, rng):
+    """Kernel vs plain ``block_cumsum_streams`` on a random tracking state
+    with quantised taps: the raw prefix, and the epoch correlators picked
+    from each (``batch_runtime.prefix_epoch_sums``)."""
+    import torch
+
+    from sydr_tpu_torch.channels import batch_runtime as br
+    from sydr_tpu_torch.ops import correlator_kernel as ck
+
+    args = random_block(fs, block_ms, profile, True, device, rng)
+    bounds = args[8]
+    k3 = args[:8] + args[9:]
+    got = ck.block_cumsum_streams(*k3)
+    ref = ck.block_cumsum_streams_ref(*k3)
+    torch.cuda.synchronize()
+    n_win = ref.shape[-1]
+    err = float((got - ref).abs().max())
+    bound = K3_PREFIX_SIGMAS * n_win ** 0.5 * 2.0 ** -24 \
+        * float(ref.abs().max())
+    corr, corr_ref = (br.prefix_epoch_sums(p, bounds) for p in (got, ref))
+    corr_err = float((corr - corr_ref).abs().max())
+    corr_bound = K1_ATOL + K1_RTOL * float(corr_ref.abs().max())
+    ms = cuda_ms(lambda: ck.block_cumsum_streams(*k3), 20)
+    plain_ms = cuda_ms(lambda: ck.block_cumsum_streams_ref(*k3), 3)
+    print(f"K3 {name}: out {tuple(got.shape)} "
+          f"({got.numel() * 4 / 1e6:.1f} MB) prefix max_abs_err {err:.3e} "
+          f"(bound {bound:.3e}, max|prefix| {float(ref.abs().max()):.1f}) "
+          f"epoch correlators max_abs_err {corr_err:.3e} (bound "
+          f"{corr_bound:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms",
+          flush=True)
+    check(bool(torch.isfinite(got).all()), f"K3 {name}: non-finite output")
+    check(err <= bound, f"K3 {name}: prefix error {err} above {bound}")
+    check(corr_err <= corr_bound,
+          f"K3 {name}: correlator error {corr_err} above {corr_bound}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
@@ -193,13 +267,15 @@ def parity_phase(device) -> None:
 
     truth = np.load(os.path.join(REPO, "tools", "parity_truth.npz"),
                     allow_pickle=False)["superblock"]
-    res = parity.production_parity(truth, device)
     b = parity.PARITY_BOUNDS
-    print(f"parity_metric {res['parity_metric']:.4f} (<= "
-          f"{b['parity_metric']}) parity_scaled {res['parity_scaled']:.4f} "
-          f"(<= {b['parity_scaled']}) prompt_ratio {res['prompt_ratio']:.4f} "
-          f"(in {list(b['prompt_ratio'])})", flush=True)
-    check(res["parity_ok"], f"parity gate failed: {res}")
+    for mode in ("rowsum", "prefix"):
+        res = parity.production_parity(truth, device, mode)
+        print(f"parity [{mode}] parity_metric {res['parity_metric']:.4f} "
+              f"(<= {b['parity_metric']}) parity_scaled "
+              f"{res['parity_scaled']:.4f} (<= {b['parity_scaled']}) "
+              f"prompt_ratio {res['prompt_ratio']:.4f} "
+              f"(in {list(b['prompt_ratio'])})", flush=True)
+        check(res["parity_ok"], f"parity gate [{mode}] failed: {res}")
 
 
 # ---------------------------------------------------------------------------
@@ -246,8 +322,6 @@ def slice_phase(device, signal_ms=SIGNAL_MS, fs_in=FS_IN,
                 superblock=CRUISE_SUPERBLOCK, sync=None, card="") -> dict:
     """Drive the port's TrackingSession; check and return what it did."""
     from sydr_tpu_torch.channels.state import FLAG_BIT_SYNC, MODE_TRACKING
-    from sydr_tpu_torch.ops import acq_kernel
-    from sydr_tpu_torch.ops import correlator_kernel as ck
     from sydr_tpu_torch.receiver.session import TrackingSession
 
     rng = np.random.default_rng(SEED)
@@ -263,8 +337,7 @@ def slice_phase(device, signal_ms=SIGNAL_MS, fs_in=FS_IN,
     sync = sync or (lambda: None)
     in_per_ms = round(fs_in * 1e-3)
 
-    ck.KERNEL.launches = 0
-    acq_kernel.KERNEL.launches = 0
+    reset_launches()
     outs, pos, calls, promoted_at = [], 0, 0, None
     cruise_signal_s, cruise_wall_s = 0.0, 0.0
     while pos + session.block_input_samples <= len(sig_re):
@@ -283,8 +356,7 @@ def slice_phase(device, signal_ms=SIGNAL_MS, fs_in=FS_IN,
         calls += 1
         if promoted_at is None and session.promoted:
             promoted_at = calls
-    launches = {"epoch_correlate": ck.KERNEL.launches,
-                "pcps_bins": acq_kernel.KERNEL.launches}
+    launches = read_launches()
     merged = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
     ms_fed = pos // in_per_ms
     print(f"fed {ms_fed} ms in {calls} calls; promotion after call "
@@ -329,12 +401,178 @@ def slice_phase(device, signal_ms=SIGNAL_MS, fs_in=FS_IN,
     check(promoted_at is not None, "the session never promoted to cruise")
     check(all(m != MODE_TRACKING for m in absent_modes.values()),
           "an absent PRN is tracking")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel never launched on the main path: {launches}")
+    check(launches["epoch_correlate"] > 0 and launches["pcps_bins"] > 0,
+          f"a kernel never launched on the session's path: {launches}")
     check(all(np.isfinite(merged[k]).all() for k in
               ("i_prompt", "q_prompt", "carrier_freq")),
           "non-finite tracking output")
     return {"launches": launches, "rtf": rtf, "promoted_at": promoted_at}
+
+
+def kernels():
+    """Every CUDA kernel of the port, by name."""
+    from sydr_tpu_torch.ops import acq_kernel
+    from sydr_tpu_torch.ops import correlator_kernel as ck
+
+    return {"epoch_correlate": ck.KERNEL, "pcps_bins": acq_kernel.KERNEL,
+            "block_cumsum_streams": ck.CUMSUM_KERNEL}
+
+
+def reset_launches() -> None:
+    for kern in kernels().values():
+        kern.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: kern.launches for name, kern in kernels().items()}
+
+
+def cli_phase() -> dict:
+    """The receiver through its CLI on the demo sky at the bench's input
+    rate, in process; stdout is captured, echoed and checked."""
+    from sydr_tpu_torch import main as cli
+
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["--demo", "--fs", f"{FS_IN:g}", "--decimate", str(DECIMATE),
+                "--quantize", "--ms", str(RX_MS), "--device", "cuda",
+                "--no-dashboard", "--no-report", "--out", out]
+        print(f"cli: sydr_tpu_torch.main.main({argv})", flush=True)
+        reset_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        launches = read_launches()
+    text = buf.getvalue()
+    print(text.rstrip(), flush=True)
+    print(f"cli launches on the main path: {launches}", flush=True)
+    check(rc == 0, f"the CLI returned {rc}")
+    check("final fix:" in text, "the CLI printed no fix")
+    found = re.search(r"error vs reference position: ([0-9.]+) m", text)
+    check(found is not None, "the CLI printed no position error")
+    err = float(found.group(1))
+    check(err < FIX_BOUND_M, f"CLI fix error {err} m >= {FIX_BOUND_M} m")
+    check(launches["epoch_correlate"] > 0 and launches["pcps_bins"] > 0,
+          f"a kernel never launched on the CLI's path: {launches}")
+    return {"launches": launches, "fix_error_m": err}
+
+
+def demo_scenario():
+    """The demo sky at the bench's input rate (sydr_tpu_torch/main.py)."""
+    from sydr_tpu_torch.signal.scenario import (
+        DEMO_RX_TRUTH, Scenario, demo_ephemerides)
+
+    sats = demo_ephemerides(DEMO_T0, DEMO_WEEK)
+    return Scenario(np.array(DEMO_RX_TRUTH), sats, DEMO_T0, FS_IN,
+                    cn0_dbhz=47.0, seed=3)
+
+
+def write_demo_sky(path: str) -> None:
+    """Write RX_MS of the demo sky to ``path`` as int8 IQ (run in a child
+    process while the CLI phase runs: it is host work only)."""
+    sys.path.insert(0, REPO)
+    t0 = time.perf_counter()
+    demo_scenario().write_file(path, RX_MS)
+    print(f"prefix receiver: wrote {RX_MS} ms of the demo sky at "
+          f"{FS_IN / 1e6:g} Msps ({os.path.getsize(path) / 1e6:.0f} MB "
+          f"int8 IQ) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def prefix_receiver_phase(device, sky_path) -> dict:
+    """The receiver at full width on the prefix form (K3 + K2), fed from the
+    int8 IQ file of the demo sky (:func:`write_demo_sky`) through
+    RFFileSource."""
+    import torch
+
+    from sydr_tpu_torch.channels.runtime import TrackingConfig
+    from sydr_tpu_torch.channels.state import MODE_TRACKING
+    from sydr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+    from sydr_tpu_torch.signal.rf import RFConfig, RFFileSource
+
+    scn = demo_scenario()
+    sats = [s.eph for s in scn.sats]
+    rx_truth = scn.rx
+    truth = {t["prn"]: t["doppler"] for t in scn.truth_state(DEMO_T0)}
+    fs = FS_IN / DECIMATE
+    pull_in = TrackingConfig(
+        sampling_frequency=fs, input_decimate=DECIMATE,
+        window_size=round(fs * 1e-3) + 256, runtime="batch",
+        profile="kaplan", block_ms=5, superblock=4, quantize_spacing=True,
+        use_pallas=True, boundary_mode="prefix")
+    cruise = dataclasses.replace(pull_in, kaplan_narrow_only=True,
+                                 block_ms=20, superblock=CRUISE_SUPERBLOCK)
+    cfg = ReceiverConfig(
+        prns=tuple(range(1, N_CHANNELS + 1)), tracking=pull_in,
+        cruise_tracking=cruise,
+        approx_position=tuple(rx_truth + np.array([3000.0, -2000.0, 1500.0])),
+        assisted_ephemerides={e.prn: e for e in sats}, tropo_enabled=False)
+    source = RFFileSource(RFConfig(filepath=sky_path,
+                                   sampling_frequency=FS_IN, data_size=8,
+                                   is_complex=True))
+    rx = Receiver(cfg, device=device)
+    first_acq, promoted_block, fed = None, None, 0
+    reset_launches()
+    t0 = time.perf_counter()
+    while fed < RX_MS:
+        re_, im_ = source.read_ms(500)
+        rx.process_ms((re_, im_))
+        fed += 500
+        if first_acq is None and len(rx.session.acq_results) == N_CHANNELS:
+            first_acq = {i: dict(r) for i, r in
+                         rx.session.acq_results.items()}
+        if promoted_block is None and rx.session.promoted:
+            promoted_block = rx._block_index
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    source.close()
+
+    ok_acq = first_acq is not None
+    for e in sats:
+        res = (first_acq or {}).get(e.prn - 1)
+        if res is None:
+            print(f"PRN {e.prn}: not acquired", flush=True)
+            ok_acq = False
+            continue
+        good = (res["metric"] >= cfg.acquisition.threshold
+                and abs(res["doppler"] - truth[e.prn])
+                <= cfg.acquisition.doppler_step)
+        ok_acq &= good
+        print(f"PRN {e.prn}: acquired doppler {res['doppler']:+8.1f} Hz "
+              f"(truth {truth[e.prn]:+8.1f}) metric {res['metric']:.2f}",
+              flush=True)
+    with_tow = [ch.prn for ch in rx.channels if ch.has_tow]
+    errors = [float(np.linalg.norm(f.solution.position - rx_truth))
+              for f in rx.fixes]
+    visible = {e.prn for e in sats}
+    absent_modes = {p: int(rx.session.mode_host[p - 1])
+                    for p in cfg.prns if p not in visible}
+    print(f"prefix receiver: promotion at block {promoted_block}; channels "
+          f"with TOW {with_tow}; fix errors [m] "
+          f"{[round(x, 3) for x in errors]}", flush=True)
+    print(f"prefix receiver: absent PRNs' modes {absent_modes}", flush=True)
+    print(f"prefix receiver: {fed} ms of signal in {wall:.1f} s; launches "
+          f"{launches}", flush=True)
+    check(ok_acq, "a visible satellite was not acquired within one "
+                  "Doppler bin")
+    check(promoted_block is not None, "the receiver never promoted")
+    check(len(with_tow) >= 4, f"only {len(with_tow)} channels decoded TOW")
+    check(len(errors) >= 1, "no position fix")
+    check(errors[-1] < FIX_BOUND_M,
+          f"last fix error {errors[-1]} m >= {FIX_BOUND_M} m")
+    check(all(m != MODE_TRACKING for m in absent_modes.values()),
+          "an absent PRN is tracking")
+    check(launches["block_cumsum_streams"] > 0 and launches["pcps_bins"] > 0,
+          f"K3 or K2 never launched on the prefix path: {launches}")
+    check(launches["epoch_correlate"] == 0,
+          f"K1 launched on the prefix path: {launches}")
+    return {"launches": launches, "fix_errors_m": errors, "wall_s": wall}
+
+
+def timed(name, fn, *args, **kwargs):
+    t0 = time.perf_counter()
+    res = fn(*args, **kwargs)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return res
 
 
 def main() -> int:
@@ -345,8 +583,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from sydr_tpu_torch.ops import acq_kernel
-    from sydr_tpu_torch.ops import correlator_kernel as ck
+    from sydr_tpu_torch.ops import native
 
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -356,14 +593,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    for kern in (ck.KERNEL, acq_kernel.KERNEL):
-        t0 = time.perf_counter()
-        kern.function()
+    t0 = time.perf_counter()
+    native.build_all(list(kernels().values()))
+    for kern in kernels().values():
         usage = [ln.strip() for ln in kern.build_log.splitlines()
                  if "registers" in ln or "spill" in ln]
-        print(f"built {kern.source} in {time.perf_counter() - t0:.2f} s: "
+        print(f"built {kern.source} in {kern.build_seconds or 0:.2f} s: "
               f"{'; '.join(usage) or 'cached'}", flush=True)
+    print(f"phase build: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
     k1 = {name: k1_case(name, fs, bm, prof, quant, device, rng)
           for name, fs, bm, prof, quant in (
@@ -377,21 +616,55 @@ def main() -> int:
           for name, fs, n_ch in (
               ("session 32 ch n=2500", 2.5e6, 32),
               ("bench 12 ch n=10000", 10e6, 12))}
+    k3 = {name: k3_case(name, fs, bm, prof, device, rng)
+          for name, fs, bm, prof in (
+              ("cruise 2.5 Msps 20 ms 6 streams", 2.5e6, 20, "narrow"),
+              ("pull-in 2.5 Msps 5 ms 10 streams", 2.5e6, 5, "kaplan"),
+              ("full-rate 10 Msps 20 ms 6 streams", 10e6, 20, "narrow"))}
+    print(f"phase kernel checks: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
-    parity_phase(device)
-    res = slice_phase(device, sync=torch.cuda.synchronize, card=card)
+    timed("parity", parity_phase, device)
+    timed("session", slice_phase, device, sync=torch.cuda.synchronize,
+          card=card)
+    # The prefix phase's IQ file is written by a child process while the
+    # CLI phase runs.
+    with tempfile.TemporaryDirectory() as tmp:
+        sky = os.path.join(tmp, "demo_sky.int8")
+        writer = multiprocessing.get_context("spawn").Process(
+            target=write_demo_sky, args=(sky,), daemon=True)
+        writer.start()
+        try:
+            cli = timed("cli", cli_phase)
+            t0 = time.perf_counter()
+            writer.join()
+            print(f"waited {time.perf_counter() - t0:.1f} s for the IQ "
+                  f"file", flush=True)
+            check(writer.exitcode == 0,
+                  f"writing the IQ file failed ({writer.exitcode})")
+            pre = timed("prefix receiver", prefix_receiver_phase, device,
+                        sky)
+        finally:
+            if writer.is_alive():
+                writer.terminate()
+                writer.join()
 
-    k1_main = k1["cruise 2.5 Msps 20 ms 6 streams"]
-    k2_main = k2["session 32 ch n=2500"]
     record = {"kernels": [
         {"name": "epoch_correlate", "route": "cuda",
          "source": "sydr_tpu_torch/csrc/epoch_correlate.cu",
          "replaces": "sydr_tpu/ops/correlator_kernel.py:449",
-         "launches": res["launches"]["epoch_correlate"], **k1_main},
+         "launches": cli["launches"]["epoch_correlate"],
+         **k1["cruise 2.5 Msps 20 ms 6 streams"]},
         {"name": "pcps_bins", "route": "cuda",
          "source": "sydr_tpu_torch/csrc/pcps_bins.cu",
          "replaces": "sydr_tpu/ops/acq_kernel.py:54",
-         "launches": res["launches"]["pcps_bins"], **k2_main},
+         "launches": cli["launches"]["pcps_bins"],
+         **k2["session 32 ch n=2500"]},
+        {"name": "block_cumsum_streams", "route": "cuda",
+         "source": "sydr_tpu_torch/csrc/block_cumsum_streams.cu",
+         "replaces": "sydr_tpu/ops/correlator_kernel.py:282",
+         "launches": pre["launches"]["block_cumsum_streams"],
+         **k3["cruise 2.5 Msps 20 ms 6 streams"]},
     ]}
     print(json.dumps(record), flush=True)
     print(card_line(), flush=True)

@@ -7,9 +7,11 @@ a block splits into:
 
   Pass A ([n_ch] wide, closed form): epoch boundaries, per-epoch phases and
       active gating under frozen rates (:func:`_pass_a_closed`).
-  Pass B: every epoch's E/P/L correlators in one kernel launch
-      (``ops.correlator_kernel.epoch_correlate``, CUDA kernel K1), from the
-      per-millisecond anchors of :func:`block_geometry`.
+  Pass B: every epoch's E/P/L correlators from the per-millisecond
+      anchors of :func:`block_geometry`: by default in one launch of CUDA
+      kernel K1 (``ops.correlator_kernel.epoch_correlate``); in the prefix
+      boundary form (:func:`prefix_form`) from the per-sample prefix of
+      CUDA kernel K3 (``ops.correlator_kernel.block_cumsum_streams``).
   Pass C ([n_ch] wide, one Python iteration per epoch): discriminators,
       loop filters with virtual-NCO compensation, bit-edge histogram sync,
       C/N0 and lock indicators; corrections take effect at the next block.
@@ -246,15 +248,45 @@ def epoch_bounds(cfg: TrackingConfig, geo, base):
     return torch.cat([b_start, last_end], dim=0).to(I32).contiguous()
 
 
+def prefix_form(cfg: TrackingConfig) -> bool:
+    """Whether pass B takes the prefix boundary form (K3), under the JAX
+    package's condition: ``use_pallas``, a ``boundary_mode`` other than
+    ``"rowsum"``, and at least 1024 samples per millisecond (the JAX
+    kernel's smallest sub-chunk). Otherwise K1 runs; it stands in for both
+    the JAX dense path and its row-sum kernel."""
+    return (cfg.use_pallas and cfg.boundary_mode != "rowsum"
+            and cfg.samples_per_ms >= 1024)
+
+
+def prefix_epoch_sums(prefix, bounds):
+    """Per-epoch sums ``[block_ms, n_ch, n_streams]`` from the inclusive
+    prefix ``[n_ch, n_streams, n_win]`` and the epoch bounds ``[block_ms +
+    1, n_ch]``: ``sum[b0, b1) = P[b1 - 1] - P[b0 - 1]`` with ``P[-1] =
+    0``, as the JAX prefix path picks them."""
+    n_ch, n_streams, n_win = prefix.shape
+    valid = (bounds > 0).t()                                   # [n_ch, E+1]
+    idx = torch.clamp(bounds.to(torch.int64) - 1, 0, n_win - 1).t()
+    picked = torch.gather(
+        prefix, 2, idx[:, None, :].expand(n_ch, n_streams, idx.shape[1]))
+    picked = picked * valid[:, None, :].to(F32)
+    corr = picked[:, :, 1:] - picked[:, :, :-1]
+    return corr.permute(2, 0, 1).contiguous()
+
+
 def _pass_b(cfg: TrackingConfig, bits3x, st: ChannelState, geo,
             window_re, window_im):
     """Correlators ``[block_ms, n_ch, 2 * n_taps]`` for the whole block."""
     bg = block_geometry(cfg, st, geo)
     bounds = epoch_bounds(cfg, geo, bg["base"])
-    return ck.epoch_correlate(
-        window_re, window_im, bits3x, bg["c_int"], geo["omega"],
-        geo["code_step"], bg["fb_q"].contiguous(), bg["phic_q"].contiguous(),
-        bounds, taps_for(cfg), cfg.samples_per_ms)
+    args = (window_re, window_im, bits3x, bg["c_int"], geo["omega"],
+            geo["code_step"], bg["fb_q"].contiguous(),
+            bg["phic_q"].contiguous())
+    if prefix_form(cfg):
+        prefix = ck.block_cumsum_streams(*args, taps_for(cfg),
+                                         cfg.samples_per_ms)
+        return prefix_epoch_sums(prefix, bounds)
+    return ck.epoch_correlate(*args, bounds, taps_for(cfg),
+                              cfg.samples_per_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -448,7 +480,8 @@ def _pass_c(cfg: TrackingConfig, st: ChannelState, geo, corr):
 
 def run_block_batched(cfg: TrackingConfig, bits3x, state: ChannelState,
                       window_re, window_im):
-    """One block: pass A, pass B (K1), pass C, then the anchor slew.
+    """One block: pass A, pass B (K1, or K3 in the prefix form), pass C,
+    then the anchor slew.
 
     ``bits3x`` is the ``tiled_code_bits`` table (``[n_ch, 4160]`` f32 on
     the state's device); ``window_re/im`` hold ``tail_ms + block_ms``

@@ -2,10 +2,15 @@
 
 Port of ``sydr_tpu.channels.runtime``: :class:`TrackingConfig` keeps every
 field and default of the JAX configuration so existing configs load
-unchanged. Fields that only pick a TPU implementation (``use_pallas``,
-``pallas_interpret``, ``boundary_mode``, ``epl_method``,
-``ablate_word_row``) are accepted and ignored: the port has one
-correlator, the CUDA kernel ``ops.correlator_kernel.epoch_correlate``.
+unchanged. ``use_pallas`` with ``boundary_mode`` other than ``"rowsum"``
+picks the prefix boundary form of pass B (CUDA kernel K3,
+``ops.correlator_kernel.block_cumsum_streams``) as it picks the JAX
+prefix kernel; every other setting runs K1
+(``ops.correlator_kernel.epoch_correlate``), which stands in for both the
+JAX dense path and its row-sum kernel
+(``channels.batch_runtime.prefix_form``). Fields that only steer a TPU
+implementation (``pallas_interpret``, ``epl_method``,
+``ablate_word_row``) are accepted and ignored.
 The per-ms scan runtime (``run_block``) is not ported yet; the session
 drives the batched runtime (``channels.batch_runtime``).
 """
@@ -71,14 +76,14 @@ class TrackingConfig:
     # Code-rate-offset rail [Hz of the 1.023 MHz code clock]; 0 disables.
     code_rail_hz: float = 6.0
     runtime: str = "scan"
-    use_pallas: bool = False        # TPU kernel selector: ignored here
+    use_pallas: bool = False        # with boundary_mode: K1 or K3
     pallas_interpret: bool = False  # TPU kernel selector: ignored here
     superblock: int = 1
     upload_int8: bool = True
     input_decimate: int = 1
     quantize_spacing: bool = False
     epl_method: str = "bitpack"     # scan-runtime EPL form: ignored here
-    boundary_mode: str = "rowsum"   # TPU kernel output form: ignored here
+    boundary_mode: str = "rowsum"   # "prefix" + use_pallas: K3
     pass_a: str = "closed"
     ablate_word_row: int = 0        # TPU fault injection: ignored here
 

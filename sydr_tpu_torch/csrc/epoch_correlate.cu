@@ -9,24 +9,10 @@
 // at row granularity. Here a block reads its chips from the channel's code
 // table in shared memory and sums exactly between the epoch bounds.
 //
-// Semantics (those of batch_runtime.dense_streams + the boundary
-// differences): window sample m lies in millisecond q = m / spms at offset
-// lm = m - q * spms; carrier wipe-off by phic_q[q] - omega * lm; the chip
-// of tap t is the code bit at c_int + ceil(fb_q[q'] + sp_t + lm' * step),
-// evaluated at sample m' = m + k_t with the anchors of the millisecond m'
-// falls in (q' = min(m' / spms, n_q - 1), so the lookahead past the window
-// continues the last millisecond's anchors linearly).
-//
-// Rounding: the chip index is a ceil of an f32 expression, so a sample that
-// lies within rounding of an integer chip boundary flips chips if the
-// arithmetic rounds differently. The index r + lm' * step and the carrier
-// phase phic - omega * lm are each ONE fused multiply-add (__fmaf_rn, a
-// single rounding), the form XLA's CPU backend gives the JAX reference;
-// r = fb + sp is one __fadd_rn. The plain version computes the same fused
-// values (float64 product and sum, rounded once to float32), so with
+// The per-sample streams (chip index, carrier mix, their rounding) are the
+// shared ones of streams.cuh, so K1 and K3 sum identical values. With
 // identical inputs kernel and plain version pick the same chips and differ
-// only by summation order and sincosf's last ulp. nvcc's default FMA
-// contraction cannot change these: every rounding step is explicit.
+// only by summation order and sincosf's last ulp.
 //
 // Bound on the H100: one block per (epoch, channel) — 640 blocks in the
 // cruise shape (20 ms x 32 ch) reading 2500 complex samples each; the work
@@ -36,30 +22,22 @@
 // block reduces its own sums (warp shuffles, then shared memory) and stores
 // them once, so results are deterministic.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "streams.cuh"
 
 namespace {
 
-constexpr int kMaxTaps = 5;
-constexpr int kCodeWidth = 4160;   // tiled_code_bits row: chip u at 1023 + u
-constexpr int kCodeOrigin = 1023;
+using sydr::kCodeWidth;
+using sydr::kMaxTaps;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-struct Taps {
-  float sp[kMaxTaps];   // tap spacing [chips]
-  int k[kMaxTaps];      // tap sample shift
-  int n;
-};
 
 __global__ void __launch_bounds__(kThreads) epoch_correlate_kernel(
     const float* __restrict__ win_re, const float* __restrict__ win_im,
     const float* __restrict__ code_bits, const int* __restrict__ c_int,
     const float* __restrict__ omega, const float* __restrict__ code_step,
     const float* __restrict__ fb_q, const float* __restrict__ phic_q,
-    const int* __restrict__ bounds, Taps taps, int n_ch, int n_q, int spms,
-    float* __restrict__ out) {
+    const int* __restrict__ bounds, sydr::Taps taps, int n_ch, int n_q,
+    int spms, float* __restrict__ out) {
   __shared__ float chips[kCodeWidth];
   __shared__ float partial[kWarps][2 * kMaxTaps];
 
@@ -67,45 +45,26 @@ __global__ void __launch_bounds__(kThreads) epoch_correlate_kernel(
   const int c = blockIdx.y;
   const int tid = threadIdx.x;
 
-  const float* bits = code_bits + static_cast<size_t>(c) * kCodeWidth;
-  for (int i = tid; i < kCodeWidth; i += kThreads) {
-    chips[i] = 2.0f * bits[i] - 1.0f;
-  }
+  sydr::load_chips(code_bits, c, chips);
   __syncthreads();
 
   const int b0 = bounds[e * n_ch + c];
   const int b1 = bounds[(e + 1) * n_ch + c];
-  const float om = omega[c];
-  const float step = code_step[c];
-  const int origin = kCodeOrigin + c_int[c];
-  const float* fb = fb_q + static_cast<size_t>(c) * n_q;
-  const float* ph = phic_q + static_cast<size_t>(c) * n_q;
+  const sydr::Channel ch = sydr::load_channel(
+      c, c_int, omega, code_step, fb_q, phic_q, n_q, spms);
 
   float acc[2 * kMaxTaps];
 #pragma unroll
   for (int s = 0; s < 2 * kMaxTaps; ++s) acc[s] = 0.0f;
 
   for (int m = b0 + tid; m < b1; m += kThreads) {
-    const int q = m / spms;
-    const int lm = m - q * spms;
-    const float phase = __fmaf_rn(-om, static_cast<float>(lm), ph[q]);
-    float sn, cs;
-    sincosf(phase, &sn, &cs);
-    const float xr = win_re[m];
-    const float xi = win_im[m];
-    const float mre = __fsub_rn(__fmul_rn(cs, xr), __fmul_rn(sn, xi));
-    const float mim = __fadd_rn(__fmul_rn(cs, xi), __fmul_rn(sn, xr));
+    float mre, mim;
+    sydr::mix_sample(ch, win_re, win_im, m, &mre, &mim);
 #pragma unroll
     for (int t = 0; t < kMaxTaps; ++t) {
       if (t < taps.n) {
-        const int mk = m + taps.k[t];
-        const int qk = min(mk / spms, n_q - 1);
-        const int lk = mk - qk * spms;
-        const float r = __fadd_rn(fb[qk], taps.sp[t]);
-        const int idx = static_cast<int>(
-            ceilf(__fmaf_rn(static_cast<float>(lk), step, r)));
-        const int pos = min(max(origin + idx, 0), kCodeWidth - 1);
-        const float chip = chips[pos];
+        const float chip =
+            sydr::tap_chip(ch, chips, taps.sp[t], taps.k[t], m);
         acc[2 * t] += chip * mre;
         acc[2 * t + 1] += chip * mim;
       }
@@ -149,12 +108,7 @@ extern "C" int epoch_correlate_launch(
   if (n_taps < 1 || n_taps > kMaxTaps) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Taps taps;
-  for (int t = 0; t < kMaxTaps; ++t) {
-    taps.sp[t] = t < n_taps ? tap_sp[t] : 0.0f;
-    taps.k[t] = t < n_taps ? tap_k[t] : 0;
-  }
-  taps.n = n_taps;
+  const sydr::Taps taps = sydr::make_taps(tap_sp, tap_k, n_taps);
   const dim3 grid(block_ms, n_ch);
   epoch_correlate_kernel<<<grid, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(

@@ -1,12 +1,22 @@
-"""K1 ``epoch_correlate``: per-epoch correlators of the batched runtime.
+"""Correlator kernels of the batched runtime: K1 ``epoch_correlate`` and
+K3 ``block_cumsum_streams``.
 
-Replaces ``sydr_tpu.ops.correlator_kernel.block_rowsum_streams`` (Pallas
-``_kernel_rowsum``) plus the XLA boundary recompute that turned its row
-totals into epoch sums. The CUDA kernel (``csrc/epoch_correlate.cu``)
-returns the per-epoch correlators ``[block_ms, n_ch, 2 * n_taps]`` directly.
+K1 replaces ``sydr_tpu.ops.correlator_kernel.block_rowsum_streams``
+(Pallas ``_kernel_rowsum``) plus the XLA boundary recompute that turned its
+row totals into epoch sums. The CUDA kernel (``csrc/epoch_correlate.cu``)
+returns the per-epoch correlators ``[block_ms, n_ch, 2 * n_taps]``
+directly.
 
-:func:`epoch_correlate` runs the kernel on CUDA tensors and
-:func:`epoch_correlate_ref` (plain PyTorch, the same arithmetic) on CPU
+K3 replaces ``sydr_tpu.ops.correlator_kernel.block_cumsum_streams``
+(Pallas ``_kernel``), the prefix boundary form
+(``TrackingConfig.boundary_mode = "prefix"``): the CUDA kernel
+(``csrc/block_cumsum_streams.cu``) writes every stream's inclusive
+per-sample prefix ``[n_ch, 2 * n_taps, n_win]``; pass B picks the epoch
+bounds out of it.
+
+Both kernels sum the same per-sample streams (``csrc/streams.cuh``;
+:func:`_dense_streams` here). Each wrapper runs its kernel on CUDA tensors
+and its plain PyTorch version (``*_ref``, the same arithmetic) on CPU
 tensors; there is no fallback from one to the other.
 """
 
@@ -24,10 +34,14 @@ MAX_TAPS = 5
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
+_TAPS = [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_INT)]
 KERNEL = native.CudaKernel(
     "epoch_correlate.cu", "epoch_correlate_launch",
-    [_VP] * 9 + [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_INT)]
-    + [_INT] * 5 + [_VP, _VP])
+    [_VP] * 9 + _TAPS + [_INT] * 5 + [_VP, _VP])
+CUMSUM_CHUNK = 1024   # samples per block of csrc/block_cumsum_streams.cu
+CUMSUM_KERNEL = native.CudaKernel(
+    "block_cumsum_streams.cu", "block_cumsum_streams_launch",
+    [_VP] * 8 + _TAPS + [_INT] * 6 + [_VP] * 3)
 
 
 def fma32(a, b, c):
@@ -44,20 +58,17 @@ def fma32(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def epoch_correlate_ref(window_re, window_im, code_bits, c_int, omega,
-                        code_step, fb_q, phic_q, bounds, taps, spms):
-    """Plain PyTorch version of :func:`epoch_correlate` (same arguments).
-
-    Builds every stream densely over the window, ``[n_ch, n_streams,
-    n_win]``, then sums each epoch's samples with one ``scatter_add``.
+def _dense_streams(window_re, window_im, code_bits, c_int, omega, code_step,
+                   fb_q, phic_q, taps, spms):
+    """Every per-sample stream over the window, ``[n_ch, 2 * n_taps,
+    n_win]`` f32: tap ``t``'s chip times the carrier-mixed sample, I at
+    ``2t`` and Q at ``2t + 1``.
     The chip index and carrier phase are fused multiply-adds
-    (:func:`fma32`), rounded as the kernel's ``__fmaf_rn``.
-    """
+    (:func:`fma32`), rounded as the kernels' ``__fmaf_rn``
+    (``csrc/streams.cuh``)."""
     dev = window_re.device
-    n_ch, n_q = fb_q.shape
-    n_win = window_re.shape[0]
-    n_epochs = bounds.shape[0] - 1
-    m = torch.arange(n_win, device=dev, dtype=torch.int64)
+    n_q = fb_q.shape[1]
+    m = torch.arange(window_re.shape[0], device=dev, dtype=torch.int64)
     q = m // spms
     lm = (m - q * spms).to(torch.float32)
     phase = fma32(-omega[:, None], lm[None, :], phic_q[:, q])
@@ -77,10 +88,26 @@ def epoch_correlate_ref(window_re, window_im, code_bits, c_int, omega,
         pos = torch.clamp(origin + idx, 0, CODE_WIDTH - 1)
         chips = 2.0 * torch.gather(code_bits, 1, pos) - 1.0
         streams += [chips * mre, chips * mim]
-    dense = torch.stack(streams, dim=1)                 # [n_ch, S, n_win]
+    return torch.stack(streams, dim=1)
+
+
+def epoch_correlate_ref(window_re, window_im, code_bits, c_int, omega,
+                        code_step, fb_q, phic_q, bounds, taps, spms):
+    """Plain PyTorch version of :func:`epoch_correlate` (same arguments).
+
+    Builds every stream densely over the window (:func:`_dense_streams`),
+    then sums each epoch's samples with one ``scatter_add``.
+    """
+    dev = window_re.device
+    n_ch = fb_q.shape[0]
+    n_win = window_re.shape[0]
+    n_epochs = bounds.shape[0] - 1
+    dense = _dense_streams(window_re, window_im, code_bits, c_int, omega,
+                           code_step, fb_q, phic_q, taps, spms)
 
     # Epoch id of every sample; samples outside [bounds[0], bounds[-1])
     # land in a spare bin n_epochs that is dropped.
+    m = torch.arange(n_win, device=dev, dtype=torch.int64)
     edges = bounds.to(torch.int64).t().contiguous()      # [n_ch, E + 1]
     seg = torch.searchsorted(
         edges, m.expand(n_ch, n_win).contiguous(), right=True) - 1
@@ -90,6 +117,33 @@ def epoch_correlate_ref(window_re, window_im, code_bits, c_int, omega,
                        device=dev)
     sums.scatter_add_(2, seg[:, None, :].expand(n_ch, n_s, n_win), dense)
     return sums[:, :, :n_epochs].permute(2, 0, 1).contiguous()
+
+
+def _check_stream_args(window_re, window_im, code_bits, c_int, omega,
+                       code_step, fb_q, phic_q, taps, spms, name):
+    """Raise unless the common kernel arguments are what the kernels take
+    (contiguous, f32 / int32, on one CUDA device, consistent shapes)."""
+    dev = window_re.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if not 1 <= len(taps) <= MAX_TAPS:
+        raise ValueError(f"{name}: {len(taps)} taps (1..{MAX_TAPS})")
+    n_ch, n_q = fb_q.shape
+    f32, i32 = torch.float32, torch.int32
+    native.check(window_re, "window_re", f32, (n_q * spms,), dev)
+    native.check(window_im, "window_im", f32, (n_q * spms,), dev)
+    native.check(code_bits, "code_bits", f32, (n_ch, CODE_WIDTH), dev)
+    native.check(c_int, "c_int", i32, (n_ch,), dev)
+    native.check(omega, "omega", f32, (n_ch,), dev)
+    native.check(code_step, "code_step", f32, (n_ch,), dev)
+    native.check(fb_q, "fb_q", f32, (n_ch, n_q), dev)
+    native.check(phic_q, "phic_q", f32, (n_ch, n_q), dev)
+
+
+def _tap_arrays(taps):
+    n = len(taps)
+    return ((ctypes.c_float * n)(*[float(sp) for sp, _ in taps]),
+            (ctypes.c_int * n)(*[int(k) for _, k in taps]))
 
 
 def epoch_correlate(window_re, window_im, code_bits, c_int, omega, code_step,
@@ -111,31 +165,63 @@ def epoch_correlate(window_re, window_im, code_bits, c_int, omega, code_step,
         return epoch_correlate_ref(window_re, window_im, code_bits, c_int,
                                    omega, code_step, fb_q, phic_q, bounds,
                                    taps, spms)
+    _check_stream_args(window_re, window_im, code_bits, c_int, omega,
+                       code_step, fb_q, phic_q, taps, spms, "epoch_correlate")
     dev = window_re.device
-    if dev.type != "cuda":
-        raise ValueError(f"epoch_correlate: unsupported device {dev}")
     n_ch, n_q = fb_q.shape
     n_epochs = bounds.shape[0] - 1
-    n_taps = len(taps)
-    if not 1 <= n_taps <= MAX_TAPS:
-        raise ValueError(f"epoch_correlate: {n_taps} taps (1..{MAX_TAPS})")
-    f32, i32 = torch.float32, torch.int32
-    native.check(window_re, "window_re", f32, (n_q * spms,), dev)
-    native.check(window_im, "window_im", f32, (n_q * spms,), dev)
-    native.check(code_bits, "code_bits", f32, (n_ch, CODE_WIDTH), dev)
-    native.check(c_int, "c_int", i32, (n_ch,), dev)
-    native.check(omega, "omega", f32, (n_ch,), dev)
-    native.check(code_step, "code_step", f32, (n_ch,), dev)
-    native.check(fb_q, "fb_q", f32, (n_ch, n_q), dev)
-    native.check(phic_q, "phic_q", f32, (n_ch, n_q), dev)
-    native.check(bounds, "bounds", i32, (n_epochs + 1, n_ch), dev)
-    out = torch.empty((n_epochs, n_ch, 2 * n_taps), dtype=f32, device=dev)
-    tap_sp = (ctypes.c_float * n_taps)(*[float(sp) for sp, _ in taps])
-    tap_k = (ctypes.c_int * n_taps)(*[int(k) for _, k in taps])
+    native.check(bounds, "bounds", torch.int32, (n_epochs + 1, n_ch), dev)
+    out = torch.empty((n_epochs, n_ch, 2 * len(taps)), dtype=torch.float32,
+                      device=dev)
+    tap_sp, tap_k = _tap_arrays(taps)
     KERNEL.launch(
         native.ptr(window_re), native.ptr(window_im), native.ptr(code_bits),
         native.ptr(c_int), native.ptr(omega), native.ptr(code_step),
         native.ptr(fb_q), native.ptr(phic_q), native.ptr(bounds),
-        tap_sp, tap_k, n_taps, n_epochs, n_ch, n_q, spms,
+        tap_sp, tap_k, len(taps), n_epochs, n_ch, n_q, spms,
+        native.ptr(out), native.stream_of(out))
+    return out
+
+
+def block_cumsum_streams_ref(window_re, window_im, code_bits, c_int, omega,
+                             code_step, fb_q, phic_q, taps, spms):
+    """Plain PyTorch version of :func:`block_cumsum_streams` (same
+    arguments): the dense streams, then ``torch.cumsum`` in f32."""
+    return torch.cumsum(
+        _dense_streams(window_re, window_im, code_bits, c_int, omega,
+                       code_step, fb_q, phic_q, taps, spms), dim=-1)
+
+
+def block_cumsum_streams(window_re, window_im, code_bits, c_int, omega,
+                         code_step, fb_q, phic_q, taps, spms):
+    """Inclusive per-sample prefix of every stream, ``[n_ch, 2 * len(taps),
+    n_win]`` f32: ``out[c, s, t]`` sums stream ``s`` of channel ``c`` over
+    window samples ``[0, t]``.
+
+    Arguments as :func:`epoch_correlate`, without ``bounds``. The prefix
+    accumulates in f32 (the JAX kernel rounds each sample to bf16 first).
+    """
+    if window_re.device.type == "cpu":
+        return block_cumsum_streams_ref(window_re, window_im, code_bits,
+                                        c_int, omega, code_step, fb_q,
+                                        phic_q, taps, spms)
+    _check_stream_args(window_re, window_im, code_bits, c_int, omega,
+                       code_step, fb_q, phic_q, taps, spms,
+                       "block_cumsum_streams")
+    dev = window_re.device
+    n_ch, n_q = fb_q.shape
+    n_win = window_re.shape[0]
+    n_streams = 2 * len(taps)
+    n_chunks = -(-n_win // CUMSUM_CHUNK)
+    out = torch.empty((n_ch, n_streams, n_win), dtype=torch.float32,
+                      device=dev)
+    totals = torch.empty((n_ch, n_streams, n_chunks), dtype=torch.float32,
+                         device=dev)
+    tap_sp, tap_k = _tap_arrays(taps)
+    CUMSUM_KERNEL.launch(
+        native.ptr(window_re), native.ptr(window_im), native.ptr(code_bits),
+        native.ptr(c_int), native.ptr(omega), native.ptr(code_step),
+        native.ptr(fb_q), native.ptr(phic_q), tap_sp, tap_k, len(taps),
+        n_ch, n_q, spms, n_win, n_chunks, native.ptr(totals),
         native.ptr(out), native.stream_of(out))
     return out

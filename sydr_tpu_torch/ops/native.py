@@ -1,12 +1,14 @@
 """Build the package's CUDA C++ kernels with ``nvcc`` and load them by ctypes.
 
-Each kernel source in ``csrc/`` is a self-contained ``.cu`` file with a
-plain C entry point (no PyTorch headers), compiled at first use for Hopper
-(``sm_90a``) into a shared library under ``_build/`` (git-ignored; the
-file name carries a hash of the source and flags, so an edited source is
-rebuilt). The C entry point returns ``cudaGetLastError()`` after its
-launch; :meth:`CudaKernel.launch` raises when that is not ``cudaSuccess``
-and counts each launch it makes.
+Each kernel source in ``csrc/`` is a ``.cu`` file with a plain C entry
+point (no PyTorch headers; shared device code lives in ``csrc/*.cuh``),
+compiled at first use for Hopper (``sm_90a``) into a shared library under
+``_build/`` (git-ignored; the file name carries a hash of the source, the
+headers and the flags, so an edited source or header is rebuilt).
+:func:`build_all` compiles several kernels at once, one ``nvcc`` each.
+The C entry point returns ``cudaGetLastError()`` after its launch;
+:meth:`CudaKernel.launch` raises when that is not ``cudaSuccess`` and
+counts each launch it makes.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -58,8 +61,10 @@ class CudaKernel:
 
     def library_path(self) -> Path:
         src = CSRC_DIR / self.source
+        text = src.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
         digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+            text + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
 
     def build(self) -> Path:
@@ -102,6 +107,13 @@ class CudaKernel:
             msg = self._lib.sydr_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err}: {msg}")
         self.launches += 1
+
+
+def build_all(kernels) -> None:
+    """Build ``kernels`` concurrently (one ``nvcc`` process each) and load
+    them; raise the first build error."""
+    with ThreadPoolExecutor(max_workers=max(1, len(kernels))) as pool:
+        list(pool.map(lambda k: k.function(), kernels))
 
 
 def ptr(t) -> ctypes.c_void_p:

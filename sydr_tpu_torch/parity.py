@@ -7,7 +7,8 @@ capture, compared against the committed CPU truth of the JAX dense path
 (the ``superblock`` array of ``tools/parity_truth.npz``, which a caller
 loads with numpy). The setup and bounds are copies of that tool's
 ``SETUP`` and ``PARITY_BOUNDS``; this module imports neither JAX nor the
-tool.
+tool. Both boundary forms of pass B (K1 row sums, K3 prefix) are held to
+the same bounds.
 """
 
 from __future__ import annotations
@@ -81,9 +82,18 @@ def parity_metrics(got: np.ndarray, ref: np.ndarray) -> dict:
             "prompt_ratio": ratio, "parity_ok": bool(ok)}
 
 
-def production_parity(truth_superblock: np.ndarray, device) -> dict:
-    """Run the gate's 4 blocks on ``device`` and compare with the truth."""
+def production_parity(truth_superblock: np.ndarray, device,
+                      boundary_mode: str = "rowsum") -> dict:
+    """Run the gate's 4 blocks on ``device`` and compare with the truth.
+
+    ``boundary_mode="prefix"`` runs pass B in the prefix form (K3,
+    ``use_pallas=True``) as the JAX gate runs its prefix kernel.
+    """
+    cfg = CONFIG
+    if boundary_mode != "rowsum":
+        cfg = dataclasses.replace(CONFIG, use_pallas=True,
+                                  boundary_mode=boundary_mode)
     state, bits3x, sre, sim = parity_setup(device)
-    _, out = br.run_superblock(CONFIG, 4, bits3x, state, sre, sim)
+    _, out = br.run_superblock(cfg, 4, bits3x, state, sre, sim)
     got = np.stack([out[k].cpu().numpy() for k in CORR_KEYS])
     return parity_metrics(got, np.asarray(truth_superblock))

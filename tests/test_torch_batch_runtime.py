@@ -1,7 +1,8 @@
 """The port's production parity gate on CPU: its 4-block ``run_superblock``
 (10 Msps, quantised taps) against the committed CPU truth of the JAX dense
 path, ``tools/parity_truth.npz``, under the gate's bounds (metric 0.85,
-scaled 0.15, prompt ratio [0.93, 1.07]).
+scaled 0.15, prompt ratio [0.93, 1.07]), in both boundary forms of pass B
+(K1 row sums and the K3 prefix form).
 
 No JAX compile: the truth is read from the file, as the JAX gate does when
 its source key matches.
@@ -10,6 +11,7 @@ its source key matches.
 import os
 
 import numpy as np
+import pytest
 import torch
 
 from sydr_tpu_torch import parity
@@ -25,8 +27,10 @@ def _truth():
     return np.load(TRUTH, allow_pickle=False)["superblock"]
 
 
-def test_parity_gate_within_bounds():
-    res = parity.production_parity(_truth(), torch.device("cpu"))
+@pytest.mark.parametrize("boundary_mode", ["rowsum", "prefix"])
+def test_parity_gate_within_bounds(boundary_mode):
+    res = parity.production_parity(_truth(), torch.device("cpu"),
+                                   boundary_mode)
     assert res["parity_ok"], res
 
 

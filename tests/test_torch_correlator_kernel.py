@@ -1,10 +1,12 @@
-"""Port's pass B (K1 ``epoch_correlate``) against the JAX batched runtime.
+"""Port's pass B (K1 ``epoch_correlate``, K3 ``block_cumsum_streams``)
+against the JAX batched runtime.
 
 The same numpy-seeded window and channel state go through JAX
-``run_block_batched`` (its Pallas row-sum kernel in interpret mode, and its
-dense XLA path) and through the port's ``run_block_batched``, whose pass B
-runs ``epoch_correlate_ref`` on CPU tensors. Tolerance ``rtol 2e-3, atol
-1.0`` is the JAX package's own kernel-vs-dense budget
+``run_block_batched`` (its Pallas row-sum and prefix kernels in interpret
+mode, and its dense XLA path) and through the port's ``run_block_batched``,
+whose pass B runs ``epoch_correlate_ref`` (or, in the prefix boundary
+form, ``block_cumsum_streams_ref``) on CPU tensors. Tolerance ``rtol 2e-3,
+atol 1.0`` is the JAX package's own kernel-vs-dense budget
 (tests/test_correlator_kernel.py), and it holds for at least 95% of the
 correlators. The rest are chip-boundary ties: a sample whose chip index
 lies within one float32 rounding of an integer takes the chip on either
@@ -14,6 +16,9 @@ for every channel (XLA rewrites ``x / c`` as ``x * (1 / c)`` and fuses
 ``a * b + c``, not uniformly across vector lanes). One tie moves a
 correlator by twice that sample's magnitude, so every correlator must lie
 within two ties. The integer epoch geometry of pass A must match exactly.
+The JAX prefix kernel rounds every per-sample value to bf16 before its
+lane prefix (the port accumulates in f32), which the same budget covers,
+as it covers JAX prefix against JAX dense.
 """
 
 import dataclasses
@@ -27,6 +32,9 @@ import torch
 from sydr_tpu.channels import batch_runtime as jbr
 from sydr_tpu.channels.runtime import TrackingConfig as JaxConfig
 from sydr_tpu.channels.state import MODE_TRACKING, init_state as jax_init
+from sydr_tpu.constants import GPS_L1CA_CODE_FREQ
+from sydr_tpu.ops import correlator_kernel as jck
+from sydr_tpu.ops import profiles as jprof
 from sydr_tpu_torch.channels import batch_runtime as tbr
 from sydr_tpu_torch.channels.runtime import TrackingConfig
 from sydr_tpu_torch.channels.state import state_from_numpy
@@ -83,25 +91,34 @@ def assert_correlators_close(out_t, out_j, peak_sample):
     (2.5e6, False, "dense"), (2.5e6, True, "dense"),
     (10e6, False, "pallas_rowsum"), (10e6, True, "pallas_rowsum"),
     (2.5e6, True, "pallas_rowsum"),
+    (10e6, False, "pallas_prefix"), (10e6, True, "pallas_prefix"),
+    (2.5e6, False, "pallas_prefix"), (2.5e6, True, "pallas_prefix"),
 ])
-def test_pass_b_matches_jax(fs, quantize, jax_mode):
+def test_pass_b_matches_jax(fs, quantize, jax_mode, monkeypatch):
     """Quantised and plain taps at full and decimated rate against the JAX
     dense path; the production Pallas row-sum kernel (interpret mode, 2 ms
     blocks to keep the interpreter's time down) at full rate with both tap
-    forms and at the decimated cruise rate with quantised taps."""
+    forms and at the decimated cruise rate with quantised taps; the Pallas
+    prefix kernel (interpret mode, 2 ms blocks) against the port's prefix
+    form, both tap forms at both rates. The port takes the same
+    ``use_pallas`` / ``boundary_mode`` as the JAX run. The JAX kernels run
+    at their smallest program (``SYDR_KERNEL_PROGRAM``, as
+    tests/test_timeshard.py sets it), which changes only their padding and
+    keeps the interpreter's time down."""
+    monkeypatch.setenv("SYDR_KERNEL_PROGRAM", "8192")
     cfg_args, prns, jst, leaves, wre, wim = _setup(
-        fs, block_ms=2 if jax_mode == "pallas_rowsum" else 4)
+        fs, block_ms=2 if jax_mode.startswith("pallas") else 4)
     cfg_args["quantize_spacing"] = quantize
     extra = (dict(use_pallas=True, pallas_interpret=True,
-                  boundary_mode="rowsum") if jax_mode == "pallas_rowsum"
-             else {})
+                  boundary_mode=jax_mode.split("_")[1])
+             if jax_mode.startswith("pallas") else {})
     st_j, out_j = jbr.run_block_batched(
         JaxConfig(**cfg_args, **extra), jnp.asarray(jbr.tiled_code_bits(prns)),
         jst, jnp.asarray(wre), jnp.asarray(wim))
 
     cpu = torch.device("cpu")
     st_t, out_t = tbr.run_block_batched(
-        TrackingConfig(**cfg_args), torch.from_numpy(
+        TrackingConfig(**cfg_args, **extra), torch.from_numpy(
             tbr.tiled_code_bits(prns)), state_from_numpy(leaves, cpu),
         torch.from_numpy(wre), torch.from_numpy(wim))
 
@@ -164,3 +181,133 @@ def test_epoch_correlate_cpu_runs_plain_version():
     assert got.shape == (2, 2, 10)
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
+
+
+def _block_inputs(cfg, prns, leaves, wre, wim):
+    """The port's pass B inputs for one block: the K3 arguments and the
+    epoch bounds."""
+    st = state_from_numpy(leaves, torch.device("cpu"))
+    geo = tbr._pass_a_closed(cfg, st)
+    bg = tbr.block_geometry(cfg, st, geo)
+    args = (torch.from_numpy(wre), torch.from_numpy(wim),
+            torch.from_numpy(tbr.tiled_code_bits(prns)), bg["c_int"],
+            geo["omega"], geo["code_step"], bg["fb_q"].contiguous(),
+            bg["phic_q"].contiguous(), tbr.taps_for(cfg), cfg.samples_per_ms)
+    return args, tbr.epoch_bounds(cfg, geo, bg["base"])
+
+
+def test_prefix_form_runs_prefix_path(monkeypatch):
+    """``use_pallas=True, boundary_mode="prefix"`` takes the prefix path
+    (K3's plain version on CPU tensors) and never K1's; the default takes
+    K1."""
+    calls = {"prefix": 0, "rowsum": 0}
+    real_prefix, real_rowsum = (ck.block_cumsum_streams_ref,
+                                ck.epoch_correlate_ref)
+
+    def spy_prefix(*a, **k):
+        calls["prefix"] += 1
+        return real_prefix(*a, **k)
+
+    def spy_rowsum(*a, **k):
+        calls["rowsum"] += 1
+        return real_rowsum(*a, **k)
+
+    monkeypatch.setattr(ck, "block_cumsum_streams_ref", spy_prefix)
+    monkeypatch.setattr(ck, "epoch_correlate_ref", spy_rowsum)
+    cfg_args, prns, _, leaves, wre, wim = _setup(2.5e6, block_ms=2, n_ch=2)
+    bits = torch.from_numpy(tbr.tiled_code_bits(prns))
+    for extra, expect in (
+            (dict(use_pallas=True, boundary_mode="prefix"), (1, 0)),
+            (dict(use_pallas=True, boundary_mode="rowsum"), (1, 1)),
+            (dict(use_pallas=False, boundary_mode="prefix"), (1, 2))):
+        tbr.run_block_batched(
+            TrackingConfig(**cfg_args, **extra), bits,
+            state_from_numpy(leaves, torch.device("cpu")),
+            torch.from_numpy(wre), torch.from_numpy(wim))
+        assert (calls["prefix"], calls["rowsum"]) == expect, (extra, calls)
+
+
+def test_prefix_form_condition_is_jax():
+    """The prefix form needs ``use_pallas``, a non-rowsum boundary mode and
+    >= 1024 samples per ms, as the JAX ``_pass_b`` requires."""
+    base = TrackingConfig(sampling_frequency=2.5e6, use_pallas=True,
+                          boundary_mode="prefix")
+    assert tbr.prefix_form(base)
+    assert not tbr.prefix_form(dataclasses.replace(base, use_pallas=False))
+    assert not tbr.prefix_form(dataclasses.replace(
+        base, boundary_mode="rowsum"))
+    assert not tbr.prefix_form(dataclasses.replace(
+        base, sampling_frequency=1.0e6))
+
+
+@pytest.mark.parametrize("fs, quantize", [(10e6, True), (2.5e6, False)])
+def test_block_cumsum_streams_ref_matches_jax_kernel(fs, quantize):
+    """The plain K3 against the JAX prefix kernel (interpret mode) on the
+    same block: every stream's prefix picked at the epoch bounds and
+    differenced, under the module's budget."""
+    cfg_args, prns, jst, leaves, wre, wim = _setup(fs, block_ms=2)
+    cfg_args["quantize_spacing"] = quantize
+    jcfg = JaxConfig(**cfg_args)
+    spms, n_win = jcfg.samples_per_ms, jcfg.window_samples
+    geo = jbr._pass_a_closed(jcfg, jst)
+    bg = jbr.block_geometry(jcfg, jnp.asarray(jbr.tiled_code_bits(prns)),
+                            jst, geo)
+    gsize, local = jbr._group_size(fs)
+    chunk = min(8192, 1024 * (spms // 1024))
+    super_n = jck.SUPER        # the smallest program, as above
+    pad = np.zeros((-n_win) % (super_n * chunk), np.float32)
+    zeros = jnp.zeros_like(geo["omega"])
+    prefix_j = jck.block_cumsum_streams(
+        jnp.asarray(np.concatenate([wre, pad])),
+        jnp.asarray(np.concatenate([wim, pad])),
+        jbr._kernel_word_table(jcfg, bg["words"]), bg["fb_q"], bg["phic_q"],
+        jnp.stack([geo["omega"], geo["code_step"]] + [zeros] * 6, axis=1),
+        spacings=tuple(jprof.spacings_for(jcfg)), spms=spms,
+        n_q=jcfg.tail_ms + jcfg.block_ms, local=local,
+        step0=GPS_L1CA_CODE_FREQ / fs, gsize=gsize, chunk=chunk,
+        super_n=super_n, n_win=n_win, interpret=True,
+        shifts=jprof.spacing_shifts(jcfg))
+
+    cfg = TrackingConfig(**cfg_args)
+    args, bounds = _block_inputs(cfg, prns, leaves, wre, wim)
+    prefix_t = ck.block_cumsum_streams_ref(*args)
+    assert prefix_t.shape == (3, 2 * len(args[8]), n_win)
+    got = tbr.prefix_epoch_sums(prefix_t, bounds)
+    ref = tbr.prefix_epoch_sums(
+        torch.from_numpy(np.array(prefix_j)[..., :n_win]), bounds)
+    peak = max(np.abs(wre).max(), np.abs(wim).max())
+    err = (got - ref).abs().numpy()
+    outside = err > 1.0 + 2e-3 * ref.abs().numpy()
+    assert outside.mean() <= 0.05, (outside.mean(), err.max())
+    assert err.max() <= 1.0 + 2 * (2.0 * peak), err.max()
+
+
+@pytest.mark.parametrize("fs, quantize", [(10e6, True), (10e6, False),
+                                          (2.5e6, True)])
+def test_prefix_form_matches_rowsum_form(fs, quantize):
+    """On the port, the prefix form's correlators equal K1's on the same
+    inputs up to float32 rounding: the same per-sample values (one
+    ``_dense_streams``), summed per epoch or differenced from a running
+    prefix. Each prefix pick carries at most ``4 * sqrt(n_win) * 2^-24``
+    of the largest prefix magnitude (a random walk of roundings, four
+    sigma), and a correlator is the difference of two picks."""
+    cfg_args, prns, _, leaves, wre, wim = _setup(fs, block_ms=4)
+    cfg = TrackingConfig(**cfg_args, quantize_spacing=quantize)
+    args, bounds = _block_inputs(cfg, prns, leaves, wre, wim)
+    prefix = ck.block_cumsum_streams_ref(*args)
+    got = tbr.prefix_epoch_sums(prefix, bounds)
+    ref = ck.epoch_correlate_ref(*args[:8], bounds, *args[8:])
+    n_win = prefix.shape[-1]
+    bound = 2 * 4.0 * n_win ** 0.5 * 2.0 ** -24 * float(prefix.abs().max())
+    assert got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= bound
+
+    # and through run_block_batched: the same correlators in the outputs
+    st = state_from_numpy(leaves, torch.device("cpu"))
+    runs = [tbr.run_block_batched(
+        dataclasses.replace(cfg, use_pallas=True, boundary_mode=mode),
+        args[2], st, args[0], args[1])[1] for mode in ("prefix", "rowsum")]
+    for key in CORR_KEYS:
+        assert float((runs[0][key] - runs[1][key]).abs().max()) <= bound
+    for key in ("active", "required", "unread"):
+        assert torch.equal(runs[0][key], runs[1][key]), key

@@ -8,7 +8,11 @@ no JAX, so it also runs on a machine without it:
 Bounds: K1 picks the same chips as its plain version (the same rounding of
 the index arithmetic) and sums in another order: 1e-2 + 1e-4 of the
 largest correlator. K2 is a direct-summation four-step DFT against cuFFT,
-both float32: 1e-4 of the map's maximum.
+both float32: 1e-4 of the map's maximum. K3 builds the same per-sample
+values as K1 and scans them in another order than ``torch.cumsum``: the raw
+prefix within ``4 * sqrt(n_win) * 2^-24`` of its largest magnitude (a
+random walk of float32 roundings over n_win additions, four sigma), and
+the per-epoch correlators picked from it within K1's bound.
 """
 
 import dataclasses
@@ -26,6 +30,12 @@ from sydr_tpu_torch.ops import correlator_kernel as ck
 torch.set_num_threads(2)
 
 N_CH = 32
+
+
+def prefix_bound(prefix):
+    """K3 vs plain on the raw prefix (module note)."""
+    n_win = prefix.shape[-1]
+    return 4.0 * n_win ** 0.5 * 2.0 ** -24 * float(prefix.abs().max())
 
 
 def _cuda():
@@ -91,6 +101,33 @@ def test_epoch_correlate_rejects_bad_input():
     args[3] = args[3].to(torch.int64)            # c_int must be int32
     with pytest.raises(ValueError, match="c_int"):
         ck.epoch_correlate(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fs, block_ms, narrow_only", [
+    (2.5e6, 20, True),     # cruise: 32 ch x 6 streams x 60,000 samples
+    (2.5e6, 5, False),     # pull-in: 32 x 10 x 22,500
+    (10e6, 20, True),      # full rate: 32 x 6 x 240,000
+])
+def test_block_cumsum_streams_kernel_matches_plain(fs, block_ms, narrow_only):
+    args = _k1_args(fs, block_ms, narrow_only, True, _cuda())
+    bounds = args[8]
+    k3_args = args[:8] + args[9:]
+    before = ck.CUMSUM_KERNEL.launches
+    got = ck.block_cumsum_streams(*k3_args)
+    assert ck.CUMSUM_KERNEL.launches == before + 1
+    ref = ck.block_cumsum_streams_ref(*k3_args)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (N_CH, 2 * len(args[9]),
+                                      args[0].shape[0])
+    assert float((got - ref).abs().max()) <= prefix_bound(ref)
+    corr = br.prefix_epoch_sums(got, bounds)
+    corr_ref = br.prefix_epoch_sums(ref, bounds)
+    bound = 1e-2 + 1e-4 * float(corr_ref.abs().max())
+    assert float((corr - corr_ref).abs().max()) <= bound
+    # and against K1's per-epoch sums of the same streams
+    k1 = ck.epoch_correlate(*args)
+    assert float((corr - k1).abs().max()) <= bound
 
 
 @pytest.mark.cuda
