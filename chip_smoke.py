@@ -12,8 +12,19 @@ printing its wall time:
 2. build the CUDA kernels from ``sydr_tpu_torch/csrc`` with ``nvcc``, one
    process per source, all at once;
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the receiver gives it, with its error bound and CUDA-event times: K1
-   ``epoch_correlate``, K2 ``pcps_bins``, K3 ``block_cumsum_streams``;
+   the receiver gives it, with its error bound: K1 ``epoch_correlate``, K2
+   ``pcps_bins`` (the radix FFT, and the four-step entry at n = 4092), K3
+   ``block_cumsum_streams``. Each case prints four times and a bound:
+   ``ms``, the device time of the launch alone (:func:`device_ms`: the C
+   entry point called in a tight loop from arguments prepared once, the
+   launches queued behind a spinning kernel so that the CUDA events around
+   them see the device's time, not the host's); ``call_ms``, the time
+   through the Python wrapper as the receiver pays it; ``plain_ms``, the
+   plain version; ``library_ms``, for K2, ``torch.fft.ifft`` alone over the
+   pre-made product (the part of K2 that one PyTorch call computes; the
+   port never calls it); and ``bound_ms``, the least time the card could
+   take (:func:`roofline`). An empty kernel is timed the same way: the
+   floor the microsecond-scale kernels are read against;
 4. the production parity gate: 4 closed-loop blocks against the committed
    CPU truth ``tools/parity_truth.npz`` (read with numpy), in both boundary
    forms of pass B (K1 row sums, K3 prefix);
@@ -31,13 +42,19 @@ printing its wall time:
    6) and read back through ``RFFileSource``, 32 channels (6 visible),
    ``use_pallas=True, boundary_mode="prefix"`` in both loop shapes:
    acquisition against the scenario's truth, promotion, TOW, fixes within
-   10 m, absent PRNs idle, and no K1 launch.
+   10 m, absent PRNs idle, and no K1 launch;
+8. a session at 4.092 Msps (n = 4092 = 2^2 * 3 * 11 * 31, no radix plan):
+   8 channels, 300 ms; acquisition must go through K2's four-step entry
+   and find the visible satellites.
 
-Each of phases 5-7 sets every kernel's launch count to 0 just before it
+Each of phases 5-8 sets every kernel's launch count to 0 just before it
 and reads the counts just after. The last three lines are the kernels'
 JSON record, the ``nvidia-smi`` line and ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits non-zero before printing
 any result. It imports no JAX.
+
+``python3 chip_smoke.py --kernels`` stops after phase 3 (a developer's
+quick check of the kernels; it prints no final result line).
 """
 
 from __future__ import annotations
@@ -74,10 +91,21 @@ RX_MS = 16000
 DEMO_T0, DEMO_WEEK = 302400.0, 2190
 FIX_BOUND_M = 10.0   # 2.5 Msps code noise + a few seconds of Hatch filter
 
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate and the float32 rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# Operations counted per sample and channel of the correlation streams:
+# the carrier phase (one multiply-add), sincosf (two short polynomials
+# after the range reduction, ~20) and the complex mix (6); per tap the
+# chip index (add, multiply-add, ceil) and two multiply-adds.
+STREAM_MIX_FLOPS = 28
+STREAM_TAP_FLOPS = 8
+
 # Kernel-vs-plain bounds. K1: identical chips (same rounding of the index
 # arithmetic), sums in another order: 1e-2 + 1e-4 of the largest correlator.
-# K2: a direct-summation four-step DFT against cuFFT, both float32:
-# 1e-4 of the map's maximum.
+# K2: a float32 FFT (or the direct-summation four-step DFT) against cuFFT,
+# both float32: 1e-4 of the map's maximum.
 # K3: the same per-sample values as K1, scanned in another order than
 # torch.cumsum: the raw prefix within 4 * sqrt(n_win) * 2^-24 of its largest
 # magnitude (a random walk of float32 roundings, four sigma); the epoch
@@ -105,7 +133,7 @@ def card_line() -> str:
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call of ``fn`` between CUDA events, after
-    two warm-up calls."""
+    two warm-up calls: the time a caller pays, host work included."""
     import torch
 
     for _ in range(2):
@@ -119,6 +147,86 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+_SPIN_CYCLES_PER_MS: list[float] = []
+
+
+def spin_cycles_per_ms() -> float:
+    """Cycles of ``torch.cuda._sleep`` per millisecond, measured once."""
+    import torch
+
+    if not _SPIN_CYCLES_PER_MS:
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles)
+        _SPIN_CYCLES_PER_MS.append(
+            cycles / cuda_ms(lambda: torch.cuda._sleep(cycles), 2))
+    return _SPIN_CYCLES_PER_MS[0]
+
+
+def device_ms(launch, reps: int) -> float:
+    """Mean device milliseconds per ``launch()``, a C entry point called
+    with arguments prepared once (it must return 0).
+
+    The ``reps`` launches are queued behind a spinning kernel that lasts
+    longer than the host needs to enqueue them, so the events around them
+    see the kernels back to back on the device and no host time. The spin
+    is doubled until the host was indeed done first.
+    """
+    import torch
+
+    def run():
+        if launch() != 0:
+            fail("a kernel launch returned a CUDA error while timing")
+
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    spin_ms = 2e3 * (time.perf_counter() - t0) + 0.5
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(spin_ms * spin_cycles_per_ms()))
+        start.record()
+        for _ in range(reps):
+            run()
+        stop.record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        if host_ms < spin_ms:
+            return start.elapsed_time(stop) / reps
+        spin_ms = 2.0 * host_ms
+    fail(f"device_ms: the host never enqueued {reps} launches within the "
+         f"spin ({spin_ms:.1f} ms)")
+
+
+def roofline(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take: each input byte read once and
+    each output byte written once at the memory rate, or the operations
+    at the float32 rate, whichever is larger."""
+    bytes_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
+    flops_ms = 1e3 * flops / PEAK_F32_FLOPS
+    return {"bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def report(kind: str, name: str, shape, err_text: str, res: dict) -> None:
+    lib = res["library_ms"]
+    out = f"out {tuple(shape)} " if shape else ""
+    print(f"{kind} {name}: {out}{err_text} | device "
+          f"{res['ms']:.4f} ms, call {res['call_ms']:.4f} ms, plain "
+          f"{res['plain_ms']:.4f} ms, library "
+          f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']})", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +270,12 @@ def random_block(fs, block_ms, profile, quantize, device, rng):
             br.epoch_bounds(cfg, geo, bg["base"]), br.taps_for(cfg), spms)
 
 
+def stream_flops(n_samples: int, n_taps: int) -> float:
+    """Operations of the correlation streams over ``n_samples`` (sample,
+    channel) pairs."""
+    return float(n_samples) * (STREAM_MIX_FLOPS + STREAM_TAP_FLOPS * n_taps)
+
+
 def k1_case(name, fs, block_ms, profile, quantize, device, rng):
     """Kernel vs plain ``epoch_correlate`` on a random tracking state."""
     import torch
@@ -169,19 +283,32 @@ def k1_case(name, fs, block_ms, profile, quantize, device, rng):
     from sydr_tpu_torch.ops import correlator_kernel as ck
 
     args = random_block(fs, block_ms, profile, quantize, device, rng)
+    bounds, taps, spms = args[8], args[9], args[10]
     got = ck.epoch_correlate(*args)
     ref = ck.epoch_correlate_ref(*args)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
     bound = K1_ATOL + K1_RTOL * float(ref.abs().max())
-    ms = cuda_ms(lambda: ck.epoch_correlate(*args), 50)
-    plain_ms = cuda_ms(lambda: ck.epoch_correlate_ref(*args), 5)
-    print(f"K1 {name}: out {tuple(got.shape)} max_abs_err {err:.3e} "
-          f"(bound {bound:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms",
-          flush=True)
+    out, cargs = ck.epoch_correlate_launch_args(*args)
+    fn = ck.KERNEL.function()
+    # The work this state needs: the samples inside the epochs' bounds.
+    n_samples = int((bounds[-1] - bounds[0]).sum())
+    wpe, epb = ck.launch_shape(bounds.shape[0] - 1, N_CHANNELS, spms)
+    res = {"max_abs_err": err,
+           "ms": device_ms(lambda: fn(*cargs), 200),
+           "call_ms": cuda_ms(lambda: ck.epoch_correlate(*args), 50),
+           "plain_ms": cuda_ms(lambda: ck.epoch_correlate_ref(*args), 5),
+           "library_ms": None,
+           **roofline(tensor_bytes(*args[:9], out),
+                      stream_flops(n_samples, len(taps)))}
+    report("K1", name, got.shape,
+           f"max_abs_err {err:.3e} (bound {bound:.3e}), {n_samples} "
+           f"samples, grid ({-(-(bounds.shape[0] - 1) // epb)}, "
+           f"{N_CHANNELS}) x {32 * wpe * epb} threads ({epb} epochs x "
+           f"{wpe} warps)", res)
     check(bool(torch.isfinite(got).all()), f"K1 {name}: non-finite output")
     check(err <= bound, f"K1 {name}: error {err} above bound {bound}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return res
 
 
 def k3_case(name, fs, block_ms, profile, device, rng):
@@ -199,31 +326,57 @@ def k3_case(name, fs, block_ms, profile, device, rng):
     got = ck.block_cumsum_streams(*k3)
     ref = ck.block_cumsum_streams_ref(*k3)
     torch.cuda.synchronize()
-    n_win = ref.shape[-1]
+    n_ch, n_streams, n_win = ref.shape
     err = float((got - ref).abs().max())
     bound = K3_PREFIX_SIGMAS * n_win ** 0.5 * 2.0 ** -24 \
         * float(ref.abs().max())
     corr, corr_ref = (br.prefix_epoch_sums(p, bounds) for p in (got, ref))
     corr_err = float((corr - corr_ref).abs().max())
     corr_bound = K1_ATOL + K1_RTOL * float(corr_ref.abs().max())
-    ms = cuda_ms(lambda: ck.block_cumsum_streams(*k3), 20)
-    plain_ms = cuda_ms(lambda: ck.block_cumsum_streams_ref(*k3), 3)
-    print(f"K3 {name}: out {tuple(got.shape)} "
-          f"({got.numel() * 4 / 1e6:.1f} MB) prefix max_abs_err {err:.3e} "
-          f"(bound {bound:.3e}, max|prefix| {float(ref.abs().max()):.1f}) "
-          f"epoch correlators max_abs_err {corr_err:.3e} (bound "
-          f"{corr_bound:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms",
-          flush=True)
+    out, cargs, _scratch = ck.block_cumsum_streams_launch_args(*k3)
+    fn = ck.CUMSUM_KERNEL.function()
+    res = {"max_abs_err": err,
+           "ms": device_ms(lambda: fn(*cargs), 100),
+           "call_ms": cuda_ms(lambda: ck.block_cumsum_streams(*k3), 20),
+           "plain_ms": cuda_ms(lambda: ck.block_cumsum_streams_ref(*k3), 3),
+           "library_ms": None,
+           **roofline(tensor_bytes(*args[:8], out),
+                      stream_flops(n_ch * n_win, n_streams // 2)
+                      + float(n_ch * n_streams * n_win))}
+    report("K3", name, got.shape,
+           f"({got.numel() * 4 / 1e6:.1f} MB) prefix max_abs_err {err:.3e} "
+           f"(bound {bound:.3e}, max|prefix| {float(ref.abs().max()):.1f}) "
+           f"epoch correlators max_abs_err {corr_err:.3e} (bound "
+           f"{corr_bound:.3e})", res)
     check(bool(torch.isfinite(got).all()), f"K3 {name}: non-finite output")
     check(err <= bound, f"K3 {name}: prefix error {err} above {bound}")
     check(corr_err <= corr_bound,
           f"K3 {name}: correlator error {corr_err} above {corr_bound}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return res
 
 
-def k2_case(name, fs, n_ch, device, rng):
+def ifft_library_ms(spectra, code_k, bin_shifts) -> float:
+    """``torch.fft.ifft`` alone over the pre-made product ``[n_bins, n_ch,
+    nc, n]`` complex64: the part of K2 that one PyTorch call computes."""
+    import torch
+
+    n_ph, n_ch, nc, n = spectra.shape
+    prod = torch.empty((len(bin_shifts), n_ch, nc, n), dtype=torch.complex64,
+                       device=spectra.device)
+    for b, (k, p) in enumerate(bin_shifts):
+        torch.mul(spectra[p], torch.roll(code_k, k, dims=-1)[:, None, :],
+                  out=prod[b])
+    ms = cuda_ms(lambda: torch.fft.ifft(prod, dim=-1), 5)
+    print(f"   library yardstick: torch.fft.ifft over {tuple(prod.shape)} "
+          f"complex64 ({tensor_bytes(prod) / 1e6:.0f} MB): {ms:.4f} ms",
+          flush=True)
+    return ms
+
+
+def k2_case(name, fs, n_ch, entry, device, rng):
     """Kernel vs plain ``pcps_bins`` on the acquisition's spectra of a
-    noise capture, with the receiver's 101-bin shift plan."""
+    noise capture, with the receiver's 101-bin shift plan; ``entry`` names
+    the kernel that the wrapper must pick for this ``n``."""
     import torch
 
     from sydr_tpu_torch.ops import acq_kernel
@@ -242,20 +395,80 @@ def k2_case(name, fs, n_ch, device, rng):
     code_k = torch.tensor(
         np.stack([acq.code_fft_conj(p, fs) for p in range(1, n_ch + 1)]),
         dtype=torch.complex64, device=device)
+    before = read_launches()
     got = acq_kernel.pcps_bins(spectra, code_k, bin_shifts)
+    launched = {k: v - before[k] for k, v in read_launches().items() if
+                v != before[k]}
+    check(launched == {entry: 1},
+          f"K2 {name}: the wrapper launched {launched}, expected {entry}")
     ref = acq_kernel.pcps_bins_ref(spectra, code_k, bin_shifts)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
     bound = K2_RTOL * float(ref.abs().max())
-    ms = cuda_ms(lambda: acq_kernel.pcps_bins(spectra, code_k, bin_shifts), 5)
-    plain_ms = cuda_ms(
-        lambda: acq_kernel.pcps_bins_ref(spectra, code_k, bin_shifts), 5)
-    print(f"K2 {name}: out {tuple(got.shape)} max_abs_err {err:.3e} "
-          f"(bound {bound:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms",
-          flush=True)
+    kernel, out, cargs = acq_kernel.pcps_bins_launch_args(
+        spectra, code_k, bin_shifts)
+    fn = kernel.function()
+    n_transforms = n_ch * len(bin_shifts) * non_coherent
+    flops = n_transforms * (5.0 * n * np.log2(n) + 10.0 * n)
+    res = {"max_abs_err": err,
+           "ms": device_ms(lambda: fn(*cargs), 10),
+           "call_ms": cuda_ms(
+               lambda: acq_kernel.pcps_bins(spectra, code_k, bin_shifts), 5),
+           "plain_ms": cuda_ms(
+               lambda: acq_kernel.pcps_bins_ref(spectra, code_k, bin_shifts),
+               5),
+           "library_ms": ifft_library_ms(spectra, code_k, bin_shifts),
+           **roofline(tensor_bytes(spectra, code_k, out) + 8 * n
+                      + 8 * len(bin_shifts), flops)}
+    report("K2", f"[{entry}] {name}", got.shape,
+           f"max_abs_err {err:.3e} (bound {bound:.3e}, "
+           f"{err / float(ref.abs().max()):.2e} of the map's maximum)", res)
     check(bool(torch.isfinite(got).all()), f"K2 {name}: non-finite output")
     check(err <= bound, f"K2 {name}: error {err} above bound {bound}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return res
+
+
+def empty_launch_ms() -> float:
+    """Device time per launch of an empty kernel, timed as the kernels'
+    ``ms`` is (:func:`device_ms`)."""
+    import torch
+
+    from sydr_tpu_torch.ops import native
+
+    fn = native.EMPTY_LAUNCH.function()
+    stream = native.stream_of(torch.empty(1, device="cuda"))
+    ms = device_ms(lambda: fn(stream), 500)
+    print(f"empty launch: device {ms:.5f} ms per launch (the floor of a "
+          f"microsecond-scale kernel's device time)", flush=True)
+    return ms
+
+
+def kernel_phase(device) -> dict:
+    """Every kernel against its plain version; per kernel name, per case,
+    the numbers of the JSON record."""
+    rng = np.random.default_rng(SEED)
+    empty_launch_ms()
+    k1 = {name: k1_case(name, fs, bm, prof, quant, device, rng)
+          for name, fs, bm, prof, quant in (
+              ("cruise 2.5 Msps 20 ms 6 streams", 2.5e6, 20, "narrow", True),
+              ("pull-in 2.5 Msps 5 ms 10 streams", 2.5e6, 5, "kaplan", True),
+              ("full-rate 10 Msps 20 ms 6 streams", 10e6, 20, "narrow",
+               True),
+              ("full-rate 10 Msps 20 ms 10 streams, plain taps", 10e6, 20,
+               "kaplan", False))}
+    k2 = {name: k2_case(name, fs, n_ch, "pcps_bins", device, rng)
+          for name, fs, n_ch in (
+              ("session 32 ch n=2500", 2.5e6, 32),
+              ("bench 12 ch n=10000", 10e6, 12))}
+    k2f = {name: k2_case(name, fs, n_ch, "pcps_bins_fourstep", device, rng)
+           for name, fs, n_ch in (("8 ch n=4092", 4.092e6, 8),)}
+    k3 = {name: k3_case(name, fs, bm, prof, device, rng)
+          for name, fs, bm, prof in (
+              ("cruise 2.5 Msps 20 ms 6 streams", 2.5e6, 20, "narrow"),
+              ("pull-in 2.5 Msps 5 ms 10 streams", 2.5e6, 5, "kaplan"),
+              ("full-rate 10 Msps 20 ms 6 streams", 10e6, 20, "narrow"))}
+    return {"epoch_correlate": k1, "pcps_bins": k2,
+            "pcps_bins_fourstep": k2f, "block_cumsum_streams": k3}
 
 
 # ---------------------------------------------------------------------------
@@ -319,8 +532,14 @@ def session_configs(fs_in, superblock):
 
 def slice_phase(device, signal_ms=SIGNAL_MS, fs_in=FS_IN,
                 n_channels=N_CHANNELS, n_visible=N_VISIBLE,
-                superblock=CRUISE_SUPERBLOCK, sync=None, card="") -> dict:
-    """Drive the port's TrackingSession; check and return what it did."""
+                superblock=CRUISE_SUPERBLOCK, sync=None, card="",
+                acq_kernel_name="pcps_bins", settled=True) -> dict:
+    """Drive the port's TrackingSession; check and return what it did.
+
+    ``acq_kernel_name``: the K2 entry the acquisition must launch at this
+    rate. ``settled``: the run is long enough for promotion, bit sync and
+    the 5 Hz carrier bound to be required; a short run checks acquisition
+    and finite outputs only."""
     from sydr_tpu_torch.channels.state import FLAG_BIT_SYNC, MODE_TRACKING
     from sydr_tpu_torch.receiver.session import TrackingSession
 
@@ -385,8 +604,9 @@ def slice_phase(device, signal_ms=SIGNAL_MS, fs_in=FS_IN,
               f"(truth {ci_truth:4d}) metric {acq['metric']:.2f} | "
               f"bit_sync {synced} carrier error (last 200 ms) "
               f"{err_hz:.3f} Hz", flush=True)
-        ok &= (abs(acq["doppler"] - s["doppler"]) <= 100.0
-               and abs(d_ci) <= 2 and synced and err_hz < 5.0)
+        ok &= abs(acq["doppler"] - s["doppler"]) <= 100.0 and abs(d_ci) <= 2
+        if settled:
+            ok &= synced and err_hz < 5.0
     visible = {s["prn"] - 1 for s in sats}
     absent_modes = {i + 1: int(session.mode_host[i])
                     for i in range(n_channels) if i not in visible}
@@ -398,11 +618,15 @@ def slice_phase(device, signal_ms=SIGNAL_MS, fs_in=FS_IN,
 
     check(ok, "a visible satellite failed acquisition, bit sync or the "
               "5 Hz carrier bound")
-    check(promoted_at is not None, "the session never promoted to cruise")
+    check(promoted_at is not None or not settled,
+          "the session never promoted to cruise")
     check(all(m != MODE_TRACKING for m in absent_modes.values()),
           "an absent PRN is tracking")
-    check(launches["epoch_correlate"] > 0 and launches["pcps_bins"] > 0,
-          f"a kernel never launched on the session's path: {launches}")
+    other = ({"pcps_bins", "pcps_bins_fourstep"} - {acq_kernel_name}).pop()
+    check(launches["epoch_correlate"] > 0 and launches[acq_kernel_name] > 0
+          and launches[other] == 0,
+          f"the session's path launched {launches}: expected K1 and "
+          f"{acq_kernel_name}, and no {other}")
     check(all(np.isfinite(merged[k]).all() for k in
               ("i_prompt", "q_prompt", "carrier_freq")),
           "non-finite tracking output")
@@ -415,6 +639,7 @@ def kernels():
     from sydr_tpu_torch.ops import correlator_kernel as ck
 
     return {"epoch_correlate": ck.KERNEL, "pcps_bins": acq_kernel.KERNEL,
+            "pcps_bins_fourstep": acq_kernel.FOURSTEP_KERNEL,
             "block_cumsum_streams": ck.CUMSUM_KERNEL}
 
 
@@ -575,9 +800,31 @@ def timed(name, fn, *args, **kwargs):
     return res
 
 
-def main() -> int:
+# (kernel, its source, the TPU kernel body it replaces, the case of the
+# kernel phase and the path whose launch count the JSON record reports)
+RECORD = (
+    ("epoch_correlate", "epoch_correlate.cu",
+     "sydr_tpu/ops/correlator_kernel.py:449",
+     "cruise 2.5 Msps 20 ms 6 streams", "cli"),
+    ("pcps_bins", "pcps_bins.cu", "sydr_tpu/ops/acq_kernel.py:54",
+     "session 32 ch n=2500", "cli"),
+    ("pcps_bins_fourstep", "pcps_bins_fourstep.cu",
+     "sydr_tpu/ops/acq_kernel.py:54", "8 ch n=4092", "session at n=4092"),
+    ("block_cumsum_streams", "block_cumsum_streams.cu",
+     "sydr_tpu/ops/correlator_kernel.py:282",
+     "cruise 2.5 Msps 20 ms 6 streams", "prefix receiver"),
+)
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernels", action="store_true",
+                        help="stop after the kernel checks (phase 3)")
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device: this smoke test runs only on a GPU",
               file=sys.stderr)
@@ -594,39 +841,24 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    native.build_all(list(kernels().values()))
-    for kern in kernels().values():
+    built = [*kernels().values(), native.EMPTY_LAUNCH]
+    native.build_all(built)
+    for kern in built:
         usage = [ln.strip() for ln in kern.build_log.splitlines()
                  if "registers" in ln or "spill" in ln]
         print(f"built {kern.source} in {kern.build_seconds or 0:.2f} s: "
               f"{'; '.join(usage) or 'cached'}", flush=True)
     print(f"phase build: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(SEED)
-    k1 = {name: k1_case(name, fs, bm, prof, quant, device, rng)
-          for name, fs, bm, prof, quant in (
-              ("cruise 2.5 Msps 20 ms 6 streams", 2.5e6, 20, "narrow", True),
-              ("pull-in 2.5 Msps 5 ms 10 streams", 2.5e6, 5, "kaplan", True),
-              ("full-rate 10 Msps 20 ms 6 streams", 10e6, 20, "narrow",
-               True),
-              ("full-rate 10 Msps 20 ms 10 streams, plain taps", 10e6, 20,
-               "kaplan", False))}
-    k2 = {name: k2_case(name, fs, n_ch, device, rng)
-          for name, fs, n_ch in (
-              ("session 32 ch n=2500", 2.5e6, 32),
-              ("bench 12 ch n=10000", 10e6, 12))}
-    k3 = {name: k3_case(name, fs, bm, prof, device, rng)
-          for name, fs, bm, prof in (
-              ("cruise 2.5 Msps 20 ms 6 streams", 2.5e6, 20, "narrow"),
-              ("pull-in 2.5 Msps 5 ms 10 streams", 2.5e6, 5, "kaplan"),
-              ("full-rate 10 Msps 20 ms 6 streams", 10e6, 20, "narrow"))}
-    print(f"phase kernel checks: {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    cases = timed("kernel checks", kernel_phase, device)
+    if opts.kernels:
+        return 0
 
     timed("parity", parity_phase, device)
-    timed("session", slice_phase, device, sync=torch.cuda.synchronize,
-          card=card)
+    paths = {}
+    paths["session"] = timed(
+        "session", slice_phase, device, sync=torch.cuda.synchronize,
+        card=card)
     # The prefix phase's IQ file is written by a child process while the
     # CLI phase runs.
     with tempfile.TemporaryDirectory() as tmp:
@@ -635,37 +867,39 @@ def main() -> int:
             target=write_demo_sky, args=(sky,), daemon=True)
         writer.start()
         try:
-            cli = timed("cli", cli_phase)
+            paths["cli"] = timed("cli", cli_phase)
             t0 = time.perf_counter()
             writer.join()
             print(f"waited {time.perf_counter() - t0:.1f} s for the IQ "
                   f"file", flush=True)
             check(writer.exitcode == 0,
                   f"writing the IQ file failed ({writer.exitcode})")
-            pre = timed("prefix receiver", prefix_receiver_phase, device,
-                        sky)
+            paths["prefix receiver"] = timed(
+                "prefix receiver", prefix_receiver_phase, device, sky)
         finally:
             if writer.is_alive():
                 writer.terminate()
                 writer.join()
+    # n = 4092 has no radix plan: acquisition takes K2's four-step entry.
+    paths["session at n=4092"] = timed(
+        "session at n=4092", slice_phase, device, signal_ms=300,
+        fs_in=4.092e6 * DECIMATE, n_channels=8, n_visible=4,
+        acq_kernel_name="pcps_bins_fourstep", settled=False, card=card)
 
+    for name, by_case in cases.items():
+        for case, res in by_case.items():
+            report("summary", f"{name} | {case}", (),
+                   f"max_abs_err {res['max_abs_err']:.3e}", res)
+    print("launches by path: " + json.dumps(
+        {name: res["launches"] for name, res in paths.items()}), flush=True)
     record = {"kernels": [
-        {"name": "epoch_correlate", "route": "cuda",
-         "source": "sydr_tpu_torch/csrc/epoch_correlate.cu",
-         "replaces": "sydr_tpu/ops/correlator_kernel.py:449",
-         "launches": cli["launches"]["epoch_correlate"],
-         **k1["cruise 2.5 Msps 20 ms 6 streams"]},
-        {"name": "pcps_bins", "route": "cuda",
-         "source": "sydr_tpu_torch/csrc/pcps_bins.cu",
-         "replaces": "sydr_tpu/ops/acq_kernel.py:54",
-         "launches": cli["launches"]["pcps_bins"],
-         **k2["session 32 ch n=2500"]},
-        {"name": "block_cumsum_streams", "route": "cuda",
-         "source": "sydr_tpu_torch/csrc/block_cumsum_streams.cu",
-         "replaces": "sydr_tpu/ops/correlator_kernel.py:282",
-         "launches": pre["launches"]["block_cumsum_streams"],
-         **k3["cruise 2.5 Msps 20 ms 6 streams"]},
-    ]}
+        {"name": name, "route": "cuda",
+         "source": f"sydr_tpu_torch/csrc/{source}", "replaces": replaces,
+         "launches": paths[path]["launches"][name], **cases[name][case]}
+        for name, source, replaces, case, path in RECORD]}
+    for entry in record["kernels"]:
+        check(entry["launches"] > 0,
+              f"{entry['name']} never launched on its path")
     print(json.dumps(record), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -109,7 +109,7 @@ __global__ void __launch_bounds__(kThreads) cumsum_kernel(
       float v_re = 0.0f, v_im = 0.0f;
       if (t < taps.n && m < n_win) {
         const float chip =
-            sydr::tap_chip(ch, chips, taps.sp[t], taps.k[t], m);
+            sydr::tap_chip(ch, chips, taps, t, m);
         v_re = chip * mre;
         v_im = chip * mim;
       }

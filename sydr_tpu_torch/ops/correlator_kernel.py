@@ -5,7 +5,8 @@ K1 replaces ``sydr_tpu.ops.correlator_kernel.block_rowsum_streams``
 (Pallas ``_kernel_rowsum``) plus the XLA boundary recompute that turned its
 row totals into epoch sums. The CUDA kernel (``csrc/epoch_correlate.cu``)
 returns the per-epoch correlators ``[block_ms, n_ch, 2 * n_taps]``
-directly.
+directly; a block serves one channel over a few epochs, each epoch a fixed
+set of warps (:func:`launch_shape`).
 
 K3 replaces ``sydr_tpu.ops.correlator_kernel.block_cumsum_streams``
 (Pallas ``_kernel``), the prefix boundary form
@@ -23,6 +24,7 @@ tensors; there is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,7 +39,9 @@ _INT = ctypes.c_int
 _TAPS = [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(_INT)]
 KERNEL = native.CudaKernel(
     "epoch_correlate.cu", "epoch_correlate_launch",
-    [_VP] * 9 + _TAPS + [_INT] * 5 + [_VP, _VP])
+    [_VP] * 9 + _TAPS + [_INT] * 7 + [_VP, _VP])
+SM_COUNT = 132          # streaming multiprocessors of an H100
+MAX_BLOCK_WARPS = 8     # warps per block of csrc/epoch_correlate.cu
 CUMSUM_CHUNK = 1024   # samples per block of csrc/block_cumsum_streams.cu
 CUMSUM_KERNEL = native.CudaKernel(
     "block_cumsum_streams.cu", "block_cumsum_streams_launch",
@@ -130,20 +134,68 @@ def _check_stream_args(window_re, window_im, code_bits, c_int, omega,
         raise ValueError(f"{name}: {len(taps)} taps (1..{MAX_TAPS})")
     n_ch, n_q = fb_q.shape
     f32, i32 = torch.float32, torch.int32
-    native.check(window_re, "window_re", f32, (n_q * spms,), dev)
-    native.check(window_im, "window_im", f32, (n_q * spms,), dev)
-    native.check(code_bits, "code_bits", f32, (n_ch, CODE_WIDTH), dev)
-    native.check(c_int, "c_int", i32, (n_ch,), dev)
-    native.check(omega, "omega", f32, (n_ch,), dev)
-    native.check(code_step, "code_step", f32, (n_ch,), dev)
-    native.check(fb_q, "fb_q", f32, (n_ch, n_q), dev)
-    native.check(phic_q, "phic_q", f32, (n_ch, n_q), dev)
+    native.check_all(dev, (
+        (window_re, "window_re", f32, (n_q * spms,)),
+        (window_im, "window_im", f32, (n_q * spms,)),
+        (code_bits, "code_bits", f32, (n_ch, CODE_WIDTH)),
+        (c_int, "c_int", i32, (n_ch,)),
+        (omega, "omega", f32, (n_ch,)),
+        (code_step, "code_step", f32, (n_ch,)),
+        (fb_q, "fb_q", f32, (n_ch, n_q)),
+        (phic_q, "phic_q", f32, (n_ch, n_q))))
 
 
+@functools.lru_cache(maxsize=16)
 def _tap_arrays(taps):
+    """The taps as the C arrays the launchers take (cached per tuple)."""
     n = len(taps)
     return ((ctypes.c_float * n)(*[float(sp) for sp, _ in taps]),
             (ctypes.c_int * n)(*[int(k) for _, k in taps]))
+
+
+@functools.lru_cache(maxsize=64)
+def launch_shape(n_epochs: int, n_ch: int, spms: int) -> tuple[int, int]:
+    """``(warps_per_epoch, epochs_per_block)`` of a K1 launch.
+
+    Warps per epoch: enough that the launch has some 16 warps for every
+    SM of the card, at least one per 1280 samples of an epoch (40 a
+    thread) and at most one per 256 (8 a thread), within the block's 8.
+    Epochs per block: as many as the block's 8 warps hold, halved while
+    the grid would have fewer blocks than the card has SMs (a block loads
+    its channel's code row once, so fewer blocks load less, but an idle
+    SM costs more).
+    """
+    want = -(-16 * SM_COUNT // max(1, n_epochs * n_ch))
+    wpe = min(max(want, -(-spms // 1280)), max(1, spms // 256),
+              MAX_BLOCK_WARPS)
+    epb = max(1, MAX_BLOCK_WARPS // wpe)
+    while epb > 1 and -(-n_epochs // epb) * n_ch < SM_COUNT:
+        epb //= 2
+    return wpe, epb
+
+
+def epoch_correlate_launch_args(window_re, window_im, code_bits, c_int,
+                                omega, code_step, fb_q, phic_q, bounds, taps,
+                                spms):
+    """Check the arguments of :func:`epoch_correlate` (CUDA tensors),
+    allocate its output and return ``(out, args)`` with ``args`` the C
+    arguments of :data:`KERNEL`'s entry point."""
+    _check_stream_args(window_re, window_im, code_bits, c_int, omega,
+                       code_step, fb_q, phic_q, taps, spms, "epoch_correlate")
+    dev = window_re.device
+    n_ch, n_q = fb_q.shape
+    n_epochs = bounds.shape[0] - 1
+    native.check(bounds, "bounds", torch.int32, (n_epochs + 1, n_ch), dev)
+    out = torch.empty((n_epochs, n_ch, 2 * len(taps)), dtype=torch.float32,
+                      device=dev)
+    tap_sp, tap_k = _tap_arrays(tuple(taps))
+    return out, (
+        native.ptr(window_re), native.ptr(window_im), native.ptr(code_bits),
+        native.ptr(c_int), native.ptr(omega), native.ptr(code_step),
+        native.ptr(fb_q), native.ptr(phic_q), native.ptr(bounds),
+        tap_sp, tap_k, len(taps), n_epochs, n_ch, n_q, spms,
+        *launch_shape(n_epochs, n_ch, spms),
+        native.ptr(out), native.stream_of(out))
 
 
 def epoch_correlate(window_re, window_im, code_bits, c_int, omega, code_step,
@@ -165,21 +217,10 @@ def epoch_correlate(window_re, window_im, code_bits, c_int, omega, code_step,
         return epoch_correlate_ref(window_re, window_im, code_bits, c_int,
                                    omega, code_step, fb_q, phic_q, bounds,
                                    taps, spms)
-    _check_stream_args(window_re, window_im, code_bits, c_int, omega,
-                       code_step, fb_q, phic_q, taps, spms, "epoch_correlate")
-    dev = window_re.device
-    n_ch, n_q = fb_q.shape
-    n_epochs = bounds.shape[0] - 1
-    native.check(bounds, "bounds", torch.int32, (n_epochs + 1, n_ch), dev)
-    out = torch.empty((n_epochs, n_ch, 2 * len(taps)), dtype=torch.float32,
-                      device=dev)
-    tap_sp, tap_k = _tap_arrays(taps)
-    KERNEL.launch(
-        native.ptr(window_re), native.ptr(window_im), native.ptr(code_bits),
-        native.ptr(c_int), native.ptr(omega), native.ptr(code_step),
-        native.ptr(fb_q), native.ptr(phic_q), native.ptr(bounds),
-        tap_sp, tap_k, len(taps), n_epochs, n_ch, n_q, spms,
-        native.ptr(out), native.stream_of(out))
+    out, args = epoch_correlate_launch_args(
+        window_re, window_im, code_bits, c_int, omega, code_step, fb_q,
+        phic_q, bounds, taps, spms)
+    KERNEL.launch(*args)
     return out
 
 
@@ -190,6 +231,34 @@ def block_cumsum_streams_ref(window_re, window_im, code_bits, c_int, omega,
     return torch.cumsum(
         _dense_streams(window_re, window_im, code_bits, c_int, omega,
                        code_step, fb_q, phic_q, taps, spms), dim=-1)
+
+
+def block_cumsum_streams_launch_args(window_re, window_im, code_bits, c_int,
+                                     omega, code_step, fb_q, phic_q, taps,
+                                     spms):
+    """Check the arguments of :func:`block_cumsum_streams` (CUDA tensors),
+    allocate its output and scratch and return ``(out, args, scratch)``
+    with ``args`` the C arguments of :data:`CUMSUM_KERNEL`'s entry point;
+    the caller keeps ``scratch`` until the launch is enqueued."""
+    _check_stream_args(window_re, window_im, code_bits, c_int, omega,
+                       code_step, fb_q, phic_q, taps, spms,
+                       "block_cumsum_streams")
+    dev = window_re.device
+    n_ch, n_q = fb_q.shape
+    n_win = window_re.shape[0]
+    n_streams = 2 * len(taps)
+    n_chunks = -(-n_win // CUMSUM_CHUNK)
+    out = torch.empty((n_ch, n_streams, n_win), dtype=torch.float32,
+                      device=dev)
+    totals = torch.empty((n_ch, n_streams, n_chunks), dtype=torch.float32,
+                         device=dev)
+    tap_sp, tap_k = _tap_arrays(tuple(taps))
+    return out, (
+        native.ptr(window_re), native.ptr(window_im), native.ptr(code_bits),
+        native.ptr(c_int), native.ptr(omega), native.ptr(code_step),
+        native.ptr(fb_q), native.ptr(phic_q), tap_sp, tap_k, len(taps),
+        n_ch, n_q, spms, n_win, n_chunks, native.ptr(totals),
+        native.ptr(out), native.stream_of(out)), totals
 
 
 def block_cumsum_streams(window_re, window_im, code_bits, c_int, omega,
@@ -205,23 +274,8 @@ def block_cumsum_streams(window_re, window_im, code_bits, c_int, omega,
         return block_cumsum_streams_ref(window_re, window_im, code_bits,
                                         c_int, omega, code_step, fb_q,
                                         phic_q, taps, spms)
-    _check_stream_args(window_re, window_im, code_bits, c_int, omega,
-                       code_step, fb_q, phic_q, taps, spms,
-                       "block_cumsum_streams")
-    dev = window_re.device
-    n_ch, n_q = fb_q.shape
-    n_win = window_re.shape[0]
-    n_streams = 2 * len(taps)
-    n_chunks = -(-n_win // CUMSUM_CHUNK)
-    out = torch.empty((n_ch, n_streams, n_win), dtype=torch.float32,
-                      device=dev)
-    totals = torch.empty((n_ch, n_streams, n_chunks), dtype=torch.float32,
-                         device=dev)
-    tap_sp, tap_k = _tap_arrays(taps)
-    CUMSUM_KERNEL.launch(
-        native.ptr(window_re), native.ptr(window_im), native.ptr(code_bits),
-        native.ptr(c_int), native.ptr(omega), native.ptr(code_step),
-        native.ptr(fb_q), native.ptr(phic_q), tap_sp, tap_k, len(taps),
-        n_ch, n_q, spms, n_win, n_chunks, native.ptr(totals),
-        native.ptr(out), native.stream_of(out))
+    out, args, _scratch = block_cumsum_streams_launch_args(
+        window_re, window_im, code_bits, c_int, omega, code_step, fb_q,
+        phic_q, taps, spms)
+    CUMSUM_KERNEL.launch(*args)
     return out

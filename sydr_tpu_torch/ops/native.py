@@ -109,6 +109,12 @@ class CudaKernel:
         self.launches += 1
 
 
+# An empty kernel (one thread, no work): the per-launch floor that the
+# device times of microsecond-scale kernels are read against.
+EMPTY_LAUNCH = CudaKernel("empty_launch.cu", "empty_launch",
+                          [ctypes.c_void_p])
+
+
 def build_all(kernels) -> None:
     """Build ``kernels`` concurrently (one ``nvcc`` process each) and load
     them; raise the first build error."""
@@ -116,16 +122,32 @@ def build_all(kernels) -> None:
         list(pool.map(lambda k: k.function(), kernels))
 
 
-def ptr(t) -> ctypes.c_void_p:
-    """A tensor's device pointer as a ctypes argument."""
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> int:
+    """A tensor's device pointer, as the integer a ``c_void_p`` argument
+    takes."""
+    return t.data_ptr()
 
 
-def stream_of(t) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on ``t``'s device."""
+def stream_of(t) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, as the integer a
+    ``c_void_p`` argument takes."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:      # no Stream object per launch
+        index = t.device.index
+        return raw(torch.cuda.current_device() if index is None else index)
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_all(device, specs) -> None:
+    """:func:`check` for every ``(tensor, name, dtype, shape)`` of
+    ``specs``, in one pass: the common case costs one comparison per
+    tensor, and only a mismatch goes on to name its fault."""
+    for t, name, dtype, shape in specs:
+        if not (t.device == device and t.dtype == dtype
+                and t.shape == shape and t.is_contiguous()):
+            check(t, name, dtype, shape, device)
 
 
 def check(t, name: str, dtype, shape: tuple, device) -> None:

@@ -115,3 +115,46 @@ def test_balanced_factors_matches_jax():
     for n in (2046, 2500, 10000, 4092):
         assert acq_kernel.balanced_factors(n) == mmfft._balanced_factors(n)
 
+
+SMOOTH_N = (2048, 2500, 4000, 5000, 10000)
+
+
+@pytest.mark.parametrize("n", SMOOTH_N)
+def test_radix_plan_multiplies_to_n(n):
+    """The FFT kernel's plan: radices it has butterflies for (10 = 2 x 5
+    in registers), product n, a block whose threads hold at most 20
+    output points each."""
+    plan = acq_kernel.radix_plan(n)
+    assert set(plan) <= {2, 3, 4, 5, 10} and len(plan) >= 2
+    assert int(np.prod(plan)) == n
+    assert acq_kernel.has_radix_plan(n)
+    threads = acq_kernel.fft_threads(n)
+    assert threads % 32 == 0 and 128 <= threads <= 1024
+    assert n <= 20 * threads
+
+
+def test_radix_plan_refused_for_large_prime_factors():
+    """n = 4092 = 2^2 * 3 * 11 * 31 (4.092 Msps) has no plan: it goes to
+    the four-step kernel, chosen from n alone."""
+    for n in (4092, 2046, 1023, 7):
+        with pytest.raises(ValueError, match="prime factor above 5"):
+            acq_kernel.radix_plan(n)
+        assert not acq_kernel.has_radix_plan(n)
+    assert acq_kernel.radix_plan(2500) == (10, 10, 5, 5)
+    assert acq_kernel.radix_plan(10000) == (10, 10, 10, 10)
+
+
+@pytest.mark.parametrize("n", SMOOTH_N + (90,))
+def test_stockham_ifft_ref_matches_ifft(n):
+    """The kernel's passes, strides and integer twiddle indices, walked in
+    PyTorch, against torch.fft.ifft (unnormalised) on seeded inputs:
+    within 1e-5 of the largest output."""
+    rng = np.random.default_rng(n)
+    x = torch.tensor(rng.normal(size=(3, n)) + 1j * rng.normal(size=(3, n)),
+                     dtype=torch.complex64)
+    tw = acq_kernel.twiddle_table(n, torch.device("cpu"))
+    assert tw.dtype == torch.complex64 and tw.shape == (n,)
+    assert acq_kernel.twiddle_table(n, torch.device("cpu")) is tw  # cached
+    got = acq_kernel.stockham_ifft_ref(x, acq_kernel.radix_plan(n), tw)
+    ref = torch.fft.ifft(x, norm="forward")
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())

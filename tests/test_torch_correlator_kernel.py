@@ -311,3 +311,38 @@ def test_prefix_form_matches_rowsum_form(fs, quantize):
         assert float((runs[0][key] - runs[1][key]).abs().max()) <= bound
     for key in ("active", "required", "unread"):
         assert torch.equal(runs[0][key], runs[1][key]), key
+
+
+@pytest.mark.parametrize("n_epochs, n_ch, spms, expect", [
+    (20, 32, 2500, (4, 2)),      # cruise: (10, 32) blocks of 256 threads
+    (5, 32, 2500, (8, 1)),       # pull-in: one epoch a block, 8 warps
+    (20, 32, 10000, (8, 1)),     # full rate: (20, 32) blocks of 256
+    (20, 32, 25000, (8, 1)),
+    (20, 8, 4092, (8, 1)),
+    (1, 1, 1023, (3, 1)),        # never more than a warp per 256 samples
+])
+def test_launch_shape_of_k1(n_epochs, n_ch, spms, expect):
+    """K1's launch shape: a block holds at most 8 warps, whole epochs of
+    one channel, and the grid covers every epoch."""
+    wpe, epb = ck.launch_shape(n_epochs, n_ch, spms)
+    assert (wpe, epb) == expect
+    assert wpe >= 1 and epb >= 1 and wpe * epb <= ck.MAX_BLOCK_WARPS
+    assert -(-n_epochs // epb) * epb >= n_epochs
+
+
+def test_check_all_names_the_fault():
+    """The one-pass argument check of the kernel wrappers still raises on
+    a wrong dtype, shape, device or a non-contiguous tensor, naming it."""
+    from sydr_tpu_torch.ops import native
+
+    cpu = torch.device("cpu")
+    good = torch.zeros(4, 6)
+    native.check_all(cpu, ((good, "a", torch.float32, (4, 6)),))
+    for bad, word in (
+            (good.to(torch.float64), "dtype"),
+            (torch.zeros(4, 5), "shape"),
+            (torch.zeros(6, 4).t(), "not contiguous"),
+            (torch.zeros(4, 6, device="meta"), "expected cpu")):
+        with pytest.raises(ValueError, match=f"b: .*{word}"):
+            native.check_all(cpu, ((good, "a", torch.float32, (4, 6)),
+                                   (bad, "b", torch.float32, (4, 6))))
