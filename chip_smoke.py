@@ -13,8 +13,11 @@ printing its wall time:
    process per source, all at once;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the receiver gives it, with its error bound: K1 ``epoch_correlate``, K2
-   ``pcps_bins`` (the radix FFT, and the four-step entry at n = 4092), K3
-   ``block_cumsum_streams``. Each case prints four times and a bound:
+   ``pcps_bins`` (the radix FFT, at n = 4092 through its prime radices 31
+   and 11, and the four-step entry at n = 4070 = 2 * 5 * 11 * 37), K3
+   ``block_cumsum_streams`` (with its two launches timed apart, the time
+   of a kernel that only makes its stores, and a second run that must be
+   bit-identical). Each case prints four times and a bound:
    ``ms``, the device time of the launch alone (:func:`device_ms`: the C
    entry point called in a tight loop from arguments prepared once, the
    launches queued behind a spinning kernel so that the CUDA events around
@@ -43,11 +46,13 @@ printing its wall time:
    ``use_pallas=True, boundary_mode="prefix"`` in both loop shapes:
    acquisition against the scenario's truth, promotion, TOW, fixes within
    10 m, absent PRNs idle, and no K1 launch;
-8. a session at 4.092 Msps (n = 4092 = 2^2 * 3 * 11 * 31, no radix plan):
-   8 channels, 300 ms; acquisition must go through K2's four-step entry
-   and find the visible satellites.
+8. a session at 4.092 Msps (n = 4092 = 2^2 * 3 * 11 * 31): 8 channels,
+   300 ms; acquisition must go through K2's FFT entry (radices 31, 4, 3,
+   11) and find the visible satellites;
+9. the same at 4.070 Msps (n = 4070 = 2 * 5 * 11 * 37, no radix plan):
+   acquisition must go through K2's four-step entry.
 
-Each of phases 5-8 sets every kernel's launch count to 0 just before it
+Each of phases 5-9 sets every kernel's launch count to 0 just before it
 and reads the counts just after. The last three lines are the kernels'
 JSON record, the ``nvidia-smi`` line and ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits non-zero before printing
@@ -333,8 +338,25 @@ def k3_case(name, fs, block_ms, profile, device, rng):
     corr, corr_ref = (br.prefix_epoch_sums(p, bounds) for p in (got, ref))
     corr_err = float((corr - corr_ref).abs().max())
     corr_bound = K1_ATOL + K1_RTOL * float(corr_ref.abs().max())
-    out, cargs, _scratch = ck.block_cumsum_streams_launch_args(*k3)
+    again = ck.block_cumsum_streams(*k3)
+    check(bool(torch.equal(got, again)),
+          f"K3 {name}: two launches on the same inputs differ")
+    out, cargs, totals = ck.block_cumsum_streams_launch_args(*k3)
     fn = ck.CUMSUM_KERNEL.function()
+    check(fn(*cargs) == 0, f"K3 {name}: launch failed")
+    # The two launches apart (the second reads the first's totals), and a
+    # kernel that only makes K3's stores.
+    parts = []
+    for launches in (1, 2):
+        _, pargs, part_totals = ck.block_cumsum_streams_launch_args(
+            *k3, launches=launches)
+        part_totals.copy_(totals)
+        parts.append(device_ms(lambda: fn(*pargs), 100))
+    seg_chunks, n_seg = ck.cumsum_shape(n_win, n_ch)
+    ceiling = ck.STORE_CEILING.function()
+    ceiling_args = (n_ch, n_streams, n_win, seg_chunks, n_seg,
+                    out.data_ptr(), cargs[-1])
+    store_ms = device_ms(lambda: ceiling(*ceiling_args), 100)
     res = {"max_abs_err": err,
            "ms": device_ms(lambda: fn(*cargs), 100),
            "call_ms": cuda_ms(lambda: ck.block_cumsum_streams(*k3), 20),
@@ -347,7 +369,10 @@ def k3_case(name, fs, block_ms, profile, device, rng):
            f"({got.numel() * 4 / 1e6:.1f} MB) prefix max_abs_err {err:.3e} "
            f"(bound {bound:.3e}, max|prefix| {float(ref.abs().max()):.1f}) "
            f"epoch correlators max_abs_err {corr_err:.3e} (bound "
-           f"{corr_bound:.3e})", res)
+           f"{corr_bound:.3e}), grid ({n_seg}, {n_ch}) x 256 threads, "
+           f"segments of {seg_chunks} x {ck.CUMSUM_CHUNK} samples, totals "
+           f"launch {parts[0]:.4f} ms, prefix launch {parts[1]:.4f} ms, "
+           f"stores alone {store_ms:.4f} ms, second run bit-identical", res)
     check(bool(torch.isfinite(got).all()), f"K3 {name}: non-finite output")
     check(err <= bound, f"K3 {name}: prefix error {err} above {bound}")
     check(corr_err <= corr_bound,
@@ -460,8 +485,10 @@ def kernel_phase(device) -> dict:
           for name, fs, n_ch in (
               ("session 32 ch n=2500", 2.5e6, 32),
               ("bench 12 ch n=10000", 10e6, 12))}
+    k2.update({name: k2_case(name, fs, n_ch, "pcps_bins", device, rng)
+               for name, fs, n_ch in (("8 ch n=4092", 4.092e6, 8),)})
     k2f = {name: k2_case(name, fs, n_ch, "pcps_bins_fourstep", device, rng)
-           for name, fs, n_ch in (("8 ch n=4092", 4.092e6, 8),)}
+           for name, fs, n_ch in (("8 ch n=4070", 4.070e6, 8),)}
     k3 = {name: k3_case(name, fs, bm, prof, device, rng)
           for name, fs, bm, prof in (
               ("cruise 2.5 Msps 20 ms 6 streams", 2.5e6, 20, "narrow"),
@@ -809,7 +836,7 @@ RECORD = (
     ("pcps_bins", "pcps_bins.cu", "sydr_tpu/ops/acq_kernel.py:54",
      "session 32 ch n=2500", "cli"),
     ("pcps_bins_fourstep", "pcps_bins_fourstep.cu",
-     "sydr_tpu/ops/acq_kernel.py:54", "8 ch n=4092", "session at n=4092"),
+     "sydr_tpu/ops/acq_kernel.py:54", "8 ch n=4070", "session at n=4070"),
     ("block_cumsum_streams", "block_cumsum_streams.cu",
      "sydr_tpu/ops/correlator_kernel.py:282",
      "cruise 2.5 Msps 20 ms 6 streams", "prefix receiver"),
@@ -830,7 +857,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from sydr_tpu_torch.ops import native
+    from sydr_tpu_torch.ops import correlator_kernel, native
 
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -841,7 +868,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    built = [*kernels().values(), native.EMPTY_LAUNCH]
+    built = [*kernels().values(), native.EMPTY_LAUNCH,
+             correlator_kernel.STORE_CEILING]
     native.build_all(built)
     for kern in built:
         usage = [ln.strip() for ln in kern.build_log.splitlines()
@@ -880,11 +908,14 @@ def main(argv=None) -> int:
             if writer.is_alive():
                 writer.terminate()
                 writer.join()
-    # n = 4092 has no radix plan: acquisition takes K2's four-step entry.
-    paths["session at n=4092"] = timed(
-        "session at n=4092", slice_phase, device, signal_ms=300,
-        fs_in=4.092e6 * DECIMATE, n_channels=8, n_visible=4,
-        acq_kernel_name="pcps_bins_fourstep", settled=False, card=card)
+    # n = 4092 = 2^2 * 3 * 11 * 31 takes the FFT entry's prime radices;
+    # n = 4070 = 2 * 5 * 11 * 37 has no radix plan and takes the four-step
+    # entry.
+    for n, entry in ((4092, "pcps_bins"), (4070, "pcps_bins_fourstep")):
+        paths[f"session at n={n}"] = timed(
+            f"session at n={n}", slice_phase, device, signal_ms=300,
+            fs_in=n * 1e3 * DECIMATE, n_channels=8, n_visible=4,
+            acq_kernel_name=entry, settled=False, card=card)
 
     for name, by_case in cases.items():
         for case, res in by_case.items():

@@ -52,8 +52,6 @@
 // card and was somewhat faster with the kernel-vs-plain error unchanged in
 // its leading digits, too little to give up the last ulp for.
 
-#include <stdint.h>
-
 #include "streams.cuh"
 
 namespace {
@@ -62,41 +60,10 @@ using sydr::kCodeWidth;
 using sydr::kMaxTaps;
 constexpr int kMaxWarps = 8;              // warps per block, at most
 constexpr int kMaxThreads = 32 * kMaxWarps;
-constexpr int kGroup = 4;                 // consecutive samples per thread
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
 
 // Synchronise the `threads` threads that name barrier `id` (1..15).
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-// One sample of an edge group: masked to [b0, b1), any millisecond, taps
-// that may reach into a neighbouring millisecond.
-template <int kTaps>
-__device__ __forceinline__ void edge_sample(
-    const sydr::Channel& ch, const float* chips, const sydr::Taps& taps,
-    int q, int lm, float xr, float xi, sydr::TapRow* row,
-    float (&acc)[2 * kTaps]) {
-  if (lm >= ch.spms) {   // at most once: the group began inside q
-    lm -= ch.spms;
-    ++q;
-  }
-  if (q != row->q) sydr::load_row(ch, taps, q, row);
-  const float fl = static_cast<float>(lm);
-  float mre, mim;
-  sydr::mix_phase(ch, row->ph, fl, xr, xi, &mre, &mim);
-  const bool inside = lm + taps.kmin >= 0 && lm + taps.kmax < ch.spms;
-#pragma unroll
-  for (int t = 0; t < kTaps; ++t) {
-    const float chip =
-        inside ? sydr::tap_chip_row(ch, chips, taps, t, *row, fl)
-               : sydr::tap_chip_at(ch, chips, taps, t, q, lm, fl);
-    acc[2 * t] += chip * mre;
-    acc[2 * t + 1] += chip * mim;
-  }
 }
 
 template <int kTaps>
@@ -113,19 +80,8 @@ __global__ void __launch_bounds__(kMaxThreads) epoch_correlate_kernel(
   const int c = blockIdx.y;
   const int tid = threadIdx.x;
 
-  // The channel's code row, once per block: 1040 16-byte loads.
-  const float* bits = code_bits + static_cast<size_t>(c) * kCodeWidth;
-  if (aligned16(bits)) {
-    const float4* bits4 = reinterpret_cast<const float4*>(bits);
-    float4* chips4 = reinterpret_cast<float4*>(chips);
-    for (int i = tid; i < kCodeWidth / 4; i += blockDim.x) {
-      const float4 b = __ldg(bits4 + i);
-      chips4[i] = make_float4(2.0f * b.x - 1.0f, 2.0f * b.y - 1.0f,
-                              2.0f * b.z - 1.0f, 2.0f * b.w - 1.0f);
-    }
-  } else {
-    sydr::load_chips(code_bits, c, chips);
-  }
+  // The channel's code row, once per block.
+  sydr::load_chips(code_bits, c, chips);
   __syncthreads();
 
   const int lane = tid & 31;
@@ -145,59 +101,8 @@ __global__ void __launch_bounds__(kMaxThreads) epoch_correlate_kernel(
 #pragma unroll
   for (int s = 0; s < 2 * kTaps; ++s) acc[s] = 0.0f;
 
-  // Groups of kGroup samples that start on 16-byte addresses of both
-  // planes; the first group may begin before b0 (masked).
-  const int mis = static_cast<int>(
-      (reinterpret_cast<uintptr_t>(win_re) >> 2) & (kGroup - 1));
-  const bool vec = mis == static_cast<int>(
-      (reinterpret_cast<uintptr_t>(win_im) >> 2) & (kGroup - 1));
-  const int stride = warps_per_epoch * 32 * kGroup;
-  int g = ((b0 + mis) & ~(kGroup - 1)) - mis + (w_in * 32 + lane) * kGroup;
-  int q = g > 0 ? g / spms : 0;
-  int lm = g - q * spms;   // negative only for masked samples before 0
-  sydr::TapRow row;
-  row.q = -1;
-  for (; g < b1; g += stride) {
-    // Interior: the whole group inside the epoch and inside one
-    // millisecond, taps included (kmin <= 0 <= kmax): no masks, no
-    // branches, four independent sincosf chains.
-    if (vec && g >= b0 && g + kGroup <= b1 && lm + taps.kmin >= 0 &&
-        lm + kGroup - 1 + taps.kmax < spms) {
-      if (q != row.q) sydr::load_row(ch, taps, q, &row);
-      const float4 r4 = __ldg(reinterpret_cast<const float4*>(win_re + g));
-      const float4 i4 = __ldg(reinterpret_cast<const float4*>(win_im + g));
-      const float xr[kGroup] = {r4.x, r4.y, r4.z, r4.w};
-      const float xi[kGroup] = {i4.x, i4.y, i4.z, i4.w};
-      const float fl0 = static_cast<float>(lm);
-#pragma unroll
-      for (int i = 0; i < kGroup; ++i) {
-        // exact: float(lm + i)
-        const float fl = __fadd_rn(fl0, static_cast<float>(i));
-        float mre, mim;
-        sydr::mix_phase(ch, row.ph, fl, xr[i], xi[i], &mre, &mim);
-#pragma unroll
-        for (int t = 0; t < kTaps; ++t) {
-          const float chip = sydr::tap_chip_row(ch, chips, taps, t, row, fl);
-          acc[2 * t] += chip * mre;
-          acc[2 * t + 1] += chip * mim;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < kGroup; ++i) {
-        const int m = g + i;
-        if (m >= b0 && m < b1) {
-          edge_sample<kTaps>(ch, chips, taps, q, lm + i, win_re[m], win_im[m],
-                             &row, acc);
-        }
-      }
-    }
-    lm += stride;
-    while (lm >= spms) {
-      lm -= spms;
-      ++q;
-    }
-  }
+  sydr::accumulate_range<kTaps>(ch, chips, taps, win_re, win_im, b0, b1,
+                                w_in * 32 + lane, warps_per_epoch * 32, acc);
 
   // The epoch's sums: a shuffle tree per warp, then its warps in order.
   constexpr int kStreams = 2 * kTaps;
@@ -235,7 +140,7 @@ extern "C" int epoch_correlate_launch(
     int n_ch, int n_q, int spms, int warps_per_epoch, int epochs_per_block,
     void* out, void* stream) {
   if (n_taps < 1 || n_taps > kMaxTaps || block_ms < 1 || n_ch < 1 ||
-      spms < kGroup || warps_per_epoch < 1 || epochs_per_block < 1 ||
+      spms < sydr::kGroup || warps_per_epoch < 1 || epochs_per_block < 1 ||
       warps_per_epoch * epochs_per_block > kMaxWarps) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -243,22 +148,13 @@ extern "C" int epoch_correlate_launch(
   const dim3 grid((block_ms + epochs_per_block - 1) / epochs_per_block, n_ch);
   const int threads = 32 * warps_per_epoch * epochs_per_block;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SYDR_LAUNCH(kTaps)                                                   \
-  epoch_correlate_kernel<kTaps><<<grid, threads, 0, st>>>(                   \
-      static_cast<const float*>(win_re), static_cast<const float*>(win_im),  \
-      static_cast<const float*>(code_bits), static_cast<const int*>(c_int),  \
-      static_cast<const float*>(omega),                                      \
-      static_cast<const float*>(code_step),                                  \
-      static_cast<const float*>(fb_q), static_cast<const float*>(phic_q),    \
-      static_cast<const int*>(bounds), taps, block_ms, n_ch, n_q, spms,      \
-      warps_per_epoch, static_cast<float*>(out))
-  switch (n_taps) {   // the tap loops are unrolled for the count in use
-    case 1: SYDR_LAUNCH(1); break;
-    case 2: SYDR_LAUNCH(2); break;
-    case 3: SYDR_LAUNCH(3); break;
-    case 4: SYDR_LAUNCH(4); break;
-    default: SYDR_LAUNCH(5); break;
-  }
-#undef SYDR_LAUNCH
+  SYDR_TAPS_SWITCH(
+      n_taps, epoch_correlate_kernel<kTaps><<<grid, threads, 0, st>>>(
+      static_cast<const float*>(win_re), static_cast<const float*>(win_im),
+      static_cast<const float*>(code_bits), static_cast<const int*>(c_int),
+      static_cast<const float*>(omega), static_cast<const float*>(code_step),
+      static_cast<const float*>(fb_q), static_cast<const float*>(phic_q),
+      static_cast<const int*>(bounds), taps, block_ms, n_ch, n_q, spms,
+      warps_per_epoch, static_cast<float*>(out)));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,8 @@
 // K2, four-step entry: non-coherent PCPS correlation magnitudes for every
 // (Doppler bin, channel) of the shift-theorem acquisition plan, for a code
-// period n with a prime factor above 5 (4.092 Msps gives n = 4092 =
-// 2^2 * 3 * 11 * 31). Every n whose prime factors lie in {2, 3, 5} goes to
-// the radix FFT of pcps_bins.cu; the wrapper chooses from n alone.
+// period n that the radix FFT of pcps_bins.cu does not take: one with a
+// prime factor above 31 (n = 4070 = 2 * 5 * 11 * 37), or with a prime
+// radix above n = 8192. The wrapper chooses from n alone.
 //
 // Replaces the Pallas kernel sydr_tpu/ops/acq_kernel.py (_kernel, launched by
 // pcps_fused_bins). For bin b with plan entry (k_b, p_b) and channel c:
@@ -29,10 +29,10 @@
 // kernel is bound by shared-memory bandwidth (16 B per multiply-add), not
 // by HBM or the FP32 rate: it runs at the rate the SMs' shared memory can
 // deliver at all, some 20 times the work of an FFT. It is kept for the
-// lengths no radix-{2,3,4,5} plan covers. A block keeps the product A and
+// lengths no radix plan covers. A block keeps the product A and
 // the column-DFT output B (8n bytes each), the magnitude accumulator (4n)
-// and the n1 + n2 row/column twiddles in shared memory (82.9 KB at
-// n = 4092 = 62 x 66), above the 48 KB static limit, so the launcher
+// and the n1 + n2 row/column twiddles in shared memory (82.4 KB at
+// n = 4070 = 55 x 74), above the 48 KB static limit, so the launcher
 // raises the kernel's dynamic shared-memory limit with
 // cudaFuncSetAttribute and reports its error.
 

@@ -26,21 +26,25 @@
 // the millisecond's anchors in registers (TapRow: the carrier phase and
 // each tap's intercept fb + sp) and takes tap_chip_row for every sample
 // whose taps all fall inside the millisecond (Taps::kmin / kmax); the
-// others go through tap_chip_at. K3, whose time is its output's, keeps
-// the plain per-sample forms mix_sample and tap_chip. Conversions between
-// int and float are kept to one per sample and one per tap without
-// changing a bit: float(lm + k) is the exact sum float(lm) + float(k)
-// (small integers), and int(ceilf(x)) is the one round-up conversion
-// __float2int_ru(x).
+// others go through tap_chip_at (edge_sample). K3 walks its samples the
+// same way. Conversions between int and float are kept to one per sample
+// and one per tap without changing a bit: float(lm + k) is the exact sum
+// float(lm) + float(k) (small integers), and int(ceilf(x)) is the one
+// round-up conversion __float2int_ru(x).
+//
+// accumulate_range is the loop both kernels use to sum every stream over a
+// range of window samples (K1: an epoch; K3: a warp's run, for its total).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace sydr {
 
 constexpr int kMaxTaps = 5;
+constexpr int kGroup = 4;   // consecutive samples a thread takes at a time
 constexpr int kCodeWidth = 4160;   // tiled_code_bits row: chip u at 1023 + u
 constexpr int kCodeOrigin = 1023;
 
@@ -94,13 +98,28 @@ __device__ __forceinline__ Channel load_channel(
   return ch;
 }
 
-// The channel's code row as +/-1 floats, into shared memory (all threads
-// of the block take part; the caller synchronises).
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// The channel's code row as +/-1 floats, into shared memory (chips is
+// 16-byte aligned; all threads of the block take part; the caller
+// synchronises): 1040 16-byte loads where the row allows them.
 __device__ __forceinline__ void load_chips(const float* code_bits, int c,
                                            float* chips) {
   const float* bits = code_bits + static_cast<size_t>(c) * kCodeWidth;
-  for (int i = threadIdx.x; i < kCodeWidth; i += blockDim.x) {
-    chips[i] = 2.0f * bits[i] - 1.0f;
+  if (aligned16(bits)) {
+    const float4* bits4 = reinterpret_cast<const float4*>(bits);
+    float4* chips4 = reinterpret_cast<float4*>(chips);
+    for (int i = threadIdx.x; i < kCodeWidth / 4; i += blockDim.x) {
+      const float4 b = __ldg(bits4 + i);
+      chips4[i] = make_float4(2.0f * b.x - 1.0f, 2.0f * b.y - 1.0f,
+                              2.0f * b.z - 1.0f, 2.0f * b.w - 1.0f);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kCodeWidth; i += blockDim.x) {
+      chips[i] = 2.0f * bits[i] - 1.0f;
+    }
   }
 }
 
@@ -166,27 +185,116 @@ __device__ __forceinline__ float tap_chip_at(const Channel& ch,
   return chips[chip_column(ch, __fmaf_rn(flk, ch.step, r))];
 }
 
-// Window sample m with the carrier wiped off: (mre, mim).
-__device__ __forceinline__ void mix_sample(const Channel& ch,
-                                           const float* win_re,
-                                           const float* win_im, int m,
-                                           float* mre, float* mim) {
-  const int q = m / ch.spms;
-  mix_phase(ch, ch.ph[q], static_cast<float>(m - q * ch.spms), win_re[m],
-            win_im[m], mre, mim);
+// One sample anywhere: offset lm of millisecond q, or lm - spms of q + 1
+// where lm >= spms (at most once: the caller's group began inside q); taps
+// that may reach into a neighbouring millisecond. Calls emit(t, chip, mre,
+// mim) for each tap t with its chip and the mixed sample, and leaves the
+// sample's millisecond in row.
+template <int kTaps, typename Emit>
+__device__ __forceinline__ void edge_sample(
+    const Channel& ch, const float* chips, const Taps& taps, int q, int lm,
+    float xr, float xi, TapRow* row, Emit emit) {
+  if (lm >= ch.spms) {
+    lm -= ch.spms;
+    ++q;
+  }
+  if (q != row->q) load_row(ch, taps, q, row);
+  const float fl = static_cast<float>(lm);
+  float mre, mim;
+  mix_phase(ch, row->ph, fl, xr, xi, &mre, &mim);
+  const bool inside = lm + taps.kmin >= 0 && lm + taps.kmax < ch.spms;
+#pragma unroll
+  for (int t = 0; t < kTaps; ++t) {
+    const float chip =
+        inside ? tap_chip_row(ch, chips, taps, t, *row, fl)
+               : tap_chip_at(ch, chips, taps, t, q, lm, fl);
+    emit(t, chip, mre, mim);
+  }
 }
 
-// The +/-1 chip of tap t at window sample m, with no branch: the tap's own
-// split of m + k into (millisecond, offset).
-__device__ __forceinline__ float tap_chip(const Channel& ch,
-                                          const float* chips,
-                                          const Taps& taps, int t, int m) {
-  const int mk = m + taps.k[t];
-  const int qk = min(mk / ch.spms, ch.n_q - 1);
-  const int lk = mk - qk * ch.spms;
-  const float r = __fadd_rn(ch.fb[qk], taps.sp[t]);
-  return chips[chip_column(
-      ch, __fmaf_rn(static_cast<float>(lk), ch.step, r))];
+// Whether the kGroup samples from offset lm of a millisecond, taps
+// included, all lie inside it (kmin <= 0 <= kmax).
+__device__ __forceinline__ bool group_inside(const Channel& ch,
+                                             const Taps& taps, int lm) {
+  return lm + taps.kmin >= 0 && lm + kGroup - 1 + taps.kmax < ch.spms;
+}
+
+// acc[2t], acc[2t + 1] += the I and Q streams of tap t summed over window
+// samples [b0, b1), for thread `rank` of the `n_threads` that share the
+// range: thread-strided groups of kGroup samples that start on 16-byte
+// addresses of both planes (whatever the window's offset; the first group
+// may begin before b0, masked). A group wholly inside the range and inside
+// one millisecond, taps included, is one 16-byte load per plane and
+// straight-line code with four independent sincosf chains; the others go
+// sample by sample through edge_sample. Fixed order, no atomics.
+template <int kTaps>
+__device__ __forceinline__ void accumulate_range(
+    const Channel& ch, const float* chips, const Taps& taps,
+    const float* __restrict__ win_re, const float* __restrict__ win_im,
+    int b0, int b1, int rank, int n_threads, float (&acc)[2 * kTaps]) {
+  const int mis = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(win_re) >> 2) & (kGroup - 1));
+  const bool vec = mis == static_cast<int>(
+      (reinterpret_cast<uintptr_t>(win_im) >> 2) & (kGroup - 1));
+  const int stride = n_threads * kGroup;
+  int g = ((b0 + mis) & ~(kGroup - 1)) - mis + rank * kGroup;
+  int q = g > 0 ? g / ch.spms : 0;
+  int lm = g - q * ch.spms;   // negative only for masked samples before 0
+  TapRow row;
+  row.q = -1;
+  for (; g < b1; g += stride) {
+    if (vec && g >= b0 && g + kGroup <= b1 && group_inside(ch, taps, lm)) {
+      if (q != row.q) load_row(ch, taps, q, &row);
+      const float4 r4 = __ldg(reinterpret_cast<const float4*>(win_re + g));
+      const float4 i4 = __ldg(reinterpret_cast<const float4*>(win_im + g));
+      const float xr[kGroup] = {r4.x, r4.y, r4.z, r4.w};
+      const float xi[kGroup] = {i4.x, i4.y, i4.z, i4.w};
+      const float fl0 = static_cast<float>(lm);
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        // exact: float(lm + i)
+        const float fl = __fadd_rn(fl0, static_cast<float>(i));
+        float mre, mim;
+        mix_phase(ch, row.ph, fl, xr[i], xi[i], &mre, &mim);
+#pragma unroll
+        for (int t = 0; t < kTaps; ++t) {
+          const float chip = tap_chip_row(ch, chips, taps, t, row, fl);
+          acc[2 * t] += chip * mre;
+          acc[2 * t + 1] += chip * mim;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        const int m = g + i;
+        if (m >= b0 && m < b1) {
+          edge_sample<kTaps>(
+              ch, chips, taps, q, lm + i, win_re[m], win_im[m], &row,
+              [&acc](int t, float chip, float mre, float mim) {
+                acc[2 * t] += chip * mre;
+                acc[2 * t + 1] += chip * mim;
+              });
+        }
+      }
+    }
+    lm += stride;
+    while (lm >= ch.spms) {
+      lm -= ch.spms;
+      ++q;
+    }
+  }
 }
 
 }  // namespace sydr
+
+// Run the statement given after n_taps with kTaps the compile-time value
+// of the tap count (1..kMaxTaps): the kernels' tap loops are unrolled for
+// the count in use.
+#define SYDR_TAPS_SWITCH(n_taps, ...)                         \
+  switch (n_taps) {                                           \
+    case 1: { constexpr int kTaps = 1; __VA_ARGS__; } break;   \
+    case 2: { constexpr int kTaps = 2; __VA_ARGS__; } break;   \
+    case 3: { constexpr int kTaps = 3; __VA_ARGS__; } break;   \
+    case 4: { constexpr int kTaps = 4; __VA_ARGS__; } break;   \
+    default: { constexpr int kTaps = 5; __VA_ARGS__; } break;  \
+  }

@@ -6,12 +6,14 @@ On CUDA tensors :func:`pcps_bins` launches one of two hand-written
 kernels, chosen from the code period ``n`` alone:
 
 * ``csrc/pcps_bins.cu`` (:data:`KERNEL`), a mixed-radix Stockham FFT in
-  shared memory (radices 10, 5, 4, 3, 2), for every ``n`` whose prime
-  factors lie in {2, 3, 5} (:func:`radix_plan`): 2500, 4000, 5000, 10000,
-  2048, ...;
+  shared memory (radices 10, 5, 4, 3, 2 and the odd primes 7 to 31), for
+  every ``n`` whose prime factors are at most 31 (:func:`radix_plan`):
+  2500, 5000, 10000, 2048, and the code periods of the front ends clocked
+  at a multiple of 1.023 MHz, 2046, 4092 = 2^2 * 3 * 11 * 31, 8184;
 * ``csrc/pcps_bins_fourstep.cu`` (:data:`FOURSTEP_KERNEL`), the direct
   four-step DFT of length ``n = n1 * n2`` (:func:`balanced_factors`), for
-  every other ``n`` (4.092 Msps gives 4092 = 2^2 * 3 * 11 * 31).
+  every other ``n`` (4070 = 2 * 5 * 11 * 37, or a prime radix at
+  ``n`` above 8192).
 
 :func:`pcps_bins_ref` is the plain PyTorch version (``torch.fft.ifft`` of
 the product, ``abs``, sum), used on CPU tensors; there is no fallback from
@@ -58,38 +60,69 @@ def balanced_factors(n: int) -> tuple[int, int]:
     return best
 
 
+PRIME_RADICES = (31, 29, 23, 19, 17, 13, 11, 7)
+# The largest n a plan with a prime radix takes: its kernel variants run at
+# most 512 threads, 16 points each.
+PRIME_PLAN_MAX_N = 8192
+
+
 def radix_plan(n: int) -> tuple[int, ...]:
     """Radices of the FFT kernel's passes, in order: factors from
-    {10, 4, 2, 3, 5} whose product is ``n``. Every pair (2, 5) becomes one
-    radix-10 pass (a 2 x 5 butterfly in registers: a pass less to
-    synchronise and to move through shared memory); tens first, then
-    fours, a two, threes, and fives last (the order that measured fastest
-    on the card). Raises ``ValueError`` for an ``n`` with a prime factor
-    above 5, or with fewer than two passes."""
+    {10, 4, 2, 3, 5} and the odd primes 7 to 31 whose product is ``n``.
+    Every pair (2, 5) becomes one radix-10 pass (a 2 x 5 butterfly in
+    registers: a pass less to synchronise and to move through shared
+    memory). Order: the largest prime radix first (the first pass has no
+    twiddles), then tens, fours, a two, threes and fives, and the other
+    prime radices last, largest first: of the 24 orders of (31, 11, 4, 3)
+    at n = 4092 the card ran (31, 4, 3, 11) fastest, 10% ahead of both
+    primes first and 20% ahead of radix 31 last
+    (``tools/torch_kernel_variants.py``); without a prime radix the order
+    is the one that measured fastest before there were any.
+    Raises ``ValueError`` for an ``n`` with a prime factor above 31, with
+    a prime radix above :data:`PRIME_PLAN_MAX_N`, or with fewer than two
+    passes."""
     rest, count = n, {}
-    for p in (2, 3, 5):
+    for p in (2, 3, 5) + PRIME_RADICES:
         count[p] = 0
         while rest % p == 0:
             count[p] += 1
             rest //= p
     if rest != 1 or n < 2:
-        raise ValueError(f"n={n} has a prime factor above 5: no radix plan")
+        raise ValueError(f"n={n} has a prime factor above 31: no radix plan")
+    primes = [p for p in PRIME_RADICES for _ in range(count[p])]
+    if primes and n > PRIME_PLAN_MAX_N:
+        raise ValueError(f"n={n}: a plan with a prime radix ends at "
+                         f"n={PRIME_PLAN_MAX_N}")
     tens = min(count[2], count[5])
     twos = count[2] - tens
-    plan = ([10] * tens + [4] * (twos // 2) + [2] * (twos % 2)
-            + [3] * count[3] + [5] * (count[5] - tens))
+    plan = (primes[:1] + [10] * tens + [4] * (twos // 2) + [2] * (twos % 2)
+            + [3] * count[3] + [5] * (count[5] - tens) + primes[1:])
     if len(plan) < 2:
         raise ValueError(f"n={n}: the FFT kernel needs two passes or more")
     return tuple(plan)
 
 
-def fft_threads(n: int) -> int:
-    """Threads of an FFT-kernel block: one per radix-10 butterfly of a pass
-    (n / 10, in whole warps), between 128 and 1024. The block's two
-    buffers take 16 n bytes of the SM's shared memory, so small n runs
-    several blocks an SM (4 of 256 threads at n = 2500) and large n one
-    full block (1024 threads at n = 10000); a thread holds at most 20
-    output points."""
+def fft_threads(n: int, plan: tuple[int, ...] | None = None) -> int:
+    """Threads of an FFT-kernel block for ``plan`` (default
+    ``radix_plan(n)``), in whole warps.
+
+    Without a prime radix: one per radix-10 butterfly of a pass (n / 10),
+    between 128 and 1024. The block's two buffers take 16 n bytes of the
+    SM's shared memory, so small n runs several blocks an SM (4 of 256
+    threads at n = 2500) and large n one full block (1024 threads at
+    n = 10000); a thread holds at most 20 output points.
+
+    With a prime radix: n / 16, between 128 and 512 (256 at n = 4092). A
+    wide butterfly lives in registers (the kernel variant for blocks of up
+    to 256 threads takes 224 a thread and spills nothing; the one for up
+    to 512 has 128 and spills), and a wide pass has few butterflies (132
+    of radix 31 at n = 4092), so more threads would idle in it; 256 ran
+    fastest at n = 4092, 128 at n = 2046 and 384-512 at n = 8184
+    (``tools/torch_kernel_variants.py``).
+    """
+    plan = radix_plan(n) if plan is None else plan
+    if max(plan) > 10:
+        return min(512, max(128, 32 * -(-n // 512)))
     return min(1024, max(128, 32 * -(-n // 320)))
 
 
@@ -170,6 +203,18 @@ def pcps_bins_ref(spectra, code_k, bin_shifts):
     return torch.cat(maps).permute(1, 0, 2).contiguous()
 
 
+def kernel_for(n: int):
+    """The kernel that ``n`` selects and the launch arguments that depend
+    on ``n`` alone: the FFT kernel with its plan (radices, their count,
+    threads) where ``n`` has one, else the four-step kernel with its two
+    factors."""
+    if not has_radix_plan(n):
+        return FOURSTEP_KERNEL, balanced_factors(n)
+    plan = radix_plan(n)
+    return KERNEL, ((_INT * len(plan))(*plan), len(plan),
+                    fft_threads(n, plan))
+
+
 def pcps_bins_launch_args(spectra, code_k, bin_shifts):
     """Check the arguments of :func:`pcps_bins` (CUDA tensors), allocate
     its output and return ``(kernel, out, args)``: the kernel that ``n``
@@ -191,11 +236,8 @@ def pcps_bins_launch_args(spectra, code_k, bin_shifts):
     head = (native.ptr(spectra), native.ptr(code_k), native.ptr(tw),
             native.ptr(shift), native.ptr(phase), n_ch, nc, n)
     tail = (len(bin_shifts), native.ptr(out), native.stream_of(out))
-    if not has_radix_plan(n):
-        return FOURSTEP_KERNEL, out, (*head, *balanced_factors(n), *tail)
-    plan = radix_plan(n)
-    return KERNEL, out, (*head, (_INT * len(plan))(*plan), len(plan),
-                         fft_threads(n), *tail)
+    kernel, shape = kernel_for(n)
+    return kernel, out, (*head, *shape, *tail)
 
 
 def pcps_bins(spectra, code_k, bin_shifts):

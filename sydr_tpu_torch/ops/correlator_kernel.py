@@ -13,7 +13,10 @@ K3 replaces ``sydr_tpu.ops.correlator_kernel.block_cumsum_streams``
 (``TrackingConfig.boundary_mode = "prefix"``): the CUDA kernel
 (``csrc/block_cumsum_streams.cu``) writes every stream's inclusive
 per-sample prefix ``[n_ch, 2 * n_taps, n_win]``; pass B picks the epoch
-bounds out of it.
+bounds out of it. A block owns one channel and a segment of consecutive
+1024-sample chunks (:func:`cumsum_shape`), each of its 8 warps a
+contiguous eighth of it; a first launch sums each warp's run as K1 sums
+an epoch, a second scans and writes.
 
 Both kernels sum the same per-sample streams (``csrc/streams.cuh``;
 :func:`_dense_streams` here). Each wrapper runs its kernel on CUDA tensors
@@ -42,10 +45,17 @@ KERNEL = native.CudaKernel(
     [_VP] * 9 + _TAPS + [_INT] * 7 + [_VP, _VP])
 SM_COUNT = 132          # streaming multiprocessors of an H100
 MAX_BLOCK_WARPS = 8     # warps per block of csrc/epoch_correlate.cu
-CUMSUM_CHUNK = 1024   # samples per block of csrc/block_cumsum_streams.cu
+CUMSUM_CHUNK = 1024         # a K3 block's segment is whole chunks of these
+CUMSUM_BLOCK_WARPS = 8      # each scans its own eighth of the segment
+CUMSUM_BLOCKS_PER_SM = 2    # blocks of K3 that an SM holds at once
 CUMSUM_KERNEL = native.CudaKernel(
     "block_cumsum_streams.cu", "block_cumsum_streams_launch",
-    [_VP] * 8 + _TAPS + [_INT] * 6 + [_VP] * 3)
+    [_VP] * 8 + _TAPS + [_INT] * 8 + [_VP] * 3)
+# K3's grid, block and stores without its arithmetic: what its output
+# costs to write. A yardstick for the smoke test; the receiver never
+# calls it.
+STORE_CEILING = native.CudaKernel(
+    "store_ceiling.cu", "store_ceiling_launch", [_INT] * 5 + [_VP, _VP])
 
 
 def fma32(a, b, c):
@@ -233,13 +243,33 @@ def block_cumsum_streams_ref(window_re, window_im, code_bits, c_int, omega,
                        code_step, fb_q, phic_q, taps, spms), dim=-1)
 
 
+@functools.lru_cache(maxsize=64)
+def cumsum_shape(n_win: int, n_ch: int) -> tuple[int, int]:
+    """``(seg_chunks, n_seg)`` of a K3 launch: every block scans a segment
+    of ``seg_chunks`` consecutive chunks of 1024 samples of one channel, on
+    a grid ``(n_seg, n_ch)``.
+
+    Segments as long as they can be while the grid still has one block for
+    every block the card holds at once (:data:`CUMSUM_BLOCKS_PER_SM` an
+    SM): a block loads its channel's code row once and its warps carry
+    their running sums in registers, so longer segments load less and
+    fewer totals cross warps, but an idle SM costs more.
+    """
+    n_chunks = -(-n_win // CUMSUM_CHUNK)
+    want = max(1, CUMSUM_BLOCKS_PER_SM * SM_COUNT // n_ch)
+    seg_chunks = -(-n_chunks // want)
+    return seg_chunks, -(-n_chunks // seg_chunks)
+
+
 def block_cumsum_streams_launch_args(window_re, window_im, code_bits, c_int,
                                      omega, code_step, fb_q, phic_q, taps,
-                                     spms):
+                                     spms, launches=3):
     """Check the arguments of :func:`block_cumsum_streams` (CUDA tensors),
     allocate its output and scratch and return ``(out, args, scratch)``
     with ``args`` the C arguments of :data:`CUMSUM_KERNEL`'s entry point;
-    the caller keeps ``scratch`` until the launch is enqueued."""
+    the caller keeps ``scratch`` until the launch is enqueued.
+    ``launches``: 3 for the function (both launches); 1 (the segment
+    totals) or 2 (the scan, reading totals) to time a part alone."""
     _check_stream_args(window_re, window_im, code_bits, c_int, omega,
                        code_step, fb_q, phic_q, taps, spms,
                        "block_cumsum_streams")
@@ -247,18 +277,18 @@ def block_cumsum_streams_launch_args(window_re, window_im, code_bits, c_int,
     n_ch, n_q = fb_q.shape
     n_win = window_re.shape[0]
     n_streams = 2 * len(taps)
-    n_chunks = -(-n_win // CUMSUM_CHUNK)
+    seg_chunks, n_seg = cumsum_shape(n_win, n_ch)
     out = torch.empty((n_ch, n_streams, n_win), dtype=torch.float32,
                       device=dev)
-    totals = torch.empty((n_ch, n_streams, n_chunks), dtype=torch.float32,
-                         device=dev)
+    totals = torch.empty((n_ch, n_seg * CUMSUM_BLOCK_WARPS, n_streams),
+                         dtype=torch.float32, device=dev)
     tap_sp, tap_k = _tap_arrays(tuple(taps))
     return out, (
         native.ptr(window_re), native.ptr(window_im), native.ptr(code_bits),
         native.ptr(c_int), native.ptr(omega), native.ptr(code_step),
         native.ptr(fb_q), native.ptr(phic_q), tap_sp, tap_k, len(taps),
-        n_ch, n_q, spms, n_win, n_chunks, native.ptr(totals),
-        native.ptr(out), native.stream_of(out)), totals
+        n_ch, n_q, spms, n_win, seg_chunks, n_seg, launches,
+        native.ptr(totals), native.ptr(out), native.stream_of(out)), totals
 
 
 def block_cumsum_streams(window_re, window_im, code_bits, c_int, omega,

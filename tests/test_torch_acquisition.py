@@ -117,34 +117,76 @@ def test_balanced_factors_matches_jax():
 
 
 SMOOTH_N = (2048, 2500, 4000, 5000, 10000)
+# Code periods of front ends clocked at a multiple of 1.023 MHz
+# (1023 = 3 * 11 * 31), and one length for each other prime radix.
+PRIME_N = (1023, 2046, 4092, 8184, 7 * 13 * 20, 17 * 19 * 6, 23 * 29 * 4)
+PRIME_RADICES = {7, 11, 13, 17, 19, 23, 29, 31}
 
 
-@pytest.mark.parametrize("n", SMOOTH_N)
+@pytest.mark.parametrize("n", SMOOTH_N + PRIME_N)
 def test_radix_plan_multiplies_to_n(n):
     """The FFT kernel's plan: radices it has butterflies for (10 = 2 x 5
-    in registers), product n, a block whose threads hold at most 20
-    output points each."""
+    in registers, the odd primes 7 to 31), product n, and a block whose
+    threads hold the last pass's outputs: floor(21 / r) butterflies of the
+    last radix r without a prime radix (at most 20 points), floor(32 / r)
+    in at most 512 threads with one."""
     plan = acq_kernel.radix_plan(n)
-    assert set(plan) <= {2, 3, 4, 5, 10} and len(plan) >= 2
+    assert set(plan) <= {2, 3, 4, 5, 10} | PRIME_RADICES and len(plan) >= 2
     assert int(np.prod(plan)) == n
     assert acq_kernel.has_radix_plan(n)
     threads = acq_kernel.fft_threads(n)
-    assert threads % 32 == 0 and 128 <= threads <= 1024
-    assert n <= 20 * threads
+    prime = bool(set(plan) & PRIME_RADICES)
+    assert prime == (n in PRIME_N)
+    assert threads % 32 == 0 and 128 <= threads <= (512 if prime else 1024)
+    acc = 32 if prime else 21
+    assert n // plan[-1] <= (acc // plan[-1]) * threads
+    if prime:   # the largest prime radix leads, the others close the plan
+        wide = sorted((r for r in plan if r in PRIME_RADICES), reverse=True)
+        assert plan[0] == wide[0]
+        assert list(plan[len(plan) - len(wide) + 1:]) == wide[1:]
 
 
 def test_radix_plan_refused_for_large_prime_factors():
-    """n = 4092 = 2^2 * 3 * 11 * 31 (4.092 Msps) has no plan: it goes to
-    the four-step kernel, chosen from n alone."""
-    for n in (4092, 2046, 1023, 7):
-        with pytest.raises(ValueError, match="prime factor above 5"):
+    """n = 4070 = 2 * 5 * 11 * 37 has a prime factor above the largest
+    radix, 31: no plan, so it goes to the four-step kernel, chosen from n
+    alone; so does a prime radix above n = 8192. n = 7 has one pass only.
+    n = 4092 = 2^2 * 3 * 11 * 31 (4.092 Msps) has a plan and goes to the
+    FFT kernel."""
+    for n in (4070, 37, 2 * 1013):
+        with pytest.raises(ValueError, match="prime factor above 31"):
             acq_kernel.radix_plan(n)
         assert not acq_kernel.has_radix_plan(n)
+    with pytest.raises(ValueError, match="two passes"):
+        acq_kernel.radix_plan(7)
+    with pytest.raises(ValueError, match="ends at n=8192"):
+        acq_kernel.radix_plan(10230)
+    assert not acq_kernel.has_radix_plan(7)
+    assert not acq_kernel.has_radix_plan(10230)
     assert acq_kernel.radix_plan(2500) == (10, 10, 5, 5)
     assert acq_kernel.radix_plan(10000) == (10, 10, 10, 10)
+    assert acq_kernel.radix_plan(4092) == (31, 4, 3, 11)
+    assert acq_kernel.radix_plan(1023) == (31, 3, 11)
 
 
-@pytest.mark.parametrize("n", SMOOTH_N + (90,))
+@pytest.mark.parametrize("n, kernel", [
+    (4092, "KERNEL"), (2046, "KERNEL"), (2500, "KERNEL"),
+    (4070, "FOURSTEP_KERNEL"), (10230, "FOURSTEP_KERNEL")])
+def test_kernel_choice_from_n(n, kernel):
+    """``pcps_bins_launch_args`` picks the entry from n alone
+    (``kernel_for``): the FFT kernel with its plan where n has one, else
+    the four-step kernel with its balanced factors."""
+    got, shape = acq_kernel.kernel_for(n)
+    assert got is getattr(acq_kernel, kernel)
+    if kernel == "FOURSTEP_KERNEL":
+        assert shape == acq_kernel.balanced_factors(n)
+        assert shape[0] * shape[1] == n
+    else:
+        plan = acq_kernel.radix_plan(n)
+        assert list(shape[0]) == list(plan) and shape[1] == len(plan)
+        assert shape[2] == acq_kernel.fft_threads(n)
+
+
+@pytest.mark.parametrize("n", SMOOTH_N + (90,) + PRIME_N)
 def test_stockham_ifft_ref_matches_ifft(n):
     """The kernel's passes, strides and integer twiddle indices, walked in
     PyTorch, against torch.fft.ifft (unnormalised) on seeded inputs:

@@ -330,6 +330,27 @@ def test_launch_shape_of_k1(n_epochs, n_ch, spms, expect):
     assert -(-n_epochs // epb) * epb >= n_epochs
 
 
+@pytest.mark.parametrize("n_win, n_ch, expect", [
+    (60000, 32, (8, 8)),         # cruise: 24 ms at 2.5 Msps
+    (22500, 32, (3, 8)),         # pull-in: 9 ms
+    (240000, 32, (30, 8)),       # full rate: 24 ms at 10 Msps
+    (18423, 32, (3, 6)),         # 9 ms at 2.047 Msps: a ragged last segment
+    (60000, 8, (2, 30)),
+    (1000, 32, (1, 1)),
+    (60000, 500, (59, 1)),       # more channels than blocks the card holds
+])
+def test_cumsum_shape_of_k3(n_win, n_ch, expect):
+    """K3's launch shape: segments of whole 1024-sample chunks that cover
+    the window with none to spare, on a grid of at most one block for
+    each block the card holds at once (or one segment a channel)."""
+    seg_chunks, n_seg = ck.cumsum_shape(n_win, n_ch)
+    assert (seg_chunks, n_seg) == expect
+    seg = seg_chunks * ck.CUMSUM_CHUNK
+    assert (n_seg - 1) * seg < n_win <= n_seg * seg
+    assert n_seg == 1 or \
+        n_seg * n_ch <= ck.CUMSUM_BLOCKS_PER_SM * ck.SM_COUNT
+
+
 def test_check_all_names_the_fault():
     """The one-pass argument check of the kernel wrappers still raises on
     a wrong dtype, shape, device or a non-contiguous tensor, naming it."""

@@ -8,7 +8,7 @@ no JAX, so it also runs on a machine without it:
 Bounds: K1 picks the same chips as its plain version (the same rounding of
 the index arithmetic) and sums in another order: 1e-2 + 1e-4 of the
 largest correlator. K2 is a float32 radix FFT in shared memory (or, for a
-code period with a prime factor above 5, a direct-summation four-step DFT)
+code period with a prime factor above 31, a direct-summation four-step DFT)
 against cuFFT, both float32: 1e-4 of the map's maximum. K3 builds the same
 per-sample values as K1 and scans them in another order than
 ``torch.cumsum``: the raw prefix within ``4 * sqrt(n_win) * 2^-24`` of its
@@ -131,6 +131,29 @@ def test_block_cumsum_streams_kernel_matches_plain(fs, block_ms, narrow_only):
     assert float((corr - k1).abs().max()) <= bound
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_taps", [1, 3, 5])
+def test_block_cumsum_streams_ragged_window_and_determinism(n_taps):
+    """2.047 Msps: 2047 samples a millisecond, so the window's 18,423
+    samples are no multiple of 4 (scalar stores, rows off 16-byte
+    addresses), of the 1024-sample chunk or of the segment; 1, 3 and 5
+    taps. Against the plain version, and twice in a row bit for bit."""
+    args = _k1_args(2.047e6, 5, n_taps <= 3, True, _cuda())
+    taps = args[9][:n_taps]
+    assert len(taps) == n_taps
+    k3_args = args[:8] + (taps, args[10])
+    n_win = args[0].shape[0]
+    seg_chunks, n_seg = ck.cumsum_shape(n_win, N_CH)
+    assert n_win % 4 and n_win % (seg_chunks * ck.CUMSUM_CHUNK) and n_seg > 1
+    got = ck.block_cumsum_streams(*k3_args)
+    again = ck.block_cumsum_streams(*k3_args)
+    ref = ck.block_cumsum_streams_ref(*k3_args)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (N_CH, 2 * n_taps, n_win)
+    assert torch.equal(got, again)
+    assert float((got - ref).abs().max()) <= prefix_bound(ref)
+
+
 def _k2_inputs(n, n_ch, dev):
     """101 bins over 10 phases, 10 non-coherent blocks."""
     g = torch.Generator().manual_seed(0)
@@ -142,12 +165,16 @@ def _k2_inputs(n, n_ch, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n, n_ch", [(2500, 32), (10000, 12), (4000, 8),
-                                     (5000, 4), (2048, 4)])
+@pytest.mark.parametrize("n, n_ch", [
+    (2500, 32), (10000, 12), (4000, 8), (5000, 4), (2048, 4),
+    (4092, 8), (2046, 4), (1023, 4), (8184, 2),      # 1023 = 3 * 11 * 31
+    (7 * 13 * 20, 2), (17 * 19 * 6, 2), (23 * 29 * 4, 2)])
 def test_pcps_bins_kernel_matches_plain(n, n_ch):
     """The FFT entry at the session's (n = 2500) and the bench's
-    (n = 10000) acquisition shapes and at three more lengths with a radix
-    plan: the wrapper launches it, and only it."""
+    (n = 10000) acquisition shapes, at three more lengths with radices up
+    to 10, at the code periods of the 1.023 MHz family (radices 31 and 11;
+    n = 8184 in the 512-thread variant) and at one length for each other
+    prime radix: the wrapper launches it, and only it."""
     spec, code, plan = _k2_inputs(n, n_ch, _cuda())
     before = (acq_kernel.KERNEL.launches,
               acq_kernel.FOURSTEP_KERNEL.launches)
@@ -162,9 +189,9 @@ def test_pcps_bins_kernel_matches_plain(n, n_ch):
 
 @pytest.mark.cuda
 def test_pcps_bins_fourstep_kernel_matches_plain():
-    """n = 4092 has no radix plan: the wrapper launches the four-step
-    entry, chosen from n alone, and only it."""
-    spec, code, plan = _k2_inputs(4092, 8, _cuda())
+    """n = 4070 = 2 * 5 * 11 * 37 has no radix plan: the wrapper launches
+    the four-step entry, chosen from n alone, and only it."""
+    spec, code, plan = _k2_inputs(4070, 8, _cuda())
     before = (acq_kernel.KERNEL.launches,
               acq_kernel.FOURSTEP_KERNEL.launches)
     got = acq_kernel.pcps_bins(spec, code, plan)
