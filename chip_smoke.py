@@ -50,9 +50,36 @@ printing its wall time:
    300 ms; acquisition must go through K2's FFT entry (radices 31, 4, 3,
    11) and find the visible satellites;
 9. the same at 4.070 Msps (n = 4070 = 2 * 5 * 11 * 37, no radix plan):
-   acquisition must go through K2's four-step entry.
+   acquisition must go through K2's four-step entry;
+10. the per-ms scan runtime at full width: phase 5's capture (its first
+    2 s) through a 32-channel ``TrackingSession`` with ``runtime="scan"``,
+    borre loops, 20 ms blocks: acquisition through K2, bit sync and the
+    5 Hz carrier bound on the visible channels, no K1 or K3 launch; its
+    real-time factor is printed, and ``torch.profiler`` over one more block
+    counts its kernel launches per epoch and the device's busy share;
+11. a serial-search session: 8 channels at 2.5 Msps, 4 visible at
+    50 dB-Hz (one code period is all a serial search integrates),
+    ``AcquisitionConfig(method="serial")`` on 250 Hz bins, 300 ms: the
+    visible satellites within one Doppler bin and one chip, and no K2
+    launch; one PRN's search is then timed apart (the host's shift-matrix
+    build, its upload, the search on the card);
+12. the direct PCPS map: phase 5's capture with ``doppler_step=130`` (77
+    bins on 77 phases: no shift plan), where ``acquire`` must take
+    ``pcps_map`` and launch no K2, the satellites within one bin; then
+    ``pcps_map`` against ``pcps_shift_map`` (K2) on the same 50 ms at the
+    production grid (step 100), within 1e-4 of the map's maximum;
+13. checkpoint and resume (run right after phase 7, while its IQ file
+    exists): a 6-channel ``Receiver`` on that file runs to a block
+    boundary after promotion, saves, and continues; a
+    fresh ``Receiver`` loads the checkpoint, is promoted without running
+    pull-in, and continues on the same samples: integer outputs equal and
+    the carrier within 1 Hz (the kernels sum in one fixed order, so the
+    phase also prints whether the two runs were bit-identical). Then the
+    CLI in process with ``--runtime scan --checkpoint-every``, which must
+    leave a ``.ckpt.npz`` that a receiver of the demo's configuration
+    loads.
 
-Each of phases 5-9 sets every kernel's launch count to 0 just before it
+Each of phases 5-13 sets every kernel's launch count to 0 just before it
 and reads the counts just after. The last three lines are the kernels'
 JSON record, the ``nvidia-smi`` line and ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits non-zero before printing
@@ -95,6 +122,19 @@ CRUISE_SUPERBLOCK = 50
 RX_MS = 16000
 DEMO_T0, DEMO_WEEK = 302400.0, 2190
 FIX_BOUND_M = 10.0   # 2.5 Msps code noise + a few seconds of Hatch filter
+# The scan-runtime session: the first 2 s of the session's capture.
+SCAN_SIGNAL_MS = 2000
+# The serial search integrates one code period: 50 dB-Hz and 250 Hz bins
+# (as tests/test_serial_search.py; one millisecond's Doppler lobe is 1 kHz
+# wide, so with finer bins the second peak, taken outside a 3 x 3 box, is
+# the main lobe itself). Its two-peak power metric reads about 2 on a
+# satellite and up to ~1.6 on noise, so the threshold sits between; its
+# code phase comes in chips, so the index is held to one chip (2.44
+# samples at 2.5 Msps) plus the rounding.
+SERIAL_CN0_DBHZ = 50.0
+SERIAL_DOPPLER_STEP = 250.0
+SERIAL_THRESHOLD = 1.8
+SERIAL_CODE_INDEX_TOL = 3
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate and the float32 rate outside the tensor cores.
@@ -522,7 +562,8 @@ def parity_phase(device) -> None:
 # The slice end to end
 # ---------------------------------------------------------------------------
 
-def make_scenario(rng, signal_ms, fs_in, n_channels, n_visible):
+def make_scenario(rng, signal_ms, fs_in, n_channels, n_visible,
+                  cn0_dbhz=CN0_DBHZ):
     """Visible satellites (PRN, Doppler, code phase) and the capture."""
     from sydr_tpu_torch.signal.synthetic import IQGenerator
 
@@ -538,16 +579,28 @@ def make_scenario(rng, signal_ms, fs_in, n_channels, n_visible):
     for s in sats:
         gen.add_satellite(s["prn"], doppler_hz=s["doppler"],
                           code_phase_chips=s["code_phase"],
-                          cn0_dbhz=CN0_DBHZ,
+                          cn0_dbhz=cn0_dbhz,
                           nav_bits=rng.integers(0, 2, 300))
+    t0 = time.perf_counter()
     iq = gen.generate_ms(signal_ms)
+    print(f"capture: {signal_ms} ms at {fs_in / 1e6:g} Msps, "
+          f"{n_visible} satellites at {cn0_dbhz:g} dB-Hz, made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return sats, np.float32(iq.real), np.float32(iq.imag)
 
 
-def session_configs(fs_in, superblock):
+def session_configs(fs_in, superblock, runtime="batch"):
+    """(pull-in, cruise) of the batch runtime, as the CLI builds them; or
+    the CLI's scan-runtime configuration (borre, 20 ms blocks) and no
+    cruise."""
     from sydr_tpu_torch.channels.runtime import TrackingConfig
 
     fs = fs_in / DECIMATE
+    if runtime == "scan":
+        return TrackingConfig(
+            sampling_frequency=fs, input_decimate=DECIMATE,
+            window_size=round(fs * 1e-3) + 256, runtime="scan",
+            profile="borre", block_ms=20, quantize_spacing=True), None
     pull_in = TrackingConfig(
         sampling_frequency=fs, input_decimate=DECIMATE,
         window_size=round(fs * 1e-3) + 256, runtime="batch",
@@ -557,29 +610,33 @@ def session_configs(fs_in, superblock):
     return pull_in, cruise
 
 
-def slice_phase(device, signal_ms=SIGNAL_MS, fs_in=FS_IN,
+def slice_phase(device, capture=None, signal_ms=SIGNAL_MS, fs_in=FS_IN,
                 n_channels=N_CHANNELS, n_visible=N_VISIBLE,
                 superblock=CRUISE_SUPERBLOCK, sync=None, card="",
-                acq_kernel_name="pcps_bins", settled=True) -> dict:
+                acq_kernel_name="pcps_bins", settled=True, runtime="batch",
+                acq_cfg=None, cn0_dbhz=CN0_DBHZ, code_index_tol=2) -> dict:
     """Drive the port's TrackingSession; check and return what it did.
 
-    ``acq_kernel_name``: the K2 entry the acquisition must launch at this
-    rate. ``settled``: the run is long enough for promotion, bit sync and
-    the 5 Hz carrier bound to be required; a short run checks acquisition
-    and finite outputs only."""
+    ``capture``: ``(sats, re, im)`` of :func:`make_scenario`, made here
+    when None. ``acq_kernel_name``: the K2 entry the acquisition must
+    launch at this rate, or None when it must launch neither (serial
+    search, direct map). ``settled``: the run is long enough for bit
+    sync and the 5 Hz carrier bound to be required (and promotion, in the
+    batch runtime); a short run checks acquisition and finite outputs
+    only. ``runtime``: ``"batch"`` (kaplan pull-in, promotion to cruise;
+    K1 must launch) or ``"scan"`` (borre at 20 ms blocks; no K1)."""
     from sydr_tpu_torch.channels.state import FLAG_BIT_SYNC, MODE_TRACKING
     from sydr_tpu_torch.receiver.session import TrackingSession
 
-    rng = np.random.default_rng(SEED)
-    t0 = time.perf_counter()
-    sats, sig_re, sig_im = make_scenario(rng, signal_ms, fs_in, n_channels,
-                                         n_visible)
-    print(f"capture: {signal_ms} ms at {fs_in / 1e6:g} Msps, "
-          f"{n_visible} satellites, made in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    pull_in, cruise = session_configs(fs_in, superblock)
+    if capture is None:
+        capture = make_scenario(np.random.default_rng(SEED), signal_ms,
+                                fs_in, n_channels, n_visible, cn0_dbhz)
+    sats, sig_re, sig_im = capture
+    sig_re = sig_re[:signal_ms * round(fs_in * 1e-3)]
+    sig_im = sig_im[:len(sig_re)]
+    pull_in, cruise = session_configs(fs_in, superblock, runtime)
     session = TrackingSession(pull_in, list(range(1, n_channels + 1)),
-                              cruise=cruise, device=device)
+                              acq_cfg, cruise=cruise, device=device)
     sync = sync or (lambda: None)
     in_per_ms = round(fs_in * 1e-3)
 
@@ -588,7 +645,10 @@ def slice_phase(device, signal_ms=SIGNAL_MS, fs_in=FS_IN,
     cruise_signal_s, cruise_wall_s = 0.0, 0.0
     while pos + session.block_input_samples <= len(sig_re):
         n_in = session.block_input_samples
-        in_cruise = session.promoted
+        # The timed shape: cruise; in the scan runtime, every block after
+        # the acquisition handoff.
+        in_cruise = session.promoted if cruise is not None \
+            else bool(session.acq_results)
         sync()
         t_call = time.perf_counter()
         out = session.process_block(sig_re[pos:pos + n_in],
@@ -631,7 +691,9 @@ def slice_phase(device, signal_ms=SIGNAL_MS, fs_in=FS_IN,
               f"(truth {ci_truth:4d}) metric {acq['metric']:.2f} | "
               f"bit_sync {synced} carrier error (last 200 ms) "
               f"{err_hz:.3f} Hz", flush=True)
-        ok &= abs(acq["doppler"] - s["doppler"]) <= 100.0 and abs(d_ci) <= 2
+        ok &= (abs(acq["doppler"] - s["doppler"])
+               <= session.acq_cfg.doppler_step
+               and abs(d_ci) <= code_index_tol)
         if settled:
             ok &= synced and err_hz < 5.0
     visible = {s["prn"] - 1 for s in sats}
@@ -639,25 +701,316 @@ def slice_phase(device, signal_ms=SIGNAL_MS, fs_in=FS_IN,
                     for i in range(n_channels) if i not in visible}
     print(f"absent PRNs' modes: {absent_modes}", flush=True)
     rtf = cruise_signal_s / cruise_wall_s if cruise_wall_s else float("nan")
-    print(f"cruise real-time factor {rtf:.4f} ({cruise_signal_s:.2f} s of "
+    print(f"{'cruise' if cruise is not None else 'scan-runtime tracking'} "
+          f"real-time factor {rtf:.4f} ({cruise_signal_s:.2f} s of "
           f"signal in {cruise_wall_s:.3f} s) on {card}", flush=True)
     print(f"launches on the main path: {launches}", flush=True)
 
     check(ok, "a visible satellite failed acquisition, bit sync or the "
               "5 Hz carrier bound")
-    check(promoted_at is not None or not settled,
+    check(promoted_at is not None or not settled or cruise is None,
           "the session never promoted to cruise")
     check(all(m != MODE_TRACKING for m in absent_modes.values()),
           "an absent PRN is tracking")
-    other = ({"pcps_bins", "pcps_bins_fourstep"} - {acq_kernel_name}).pop()
-    check(launches["epoch_correlate"] > 0 and launches[acq_kernel_name] > 0
-          and launches[other] == 0,
-          f"the session's path launched {launches}: expected K1 and "
-          f"{acq_kernel_name}, and no {other}")
+    # K1 in the batch runtime, the named K2 entry, and nothing else.
+    expected = {name: name == acq_kernel_name
+                or (name == "epoch_correlate" and runtime == "batch")
+                for name in launches}
+    check(all((launches[name] > 0) == hit for name, hit in expected.items()),
+          f"the session's path launched {launches}: expected exactly "
+          f"{[name for name, hit in expected.items() if hit]}")
     check(all(np.isfinite(merged[k]).all() for k in
               ("i_prompt", "q_prompt", "carrier_freq")),
           "non-finite tracking output")
-    return {"launches": launches, "rtf": rtf, "promoted_at": promoted_at}
+    return {"launches": launches, "rtf": rtf, "promoted_at": promoted_at,
+            "session": session}
+
+
+def scan_block_profile(session, card) -> None:
+    """``torch.profiler`` over one block of the scan runtime on the
+    session's state: kernel launches per epoch and the device's busy
+    share (the state is not advanced: ``run_block`` returns a new one)."""
+    import torch
+
+    from sydr_tpu_torch.channels import runtime
+
+    cfg = session.cfg
+    window = torch.randn(cfg.window_samples, device=session.device)
+    def run():
+        runtime.run_block(cfg, session.codes, session.state, window, window)
+
+    run()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    n_launch = sum(e.count for e in events if "LaunchKernel" in e.key)
+    device_us = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+                    for e in events)
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"scan runtime, one {cfg.block_ms} ms block of "
+          f"{session.n_channels} channels: {n_launch / cfg.block_ms:.1f} "
+          f"kernel launches per epoch, {plain_ms:.2f} ms wall "
+          f"({wall_ms:.2f} ms under the profiler), device time "
+          f"{device_us / 1e3:.3f} ms "
+          f"({100.0 * device_us / 1e3 / plain_ms:.1f}% of the unprofiled "
+          f"wall) on {card}", flush=True)
+    check(n_launch > 0, "the profiler saw no kernel launch")
+
+
+def serial_search_times(session, card) -> None:
+    """One PRN's serial search apart from the session: the host's build of
+    the code-shift matrix, its upload, and the search on the card (all
+    Doppler chunks and the peak metric, through the Python calls the
+    session makes)."""
+    import torch
+
+    from sydr_tpu_torch.ops import acquisition as acq
+
+    fs = session.cfg.sampling_frequency
+    spms = session.cfg.samples_per_ms
+    dev = session.device
+    t0 = time.perf_counter()
+    shift_host = acq.code_shift_matrix(session.prns[0], fs)
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shift = torch.from_numpy(shift_host).to(dev)
+    torch.cuda.synchronize()
+    upload_ms = 1e3 * (time.perf_counter() - t0)
+    bins = torch.from_numpy(acq.doppler_bins(
+        session.acq_cfg.doppler_range, session.acq_cfg.doppler_step)).to(dev)
+    iq_re = torch.from_numpy(session._hist_re[-spms:].copy()).to(dev)
+    iq_im = torch.from_numpy(session._hist_im[-spms:].copy()).to(dev)
+
+    def search():
+        return acq.peak_metric_ss(acq.serial_search(
+            iq_re, iq_im, shift, bins, sampling_frequency=fs))
+
+    search_ms = cuda_ms(search, 10)
+    print(f"serial search, one PRN, n={spms} x {bins.shape[0]} bins: shift "
+          f"matrix {tuple(shift_host.shape)} built on the host in "
+          f"{build_ms:.1f} ms, uploaded ({shift_host.nbytes / 1e6:.1f} MB) "
+          f"in {upload_ms:.2f} ms, search and peak metric {search_ms:.3f} "
+          f"ms on {card}", flush=True)
+
+
+def direct_map_phase(device, capture, card) -> dict:
+    """The direct PCPS map on the session shape (32 channels, n = 2500).
+
+    A session on a 130 Hz Doppler grid (77 bins on 77 distinct phases, so
+    :func:`shift_plan` declines) must acquire through ``pcps_map`` without
+    launching K2; then, at the production grid, ``pcps_map`` is held
+    against ``pcps_shift_map`` (K2) on the same 50 ms of samples."""
+    import torch
+
+    from sydr_tpu_torch.ops import acquisition as acq
+    from sydr_tpu_torch.receiver.session import AcquisitionConfig
+
+    calls = []
+    real_map = acq.pcps_map
+
+    def spy(*args, **kwargs):
+        calls.append(args[3].shape[0])
+        return real_map(*args, **kwargs)
+
+    acq.pcps_map = spy
+    try:
+        res = slice_phase(
+            device, capture, signal_ms=60, settled=False, card=card,
+            acq_kernel_name=None,
+            acq_cfg=AcquisitionConfig(doppler_step=130.0))
+    finally:
+        acq.pcps_map = real_map
+    check(calls == [77], f"acquire took pcps_map for {calls} bins, expected "
+                         f"one search of 77")
+    session = res["session"]
+
+    # The two maps on the session's 50 ms ring, production grid.
+    fs = session.cfg.sampling_frequency
+    n = session.cfg.samples_per_ms
+    need = session._ring_re.shape[0]
+    n_ch = session.n_channels
+    iq = (session._ring_re[None, :].expand(n_ch, need),
+          session._ring_im[None, :].expand(n_ch, need))
+    code_k = torch.tensor(
+        np.stack([acq.code_fft_conj(p, fs) for p in session.prns]),
+        dtype=torch.complex64, device=device)
+    bins = acq.doppler_bins(5000.0, 100.0)
+    phases, bin_shifts = acq.shift_plan(bins, fs, n)
+    bins_dev = torch.from_numpy(bins).to(device)
+    common = dict(sampling_frequency=fs, coherent=5, non_coherent=10)
+    def shift():
+        return acq.pcps_shift_map(*iq, code_k, phases=phases,
+                                  bin_shifts=bin_shifts, **common)
+
+    def direct():
+        return acq.pcps_map(*iq, code_k, bins_dev, **common)
+
+    before = read_launches()["pcps_bins"]
+    ref, got = shift(), direct()
+    check(read_launches()["pcps_bins"] == before + 1,
+          "pcps_map launched K2, or pcps_shift_map did not")
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    bound = K2_RTOL * float(ref.abs().max())
+    torch.cuda.reset_peak_memory_stats()
+    direct_ms = cuda_ms(direct, 3)
+    direct_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    shift_ms = cuda_ms(shift, 3)
+    shift_peak = torch.cuda.max_memory_allocated()
+    print(f"direct map vs shift map, {n_ch} ch x {len(bins)} bins x n={n}: "
+          f"max_abs_err {err:.3e} (bound {bound:.3e}, "
+          f"{err / float(ref.abs().max()):.2e} of the map's maximum) | "
+          f"pcps_map {direct_ms:.3f} ms a search (peak memory "
+          f"{direct_peak / 1e6:.0f} MB), pcps_shift_map with its spectra "
+          f"{shift_ms:.3f} ms (peak {shift_peak / 1e6:.0f} MB) on {card}",
+          flush=True)
+    check(bool(torch.isfinite(got).all()), "direct map: non-finite output")
+    check(err <= bound, f"direct map: error {err} above bound {bound}")
+    return res
+
+
+def checkpoint_phase(device, sky_path, card) -> dict:
+    """Checkpoint and resume on the demo sky's IQ file, then the CLI with
+    ``--runtime scan --checkpoint-every``.
+
+    One block per ``process_ms`` call, so the receiver holds no pending
+    samples when it saves. Both continuations run the same kernels on the
+    same samples from the same state; the bound is the side-by-side one of
+    the CPU tests (integer outputs equal, carrier within 1 Hz)."""
+    import argparse
+
+    import torch
+
+    from sydr_tpu_torch import main as cli
+    from sydr_tpu_torch.receiver.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from sydr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
+    from sydr_tpu_torch.signal.rf import RFConfig, RFFileSource
+
+    scn = demo_scenario()
+    sats = [s.eph for s in scn.sats]
+    pull_in, cruise = session_configs(FS_IN, 10)
+    cfg = ReceiverConfig(
+        prns=tuple(e.prn for e in sats), tracking=pull_in,
+        cruise_tracking=cruise, approx_position=tuple(scn.rx + 1000.0),
+        assisted_ephemerides={e.prn: e for e in sats}, tropo_enabled=False)
+    in_per_ms = round(FS_IN * 1e-3)
+
+    def source():
+        return RFFileSource(RFConfig(filepath=sky_path,
+                                     sampling_frequency=FS_IN, data_size=8,
+                                     is_complex=True))
+
+    def step(rx, src):
+        rx.process_ms(src.read_ms(
+            rx.session.block_input_samples // in_per_ms))
+
+    keys = ("active", "flags", "required", "unread", "bit_ready",
+            "carrier_freq", "i_prompt", "q_prompt")
+    reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rx, src = Receiver(cfg, device=device), source()
+        try:
+            while not rx.session.promoted:
+                step(rx, src)
+                check(rx.session.total_samples * DECIMATE
+                      < (RX_MS - 3000) * in_per_ms,
+                      "the receiver never promoted")
+            step(rx, src)                         # one cruise superblock
+            check(len(rx._pend_re) == 0, "pending samples at the save")
+            fed_ms = rx.session.total_samples * DECIMATE // in_per_ms
+            path = os.path.join(tmp, "smoke.ckpt.npz")
+            save_checkpoint(rx, path)
+            t_saved = time.perf_counter() - t0
+            n_pull_in = read_launches()["epoch_correlate"]
+            rx2, src2 = Receiver(cfg, device=device), source()
+            try:
+                load_checkpoint(rx2, path)
+                check(rx2.session.promoted
+                      and rx2.session.cfg is rx2.session.cruise_cfg,
+                      "the resumed receiver is not in the cruise shape")
+                check(rx2.session.state.carrier_freq.device.type == "cuda",
+                      "the resumed state is not on the card")
+                src2.read_ms(fed_ms)
+                exact, worst_hz = True, 0.0
+                for _ in range(5):
+                    step(rx, src)
+                    step(rx2, src2)
+                    a, b = rx.last_outputs, rx2.last_outputs
+                    for k in keys[:5]:
+                        check(np.array_equal(a[k], b[k]),
+                              f"resumed run differs in {k}")
+                    worst_hz = max(worst_hz, float(np.abs(
+                        a["carrier_freq"] - b["carrier_freq"]).max()))
+                    exact &= all(np.array_equal(a[k], b[k]) for k in keys)
+            finally:
+                src2.close()
+        finally:
+            src.close()
+        launches = read_launches()
+        print(f"checkpoint: saved at {fed_ms} ms (promoted, "
+              f"{os.path.getsize(path) / 1e3:.0f} kB, reached in "
+              f"{t_saved:.1f} s); resumed receiver promoted on load; 5 "
+              f"superblocks of {cruise.block_ms * cruise.superblock} ms "
+              f"side by side: integer outputs equal, carrier within "
+              f"{worst_hz:.6f} Hz (bound 1 Hz), bit-identical: {exact}; "
+              f"launches {launches} on {card}", flush=True)
+        check(worst_hz <= 1.0, f"resumed carrier differs by {worst_hz} Hz")
+        check(rx2.last_outputs["active"].shape[0]
+              == cruise.block_ms * cruise.superblock,
+              "the resumed receiver did not run cruise superblocks")
+        # Pull-in ran once, in the first receiver only: the second one's K1
+        # launches are 5 superblocks of cruise blocks.
+        check(launches["epoch_correlate"] - n_pull_in
+              == 2 * 5 * cruise.superblock,
+              f"K1 launches after the save: "
+              f"{launches['epoch_correlate'] - n_pull_in}")
+        check([(c.n_codes, c.bits_pushed, c.tow_ref) for c in rx.channels]
+              == [(c.n_codes, c.bits_pushed, c.tow_ref)
+                  for c in rx2.channels],
+              "resumed bookkeeping differs")
+
+        # The CLI: scan runtime, a checkpoint every 200 ms.
+        argv = ["--demo", "--fs", "4e6", "--runtime", "scan", "--ms", "400",
+                "--checkpoint-every", "200", "--device", "cuda",
+                "--no-dashboard", "--no-report", "--out", tmp]
+        print(f"cli: sydr_tpu_torch.main.main({argv})", flush=True)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        print(buf.getvalue().rstrip(), flush=True)
+        check(rc == 0, f"the CLI returned {rc}")
+        ckpt = os.path.join(tmp, "demo.ckpt.npz")
+        check(os.path.exists(ckpt), "the CLI left no checkpoint")
+        run_cfg, _ = cli._build_demo(argparse.Namespace(
+            fs=4e6, decimate=1, runtime="scan", pallas=False, superblock=1,
+            quantize=False, no_cruise=False, cruise_superblock=50, ms=400,
+            out=tmp))
+        rx3 = Receiver(run_cfg.receiver, device=device)
+        load_checkpoint(rx3, ckpt)
+        check(rx3.session.total_samples == 400 * 4000
+              and rx3._epochs_done == 400
+              and len(rx3.session.acq_results) == len(sats),
+              "the CLI's checkpoint does not hold the run's state")
+        print(f"cli checkpoint: {os.path.getsize(ckpt) / 1e3:.0f} kB, "
+              f"loads at {rx3.session.total_samples} samples with "
+              f"{len(rx3.session.acq_results)} acquisition results",
+              flush=True)
+    torch.cuda.synchronize()
+    return {"launches": launches}
 
 
 def kernels():
@@ -884,9 +1237,11 @@ def main(argv=None) -> int:
 
     timed("parity", parity_phase, device)
     paths = {}
+    rng = np.random.default_rng(SEED)
+    capture = make_scenario(rng, SIGNAL_MS, FS_IN, N_CHANNELS, N_VISIBLE)
     paths["session"] = timed(
-        "session", slice_phase, device, sync=torch.cuda.synchronize,
-        card=card)
+        "session", slice_phase, device, capture,
+        sync=torch.cuda.synchronize, card=card)
     # The prefix phase's IQ file is written by a child process while the
     # CLI phase runs.
     with tempfile.TemporaryDirectory() as tmp:
@@ -904,6 +1259,8 @@ def main(argv=None) -> int:
                   f"writing the IQ file failed ({writer.exitcode})")
             paths["prefix receiver"] = timed(
                 "prefix receiver", prefix_receiver_phase, device, sky)
+            paths["checkpoint"] = timed(
+                "checkpoint", checkpoint_phase, device, sky, card)
         finally:
             if writer.is_alive():
                 writer.terminate()
@@ -916,6 +1273,28 @@ def main(argv=None) -> int:
             f"session at n={n}", slice_phase, device, signal_ms=300,
             fs_in=n * 1e3 * DECIMATE, n_channels=8, n_visible=4,
             acq_kernel_name=entry, settled=False, card=card)
+
+    # The scan runtime at full width, on the first 2 s of the capture.
+    res = timed("scan session", slice_phase, device, capture,
+                signal_ms=SCAN_SIGNAL_MS, runtime="scan",
+                sync=torch.cuda.synchronize, card=card)
+    scan_block_profile(res["session"], card)
+    paths["scan session"] = res
+    from sydr_tpu_torch.receiver.session import AcquisitionConfig
+
+    res = timed(
+        "serial-search session", slice_phase, device, signal_ms=300,
+        n_channels=8, n_visible=4, settled=False, card=card,
+        acq_kernel_name=None, cn0_dbhz=SERIAL_CN0_DBHZ,
+        code_index_tol=SERIAL_CODE_INDEX_TOL,
+        acq_cfg=AcquisitionConfig(method="serial",
+                                  doppler_step=SERIAL_DOPPLER_STEP,
+                                  threshold=SERIAL_THRESHOLD))
+    serial_search_times(res["session"], card)
+    paths["serial-search session"] = res
+    paths["direct map"] = timed("direct map", direct_map_phase, device,
+                                capture, card)
+    del capture
 
     for name, by_case in cases.items():
         for case, res in by_case.items():

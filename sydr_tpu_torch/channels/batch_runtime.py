@@ -5,8 +5,10 @@ Port of ``sydr_tpu.channels.batch_runtime``. With NCO rates frozen for one
 block, code and carrier phase are linear in the consumed sample index, so
 a block splits into:
 
-  Pass A ([n_ch] wide, closed form): epoch boundaries, per-epoch phases and
-      active gating under frozen rates (:func:`_pass_a_closed`).
+  Pass A ([n_ch] wide): epoch boundaries, per-epoch phases and active
+      gating under frozen rates, in closed form (:func:`_pass_a_closed`,
+      the default) or by the per-epoch recurrence (:func:`_pass_a_scan`,
+      the oracle form; ``TrackingConfig.pass_a``).
   Pass B: every epoch's E/P/L correlators from the per-millisecond
       anchors of :func:`block_geometry`: by default in one launch of CUDA
       kernel K1 (``ops.correlator_kernel.epoch_correlate``); in the prefix
@@ -111,8 +113,60 @@ def _rates(cfg: TrackingConfig, st: ChannelState):
 
 
 # ---------------------------------------------------------------------------
-# Pass A: frozen-rate epoch geometry (closed form)
+# Pass A: frozen-rate epoch geometry
 # ---------------------------------------------------------------------------
+
+def _pass_a(cfg: TrackingConfig, st: ChannelState):
+    """Epoch boundaries and phases for the block under frozen rates.
+
+    Returns a dict of ``[block_ms, n_ch]`` tensors (required, active,
+    consumed-sample offsets ``b_start``, rem_code and rem_carrier per
+    epoch, unread after each epoch) plus end-of-block ``[n_ch]`` values
+    and the frozen rates. Two equivalent forms (``cfg.pass_a``): the
+    closed-form vectorised evaluation and the per-epoch recurrence.
+    """
+    if cfg.pass_a == "closed":
+        return _pass_a_closed(cfg, st)
+    if cfg.pass_a == "scan":
+        return _pass_a_scan(cfg, st)
+    raise ValueError(
+        f"TrackingConfig.pass_a must be 'closed' or 'scan', "
+        f"got {cfg.pass_a!r}")
+
+
+def _pass_a_scan(cfg: TrackingConfig, st: ChannelState):
+    """Reference-structured pass A: one step per epoch, with the scan
+    runtime's phase arithmetic (``runtime.scan_phase_advance``). Unlike
+    the closed form, a channel short of samples skips single epochs, not
+    the whole block."""
+    spms = cfg.samples_per_ms
+    delta, code_step, omega = _rates(cfg, st)
+    tracking = st.mode == MODE_TRACKING
+    rem_code, rem_carrier, unread = st.rem_code, st.rem_carrier, st.unread
+    consumed = torch.zeros_like(st.unread)
+    rows = []
+    for e in range(cfg.block_ms):
+        unread = torch.clamp(unread + spms, max=(cfg.tail_ms + e + 1) * spms)
+        required = torch.ceil(
+            (GPS_L1CA_CODE_LENGTH - rem_code) / code_step).to(I32)
+        active = tracking & (unread >= required)
+        req_eff = torch.where(active, required, 0)
+        unread = unread - req_eff
+        rows.append({
+            "required": required, "active": active, "b_start": consumed,
+            "rem_code": rem_code, "rem_carrier": rem_carrier,
+            "unread_after": unread})
+        new_code, new_carrier = runtime_mod.scan_phase_advance(
+            cfg, rem_code, rem_carrier, required, delta, omega)
+        rem_code = torch.where(active, new_code, rem_code)
+        rem_carrier = torch.where(active, new_carrier, rem_carrier)
+        consumed = consumed + req_eff
+    seq = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    seq.update(rem_code_end=rem_code, rem_carrier_end=rem_carrier,
+               unread_end=unread, consumed_end=consumed,
+               code_step=code_step, omega=omega, delta=delta)
+    return seq
+
 
 def _pass_a_closed(cfg: TrackingConfig, st: ChannelState):
     """All epoch boundaries of the block in one vectorised shot.
@@ -487,10 +541,7 @@ def run_block_batched(cfg: TrackingConfig, bits3x, state: ChannelState,
     the state's device); ``window_re/im`` hold ``tail_ms + block_ms``
     milliseconds. Returns (state, outputs ``[block_ms, n_ch]``).
     """
-    if cfg.pass_a != "closed":
-        raise ValueError(
-            f"pass_a={cfg.pass_a!r}: only the closed form is ported")
-    geo = _pass_a_closed(cfg, state)
+    geo = _pass_a(cfg, state)
     corr = _pass_b(cfg, bits3x, state, geo, window_re, window_im)
     new_state, outputs = _pass_c(cfg, state, geo, corr)
     return runtime_mod._slew_anchor(cfg, new_state), outputs

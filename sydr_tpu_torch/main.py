@@ -140,10 +140,6 @@ def main(argv=None) -> int:
             print(f"--device {device}: CUDA is not available (use --cpu "
                   f"to run on the CPU)", file=sys.stderr)
             return 2
-    if args.checkpoint_every:
-        print("--checkpoint-every: checkpointing is not ported yet",
-              file=sys.stderr)
-        return 2
 
     # Layered logging (reference logger.py:22-30 + config/logging.ini):
     # INFO console + DEBUG file in the output folder; --log-config applies
@@ -226,6 +222,14 @@ def main(argv=None) -> int:
             processed += n
             if receiver.last_outputs is not None:
                 dash.update(receiver.last_outputs)
+            if args.checkpoint_every and processed % args.checkpoint_every == 0:
+                from sydr_tpu_torch.receiver.checkpoint import save_checkpoint
+
+                save_checkpoint(
+                    receiver,
+                    os.path.join(run_cfg.out_folder,
+                                 f"{run_cfg.name}.ckpt.npz"),
+                )
     finally:
         dash.close()
         source.close()

@@ -1,16 +1,23 @@
-"""PCPS (Parallel Code Phase Search) acquisition on PyTorch.
+"""Acquisition on PyTorch: PCPS (Parallel Code Phase Search) and the
+time-domain serial search.
 
-Port of the shift-theorem path of ``sydr_tpu.ops.acquisition``: when the
-Doppler step divides the DFT bin spacing ``fs / n``, every Doppler bin is
-an integer DFT-bin shift ``k`` of one of a few fractional phase offsets, so
-carrier mixing and the forward transform run once per phase
-(``torch.fft.fft`` in complex64) and each bin costs one spectrum product
-with a rolled code spectrum plus one inverse transform — the per-bin chain
-of kernel K2 (``ops.acq_kernel.pcps_bins``).
+Port of ``sydr_tpu.ops.acquisition``. PCPS has two maps with one contract.
+The shift-theorem map (:func:`pcps_shift_map`): when the Doppler step
+divides the DFT bin spacing ``fs / n``, every Doppler bin is an integer
+DFT-bin shift ``k`` of one of a few fractional phase offsets, so carrier
+mixing and the forward transform run once per phase (``torch.fft.fft`` in
+complex64) and each bin costs one spectrum product with a rolled code
+spectrum plus one inverse transform — the per-bin chain of kernel K2
+(``ops.acq_kernel.pcps_bins``). The direct map (:func:`pcps_map`) mixes and
+transforms once per bin, a few bins at a time, and serves bin grids that
+do not decompose or reuse too few phases (:func:`shift_plan`). The serial
+search (:func:`serial_search`) wipes the carrier per Doppler bin and
+correlates one code period against all 1023 chip shifts in one matrix
+product.
 
 The JAX package's matmul DFT (``ops/fft.py``) existed only because its TPU
-backend had no complex dtype; it is not ported. Sign conventions are
-direct: bin ``d`` wipes a carrier at ``f_if + d`` and the returned Doppler
+backend had no complex dtype; ``torch.fft`` stands in its place. Sign
+conventions are direct: bin ``d`` wipes a carrier at ``f_if + d`` and the returned Doppler
 is the bin value itself.
 """
 
@@ -21,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from sydr_tpu_torch.constants import GPS_L1CA_CODE_FREQ
+from sydr_tpu_torch.constants import GPS_L1CA_CODE_FREQ, GPS_L1CA_CODE_LENGTH
 from sydr_tpu_torch.ops import acq_kernel
 from sydr_tpu_torch.signal import cacode
 
@@ -48,15 +55,62 @@ def split_reim(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     )
 
 
-def shift_plan(bins: np.ndarray, sampling_frequency: float, n: int):
+def pcps_map(iq_re, iq_im, code_k, bins, *, sampling_frequency,
+             intermediate_frequency=0.0, coherent=5, non_coherent=10,
+             doppler_chunk=4):
+    """PCPS correlation map ``[n_ch, n_dop, n]`` f32, one mix and forward
+    transform per Doppler bin (the direct map).
+
+    Args:
+        iq_re, iq_im: ``[n_ch, non_coherent * coherent * n]`` f32 samples.
+        code_k: ``[n_ch, n]`` complex64 conj(DFT(code replica)).
+        bins: ``[n_dop]`` f32 Doppler bins [Hz] on the samples' device.
+        doppler_chunk: bins evaluated at once; bounds the working set at
+            ``doppler_chunk * n_ch * non_coherent * coherent * n`` complex
+            samples whatever the number of bins.
+    """
+    n_ch, n = code_k.shape
+    blocks_re = iq_re.reshape(n_ch, non_coherent, coherent, n)
+    blocks_im = iq_im.reshape(n_ch, non_coherent, coherent, n)
+    t = (torch.arange(coherent * n, dtype=torch.float32, device=iq_re.device)
+         / sampling_frequency).reshape(coherent, n)
+    maps = []
+    for b0 in range(0, bins.shape[0], doppler_chunk):
+        # Carrier phase restarts at each non-coherent block (reference
+        # semantics: one carrier vector of length coherent*n per block).
+        freqs = intermediate_frequency + bins[b0:b0 + doppler_chunk]
+        phase = -2.0 * math.pi * freqs[:, None, None] * t   # [dc, coh, n]
+        cos = torch.cos(phase)[:, None, None]
+        sin = torch.sin(phase)[:, None, None]
+        mixed = torch.complex(blocks_re * cos - blocks_im * sin,
+                              blocks_re * sin + blocks_im * cos)
+        # The coherent sum commutes with the linear inverse DFT.
+        spec = torch.fft.fft(mixed, dim=-1).sum(dim=3)      # [dc, ch, nc, n]
+        corr = torch.fft.ifft(spec * code_k[None, :, None, :], dim=-1)
+        maps.append(corr.abs().sum(dim=2))                  # [dc, ch, n]
+    return torch.cat(maps).permute(1, 0, 2).contiguous()
+
+
+# "auto" takes the shift-theorem map at every decomposable grid with
+# enough phase reuse and the direct map otherwise.
+ACQ_MODE_DEFAULT = "auto"
+
+
+def shift_plan(bins: np.ndarray, sampling_frequency: float, n: int,
+               mode: str = ACQ_MODE_DEFAULT):
     """(phases, bin_shifts) for :func:`pcps_shift_map`, or None.
 
     ``bin_shifts`` holds per bin ``(k, phase_index)`` with
     ``bin_hz = k * fs/n + phases[phase_index]``; None when the bins do not
-    decompose onto integer DFT-bin shifts. (The JAX package also declines
-    a plan with little phase reuse, in favour of its direct map; the port
-    has only the shift-theorem map.)
+    decompose onto integer DFT-bin shifts, and then :func:`acquire` takes
+    the direct map. ``mode``: ``"direct"`` never plans; ``"auto"`` also
+    declines a plan that reuses each phase fewer than about three times
+    (it would hold one forward spectrum set per bin at once, where the
+    direct map holds ``doppler_chunk``); ``"shift"`` plans whenever the
+    bins decompose.
     """
+    if mode == "direct":
+        return None
     f_bin = sampling_frequency / n
     phases: list[float] = []
     shifts: list[tuple[int, int]] = []
@@ -74,6 +128,8 @@ def shift_plan(bins: np.ndarray, sampling_frequency: float, n: int):
             phases.append(rem)
             match = len(phases) - 1
         shifts.append((k, match))
+    if mode != "shift" and len(phases) > max(4, len(shifts) // 3):
+        return None  # not enough reuse to be worth it
     return tuple(phases), tuple(shifts)
 
 
@@ -149,16 +205,18 @@ def peak_metric(corr_map, bins, *, samples_per_chip: int):
 
 def acquire(iq, code_ffts, bins, *, sampling_frequency: float,
             intermediate_frequency: float = 0.0, coherent: int = 5,
-            non_coherent: int = 10):
+            non_coherent: int = 10, doppler_chunk: int = 4):
     """Full PCPS acquisition: map + peak metric, on ``iq``'s device.
 
     Args:
         iq: ``(re, im)`` f32 tensors ``[n_ch, non_coherent*coherent*n]``.
         code_ffts: ``[n_ch, n]`` conj code DFTs, a complex tensor or a host
             complex array (moved to ``iq``'s device as complex64).
-        bins: Doppler bins [Hz] (host array); they must decompose onto
-            the shift plan (:func:`shift_plan`), as the receiver's
-            100 Hz-step grid does at every supported rate.
+        bins: Doppler bins [Hz] (host array), any length. Where they have
+            a shift plan (:func:`shift_plan`), as the receiver's 100 Hz-step
+            grid has at every supported rate, the map is
+            :func:`pcps_shift_map` (kernel K2); otherwise :func:`pcps_map`,
+            ``doppler_chunk`` bins at a time.
 
     Returns (doppler [n_ch], code_index [n_ch], metric [n_ch],
     map [n_ch, n_dop, n]) as tensors on ``iq``'s device.
@@ -169,18 +227,90 @@ def acquire(iq, code_ffts, bins, *, sampling_frequency: float,
     n = code_k.shape[-1]
     bins = np.asarray(bins, dtype=np.float32)
     plan = shift_plan(bins, sampling_frequency, n)
-    if plan is None:
-        raise ValueError(
-            f"Doppler bins do not decompose onto shifts of fs/n = "
-            f"{sampling_frequency / n} Hz; only the shift-theorem map is "
-            f"ported")
-    phases, bin_shifts = plan
-    corr = pcps_shift_map(
-        iq_re, iq_im, code_k, sampling_frequency=sampling_frequency,
-        intermediate_frequency=intermediate_frequency, coherent=coherent,
-        non_coherent=non_coherent, phases=phases, bin_shifts=bin_shifts)
+    bins_dev = torch.from_numpy(bins).to(dev)
+    common = dict(sampling_frequency=sampling_frequency,
+                  intermediate_frequency=intermediate_frequency,
+                  coherent=coherent, non_coherent=non_coherent)
+    if plan is not None:
+        phases, bin_shifts = plan
+        corr = pcps_shift_map(iq_re, iq_im, code_k, phases=phases,
+                              bin_shifts=bin_shifts, **common)
+    else:
+        corr = pcps_map(iq_re, iq_im, code_k, bins_dev,
+                        doppler_chunk=doppler_chunk, **common)
     samples_per_chip = round(sampling_frequency / GPS_L1CA_CODE_FREQ)
     doppler, code_idx, metric = peak_metric(
-        corr, torch.from_numpy(bins).to(dev),
-        samples_per_chip=samples_per_chip)
+        corr, bins_dev, samples_per_chip=samples_per_chip)
     return doppler, code_idx, metric, corr
+
+
+# ---------------------------------------------------------------------------
+# Serial search (time-domain) acquisition
+# ---------------------------------------------------------------------------
+
+def code_shift_matrix(prn: int, sampling_frequency: float) -> np.ndarray:
+    """``[samples_per_code, 1023]`` float32: column k = code shifted k chips.
+
+    Host-precomputed operand of the matrix-product serial search (one per
+    PRN; ~40 MB at 10 Msps).
+    """
+    code = cacode.ca_code(prn)
+    cols = [
+        cacode.upsample_code(np.roll(code, k), sampling_frequency)
+        for k in range(GPS_L1CA_CODE_LENGTH)
+    ]
+    return np.stack(cols, axis=1).astype(np.float32)
+
+
+def serial_search(iq_re, iq_im, shift_matrix, bins, *, sampling_frequency,
+                  intermediate_frequency=0.0, doppler_chunk=8):
+    """Time-domain acquisition: carrier wipe-off then code-shift product.
+
+    The code-shift axis is one matrix product per Doppler chunk::
+
+        map[f, k] = |mixed_f . C[:, k]|^2
+
+    The products are float32 ``torch.matmul``; on a CUDA device they must
+    stay out of TF32 (``torch.backends.cuda.matmul.allow_tf32`` at its
+    default, False): the metric is a ratio of squared sums over a whole
+    code period, and 10 mantissa bits would put the rounding of 2500 to
+    10000 terms at the level of the noise peaks it is compared with.
+
+    Args:
+        iq_re/iq_im: ``[n]`` float32 (one code period).
+        shift_matrix: ``[n, 1023]`` from :func:`code_shift_matrix`.
+        bins: ``[n_dop]`` float32 Doppler bins [Hz], any length.
+
+    Returns ``[n_dop, 1023]`` float32 correlation map.
+    """
+    n = iq_re.shape[-1]
+    t = torch.arange(n, dtype=torch.float32, device=iq_re.device) \
+        / sampling_frequency
+    maps = []
+    for b0 in range(0, bins.shape[0], doppler_chunk):
+        phase = -2.0 * math.pi * (
+            intermediate_frequency + bins[b0:b0 + doppler_chunk, None]) * t
+        cos, sin = torch.cos(phase), torch.sin(phase)
+        mre = iq_re * cos - iq_im * sin
+        mim = iq_re * sin + iq_im * cos
+        i_corr = torch.matmul(mre, shift_matrix)
+        q_corr = torch.matmul(mim, shift_matrix)
+        maps.append(i_corr**2 + q_corr**2)
+    return torch.cat(maps)
+
+
+def peak_metric_ss(corr_map):
+    """Two-peak metric with a 3x3 exclusion box (the reference's
+    ``TwoCorrelationPeakComparison_SS``).
+
+    Returns ((freq_idx, code_idx), metric) as 0-dim tensors.
+    """
+    n_dop, n_code = corr_map.shape
+    flat = torch.argmax(corr_map)
+    fi, ci = flat // n_code, flat % n_code
+    peak1 = corr_map[fi, ci]
+    fgrid = torch.arange(n_dop, device=corr_map.device)[:, None]
+    cgrid = torch.arange(n_code, device=corr_map.device)[None, :]
+    excl = ((fgrid - fi).abs() <= 1) & ((cgrid - ci).abs() <= 1)
+    peak2 = torch.where(excl, -math.inf, corr_map).amax()
+    return (fi, ci), peak1 / peak2

@@ -1,10 +1,17 @@
-"""Tracking-loop DSP: discriminators, loop filters, lock indicators, C/N0.
+"""Tracking-loop DSP: EPL correlators, discriminators, loop filters, lock
+indicators, C/N0.
 
-Port of ``sydr_tpu.ops.tracking`` (its per-epoch scalar half,
-``:303-468``): every function works elementwise on ``[n_ch]`` float32
-tensors. The EPL correlator forms of that module serve the per-ms scan
-runtime, which is not ported yet; the batched runtime correlates in
-``ops.correlator_kernel``.
+Port of ``sydr_tpu.ops.tracking``. The discriminators, filters and
+indicators work elementwise on ``[n_ch]`` float32 tensors. The EPL
+correlator (:func:`epl_correlate`) serves the per-ms scan runtime
+(``channels.runtime.run_block``) and is batched over the channel axis:
+``[n_ch, window_size]`` windows where the JAX code maps a per-channel
+function over channels. It keeps one chip-lookup form, the direct gather
+(the JAX package's other forms exist for a backend with slow gathers);
+the batched runtime correlates in ``ops.correlator_kernel``.
+
+Chip lookups index a 1025-long padded code (one wraparound chip each
+side) with ``ceil(rem_code + spacing + n * code_step)``.
 """
 
 from __future__ import annotations
@@ -13,7 +20,89 @@ import math
 
 import torch
 
+from sydr_tpu_torch.ops.correlator_kernel import fma32
+
 TWO_PI = 2.0 * math.pi
+N_PADDED = 1025  # padded code length
+
+
+# ---------------------------------------------------------------------------
+# Carrier replica and mixing
+# ---------------------------------------------------------------------------
+
+def mix_carrier(window_re, window_im, carrier_freq, rem_carrier,
+                sampling_frequency):
+    """Wipe the carrier off IQ windows ``[..., window_size]``.
+
+    Returns the mixed signal ``exp(j*(-2*pi*f*n/fs + rem)) * window`` as
+    (re, im) float32 tensors; ``carrier_freq`` and ``rem_carrier`` are
+    tensors of the windows' leading shape.
+    """
+    n = torch.arange(window_re.shape[-1], dtype=torch.float32,
+                     device=window_re.device)
+    rate = TWO_PI * carrier_freq * (1.0 / sampling_frequency)
+    phase = rem_carrier[..., None] - rate[..., None] * n
+    cos, sin = torch.cos(phase), torch.sin(phase)
+    mixed_re = cos * window_re - sin * window_im
+    mixed_im = cos * window_im + sin * window_re
+    return mixed_re, mixed_im
+
+
+def advance_carrier_phase(rem_carrier, carrier_freq, n_samples,
+                          sampling_frequency):
+    """Carrier phase remainder after ``n_samples``."""
+    rem = rem_carrier - TWO_PI * carrier_freq * (
+        n_samples.to(torch.float32) * (1.0 / sampling_frequency))
+    return torch.remainder(rem, TWO_PI)
+
+
+# ---------------------------------------------------------------------------
+# EPL correlators
+# ---------------------------------------------------------------------------
+
+def _epl_gather(mixed_re, mixed_im, code_padded, required, rem_code,
+                code_step, spacings):
+    """One chip gather per sample; ``[..., 2 * len(spacings)]``."""
+    w = mixed_re.shape[-1]
+    n_i = torch.arange(w, device=mixed_re.device)
+    n = n_i.to(torch.float32)
+    valid = (n_i < required[..., None]).to(torch.float32)
+    mre, mim = mixed_re * valid, mixed_im * valid
+    outs = []
+    for sp in spacings:
+        # Fused multiply-add, as the compiled JAX reference rounds it: the
+        # ``ceil`` turns a one-ulp difference into another chip.
+        idx = torch.ceil(fma32(n, code_step[..., None],
+                               (rem_code + sp)[..., None]))
+        chips = torch.gather(
+            code_padded, -1, idx.to(torch.int64).clamp(0, N_PADDED - 1))
+        outs.append((chips * mre).sum(dim=-1))
+        outs.append((chips * mim).sum(dim=-1))
+    return torch.stack(outs, dim=-1)
+
+
+def epl_correlate(window_re, window_im, code_padded, required, carrier_freq,
+                  rem_carrier, rem_code, code_step,
+                  spacings=(-0.5, 0.0, 0.5),
+                  sampling_frequency: float = 10e6):
+    """Early/Prompt/Late correlation over fixed windows.
+
+    Args:
+        window_re, window_im: ``[n_ch, window_size]`` float32 IQ planes,
+            each row starting at its channel's code period boundary.
+        code_padded: ``[n_ch, 1025]`` float32 padded +/-1 chips.
+        required: ``[n_ch]`` int32 valid samples (<= window_size); samples
+            beyond it are masked.
+        carrier_freq, rem_carrier, rem_code, code_step: ``[n_ch]`` float32.
+        spacings: static correlator spacings in chips.
+
+    Returns:
+        ``[n_ch, 2 * len(spacings)]`` float32: (i, q) per spacing in order.
+    """
+    mixed_re, mixed_im = mix_carrier(
+        window_re, window_im, carrier_freq, rem_carrier, sampling_frequency)
+    return _epl_gather(mixed_re, mixed_im, code_padded, required, rem_code,
+                       code_step, spacings)
 
 
 # ---------------------------------------------------------------------------

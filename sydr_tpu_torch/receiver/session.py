@@ -2,10 +2,12 @@
 
 Port of ``sydr_tpu.receiver.session``. :class:`TrackingSession` owns the
 channel state on its device, assembles the sliding sample window per
-block (host boxcar decimation and int8 upload), runs PCPS acquisition
-from a device-resident sample ring, hands acquired channels to tracking,
-and promotes from the pull-in loop shape to the cruise shape
-(:class:`CruisePolicy`).
+block (host boxcar decimation and int8 upload), runs acquisition (PCPS
+from a device-resident sample ring, or the time-domain serial search from
+the host sample history), hands acquired channels to tracking in either
+runtime (``TrackingConfig.runtime``: the batched runtime or the per-ms
+scan runtime), and promotes from the pull-in loop shape to the cruise
+shape (:class:`CruisePolicy`).
 
 Sample accounting: the session counts the samples fed
 (``total_samples``); each channel's read position is
@@ -13,8 +15,8 @@ Sample accounting: the session counts the samples fed
 inside the acquisition window, ``unread = samples_per_code - code_index -
 1`` (the reference's alignment).
 
-Only the batched runtime (``runtime="batch"``) is ported; the per-ms scan
-runtime, serial-search acquisition and mesh sharding are not.
+One device: the JAX session's optional channel-sharding ``mesh`` has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from sydr_tpu_torch.channels.state import (
     MODE_TRACKING,
     FIELDS,
     ChannelState,
+    code_table,
     init_state,
 )
 from sydr_tpu_torch.constants import (
@@ -73,7 +76,8 @@ class AcquisitionConfig:
     coherent: int = 5
     non_coherent: int = 10
     threshold: float = 1.5
-    # Only "pcps" is ported; "serial" (time-domain search) is not.
+    # "pcps" (FFT circular correlation) or "serial" (time-domain
+    # matrix-product search, the reference's SerialSearch channel variant).
     method: str = "pcps"
     # A below-threshold search re-arms after this much fresh signal
     # (0 disables retry).
@@ -81,11 +85,13 @@ class AcquisitionConfig:
 
     @property
     def required_ms(self) -> int:
+        if self.method == "serial":
+            return 1
         return self.coherent * self.non_coherent
 
 
 class TrackingSession:
-    """Drives the batched channel runtime over a streamed IQ signal."""
+    """Drives the channel runtime over a streamed IQ signal."""
 
     _BOOL_KEYS = frozenset({"active", "bit_ready"})
 
@@ -106,15 +112,9 @@ class TrackingSession:
         code tables, sample ring and all tracking/acquisition work live.
         """
         for c in (cfg, cruise):
-            if c is not None and c.runtime != "batch":
-                raise ValueError(
-                    f"runtime={c.runtime!r}: only the batch runtime is "
-                    f"ported")
+            if c is not None and c.runtime != "batch" and c.superblock != 1:
+                raise ValueError("superblock requires the batch runtime")
         self.acq_cfg = acq_cfg or AcquisitionConfig()
-        if self.acq_cfg.method != "pcps":
-            raise ValueError(
-                f"acquisition method {self.acq_cfg.method!r}: only pcps is "
-                f"ported")
         if cruise is not None and not (
                 cruise.tail_ms == cfg.tail_ms
                 and cruise.samples_per_ms == cfg.samples_per_ms
@@ -132,6 +132,9 @@ class TrackingSession:
         self.promoted = False
         self._stable_blocks = 0
         self.n_channels = len(prns)
+        # Code tables of the two runtimes: padded chips (scan) and tiled
+        # code bits (batch).
+        self.codes = torch.from_numpy(code_table(prns)).to(self.device)
         self.bits3x = torch.from_numpy(
             batch_runtime.tiled_code_bits(prns)).to(self.device)
         self.mode_host = np.where(
@@ -142,11 +145,15 @@ class TrackingSession:
             mode=torch.tensor(self.mode_host, device=self.device))
         spms = cfg.samples_per_ms
         self.total_samples = 0
+        # Host history (the last required_ms of IQ): the serial search
+        # reads it and a checkpoint stores it.
+        hist = self.acq_cfg.required_ms * spms
+        self._hist_re = np.zeros(hist, dtype=np.float32)
+        self._hist_im = np.zeros(hist, dtype=np.float32)
         # Device-resident acquisition ring: the PCPS search reads the last
         # required_ms of samples straight from device memory (kept by the
         # block step from the samples already uploaded for tracking), so a
         # search re-uploads nothing.
-        hist = self.acq_cfg.required_ms * spms
         self._ring_re = torch.zeros(hist, dtype=torch.float32,
                                     device=self.device)
         self._ring_im = torch.zeros_like(self._ring_re)
@@ -155,13 +162,27 @@ class TrackingSession:
         self._tail_re = np.zeros(tail, dtype=np.float32)
         self._tail_im = np.zeros(tail, dtype=np.float32)
         self._code_ffts: dict[int, np.ndarray] | None = None
+        self._shift_matrices: dict[int, np.ndarray] = {}
         self.acq_results: dict[int, dict] = {}
         # Earliest total_samples at which a failed channel may retry.
         self._acq_retry_at: dict[int, int] = {}
 
     # ------------------------------------------------------------------
+    def _update_hist(self, block_re, block_im):
+        h = len(self._hist_re)
+        n = len(block_re)
+        if n >= h:
+            self._hist_re[:] = block_re[-h:]
+            self._hist_im[:] = block_im[-h:]
+        else:
+            self._hist_re = np.roll(self._hist_re, -n)
+            self._hist_im = np.roll(self._hist_im, -n)
+            self._hist_re[-n:] = block_re
+            self._hist_im[-n:] = block_im
+
+    # ------------------------------------------------------------------
     def _maybe_acquire(self):
-        """Run PCPS for channels in ACQUIRING mode once enough history."""
+        """Search for channels in ACQUIRING mode once enough history."""
         pending = [
             i for i in range(self.n_channels)
             if self.mode_host[i] == MODE_ACQUIRING
@@ -169,6 +190,9 @@ class TrackingSession:
         ]
         need = self.acq_cfg.required_ms * self.cfg.samples_per_ms
         if not pending or self.total_samples < need:
+            return
+        if self.acq_cfg.method == "serial":
+            self._acquire_serial(pending)
             return
         if self._code_ffts is None:
             self._code_ffts = {
@@ -198,15 +222,6 @@ class TrackingSession:
         code_idx = code_idx.cpu().numpy()
         metric = metric.cpu().numpy()
 
-        samples_per_code = round(
-            self.cfg.sampling_frequency * GPS_L1CA_CODE_LENGTH
-            / GPS_L1CA_CODE_FREQ)
-        mode = np.array(self.mode_host)
-        # Host copies (np.array copies: .numpy() of a CPU tensor aliases it).
-        carrier = np.array(self.state.carrier_freq.cpu())
-        anchor = np.array(self.state.freq_anchor.cpu())
-        code_off = np.array(self.state.code_freq_offset.cpu())
-        unread = np.array(self.state.unread.cpu())
         for j, i in enumerate(pending):
             self.acq_results[i] = {
                 "prn": self.prns[i],
@@ -216,18 +231,71 @@ class TrackingSession:
                 "corr_map": cmap_dec[j].numpy(),
                 "corr_dopplers": np.asarray(bins, np.float32),
             }
-            if metric[j] < self.acq_cfg.threshold:
+        self._hand_off(pending)
+
+    def _acquire_serial(self, pending) -> None:
+        """Time-domain serial-search acquisition (one code period)."""
+        spms = self.cfg.samples_per_ms
+        bins = acq.doppler_bins(self.acq_cfg.doppler_range,
+                                self.acq_cfg.doppler_step)
+        bins_dev = torch.from_numpy(bins).to(self.device)
+        iq_re = torch.from_numpy(self._hist_re[-spms:].copy()).to(self.device)
+        iq_im = torch.from_numpy(self._hist_im[-spms:].copy()).to(self.device)
+        samples_per_chip = self.cfg.sampling_frequency / GPS_L1CA_CODE_FREQ
+        for i in pending:
+            # One shift matrix on the device at a time (40 MB at 10 Msps);
+            # the host keeps a PRN's matrix only while its search may retry.
+            if i not in self._shift_matrices:
+                self._shift_matrices[i] = acq.code_shift_matrix(
+                    self.prns[i], self.cfg.sampling_frequency)
+            shift = torch.from_numpy(self._shift_matrices[i]).to(self.device)
+            cmap = acq.serial_search(
+                iq_re, iq_im, shift, bins_dev,
+                sampling_frequency=self.cfg.sampling_frequency,
+                intermediate_frequency=self.cfg.intermediate_frequency)
+            (fi, ci_chips), metric = acq.peak_metric_ss(cmap)
+            # Chip-shift k peaks when the stream phase is 1023 - k chips;
+            # convert to the PCPS sample-index convention.
+            code_idx = int(round(float(ci_chips) * samples_per_chip)) % spms
+            self.acq_results[i] = {
+                "prn": self.prns[i],
+                "doppler": float(bins[int(fi)]),
+                "code_index": code_idx,
+                "metric": float(metric),
+            }
+            if float(metric) >= self.acq_cfg.threshold:
+                del self._shift_matrices[i]
+        self._hand_off(pending)
+
+    def _hand_off(self, searched) -> None:
+        """Acquisition -> tracking handoff of the channels just searched,
+        from their ``acq_results``: above the threshold a channel starts
+        tracking at the found Doppler, at the last code boundary of the
+        acquisition window; below it the channel re-arms or goes idle."""
+        samples_per_code = round(
+            self.cfg.sampling_frequency * GPS_L1CA_CODE_LENGTH
+            / GPS_L1CA_CODE_FREQ)
+        mode = np.array(self.mode_host)
+        # Host copies (np.array copies: .numpy() of a CPU tensor aliases it).
+        carrier = np.array(self.state.carrier_freq.cpu())
+        anchor = np.array(self.state.freq_anchor.cpu())
+        code_off = np.array(self.state.code_freq_offset.cpu())
+        unread = np.array(self.state.unread.cpu())
+        for i in searched:
+            res = self.acq_results[i]
+            if np.float32(res["metric"]) < self.acq_cfg.threshold:
                 mode[i] = self._acq_fail_mode(i)
                 continue
             self._acq_retry_at.pop(i, None)
             mode[i] = MODE_TRACKING
-            carrier[i] = self.cfg.intermediate_frequency + doppler[j]
+            doppler = np.float32(res["doppler"])
+            carrier[i] = self.cfg.intermediate_frequency + doppler
             anchor[i] = carrier[i]
             if not self.cfg.carrier_aiding:
-                code_off[i] = doppler[j] * (
+                code_off[i] = doppler * (
                     GPS_L1CA_CODE_FREQ / GPS_L1CA_CARRIER_FREQ)
             # Start at the last code boundary of the acquisition window.
-            unread[i] = samples_per_code - int(code_idx[j]) - 1
+            unread[i] = samples_per_code - res["code_index"] - 1
         self.mode_host = mode
 
         def dev(x):
@@ -343,6 +411,7 @@ class TrackingSession:
         tail = cfg.tail_ms * cfg.samples_per_ms
         self._tail_re = window_re[-tail:]
         self._tail_im = window_im[-tail:]
+        self._update_hist(block_re, block_im)
         self._maybe_acquire()
         # Two bulk copies instead of one per output key.
         host_f = packed_f.cpu().numpy()
@@ -375,7 +444,10 @@ class TrackingSession:
 
         self._ring_re = roll_ring(self._ring_re, wre[tail_n:])
         self._ring_im = roll_ring(self._ring_im, wim[tail_n:])
-        if cfg.superblock > 1:
+        if cfg.runtime != "batch":
+            self.state, outputs = runtime.run_block(
+                cfg, self.codes, self.state, wre, wim)
+        elif cfg.superblock > 1:
             self.state, outputs = batch_runtime.run_superblock(
                 cfg, cfg.superblock, self.bits3x, self.state, wre, wim)
         else:

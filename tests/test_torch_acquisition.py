@@ -1,5 +1,8 @@
 """Port's PCPS acquisition (K2 ``pcps_bins`` plain version on CPU) against
-the JAX shift-theorem map and its fused Pallas kernel (interpret mode).
+the JAX shift-theorem map and its fused Pallas kernel (interpret mode), and
+the port's direct map against the JAX direct map and the port's own shift
+map (within 1e-4 of the map's maximum: the same float32 transforms in
+another grouping; the JAX map runs a matmul DFT, held to 5e-3 as below).
 
 Shape and bounds of tests/test_acquisition.py::test_fused_map_matches_shift_map:
 the map within 5e-3 of its maximum (the JAX fused kernel's bf16 budget;
@@ -58,6 +61,108 @@ def test_shift_plan_matches_jax(case):
         jacq.shift_plan(bins, 2.5e6, 2500, mode="auto")
     phases, _ = tacq.shift_plan(bins + 37.0, 2.5e6, 2500)
     assert len(phases) == 10
+
+
+# Three bin grids at fs/n = 1000 Hz: the session's (10 phases, reused ten
+# times), a 130 Hz step (77 bins, 77 phases: no reuse) and a grid that does
+# not decompose at all (a phase within 1e-6 of the next DFT bin).
+GRIDS = {
+    "step100": lambda: jacq.doppler_bins(5000, 100),
+    "step130": lambda: jacq.doppler_bins(5000, 130),
+    "offgrid": lambda: jacq.doppler_bins(5000, 500).astype(np.float64)
+    + 999.9999995,
+}
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("mode", ["auto", "shift", "direct"])
+def test_shift_plan_modes_match_jax(grid, mode, monkeypatch):
+    monkeypatch.delenv("SYDR_ACQ_MODE", raising=False)
+    bins = GRIDS[grid]()
+    got = tacq.shift_plan(bins, 2.5e6, 2500, mode=mode)
+    assert got == jacq.shift_plan(bins, 2.5e6, 2500, mode=mode)
+    expect_plan = {"step100": mode != "direct", "step130": mode == "shift",
+                   "offgrid": False}[grid]
+    assert (got is not None) == expect_plan
+
+
+def test_shift_plan_declines_a_grid_without_phase_reuse(monkeypatch):
+    """The default mode is the JAX package's ``"auto"``: the 130 Hz grid
+    (77 bins on 77 distinct phases) has no plan, so ``acquire`` takes the
+    direct map, a few bins at a time, instead of holding one forward
+    spectrum set per bin."""
+    monkeypatch.delenv("SYDR_ACQ_MODE", raising=False)
+    bins = jacq.doppler_bins(5000, 130)
+    assert len(bins) == 77
+    assert jacq.shift_plan(bins, 2.5e6, 2500) is None
+    assert tacq.shift_plan(bins, 2.5e6, 2500) is None
+    assert tacq.ACQ_MODE_DEFAULT == jacq.ACQ_MODE_DEFAULT == "auto"
+    assert len(tacq.shift_plan(bins, 2.5e6, 2500, mode="shift")[0]) == 77
+
+
+@pytest.fixture(scope="module")
+def direct_case(case):
+    """The module's capture on a 130 Hz grid (47 bins, no plan)."""
+    bins = jacq.doppler_bins(3000, 130)
+    assert tacq.shift_plan(bins, FS, N) is None
+    pad = (-len(bins)) % 4
+    plans = (mmfft.make_plan(N), mmfft.make_plan(N, inverse=True))
+    ref = np.asarray(jacq.pcps_map(
+        jnp.asarray(case["iq_re"]), jnp.asarray(case["iq_im"]),
+        jnp.asarray(np.float32(case["k"].real)),
+        jnp.asarray(np.float32(case["k"].imag)),
+        jnp.asarray(np.concatenate([bins, np.repeat(bins[-1:], pad)])),
+        plans[0], plans[1], sampling_frequency=FS, coherent=COHER,
+        non_coherent=NONCOH, doppler_chunk=4))[:, :len(bins)]
+    return bins, ref
+
+
+@pytest.mark.parametrize("doppler_chunk", [4, 5, 64])
+def test_pcps_map_matches_jax(case, direct_case, doppler_chunk):
+    """Any chunk size gives the same map (the last chunk may be short)."""
+    bins, ref = direct_case
+    got = tacq.pcps_map(
+        torch.from_numpy(case["iq_re"]), torch.from_numpy(case["iq_im"]),
+        torch.from_numpy(case["k"]).to(torch.complex64),
+        torch.from_numpy(bins), sampling_frequency=FS, coherent=COHER,
+        non_coherent=NONCOH, doppler_chunk=doppler_chunk).numpy()
+    assert got.shape == ref.shape == (1, len(bins), N)
+    assert (np.abs(got - ref) / ref.max()).max() < 5e-3
+
+
+def test_acquire_takes_direct_map_without_plan(case, direct_case,
+                                               monkeypatch):
+    bins, ref = direct_case
+    calls = []
+    real = tacq.pcps_map
+    monkeypatch.setattr(tacq, "pcps_map",
+                        lambda *a, **k: calls.append(k) or real(*a, **k))
+    monkeypatch.setattr(tacq, "pcps_shift_map", None)
+    dop, ci, metric, got = tacq.acquire(
+        (torch.from_numpy(case["iq_re"]), torch.from_numpy(case["iq_im"])),
+        case["k"], bins, sampling_frequency=FS, coherent=COHER,
+        non_coherent=NONCOH, doppler_chunk=8)
+    assert len(calls) == 1 and calls[0]["doppler_chunk"] == 8
+    spc = round(FS / 1.023e6)
+    d_r, c_r, m_r = jacq.peak_metric(
+        jnp.asarray(ref), jnp.asarray(bins), samples_per_chip=spc)
+    assert float(d_r[0]) == float(dop[0])
+    assert abs(float(dop[0]) + 2360.0) <= 65.0
+    assert int(c_r[0]) == int(ci[0])
+    assert abs(float(m_r[0]) - float(metric[0])) < 0.05
+
+
+def test_pcps_map_matches_port_shift_map(case):
+    """On a grid that has a plan the two maps of the port agree within 1e-4
+    of the maximum."""
+    args = (torch.from_numpy(case["iq_re"]), torch.from_numpy(case["iq_im"]),
+            torch.from_numpy(case["k"]).to(torch.complex64))
+    common = dict(sampling_frequency=FS, coherent=COHER, non_coherent=NONCOH)
+    shift = tacq.pcps_shift_map(*args, phases=case["phases"],
+                                bin_shifts=case["bin_shifts"], **common)
+    direct = tacq.pcps_map(*args, torch.from_numpy(case["bins"]), **common)
+    assert direct.shape == shift.shape
+    assert float((direct - shift).abs().max()) <= 1e-4 * float(shift.max())
 
 
 @pytest.mark.parametrize("jax_map", ["shift", "fused"])

@@ -109,22 +109,9 @@ CHANGED = {
             print(f"--device {device}: CUDA is not available (use --cpu "
                   f"to run on the CPU)", file=sys.stderr)
             return 2
-    if args.checkpoint_every:
-        print("--checkpoint-every: checkpointing is not ported yet",
-              file=sys.stderr)
-        return 2
 '''),
         ("    receiver = Receiver(run_cfg.receiver)\n",
          "    receiver = Receiver(run_cfg.receiver, device=device)\n"),
-        ('''            if args.checkpoint_every and processed % args.checkpoint_every == 0:
-                from sydr_tpu_torch.receiver.checkpoint import save_checkpoint
-
-                save_checkpoint(
-                    receiver,
-                    os.path.join(run_cfg.out_folder,
-                                 f"{run_cfg.name}.ckpt.npz"),
-                )
-''', ""),
     ],
 }
 
@@ -151,7 +138,7 @@ def test_copied_modules_equal_their_sources():
 def test_changed_modules_differ_only_in_listed_lines():
     """receiver.py, main.py and utils/metrics.py are their JAX sources with
     only the listed blocks replaced: the device argument, the bulk state
-    fetch, the profiler, the CLI's device and checkpoint handling."""
+    fetch, the profiler and the CLI's device handling."""
     for rel, blocks in CHANGED.items():
         expect = _copy_of(rel)
         for old, new in blocks:
@@ -165,7 +152,10 @@ def test_package_imports_no_jax():
     mods = [m.name for m in pkgutil.walk_packages(
         sydr_tpu_torch.__path__, "sydr_tpu_torch.")
         if m.name != "sydr_tpu_torch.__main__"]   # importing it runs the CLI
-    for rel in COPIED + tuple(CHANGED) + ("receiver/session.py",):
+    for rel in COPIED + tuple(CHANGED) + (
+            "receiver/session.py", "receiver/checkpoint.py",
+            "channels/runtime.py", "channels/batch_runtime.py",
+            "ops/tracking.py", "ops/acquisition.py"):
         if rel.endswith("__init__.py") or rel == "__main__.py":
             continue
         assert "sydr_tpu_torch." + rel[:-3].replace("/", ".") in mods, rel
@@ -214,6 +204,36 @@ def test_receiver_and_run_config_fields_and_defaults_equal():
             if isinstance(v, str) else v
             for k, v in _defaults(jconfig.RunConfig).items()}
     assert _defaults(tconfig.RunConfig) == jrun
+
+
+def test_acquisition_config_fields_defaults_and_required_ms_equal():
+    from sydr_tpu.receiver import session as jsession
+    from sydr_tpu_torch.receiver import session as tsession
+
+    assert _defaults(tsession.AcquisitionConfig) == \
+        _defaults(jsession.AcquisitionConfig)
+    assert _defaults(tsession.CruisePolicy) == _defaults(jsession.CruisePolicy)
+    for kw in (dict(), dict(method="serial"),
+               dict(coherent=3, non_coherent=4),
+               dict(method="serial", coherent=3, non_coherent=4)):
+        assert tsession.AcquisitionConfig(**kw).required_ms == \
+            jsession.AcquisitionConfig(**kw).required_ms
+    assert tsession.AcquisitionConfig(method="serial").required_ms == 1
+    assert tsession.AcquisitionConfig().required_ms == 50
+
+
+def test_checkpoint_module_is_the_jax_one_up_to_the_state_io():
+    """The manifest and the ephemeris (de)serialisation are the JAX
+    module's, line for line: the format cannot drift apart."""
+    src, port = _copy_of("receiver/checkpoint.py"), \
+        _port("receiver/checkpoint.py")
+    for start, end in (("def _eph_to_dict", "def save_checkpoint"),
+                       ("    chans = []", "def load_checkpoint"),
+                       ("    receiver.channels = []", None)):
+        a = src[src.index(start):src.index(end) if end else None]
+        b = port[port.index(start):port.index(end) if end else None]
+        assert a == b, start
+    assert "_FORMAT_VERSION = 1\n" in src and "_FORMAT_VERSION = 1\n" in port
 
 
 def test_state_fields_match_jax():

@@ -269,15 +269,45 @@ def test_cli_demo_on_cpu(tmp_path, capsys, root_logging):
 def test_cli_refuses_missing_cuda_and_checkpointing(tmp_path, monkeypatch,
                                                     capsys):
     """(d): ``--device cuda`` without CUDA exits non-zero (the port never
-    runs on the CPU when the card was asked for); so does
-    ``--checkpoint-every``, which is not ported yet."""
+    runs on the CPU when the card was asked for); ``--checkpoint-every``
+    is not refused: on the CPU it runs and leaves a checkpoint that a
+    receiver of the same configuration loads."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     common = ["--demo", "--ms", "100", "--no-dashboard", "--no-report",
               "--out", str(tmp_path)]
     assert tmain.main(common + ["--device", "cuda"]) != 0
     assert "CUDA is not available" in capsys.readouterr().err
-    assert tmain.main(common + ["--cpu", "--checkpoint-every", "1000"]) != 0
-    assert "not ported" in capsys.readouterr().err
+    assert not (tmp_path / "demo.ckpt.npz").exists()
+
+
+def test_cli_checkpoint_every_and_scan_runtime(tmp_path, capsys,
+                                               root_logging):
+    """(d): ``--runtime scan --checkpoint-every 100`` on the CPU: the scan
+    runtime runs through the CLI (borre, 20 ms blocks) and the run leaves
+    ``demo.ckpt.npz``, which a receiver of the demo's configuration
+    loads."""
+    import argparse
+
+    from sydr_tpu_torch.receiver.checkpoint import load_checkpoint
+
+    argv = ["--demo", "--cpu", "--runtime", "scan", "--ms", "200",
+            "--checkpoint-every", "100", "--no-dashboard", "--no-report",
+            "--out", str(tmp_path)]
+    assert tmain.main(argv) == 0
+    assert "processed 200 ms of signal" in capsys.readouterr().out
+    path = tmp_path / "demo.ckpt.npz"
+    assert path.exists()
+    run_cfg, _ = tmain._build_demo(argparse.Namespace(
+        fs=4e6, decimate=1, runtime="scan", pallas=False, superblock=1,
+        quantize=False, no_cruise=False, cruise_superblock=50, ms=200,
+        out=str(tmp_path)))
+    assert run_cfg.receiver.tracking.profile == "borre"
+    assert run_cfg.receiver.tracking.block_ms == 20
+    rx = Receiver(run_cfg.receiver, device=CPU)
+    load_checkpoint(rx, str(path))
+    assert rx.session.total_samples == 200 * 4000
+    assert rx._epochs_done == 200
+    assert len(rx.session.acq_results) == 6
 
 
 def test_device_trace_writes_chrome_trace(tmp_path):
