@@ -77,10 +77,26 @@ printing its wall time:
     phase also prints whether the two runs were bit-identical). Then the
     CLI in process with ``--runtime scan --checkpoint-every``, which must
     leave a ``.ckpt.npz`` that a receiver of the demo's configuration
-    loads.
+    loads;
+14. the multi-device layer (``sydr_tpu_torch.parallel``): (a) a one-rank
+    NCCL process group, ``TrackingSession(mesh=make_mesh(1, 1))`` on the
+    first 2 s of phase 5's capture, every output of every call bit for bit
+    phase 5's; (b) two gloo ranks sharing the card (spawned processes):
+    the cruise superblock that follows (a) sharded 16 + 16 channels in
+    both forms of pass B (K1, K3), bit for bit the 32-channel superblock;
+    the full-rate block (10 Msps, 32 channels, 4 + 20 ms, 6 streams)
+    sharded 12 + 12 ms in both forms, within :func:`sp_bound` of the
+    unsharded block with the epoch geometry exact; ``sharded_pcps`` on a
+    (1, 2) mesh over the production grid, Doppler and code index those of
+    the unsharded ``pcps_map`` + ``peak_metric``; each rank's launch
+    counts and step times, the unsharded times beside them, and K1 and K3
+    on a time shard timed as in phase 3; (c) ``python -m
+    sydr_tpu_torch.parallel.dryrun --world 2 --backend gloo``, which must
+    print its OK line.
 
-Each of phases 5-13 sets every kernel's launch count to 0 just before it
-and reads the counts just after. The last three lines are the kernels'
+Each of phases 5-14 sets every kernel's launch count to 0 just before it
+and reads the counts just after (phase 14's ranks count in their own
+processes, from 0). The last three lines are the kernels'
 JSON record, the ``nvidia-smi`` line and ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits non-zero before printing
 any result. It imports no JAX.
@@ -158,6 +174,8 @@ STREAM_TAP_FLOPS = 8
 K1_ATOL, K1_RTOL = 1e-2, 1e-4
 K2_RTOL = 1e-4
 K3_PREFIX_SIGMAS = 4.0
+CORR_KEYS = ("i_early", "q_early", "i_prompt", "q_prompt", "i_late",
+             "q_late")
 
 
 def fail(msg: str) -> None:
@@ -278,19 +296,26 @@ def report(kind: str, name: str, shape, err_text: str, res: dict) -> None:
 # Kernel checks
 # ---------------------------------------------------------------------------
 
-def random_block(fs, block_ms, profile, quantize, device, rng):
-    """A random 32-channel tracking state and window: the K1 arguments."""
-    import torch
-
-    from sydr_tpu_torch.channels import batch_runtime as br
+def random_config(fs, block_ms, profile, quantize):
+    """The batch runtime's configuration of :func:`random_tracking`."""
     from sydr_tpu_torch.channels.runtime import TrackingConfig
-    from sydr_tpu_torch.channels.state import MODE_TRACKING, init_state
 
-    cfg = TrackingConfig(
+    return TrackingConfig(
         sampling_frequency=fs, block_ms=block_ms, tail_ms=4,
         window_size=round(fs * 1e-3) + 256, runtime="batch",
         profile="kaplan", kaplan_narrow_only=profile == "narrow",
         quantize_spacing=quantize)
+
+
+def random_tracking(fs, block_ms, profile, quantize, device, rng):
+    """A random 32-channel tracking state and window: ``(cfg, state,
+    window_re, window_im, code_bits)``."""
+    import torch
+
+    from sydr_tpu_torch.channels import batch_runtime as br
+    from sydr_tpu_torch.channels.state import MODE_TRACKING, init_state
+
+    cfg = random_config(fs, block_ms, profile, quantize)
     spms, n = cfg.samples_per_ms, N_CHANNELS
 
     def dev(x, dtype):
@@ -308,6 +333,16 @@ def random_block(fs, block_ms, profile, quantize, device, rng):
     wre = dev(rng.normal(0, 2, cfg.window_samples), np.float32)
     wim = dev(rng.normal(0, 2, cfg.window_samples), np.float32)
     bits = dev(br.tiled_code_bits(list(range(1, n + 1))), np.float32)
+    return cfg, st, wre, wim, bits
+
+
+def random_block(fs, block_ms, profile, quantize, device, rng):
+    """A random 32-channel tracking state and window: the K1 arguments."""
+    from sydr_tpu_torch.channels import batch_runtime as br
+
+    cfg, st, wre, wim, bits = random_tracking(fs, block_ms, profile,
+                                              quantize, device, rng)
+    spms = cfg.samples_per_ms
     geo = br._pass_a_closed(cfg, st)
     bg = br.block_geometry(cfg, st, geo)
     return (wre, wim, bits, bg["c_int"], geo["omega"], geo["code_step"],
@@ -641,7 +676,7 @@ def slice_phase(device, capture=None, signal_ms=SIGNAL_MS, fs_in=FS_IN,
     in_per_ms = round(fs_in * 1e-3)
 
     reset_launches()
-    outs, pos, calls, promoted_at = [], 0, 0, None
+    outs, pos, calls, promoted_at, call_walls = [], 0, 0, None, []
     cruise_signal_s, cruise_wall_s = 0.0, 0.0
     while pos + session.block_input_samples <= len(sig_re):
         n_in = session.block_input_samples
@@ -654,6 +689,7 @@ def slice_phase(device, capture=None, signal_ms=SIGNAL_MS, fs_in=FS_IN,
         out = session.process_block(sig_re[pos:pos + n_in],
                                     sig_im[pos:pos + n_in])
         sync()
+        call_walls.append(time.perf_counter() - t_call)
         if in_cruise:
             cruise_wall_s += time.perf_counter() - t_call
             cruise_signal_s += n_in / fs_in
@@ -723,7 +759,7 @@ def slice_phase(device, capture=None, signal_ms=SIGNAL_MS, fs_in=FS_IN,
               ("i_prompt", "q_prompt", "carrier_freq")),
           "non-finite tracking output")
     return {"launches": launches, "rtf": rtf, "promoted_at": promoted_at,
-            "session": session}
+            "session": session, "outputs": outs, "call_walls": call_walls}
 
 
 def scan_block_profile(session, card) -> None:
@@ -1173,6 +1209,486 @@ def prefix_receiver_phase(device, sky_path) -> dict:
     return {"launches": launches, "fix_errors_m": errors, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the multi-device layer
+# ---------------------------------------------------------------------------
+
+MESH_SIGNAL_MS = 2000   # (a): the first 2 s of the session's capture
+MESH_WORLD = 2          # (b): gloo ranks that share the card
+SP_FS = 10e6            # (b): the full-rate case, 12 of 24 ms a shard
+RANK_TIMEOUT_S = 300
+WARM_CALLS = 5          # (b): the cheap steps' warm calls, after the first
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def pass_b_forms(cfg):
+    """``cfg`` in each form of pass B: K1 row sums and the K3 prefix."""
+    return (("rowsum", dataclasses.replace(cfg, use_pallas=False,
+                                           boundary_mode="rowsum")),
+            ("prefix", dataclasses.replace(cfg, use_pallas=True,
+                                           boundary_mode="prefix")))
+
+
+def timed_call(walls, name, fn, warm=0):
+    """``fn()``'s result. Its wall in seconds, between device fences, goes
+    to ``walls[name]``; with ``warm`` > 0, ``fn`` runs that many more
+    times and their median goes to ``walls[name + " warm"]``."""
+    import torch
+
+    def once():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    out, walls[name] = once()
+    if warm:
+        walls[f"{name} warm"] = float(np.median(
+            [once()[1] for _ in range(warm)]))
+    return out
+
+
+def mesh_session_phase(device, capture, reference, card) -> dict:
+    """(a) ``TrackingSession(mesh=make_mesh(1, 1))`` in a one-rank NCCL
+    process group over the first MESH_SIGNAL_MS of the session's capture,
+    call by call against phase 5's unsharded session on the same samples:
+    every output bit for bit."""
+    import torch
+
+    from sydr_tpu_torch.parallel import distributed, mesh as pmesh
+    from sydr_tpu_torch.receiver.session import TrackingSession
+
+    _, sig_re, sig_im = capture
+    pull_in, cruise = session_configs(FS_IN, CRUISE_SUPERBLOCK)
+    in_per_ms = round(FS_IN * 1e-3)
+    distributed.initialize("nccl", rank=0, world_size=1,
+                           init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        session = TrackingSession(
+            pull_in, list(range(1, N_CHANNELS + 1)), cruise=cruise,
+            device=device, mesh=pmesh.make_mesh(1, 1))
+        outs, walls, pos = [], [], 0
+        reset_launches()
+        while pos + session.block_input_samples <= MESH_SIGNAL_MS * in_per_ms:
+            n_in = session.block_input_samples
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(session.process_block(sig_re[pos:pos + n_in],
+                                              sig_im[pos:pos + n_in]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            pos += n_in
+        launches = read_launches()
+    finally:
+        distributed.shutdown()
+    ref = reference["outputs"]
+    check(len(ref) >= len(outs), "phase 5 made fewer calls than (a)")
+    diff = [(i, k) for i, (got, want) in enumerate(zip(outs, ref))
+            for k in set(got) | set(want)
+            if k not in got or k not in want
+            or not np.array_equal(got[k], want[k])]
+    ref_walls = reference["call_walls"][:len(outs)]
+    print(f"multi-device (a): nccl, world 1, mesh {{'ch': 1, 'dop': 1}}: "
+          f"{len(outs)} calls, {pos // in_per_ms} ms of signal, promoted "
+          f"{session.promoted}; {sum(walls):.3f} s against "
+          f"{sum(ref_walls):.3f} s unsharded (phase 5, the same calls), "
+          f"first call {walls[0]:.3f} s against {ref_walls[0]:.3f} s, "
+          f"median call {1e3 * np.median(walls):.2f} ms against "
+          f"{1e3 * np.median(ref_walls):.2f} ms, on {card}; every output "
+          f"bit-identical: {not diff}; launches {launches}", flush=True)
+    check(not diff, f"the mesh session differs from the unsharded one at "
+                    f"(call, key) {diff[:5]}")
+    check(session.promoted, "the mesh session never promoted")
+    check(launches["epoch_correlate"] > 0 and launches["pcps_bins"] > 0,
+          f"K1 or K2 never launched on the mesh session's path: {launches}")
+    return {"launches": launches, "session": session, "pos": pos}
+
+
+def mesh_inputs(device, capture, mesh_run) -> dict:
+    """(b)'s inputs as numpy: the cruise superblock that follows (a) (its
+    promoted state and the next second of the capture, decimated, after
+    the session's tail), a random full-rate block (the kernel phase's
+    state at 10 Msps, 20 ms, 6 streams) and the first 50 ms of the
+    capture, decimated, for the acquisition."""
+    from sydr_tpu_torch.channels.state import state_to_numpy
+
+    session, pos = mesh_run["session"], mesh_run["pos"]
+    _, sig_re, sig_im = capture
+    n_in = session.block_input_samples
+    check(session.cfg.superblock == CRUISE_SUPERBLOCK
+          and pos + n_in <= len(sig_re),
+          "(a) did not leave a cruise superblock of the capture")
+
+    def decimated(x, lo, n):
+        return np.float32(x[lo:lo + n]).reshape(-1, DECIMATE).sum(axis=1)
+
+    data = {"ch_re": np.concatenate([session._tail_re,
+                                     decimated(sig_re, pos, n_in)]),
+            "ch_im": np.concatenate([session._tail_im,
+                                     decimated(sig_im, pos, n_in)])}
+    data.update({f"ch_st_{k}": v
+                 for k, v in state_to_numpy(session.state).items()})
+    _, st, wre, wim, _ = random_tracking(
+        SP_FS, 20, "narrow", True, device, np.random.default_rng(SEED + 14))
+    data.update({f"sp_st_{k}": v for k, v in state_to_numpy(st).items()})
+    data["sp_re"], data["sp_im"] = wre.cpu().numpy(), wim.cpu().numpy()
+    n_acq = 50 * round(FS_IN * 1e-3)
+    data["acq_re"] = decimated(sig_re, 0, n_acq)
+    data["acq_im"] = decimated(sig_im, 0, n_acq)
+    return data
+
+
+def mesh_tensors(data, device):
+    """The code table, the acquisition's code spectra and bins, and a
+    host-to-device copy helper, as every side of (b) builds them."""
+    import torch
+
+    from sydr_tpu_torch.channels import batch_runtime as br
+    from sydr_tpu_torch.ops import acquisition as acq
+
+    prns = list(range(1, N_CHANNELS + 1))
+    fs = FS_IN / DECIMATE
+    code_k = torch.tensor(np.stack([acq.code_fft_conj(p, fs) for p in prns]),
+                          dtype=torch.complex64, device=device)
+    bins = acq.doppler_bins(5000.0, 100.0)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    acq_re = t(data["acq_re"])[None, :].expand(N_CHANNELS, -1)
+    acq_im = t(data["acq_im"])[None, :].expand(N_CHANNELS, -1)
+    return (t(br.tiled_code_bits(prns)), code_k, bins, acq_re, acq_im, t)
+
+
+def mesh_rank(rank, world, port, workdir) -> None:
+    """One rank of (b): gloo, on ``cuda:0`` beside the other rank. Runs
+    the channel-sharded cruise superblock (16 of 32 channels), the
+    time-sharded full-rate block (12 of 24 ms) in both forms of pass B,
+    and ``sharded_pcps`` on a (1, 2) mesh; writes its results, its step
+    times and its kernels' launch counts to ``workdir``."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from sydr_tpu_torch.channels.state import (
+        FIELDS, state_from_numpy, state_to_numpy)
+    from sydr_tpu_torch.parallel import distributed, mesh as pmesh
+    from sydr_tpu_torch.parallel import timeshard
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    distributed.initialize("gloo", rank=rank, world_size=world,
+                           init_method=f"tcp://127.0.0.1:{port}",
+                           timeout_s=RANK_TIMEOUT_S)
+    with np.load(os.path.join(workdir, "inputs.npz")) as f:
+        data = dict(f)
+    bits, code_k, bins, acq_re, acq_im, t = mesh_tensors(data, device)
+    ch_mesh = pmesh.make_mesh(world, 1)
+    sp_mesh = timeshard.make_sp_mesh(world)
+    dop_mesh = pmesh.make_mesh(1, world)
+    rows = pmesh.channel_slice(ch_mesh, N_CHANNELS)
+    res, walls = {}, {}
+    reset_launches()
+    _, cruise = session_configs(FS_IN, CRUISE_SUPERBLOCK)
+    for form, cfg in pass_b_forms(cruise):
+        step = pmesh.make_sharded_batch_step(cfg, ch_mesh,
+                                             k_blocks=cfg.superblock)
+        st = state_from_numpy({n: data[f"ch_st_{n}"][rows] for n in FIELDS},
+                              device)
+        st, out = timed_call(walls, f"ch {form}", lambda: step(
+            bits[rows], st, t(data["ch_re"]), t(data["ch_im"])))
+        res.update({f"ch_{form}_out_{k}": v.cpu().numpy()
+                    for k, v in out.items()})
+        res.update({f"ch_{form}_st_{k}": v
+                    for k, v in state_to_numpy(st).items()})
+    for form, cfg in pass_b_forms(random_config(SP_FS, 20, "narrow", True)):
+        st = state_from_numpy({n: data[f"sp_st_{n}"] for n in FIELDS},
+                              device)
+        _, out = timed_call(walls, f"sp {form}", lambda: (
+            timeshard.run_block_batched_timesharded(
+                cfg, sp_mesh, bits, st, t(data["sp_re"]),
+                t(data["sp_im"]))), warm=WARM_CALLS)
+        res.update({f"sp_{form}_out_{k}": v.cpu().numpy()
+                    for k, v in out.items()})
+    found = timed_call(walls, "sharded_pcps", lambda: pmesh.sharded_pcps(
+        dop_mesh, acq_re, acq_im, code_k, bins,
+        sampling_frequency=FS_IN / DECIMATE), warm=WARM_CALLS)
+    for name, v in zip(("doppler", "code_index", "metric"), found):
+        res[f"acq_{name}"] = v.cpu().numpy()
+    launches = read_launches()
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"), **res)
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump({"launches": launches, "walls": walls}, f)
+    distributed.shutdown()
+
+
+def sp_bound(ref, form, n_win, max_prefix) -> float:
+    """Time shards against the unsharded block on the card: K1's
+    kernel-vs-plain bound (the same stream values, summed in another
+    order); in the prefix form, plus two K3 prefix bounds (each epoch is a
+    difference of two prefixes)."""
+    bound = K1_ATOL + K1_RTOL * float(np.abs(ref).max())
+    if form == "prefix":
+        bound += 2 * K3_PREFIX_SIGMAS * n_win ** 0.5 * 2.0 ** -24 * max_prefix
+    return bound
+
+
+def mesh_ranks_phase(device, capture, mesh_run, card) -> dict:
+    """(b) Two gloo ranks on the card, against the unsharded runs made
+    here first (and timed alone)."""
+    import torch
+
+    from sydr_tpu_torch.channels import batch_runtime as br
+    from sydr_tpu_torch.channels.state import FIELDS, state_from_numpy
+    from sydr_tpu_torch.ops import acquisition as acq
+    from sydr_tpu_torch.ops import correlator_kernel as ck
+
+    data = mesh_inputs(device, capture, mesh_run)
+    bits, code_k, bins, acq_re, acq_im, t = mesh_tensors(data, device)
+    refs, ref_walls = {}, {}
+    _, cruise = session_configs(FS_IN, CRUISE_SUPERBLOCK)
+    for form, cfg in pass_b_forms(cruise):
+        st = state_from_numpy({n: data[f"ch_st_{n}"] for n in FIELDS},
+                              device)
+        st, out = timed_call(ref_walls, f"ch {form}", lambda: (
+            br.run_superblock(cfg, cfg.superblock, bits, st,
+                              t(data["ch_re"]), t(data["ch_im"]))))
+        refs[f"ch_{form}"] = ({k: v.cpu().numpy() for k, v in out.items()},
+                              {n: getattr(st, n).cpu().numpy()
+                               for n in FIELDS})
+    sp_cfg = random_config(SP_FS, 20, "narrow", True)
+    for form, cfg in pass_b_forms(sp_cfg):
+        st = state_from_numpy({n: data[f"sp_st_{n}"] for n in FIELDS},
+                              device)
+        _, out = timed_call(ref_walls, f"sp {form}", lambda: (
+            br.run_block_batched(cfg, bits, st, t(data["sp_re"]),
+                                 t(data["sp_im"]))), warm=WARM_CALLS)
+        refs[f"sp_{form}"] = {k: v.cpu().numpy() for k, v in out.items()}
+    bins_t = torch.from_numpy(bins).to(device)
+    refs["acq"] = [x.cpu().numpy() for x in timed_call(
+        ref_walls, "sharded_pcps", lambda: acq.peak_metric(
+            acq.pcps_map(acq_re, acq_im, code_k, bins_t,
+                         sampling_frequency=FS_IN / DECIMATE),
+            bins_t, samples_per_chip=round(FS_IN / DECIMATE / 1.023e6)),
+        warm=WARM_CALLS)]
+
+    with tempfile.TemporaryDirectory() as workdir:
+        np.savez(os.path.join(workdir, "inputs.npz"), **data)
+        ctx = multiprocessing.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, MESH_WORLD, port, workdir), daemon=True)
+                 for r in range(MESH_WORLD)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(RANK_TIMEOUT_S)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+        ranks_wall = time.perf_counter() - t0
+        check(all(p.exitcode == 0 for p in procs),
+              f"a rank failed: exit codes {[p.exitcode for p in procs]}")
+        ranks = []
+        for r in range(MESH_WORLD):
+            with np.load(os.path.join(workdir, f"rank{r}.npz")) as f:
+                got = dict(f)
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                ranks.append((got, json.load(f)))
+
+    # The channel shards: every output and state row bit for bit.
+    per = N_CHANNELS // MESH_WORLD
+    ch_diff = []
+    for r, (got, _) in enumerate(ranks):
+        rows = slice(r * per, (r + 1) * per)
+        for form, _ in pass_b_forms(cruise):
+            out, st = refs[f"ch_{form}"]
+            ch_diff += [(r, form, k) for k, v in out.items()
+                        if not np.array_equal(got[f"ch_{form}_out_{k}"],
+                                              v[:, rows])]
+            ch_diff += [(r, form, n) for n, v in st.items()
+                        if not np.array_equal(got[f"ch_{form}_st_{n}"],
+                                              v[rows])]
+    # The time shards: correlators within the bound, geometry exact, both
+    # ranks alike.
+    sp_err = {}
+    n_win = sp_cfg.window_samples
+    for form, cfg in pass_b_forms(sp_cfg):
+        ref = refs[f"sp_{form}"]
+        st = state_from_numpy({n: data[f"sp_st_{n}"] for n in FIELDS},
+                              device)
+        inputs, _ = br.pass_b_inputs(cfg, bits, st, br._pass_a(cfg, st))
+        prefix = ck.block_cumsum_streams(
+            t(data["sp_re"]), t(data["sp_im"]), *inputs, br.taps_for(cfg),
+            cfg.samples_per_ms)
+        max_prefix = float(prefix.abs().max())
+        del prefix
+        corr_ref = np.stack([ref[k] for k in CORR_KEYS])
+        bound = sp_bound(corr_ref, form, n_win, max_prefix)
+        errs = []
+        for got, _ in ranks:
+            corr = np.stack([got[f"sp_{form}_out_{k}"] for k in CORR_KEYS])
+            errs.append(float(np.abs(corr - corr_ref).max()))
+            for k in ("active", "required", "unread"):
+                check(np.array_equal(got[f"sp_{form}_out_{k}"], ref[k]),
+                      f"sp {form}: {k} differs from the unsharded block")
+            check(np.array_equal(corr, np.stack(
+                [ranks[0][0][f"sp_{form}_out_{k}"] for k in CORR_KEYS])),
+                f"sp {form}: the ranks' correlators differ")
+        sp_err[form] = (max(errs), bound)
+    doppler, code_idx, metric = refs["acq"]
+    acq_ok = all(np.array_equal(got["acq_doppler"], doppler)
+                 and np.array_equal(got["acq_code_index"], code_idx)
+                 and np.allclose(got["acq_metric"], metric, rtol=1e-4)
+                 for got, _ in ranks)
+
+    for r, (_, info) in enumerate(ranks):
+        print(f"multi-device (b): rank {r} launches {info['launches']}; "
+              f"wall " + ", ".join(f"{k} {1e3 * v:.2f} ms"
+                                   for k, v in info["walls"].items())
+              + f" (warm: the median of {WARM_CALLS} calls after the first)",
+              flush=True)
+    print("multi-device (b): unsharded on one process, wall " + ", ".join(
+        f"{k} {1e3 * v:.2f} ms" for k, v in ref_walls.items())
+        + f"; the two ranks took {ranks_wall:.1f} s from spawn to exit, on "
+        f"{card}", flush=True)
+    print(f"multi-device (b): ch shards ({MESH_WORLD} x {per} of "
+          f"{N_CHANNELS} channels, cruise superblock of {CRUISE_SUPERBLOCK} "
+          f"blocks, both forms) bit-identical: {not ch_diff}; sp shards "
+          f"({MESH_WORLD} x {n_win // sp_cfg.samples_per_ms // MESH_WORLD} "
+          f"of {n_win // sp_cfg.samples_per_ms} ms, {SP_FS / 1e6:g} Msps, "
+          f"{N_CHANNELS} ch, 6 streams) max_abs_err " + ", ".join(
+              f"{form} {e:.3e} (bound {b:.3e})"
+              for form, (e, b) in sp_err.items())
+          + f"; sharded_pcps (1, 2) Doppler and code index exact, metric "
+          f"within 1e-4: {acq_ok}", flush=True)
+    check(not ch_diff, f"a channel shard differs from the unsharded "
+                       f"superblock: {ch_diff[:5]}")
+    check(all(e <= b for e, b in sp_err.values()),
+          f"a time shard is outside its bound: {sp_err}")
+    check(acq_ok, "sharded_pcps differs from the unsharded map's peak")
+    for r, (_, info) in enumerate(ranks):
+        n = info["launches"]
+        check(n["epoch_correlate"] > 0 and n["block_cumsum_streams"] > 0
+              and n["pcps_bins"] == 0 and n["pcps_bins_fourstep"] == 0,
+              f"rank {r} launched {n}: expected K1 and K3, and no K2")
+    launches = {name: sum(info["launches"][name] for _, info in ranks)
+                for name in ranks[0][1]["launches"]}
+    return {"launches": launches, "sp_cases": sp_shard_cases(data, device)}
+
+
+def sp_shard_cases(data, device) -> dict:
+    """K1 and K3 on shard 0 of the full-rate block's 2 time shards: the
+    kernel against its plain version, device and call time, bound."""
+    import torch
+
+    from sydr_tpu_torch.channels import batch_runtime as br
+    from sydr_tpu_torch.channels.state import FIELDS, state_from_numpy
+    from sydr_tpu_torch.ops import correlator_kernel as ck
+    from sydr_tpu_torch.parallel import timeshard
+
+    bits = torch.tensor(br.tiled_code_bits(list(range(1, N_CHANNELS + 1))),
+                        device=device)
+    cfg = random_config(SP_FS, 20, "narrow", True)
+    st = state_from_numpy({n: data[f"sp_st_{n}"] for n in FIELDS}, device)
+    inputs, bounds = br.pass_b_inputs(cfg, bits, st, br._pass_a(cfg, st))
+    code_bits, c_int, omega, code_step, fb_q, phic_q = inputs
+    wre = torch.from_numpy(data["sp_re"]).to(device)
+    wim = torch.from_numpy(data["sp_im"]).to(device)
+    win_re, win_im, fb_l, ph_l, m0 = timeshard.shard_inputs(
+        cfg, MESH_WORLD, 0, wre, wim, fb_q, phic_q)
+    shard_len = (cfg.tail_ms + cfg.block_ms) // MESH_WORLD \
+        * cfg.samples_per_ms
+    local = torch.clamp(bounds - m0, 0, shard_len).to(torch.int32)
+    taps, spms = br.taps_for(cfg), cfg.samples_per_ms
+    k1 = (win_re, win_im, code_bits, c_int, omega, code_step, fb_l, ph_l,
+          local.contiguous(), taps, spms)
+    k3 = k1[:8] + k1[9:]
+    name = (f"sp shard 0 of {MESH_WORLD} ({SP_FS / 1e6:g} Msps, "
+            f"{shard_len // spms} of {cfg.tail_ms + cfg.block_ms} ms, "
+            f"{N_CHANNELS} ch, {2 * len(taps)} streams)")
+    cases = {}
+
+    got, ref = ck.epoch_correlate(*k1), ck.epoch_correlate_ref(*k1)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    bound = K1_ATOL + K1_RTOL * float(ref.abs().max())
+    out, cargs = ck.epoch_correlate_launch_args(*k1)
+    fn = ck.KERNEL.function()
+    n_samples = int((local[-1] - local[0]).sum())
+    cases["epoch_correlate"] = {
+        "max_abs_err": err, "ms": device_ms(lambda: fn(*cargs), 200),
+        "call_ms": cuda_ms(lambda: ck.epoch_correlate(*k1), 50),
+        "plain_ms": cuda_ms(lambda: ck.epoch_correlate_ref(*k1), 5),
+        "library_ms": None,
+        **roofline(tensor_bytes(*k1[:9], out),
+                   stream_flops(n_samples, len(taps)))}
+    report("K1", name, got.shape, f"max_abs_err {err:.3e} (bound "
+           f"{bound:.3e}), {n_samples} samples", cases["epoch_correlate"])
+    check(err <= bound, f"K1 {name}: error {err} above bound {bound}")
+
+    got, ref = ck.block_cumsum_streams(*k3), ck.block_cumsum_streams_ref(*k3)
+    torch.cuda.synchronize()
+    n_ch, n_streams, n_win = ref.shape
+    err = float((got - ref).abs().max())
+    bound = K3_PREFIX_SIGMAS * n_win ** 0.5 * 2.0 ** -24 \
+        * float(ref.abs().max())
+    out, cargs, _scratch = ck.block_cumsum_streams_launch_args(*k3)
+    fn = ck.CUMSUM_KERNEL.function()
+    cases["block_cumsum_streams"] = {
+        "max_abs_err": err, "ms": device_ms(lambda: fn(*cargs), 100),
+        "call_ms": cuda_ms(lambda: ck.block_cumsum_streams(*k3), 20),
+        "plain_ms": cuda_ms(lambda: ck.block_cumsum_streams_ref(*k3), 3),
+        "library_ms": None,
+        **roofline(tensor_bytes(*k3[:8], out),
+                   stream_flops(n_ch * n_win, n_streams // 2)
+                   + float(n_ch * n_streams * n_win))}
+    report("K3", name, got.shape, f"prefix max_abs_err {err:.3e} (bound "
+           f"{bound:.3e}), {n_win} samples", cases["block_cumsum_streams"])
+    check(err <= bound, f"K3 {name}: prefix error {err} above {bound}")
+    return cases
+
+
+def dryrun_phase() -> None:
+    """(c) ``python -m sydr_tpu_torch.parallel.dryrun --world 2 --backend
+    gloo`` as a child process, on the card."""
+    cmd = [sys.executable, "-m", "sydr_tpu_torch.parallel.dryrun",
+           "--world", str(MESH_WORLD), "--backend", "gloo"]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=RANK_TIMEOUT_S)
+    text = proc.stdout + proc.stderr
+    print("\n".join(ln for ln in text.splitlines()
+                    if ln.startswith(("rank ", "dryrun_multichip",
+                                      "Traceback"))), flush=True)
+    check(proc.returncode == 0,
+          f"the dry run exited {proc.returncode}:\n{text[-3000:]}")
+    check("dryrun_multichip OK" in proc.stdout, "the dry run printed no OK")
+
+
+def multi_device_phase(device, capture, session_run, card) -> dict:
+    """Phase 14: (a) NCCL at world size 1, (b) two gloo ranks on the card,
+    (c) the dry run."""
+    mesh_run = timed("multi-device (a)", mesh_session_phase, device,
+                     capture, session_run, card)
+    res = timed("multi-device (b)", mesh_ranks_phase, device, capture,
+                mesh_run, card)
+    timed("multi-device (c)", dryrun_phase)
+    launches = {name: mesh_run["launches"][name] + res["launches"][name]
+                for name in res["launches"]}
+    return {"launches": launches, "sp_cases": res["sp_cases"]}
+
+
 def timed(name, fn, *args, **kwargs):
     t0 = time.perf_counter()
     res = fn(*args, **kwargs)
@@ -1294,12 +1810,17 @@ def main(argv=None) -> int:
     paths["serial-search session"] = res
     paths["direct map"] = timed("direct map", direct_map_phase, device,
                                 capture, card)
+    paths["multi-device"] = timed("multi-device", multi_device_phase,
+                                  device, capture, paths["session"], card)
     del capture
 
     for name, by_case in cases.items():
         for case, res in by_case.items():
             report("summary", f"{name} | {case}", (),
                    f"max_abs_err {res['max_abs_err']:.3e}", res)
+    for name, res in paths["multi-device"]["sp_cases"].items():
+        report("summary", f"{name} | sp shard", (),
+               f"max_abs_err {res['max_abs_err']:.3e}", res)
     print("launches by path: " + json.dumps(
         {name: res["launches"] for name, res in paths.items()}), flush=True)
     record = {"kernels": [

@@ -312,35 +312,54 @@ def prefix_form(cfg: TrackingConfig) -> bool:
             and cfg.samples_per_ms >= 1024)
 
 
+def prefix_at(prefix, ends):
+    """The inclusive prefix ``[n_ch, n_streams, n_win]`` at positions
+    ``ends`` ``[n_ch, k]`` (int64, within the window): ``[n_ch, n_streams,
+    k]``."""
+    n_ch, n_streams, _ = prefix.shape
+    return torch.gather(
+        prefix, 2, ends[:, None, :].expand(n_ch, n_streams, ends.shape[1]))
+
+
+def boundary_differences(picked):
+    """Per-epoch sums ``[block_ms, n_ch, n_streams]`` from the prefix at
+    every epoch bound, ``picked`` ``[n_ch, n_streams, block_ms + 1]``."""
+    corr = picked[:, :, 1:] - picked[:, :, :-1]
+    return corr.permute(2, 0, 1).contiguous()
+
+
 def prefix_epoch_sums(prefix, bounds):
     """Per-epoch sums ``[block_ms, n_ch, n_streams]`` from the inclusive
     prefix ``[n_ch, n_streams, n_win]`` and the epoch bounds ``[block_ms +
     1, n_ch]``: ``sum[b0, b1) = P[b1 - 1] - P[b0 - 1]`` with ``P[-1] =
     0``, as the JAX prefix path picks them."""
-    n_ch, n_streams, n_win = prefix.shape
+    n_win = prefix.shape[2]
     valid = (bounds > 0).t()                                   # [n_ch, E+1]
     idx = torch.clamp(bounds.to(torch.int64) - 1, 0, n_win - 1).t()
-    picked = torch.gather(
-        prefix, 2, idx[:, None, :].expand(n_ch, n_streams, idx.shape[1]))
-    picked = picked * valid[:, None, :].to(F32)
-    corr = picked[:, :, 1:] - picked[:, :, :-1]
-    return corr.permute(2, 0, 1).contiguous()
+    picked = prefix_at(prefix, idx) * valid[:, None, :].to(F32)
+    return boundary_differences(picked)
+
+
+def pass_b_inputs(cfg: TrackingConfig, bits3x, st: ChannelState, geo):
+    """The kernels' arguments after the window planes: ``(code_bits, c_int,
+    omega, code_step, fb_q, phic_q)``, and the epoch bounds."""
+    bg = block_geometry(cfg, st, geo)
+    bounds = epoch_bounds(cfg, geo, bg["base"])
+    return (bits3x, bg["c_int"], geo["omega"], geo["code_step"],
+            bg["fb_q"].contiguous(), bg["phic_q"].contiguous()), bounds
 
 
 def _pass_b(cfg: TrackingConfig, bits3x, st: ChannelState, geo,
-            window_re, window_im):
+            window_re, window_im, grid_ch=None):
     """Correlators ``[block_ms, n_ch, 2 * n_taps]`` for the whole block."""
-    bg = block_geometry(cfg, st, geo)
-    bounds = epoch_bounds(cfg, geo, bg["base"])
-    args = (window_re, window_im, bits3x, bg["c_int"], geo["omega"],
-            geo["code_step"], bg["fb_q"].contiguous(),
-            bg["phic_q"].contiguous())
+    inputs, bounds = pass_b_inputs(cfg, bits3x, st, geo)
+    args = (window_re, window_im, *inputs)
     if prefix_form(cfg):
         prefix = ck.block_cumsum_streams(*args, taps_for(cfg),
-                                         cfg.samples_per_ms)
+                                         cfg.samples_per_ms, grid_ch=grid_ch)
         return prefix_epoch_sums(prefix, bounds)
     return ck.epoch_correlate(*args, bounds, taps_for(cfg),
-                              cfg.samples_per_ms)
+                              cfg.samples_per_ms, grid_ch=grid_ch)
 
 
 # ---------------------------------------------------------------------------
@@ -533,23 +552,27 @@ def _pass_c(cfg: TrackingConfig, st: ChannelState, geo, corr):
 
 
 def run_block_batched(cfg: TrackingConfig, bits3x, state: ChannelState,
-                      window_re, window_im):
+                      window_re, window_im, *, grid_ch=None):
     """One block: pass A, pass B (K1, or K3 in the prefix form), pass C,
     then the anchor slew.
 
     ``bits3x`` is the ``tiled_code_bits`` table (``[n_ch, 4160]`` f32 on
     the state's device); ``window_re/im`` hold ``tail_ms + block_ms``
-    milliseconds. Returns (state, outputs ``[block_ms, n_ch]``).
+    milliseconds. ``grid_ch``: the kernels' launch shape for this many
+    channels (a channel shard passes the full count; see
+    ``correlator_kernel.epoch_correlate``). Returns (state, outputs
+    ``[block_ms, n_ch]``).
     """
     geo = _pass_a(cfg, state)
-    corr = _pass_b(cfg, bits3x, state, geo, window_re, window_im)
+    corr = _pass_b(cfg, bits3x, state, geo, window_re, window_im, grid_ch)
     new_state, outputs = _pass_c(cfg, state, geo, corr)
     return runtime_mod._slew_anchor(cfg, new_state), outputs
 
 
-def run_superblock(cfg: TrackingConfig, k_blocks: int, bits3x,
-                   state: ChannelState, samples_re, samples_im):
-    """Process ``k_blocks`` consecutive blocks.
+def superblock_loop(cfg: TrackingConfig, k_blocks: int, state: ChannelState,
+                    samples_re, samples_im, run_block):
+    """``k_blocks`` consecutive blocks through ``run_block(state,
+    window_re, window_im) -> (state, outputs)``.
 
     ``samples_re/im`` hold ``tail_ms + k_blocks * block_ms`` milliseconds
     laid out contiguously; block k's window is the slice starting at
@@ -561,10 +584,19 @@ def run_superblock(cfg: TrackingConfig, k_blocks: int, bits3x,
     outs = []
     for k in range(k_blocks):
         start = k * sb
-        state, out = run_block_batched(
-            cfg, bits3x, state, samples_re[start:start + win_len],
-            samples_im[start:start + win_len])
+        state, out = run_block(state, samples_re[start:start + win_len],
+                               samples_im[start:start + win_len])
         outs.append(out)
     merged = {key: torch.cat([o[key] for o in outs]) for key in outs[0]}
     return state, merged
 
+
+def run_superblock(cfg: TrackingConfig, k_blocks: int, bits3x,
+                   state: ChannelState, samples_re, samples_im, *,
+                   grid_ch=None):
+    """Process ``k_blocks`` consecutive blocks of :func:`run_block_batched`
+    (:func:`superblock_loop`)."""
+    return superblock_loop(
+        cfg, k_blocks, state, samples_re, samples_im,
+        lambda st, wre, wim: run_block_batched(cfg, bits3x, st, wre, wim,
+                                               grid_ch=grid_ch))

@@ -105,6 +105,30 @@ def state_to_numpy(st: ChannelState) -> dict:
     return {name: np.array(getattr(st, name).cpu()) for name in FIELDS}
 
 
+F32_FIELDS = tuple(n for n in FIELDS if n not in I32_FIELDS)
+I32_SCALAR_FIELDS = tuple(
+    n for n in FIELDS if n in I32_FIELDS and n != "edge_hist")
+
+
+def pack_state(st: ChannelState) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every leaf in two row-major tensors: ``[n_ch, len(F32_FIELDS)]``
+    float32 and ``[n_ch, len(I32_SCALAR_FIELDS) + 20]`` int32 (the scalar
+    integer fields, then the 20 columns of ``edge_hist``)."""
+    f = torch.stack([getattr(st, n) for n in F32_FIELDS], dim=1)
+    i = torch.cat([torch.stack([getattr(st, n) for n in I32_SCALAR_FIELDS],
+                               dim=1), st.edge_hist], dim=1)
+    return f, i
+
+
+def unpack_state(f: torch.Tensor, i: torch.Tensor) -> ChannelState:
+    """Inverse of :func:`pack_state` (each leaf a contiguous copy)."""
+    leaves = {n: f[:, k].contiguous() for k, n in enumerate(F32_FIELDS)}
+    leaves.update({n: i[:, k].contiguous()
+                   for k, n in enumerate(I32_SCALAR_FIELDS)})
+    leaves["edge_hist"] = i[:, len(I32_SCALAR_FIELDS):].contiguous()
+    return ChannelState(**leaves)
+
+
 def code_table(prns: list[int]) -> np.ndarray:
     """Stacked padded code tables ``[n_channels, 1025]`` for the given PRNs.
 

@@ -186,7 +186,7 @@ def launch_shape(n_epochs: int, n_ch: int, spms: int) -> tuple[int, int]:
 
 def epoch_correlate_launch_args(window_re, window_im, code_bits, c_int,
                                 omega, code_step, fb_q, phic_q, bounds, taps,
-                                spms):
+                                spms, grid_ch=None):
     """Check the arguments of :func:`epoch_correlate` (CUDA tensors),
     allocate its output and return ``(out, args)`` with ``args`` the C
     arguments of :data:`KERNEL`'s entry point."""
@@ -204,12 +204,12 @@ def epoch_correlate_launch_args(window_re, window_im, code_bits, c_int,
         native.ptr(c_int), native.ptr(omega), native.ptr(code_step),
         native.ptr(fb_q), native.ptr(phic_q), native.ptr(bounds),
         tap_sp, tap_k, len(taps), n_epochs, n_ch, n_q, spms,
-        *launch_shape(n_epochs, n_ch, spms),
+        *launch_shape(n_epochs, grid_ch or n_ch, spms),
         native.ptr(out), native.stream_of(out))
 
 
 def epoch_correlate(window_re, window_im, code_bits, c_int, omega, code_step,
-                    fb_q, phic_q, bounds, taps, spms):
+                    fb_q, phic_q, bounds, taps, spms, grid_ch=None):
     """Per-epoch correlators ``[n_epochs, n_ch, 2 * len(taps)]`` f32.
 
     Args:
@@ -222,6 +222,10 @@ def epoch_correlate(window_re, window_im, code_bits, c_int, omega, code_step,
             samples (epoch ``e`` sums samples ``[bounds[e], bounds[e+1])``).
         taps: ``((spacing, sample_shift), ...)``, at most 5 taps.
         spms: samples per millisecond.
+        grid_ch: the channel count whose launch shape to take (default:
+            this call's). A channel slice passes the full count, so that
+            its rows are summed in the order of the full launch and the
+            result does not depend on how the channels were sharded.
     """
     if window_re.device.type == "cpu":
         return epoch_correlate_ref(window_re, window_im, code_bits, c_int,
@@ -229,7 +233,7 @@ def epoch_correlate(window_re, window_im, code_bits, c_int, omega, code_step,
                                    taps, spms)
     out, args = epoch_correlate_launch_args(
         window_re, window_im, code_bits, c_int, omega, code_step, fb_q,
-        phic_q, bounds, taps, spms)
+        phic_q, bounds, taps, spms, grid_ch)
     KERNEL.launch(*args)
     return out
 
@@ -263,7 +267,7 @@ def cumsum_shape(n_win: int, n_ch: int) -> tuple[int, int]:
 
 def block_cumsum_streams_launch_args(window_re, window_im, code_bits, c_int,
                                      omega, code_step, fb_q, phic_q, taps,
-                                     spms, launches=3):
+                                     spms, launches=3, grid_ch=None):
     """Check the arguments of :func:`block_cumsum_streams` (CUDA tensors),
     allocate its output and scratch and return ``(out, args, scratch)``
     with ``args`` the C arguments of :data:`CUMSUM_KERNEL`'s entry point;
@@ -277,7 +281,7 @@ def block_cumsum_streams_launch_args(window_re, window_im, code_bits, c_int,
     n_ch, n_q = fb_q.shape
     n_win = window_re.shape[0]
     n_streams = 2 * len(taps)
-    seg_chunks, n_seg = cumsum_shape(n_win, n_ch)
+    seg_chunks, n_seg = cumsum_shape(n_win, grid_ch or n_ch)
     out = torch.empty((n_ch, n_streams, n_win), dtype=torch.float32,
                       device=dev)
     totals = torch.empty((n_ch, n_seg * CUMSUM_BLOCK_WARPS, n_streams),
@@ -292,13 +296,14 @@ def block_cumsum_streams_launch_args(window_re, window_im, code_bits, c_int,
 
 
 def block_cumsum_streams(window_re, window_im, code_bits, c_int, omega,
-                         code_step, fb_q, phic_q, taps, spms):
+                         code_step, fb_q, phic_q, taps, spms, grid_ch=None):
     """Inclusive per-sample prefix of every stream, ``[n_ch, 2 * len(taps),
     n_win]`` f32: ``out[c, s, t]`` sums stream ``s`` of channel ``c`` over
     window samples ``[0, t]``.
 
-    Arguments as :func:`epoch_correlate`, without ``bounds``. The prefix
-    accumulates in f32 (the JAX kernel rounds each sample to bf16 first).
+    Arguments as :func:`epoch_correlate`, without ``bounds`` (``grid_ch``
+    picks the segments of :func:`cumsum_shape`). The prefix accumulates in
+    f32 (the JAX kernel rounds each sample to bf16 first).
     """
     if window_re.device.type == "cpu":
         return block_cumsum_streams_ref(window_re, window_im, code_bits,
@@ -306,6 +311,6 @@ def block_cumsum_streams(window_re, window_im, code_bits, c_int, omega,
                                         phic_q, taps, spms)
     out, args, _scratch = block_cumsum_streams_launch_args(
         window_re, window_im, code_bits, c_int, omega, code_step, fb_q,
-        phic_q, taps, spms)
+        phic_q, taps, spms, grid_ch=grid_ch)
     CUMSUM_KERNEL.launch(*args)
     return out

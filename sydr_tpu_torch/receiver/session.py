@@ -15,8 +15,13 @@ Sample accounting: the session counts the samples fed
 inside the acquisition window, ``unread = samples_per_code - code_index -
 1`` (the reference's alignment).
 
-One device: the JAX session's optional channel-sharding ``mesh`` has no
-counterpart here.
+Channel sharding (``mesh=``, ``parallel.mesh.make_mesh``): every rank of
+the process group runs the same session over the same samples. Code
+tables, state, acquisition and its hand-off stay whole and replicated on
+every rank; each tracking step runs on this rank's channel rows
+(``parallel.mesh.make_sharded_batch_step``), and the new state and the
+packed outputs are gathered over ``ch`` in one float32 and one int32
+``all_gather``.
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ from sydr_tpu_torch.channels.state import (
     ChannelState,
     code_table,
     init_state,
+    pack_state,
+    unpack_state,
 )
 from sydr_tpu_torch.constants import (
     GPS_L1CA_CARRIER_FREQ,
@@ -44,6 +51,8 @@ from sydr_tpu_torch.constants import (
     GPS_L1CA_CODE_LENGTH,
 )
 from sydr_tpu_torch.ops import acquisition as acq
+from sydr_tpu_torch.parallel import distributed
+from sydr_tpu_torch.parallel import mesh as pmesh
 
 logger = logging.getLogger(__name__)
 
@@ -104,12 +113,16 @@ class TrackingSession:
         cruise_policy: CruisePolicy | None = None,
         *,
         device,
+        mesh=None,
     ):
         """``cruise``: optional throughput-optimal TrackingConfig to promote
         to once every channel is stable (:class:`CruisePolicy`); ``cfg`` is
         then the pull-in configuration. Both must share sampling rate,
         decimation, IF and tail length. ``device``: where the channel state,
         code tables, sample ring and all tracking/acquisition work live.
+        ``mesh``: optional ``parallel.mesh.make_mesh`` mesh; tracking then
+        runs channel-sharded over its ``ch`` axis, and the channel count
+        must divide over ``mesh.shape['ch']`` (pad ``prns`` with 0).
         """
         for c in (cfg, cruise):
             if c is not None and c.runtime != "batch" and c.superblock != 1:
@@ -132,6 +145,9 @@ class TrackingSession:
         self.promoted = False
         self._stable_blocks = 0
         self.n_channels = len(prns)
+        self.mesh = mesh
+        if mesh is not None:
+            self._rows = pmesh.channel_slice(mesh, self.n_channels)
         # Code tables of the two runtimes: padded chips (scan) and tiled
         # code bits (batch).
         self.codes = torch.from_numpy(code_table(prns)).to(self.device)
@@ -444,6 +460,8 @@ class TrackingSession:
 
         self._ring_re = roll_ring(self._ring_re, wre[tail_n:])
         self._ring_im = roll_ring(self._ring_im, wim[tail_n:])
+        if self.mesh is not None:
+            return self._sharded_step(wre, wim)
         if cfg.runtime != "batch":
             self.state, outputs = runtime.run_block(
                 cfg, self.codes, self.state, wre, wim)
@@ -453,6 +471,12 @@ class TrackingSession:
         else:
             self.state, outputs = batch_runtime.run_block_batched(
                 cfg, self.bits3x, self.state, wre, wim)
+        return self._pack_outputs(outputs)
+
+    @staticmethod
+    def _pack_outputs(outputs):
+        """Outputs ``[T, n_ch]`` packed into ``[T, n_ch, k]`` float32 and
+        int32 tensors, with their sorted key tuples."""
         keys_f = tuple(sorted(
             k for k, v in outputs.items() if v.dtype == torch.float32))
         keys_i = tuple(sorted(
@@ -460,6 +484,36 @@ class TrackingSession:
         packed_f = torch.stack([outputs[k] for k in keys_f], dim=-1)
         packed_i = torch.stack(
             [outputs[k].to(torch.int32) for k in keys_i], dim=-1)
+        return packed_f, packed_i, keys_f, keys_i
+
+    def _sharded_step(self, wre, wim):
+        """The block (or superblock) on this rank's channel rows; the new
+        state and the outputs of every rank are gathered over ``ch``: one
+        row-major float32 and one int32 tensor each way, state columns
+        first, then the outputs ``[T, rows, k]`` as ``T * k`` columns."""
+        cfg, rows = self.cfg, self._rows
+        tables = (self.bits3x if cfg.runtime == "batch" else self.codes)[rows]
+        local = ChannelState(**{
+            n: getattr(self.state, n)[rows] for n in FIELDS})
+        step = pmesh.make_sharded_batch_step(
+            cfg, self.mesh,
+            k_blocks=cfg.superblock if cfg.runtime == "batch" else 1)
+        local, outputs = step(tables, local, wre, wim)
+        out_f, out_i, keys_f, keys_i = self._pack_outputs(outputs)
+        st_f, st_i = pack_state(local)
+        n_t, n_rows = out_f.shape[:2]
+
+        def gather(state_cols, out):
+            cols = out.permute(1, 0, 2).reshape(n_rows, -1)
+            both = distributed.gather_axis(
+                self.mesh, "ch", torch.cat([state_cols, cols], dim=1))
+            n_st = state_cols.shape[1]
+            return both[:, :n_st], both[:, n_st:].reshape(
+                self.n_channels, n_t, -1).permute(1, 0, 2)
+
+        st_f, packed_f = gather(st_f, out_f)
+        st_i, packed_i = gather(st_i, out_i)
+        self.state = unpack_state(st_f, st_i)
         return packed_f, packed_i, keys_f, keys_i
 
     # ------------------------------------------------------------------

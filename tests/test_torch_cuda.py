@@ -258,3 +258,79 @@ def test_epoch_correlate_mismatched_plane_alignment():
     torch.cuda.synchronize()
     bound = 1e-2 + 1e-4 * float(ref.abs().max())
     assert float((got - ref).abs().max()) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix", [False, True])
+def test_channel_slice_with_full_launch_shape_is_bit_identical(prefix):
+    """K1 (or K3) on the last 16 of 32 channels with the 32-channel launch
+    shape (``grid_ch``) gives those rows of the full launch bit for bit:
+    the sharded step's rows do not depend on the sharding."""
+    dev = _cuda()
+    args = list(_k1_args(2.5e6, 20, True, True, dev))
+    rows = slice(16, 32)
+    part = [a[rows].contiguous() for a in args[2:8]]
+    if prefix:
+        full = ck.block_cumsum_streams(*(args[:8] + args[9:]))
+        got = ck.block_cumsum_streams(*args[:2], *part, *args[9:],
+                                      grid_ch=N_CH)
+    else:
+        full = ck.epoch_correlate(*args)
+        got = ck.epoch_correlate(*args[:2], *part,
+                                 args[8][:, rows].contiguous(), *args[9:],
+                                 grid_ch=N_CH)
+    torch.cuda.synchronize()
+    assert torch.equal(got, full[rows] if prefix else full[:, rows])
+
+
+@pytest.mark.cuda
+def test_sharded_step_on_nccl_world_of_one():
+    """``make_sharded_batch_step`` on a (1, 1) mesh of a one-rank NCCL
+    process group: the same state and outputs as the unsharded block, and
+    K1 launched."""
+    import socket
+
+    from sydr_tpu_torch.parallel import distributed, mesh as pmesh
+
+    dev = _cuda()
+    rng = np.random.default_rng(9)
+    cfg = TrackingConfig(sampling_frequency=2.5e6, block_ms=20, tail_ms=4,
+                         window_size=2756, runtime="batch",
+                         profile="kaplan", kaplan_narrow_only=True,
+                         quantize_spacing=True)
+    spms = cfg.samples_per_ms
+    st = dataclasses.replace(
+        init_state(N_CH, dev),
+        mode=torch.full((N_CH,), MODE_TRACKING, dtype=torch.int32,
+                        device=dev),
+        carrier_freq=torch.tensor(rng.uniform(-4000, 4000, N_CH),
+                                  dtype=torch.float32, device=dev),
+        unread=torch.full((N_CH,), spms + 300, dtype=torch.int32,
+                          device=dev))
+    bits = torch.tensor(br.tiled_code_bits(list(range(1, N_CH + 1))),
+                        device=dev)
+    wre = torch.tensor(rng.normal(0, 2, cfg.window_samples),
+                       dtype=torch.float32, device=dev)
+    wim = torch.tensor(rng.normal(0, 2, cfg.window_samples),
+                       dtype=torch.float32, device=dev)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    distributed.initialize("nccl", rank=0, world_size=1,
+                           init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        mesh = pmesh.make_mesh(1, 1)
+        before = ck.KERNEL.launches
+        st_s, out_s = pmesh.make_sharded_batch_step(cfg, mesh)(
+            bits, st, wre, wim)
+        assert ck.KERNEL.launches == before + 1
+        gathered = distributed.gather_axis(mesh, "ch", out_s["i_prompt"],
+                                           dim=1)
+    finally:
+        distributed.shutdown()
+    st_u, out_u = br.run_block_batched(cfg, bits, st, wre, wim)
+    for key in out_u:
+        assert torch.equal(out_s[key], out_u[key]), key
+    assert torch.equal(gathered, out_u["i_prompt"])
+    for f in dataclasses.fields(st_u):
+        assert torch.equal(getattr(st_s, f.name), getattr(st_u, f.name))

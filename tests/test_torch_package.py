@@ -155,7 +155,9 @@ def test_package_imports_no_jax():
     for rel in COPIED + tuple(CHANGED) + (
             "receiver/session.py", "receiver/checkpoint.py",
             "channels/runtime.py", "channels/batch_runtime.py",
-            "ops/tracking.py", "ops/acquisition.py"):
+            "ops/tracking.py", "ops/acquisition.py",
+            "parallel/distributed.py", "parallel/mesh.py",
+            "parallel/timeshard.py", "parallel/dryrun.py"):
         if rel.endswith("__init__.py") or rel == "__main__.py":
             continue
         assert "sydr_tpu_torch." + rel[:-3].replace("/", ".") in mods, rel
