@@ -23,10 +23,13 @@ printing its wall time:
    launches queued behind a spinning kernel so that the CUDA events around
    them see the device's time, not the host's); ``call_ms``, the time
    through the Python wrapper as the receiver pays it; ``plain_ms``, the
-   plain version; ``library_ms``, for K2, ``torch.fft.ifft`` alone over the
-   pre-made product (the part of K2 that one PyTorch call computes; the
-   port never calls it); and ``bound_ms``, the least time the card could
-   take (:func:`roofline`). An empty kernel is timed the same way: the
+   plain version; ``library_ms``, the part of the kernel that one PyTorch
+   call computes over pre-made inputs (the port never calls it): for K2
+   ``torch.fft.ifft`` over the spectrum product, for K1
+   ``torch.segment_reduce`` over the correlation streams laid out
+   channel-major (checked against the plain version), for K3
+   ``torch.cumsum`` over the streams; and ``bound_ms``, the least time the
+   card could take (:func:`roofline`). An empty kernel is timed the same way: the
    floor the microsecond-scale kernels are read against;
 4. the production parity gate: 4 closed-loop blocks against the committed
    CPU truth ``tools/parity_truth.npz`` (read with numpy), in both boundary
@@ -92,11 +95,27 @@ printing its wall time:
     counts and step times, the unsharded times beside them, and K1 and K3
     on a time shard timed as in phase 3; (c) ``python -m
     sydr_tpu_torch.parallel.dryrun --world 2 --backend gloo``, which must
-    print its OK line.
+    print its OK line;
+15. the measuring tools (``sydr_tpu_torch.tools``): (a) the soak, 60 s of
+    the production receiver (10 Msps, decimate 4, kaplan pull-in, the
+    narrow-only cruise at superblock 25, quantised taps, seed 3) within the
+    soak's fix, prompt-ratio and C/N0 bounds (its Doppler drift is printed:
+    the > 50 Hz bound needs 300 s); its scenario is made from the end of
+    phase 3 on by a child process (``soak.scenario_chunks``, 3 workers)
+    while phases 4-14 run; (b) beside the soak, in a child process, one
+    kaplan ``track_benchmark`` trial at 45 dB-Hz (retained, BER 0) and one
+    at 35 dB-Hz (printed); (c) ``acq_benchmark``: 32 trials at 30 and 33
+    dB-Hz and 32 signal-absent, 4 Msps, 5 x 10 ms (Pd 1.00 at 33 dB-Hz,
+    Pfa 0/32; the 30 dB-Hz row and the grid rate printed); (d)
+    ``trace_profile``'s superblock (5 blocks) in both boundary forms with
+    its pass A/B/C split; (e) ``scaling_bench``'s per-shard curve (10-block
+    steps) at 32, 16, 8, 4 channels with eff(n); (f) ``acq_profile``'s two
+    maps.
 
-Each of phases 5-14 sets every kernel's launch count to 0 just before it
-and reads the counts just after (phase 14's ranks count in their own
-processes, from 0). The last three lines are the kernels'
+Each of phases 5-15 sets every kernel's launch count to 0 just before it
+(phase 15: each of its parts) and reads the counts just after (phase 14's
+ranks and phase 15's tracking trials count in their own processes, from
+0). The last three lines are the kernels'
 JSON record, the ``nvidia-smi`` line and ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits non-zero before printing
 any result. It imports no JAX.
@@ -369,6 +388,9 @@ def k1_case(name, fs, block_ms, profile, quantize, device, rng):
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
     bound = K1_ATOL + K1_RTOL * float(ref.abs().max())
+    lib_ms, lib_err = segment_reduce_library(args, ref)
+    check(lib_err <= bound, f"K1 {name}: the library yardstick "
+          f"(segment_reduce) is off by {lib_err}, above {bound}")
     out, cargs = ck.epoch_correlate_launch_args(*args)
     fn = ck.KERNEL.function()
     # The work this state needs: the samples inside the epochs' bounds.
@@ -378,7 +400,7 @@ def k1_case(name, fs, block_ms, profile, quantize, device, rng):
            "ms": device_ms(lambda: fn(*cargs), 200),
            "call_ms": cuda_ms(lambda: ck.epoch_correlate(*args), 50),
            "plain_ms": cuda_ms(lambda: ck.epoch_correlate_ref(*args), 5),
-           "library_ms": None,
+           "library_ms": lib_ms,
            **roofline(tensor_bytes(*args[:9], out),
                       stream_flops(n_samples, len(taps)))}
     report("K1", name, got.shape,
@@ -389,6 +411,51 @@ def k1_case(name, fs, block_ms, profile, quantize, device, rng):
     check(bool(torch.isfinite(got).all()), f"K1 {name}: non-finite output")
     check(err <= bound, f"K1 {name}: error {err} above bound {bound}")
     return res
+
+
+def segment_reduce_library(args, ref):
+    """``torch.segment_reduce`` over K1's streams, pre-made and laid out
+    channel-major (``[n_ch * n_win, n_streams]``, one segment per epoch and
+    one before and after): the part of K1 that one PyTorch call computes.
+    Returns (its ms, its largest difference from the plain version)."""
+    import torch
+
+    from sydr_tpu_torch.ops import correlator_kernel as ck
+
+    bounds = args[8]
+    streams = ck._dense_streams(*args[:8], *args[9:])
+    n_ch, n_s, n_win = streams.shape
+    data = streams.permute(0, 2, 1).reshape(n_ch * n_win, n_s).contiguous()
+    b = bounds.to(torch.int64).t()
+    lengths = torch.cat([b[:, :1], b[:, 1:] - b[:, :-1], n_win - b[:, -1:]],
+                        dim=1).reshape(-1)
+
+    def run():
+        return torch.segment_reduce(data, "sum", lengths=lengths, axis=0)
+
+    got = run().reshape(n_ch, -1, n_s)[:, 1:-1].permute(1, 0, 2)
+    err = float((got - ref).abs().max())
+    ms = cuda_ms(run, 20)
+    print(f"   library yardstick: torch.segment_reduce over "
+          f"{tuple(data.shape)} f32 ({tensor_bytes(data) / 1e6:.0f} MB, "
+          f"{lengths.numel()} segments): {ms:.4f} ms, max_abs_err "
+          f"{err:.3e}", flush=True)
+    return ms, err
+
+
+def cumsum_library_ms(k3) -> float:
+    """``torch.cumsum`` over K3's streams, pre-made ``[n_ch, n_streams,
+    n_win]`` f32: the part of K3 that one PyTorch call computes."""
+    import torch
+
+    from sydr_tpu_torch.ops import correlator_kernel as ck
+
+    streams = ck._dense_streams(*k3)
+    ms = cuda_ms(lambda: torch.cumsum(streams, dim=-1), 20)
+    print(f"   library yardstick: torch.cumsum over {tuple(streams.shape)} "
+          f"f32 ({tensor_bytes(streams) / 1e6:.0f} MB): {ms:.4f} ms",
+          flush=True)
+    return ms
 
 
 def k3_case(name, fs, block_ms, profile, device, rng):
@@ -436,7 +503,7 @@ def k3_case(name, fs, block_ms, profile, device, rng):
            "ms": device_ms(lambda: fn(*cargs), 100),
            "call_ms": cuda_ms(lambda: ck.block_cumsum_streams(*k3), 20),
            "plain_ms": cuda_ms(lambda: ck.block_cumsum_streams_ref(*k3), 3),
-           "library_ms": None,
+           "library_ms": cumsum_library_ms(k3),
            **roofline(tensor_bytes(*args[:8], out),
                       stream_flops(n_ch * n_win, n_streams // 2)
                       + float(n_ch * n_streams * n_win))}
@@ -769,6 +836,7 @@ def scan_block_profile(session, card) -> None:
     import torch
 
     from sydr_tpu_torch.channels import runtime
+    from sydr_tpu_torch.tools import trace_profile
 
     cfg = session.cfg
     window = torch.randn(cfg.window_samples, device=session.device)
@@ -786,9 +854,8 @@ def scan_block_profile(session, card) -> None:
     wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
     n_launch = sum(e.count for e in events if "LaunchKernel" in e.key)
-    device_us = sum(getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0))
-                    for e in events)
+    device_us = sum(e.self_device_time_total
+                    for e in trace_profile.kernel_rows(events))
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
@@ -1624,6 +1691,9 @@ def sp_shard_cases(data, device) -> dict:
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
     bound = K1_ATOL + K1_RTOL * float(ref.abs().max())
+    lib_ms, lib_err = segment_reduce_library(k1, ref)
+    check(lib_err <= bound, f"K1 {name}: the library yardstick "
+          f"(segment_reduce) is off by {lib_err}, above {bound}")
     out, cargs = ck.epoch_correlate_launch_args(*k1)
     fn = ck.KERNEL.function()
     n_samples = int((local[-1] - local[0]).sum())
@@ -1631,7 +1701,7 @@ def sp_shard_cases(data, device) -> dict:
         "max_abs_err": err, "ms": device_ms(lambda: fn(*cargs), 200),
         "call_ms": cuda_ms(lambda: ck.epoch_correlate(*k1), 50),
         "plain_ms": cuda_ms(lambda: ck.epoch_correlate_ref(*k1), 5),
-        "library_ms": None,
+        "library_ms": lib_ms,
         **roofline(tensor_bytes(*k1[:9], out),
                    stream_flops(n_samples, len(taps)))}
     report("K1", name, got.shape, f"max_abs_err {err:.3e} (bound "
@@ -1650,7 +1720,7 @@ def sp_shard_cases(data, device) -> dict:
         "max_abs_err": err, "ms": device_ms(lambda: fn(*cargs), 100),
         "call_ms": cuda_ms(lambda: ck.block_cumsum_streams(*k3), 20),
         "plain_ms": cuda_ms(lambda: ck.block_cumsum_streams_ref(*k3), 3),
-        "library_ms": None,
+        "library_ms": cumsum_library_ms(k3),
         **roofline(tensor_bytes(*k3[:8], out),
                    stream_flops(n_ch * n_win, n_streams // 2)
                    + float(n_ch * n_streams * n_win))}
@@ -1689,6 +1759,262 @@ def multi_device_phase(device, capture, session_run, card) -> dict:
     return {"launches": launches, "sp_cases": res["sp_cases"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the measuring tools
+# ---------------------------------------------------------------------------
+
+SOAK_SECONDS = 60       # the soak's shape (tools/soak.py), cut from 300 s
+SOAK_WORKERS = 3        # processes making the scenario's signal
+SOAK_SUPERBLOCK = 25
+ACQ_FS = 4e6            # docs/acq_benchmark.md's command: PRN 7, 5 x 10,
+ACQ_TRIALS = 32         # +-5 kHz in 100 Hz bins, threshold 1.5, seed 0
+ACQ_CN0 = (30.0, 33.0)
+ACQ_PD_30_JAX = 0.41    # docs/acq_benchmark.md (the JAX package, a CPU)
+TRACK_CN0 = (45.0, 35.0)  # one kaplan trial each, channel_sweep's seeds
+# Depth cut for the timed tools: the profiler's post-processing of a 50
+# block superblock's ~285,000 launches takes minutes a form; the per-block
+# work is the same at any superblock length.
+TRACE_SUPERBLOCK = 5
+SCALING_SUPERBLOCK = 10
+TOOLS_TIMEOUT_S = 900
+
+
+def soak_producer(queue, seconds: int, fs: float, workers: int) -> None:
+    """Put the soak's scenario at ``fs`` on ``queue`` as ``(re, im)``
+    chunks of 1 s, made by ``workers`` processes
+    (``soak.scenario_chunks``: the in-line stream's samples), then None. Runs in a child process from the kernel
+    checks on, while the earlier phases run; SIGTERM ends it and its
+    workers."""
+    import signal
+
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))
+    sys.path.insert(0, REPO)
+    from sydr_tpu_torch.tools.soak import scenario_chunks
+
+    t0 = time.perf_counter()
+    for chunk in scenario_chunks(seconds, fs, workers=workers):
+        queue.put(chunk)
+    queue.put(None)
+    print(f"soak producer: {seconds} s of the scenario at {fs / 1e6:g} "
+          f"Msps made in {time.perf_counter() - t0:.1f} s by {workers} "
+          f"workers", flush=True)
+
+
+def stop_process(proc) -> None:
+    if proc.is_alive():
+        proc.terminate()
+        proc.join(30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+
+
+def queued_chunks(queue, producer):
+    """The producer's chunks until its None; fails if it died first."""
+    import queue as queue_mod
+
+    while True:
+        try:
+            item = queue.get(timeout=60)
+        except queue_mod.Empty:
+            check(producer.is_alive(),
+                  f"the soak producer exited ({producer.exitcode})")
+            continue
+        if item is None:
+            return
+        yield item
+
+
+def track_trials(results, device_name: str) -> None:
+    """The tracking benchmark's trials on the card, in a child process
+    that runs beside the soak: one kaplan trial at each of TRACK_CN0, with
+    this process's launch counts (from 0)."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from sydr_tpu_torch.tools import track_benchmark as tb
+
+    device = torch.device(device_name)
+    t0 = time.perf_counter()
+    rows = [tb.run_trial(cn0, "kaplan", tb.trial_seed(0, cn0, 0),
+                         device=device) for cn0 in TRACK_CN0]
+    results.put({"rows": rows, "launches": read_launches(),
+                 "wall_s": time.perf_counter() - t0})
+
+
+def soak_phase(device, soak_queue, producer) -> dict:
+    """(a) the soak, 60 s of the production receiver, in this process."""
+    from sydr_tpu_torch.tools import soak
+
+    reset_launches()
+    res = soak.run_soak(seconds=SOAK_SECONDS, fs=FS_IN, decimate=DECIMATE,
+                        use_pallas=True, superblock=SOAK_SUPERBLOCK,
+                        device=device,
+                        chunks=queued_chunks(soak_queue, producer))
+    launches = read_launches()
+    print(f"soak: {json.dumps(res)}", flush=True)
+    print(f"soak: Doppler drift {res['doppler_drift_hz']} Hz over "
+          f"{SOAK_SECONDS} s (not checked: the > 50 Hz bound is for 300 s); "
+          f"launches {launches}", flush=True)
+    check(soak.within_bounds(res, SOAK_SECONDS),
+          f"the soak is outside its bounds: {res}")
+    check(launches["epoch_correlate"] > 0 and launches["pcps_bins"] > 0,
+          f"the soak did not launch K1 and K2: {launches}")
+    return {"launches": launches, "soak": res}
+
+
+def track_phase(results, tracker) -> dict:
+    """(b) the tracking trials' results from their child process."""
+    import queue as queue_mod
+
+    try:
+        out = results.get(timeout=TOOLS_TIMEOUT_S)
+    except queue_mod.Empty:
+        fail(f"the tracking trials gave no result (exit {tracker.exitcode})")
+    tracker.join(60)
+    from sydr_tpu_torch.tools import track_benchmark as tb
+
+    for r in out["rows"]:
+        print(f"track_benchmark: {json.dumps(r)}", flush=True)
+    print(f"track_benchmark: {len(out['rows'])} trials in "
+          f"{out['wall_s']:.1f} s beside the soak, launches "
+          f"{out['launches']}", flush=True)
+    rows = [{"profile": r["profile"], "cn0_dbhz": r["cn0_dbhz"],
+             "retention": float(r["retained"]),
+             "pll_lock_mean": r.get("pll_lock_mean", 0.0),
+             "cn0_est_mean": r.get("cn0_est_mean", 0.0),
+             "slipped_frac": float(abs(r.get("slip_cycles", 0.0)) >= 0.5),
+             "ber_mean": r.get("ber", 1.0)} for r in out["rows"]]
+    print(tb.render_table(rows), flush=True)
+    strong = out["rows"][0]
+    check(strong["locked_at_drop"] and strong["retained"]
+          and strong["ber"] == 0.0,
+          f"kaplan at {TRACK_CN0[0]} dB-Hz not retained with BER 0: {strong}")
+    n = out["launches"]
+    check(n["epoch_correlate"] > 0 and n["pcps_bins"] > 0,
+          f"the tracking trials did not launch K1 and K2: {n}")
+    return {"launches": n}
+
+
+def acq_phase(device) -> dict:
+    """(c) the acquisition benchmark: 32 trials at ACQ_CN0 and 32
+    signal-absent trials, the seeds of docs/acq_benchmark.md's command."""
+    from sydr_tpu_torch.tools import acq_benchmark as ab
+
+    kw = dict(prn=7, trials=ACQ_TRIALS, sampling_frequency=ACQ_FS,
+              coherent=5, non_coherent=10, doppler_range=5000.0,
+              doppler_step=100.0, threshold=1.5, device=device)
+    reset_launches()
+    ab.run_config(cn0_dbhz=None, seed=10_000_000, **kw)     # warm-up
+    rows = [ab.run_config(cn0_dbhz=cn0, seed=int(round(cn0 * 10)), **kw)
+            for cn0 in ACQ_CN0]
+    rows.append(ab.run_config(cn0_dbhz=None, seed=1000, **kw))
+    launches = read_launches()
+    for r in rows:
+        print(f"acq_benchmark: {json.dumps(r)}", flush=True)
+    print(ab.render_table(rows, 1.5), flush=True)
+    rates = ", ".join(f"{r['grid_pts_per_s']:.4g}" for r in rows)
+    print(f"acq_benchmark: Pd at 30 dB-Hz {rows[0]['pd']:.2f} (the JAX "
+          f"package's table: {ACQ_PD_30_JAX}); grid rate {rates} points/s "
+          f"({ACQ_TRIALS} x 101 bins x n={round(ACQ_FS * 1e-3)}, forward "
+          f"FFT + K2 + peak between fences); launches {launches}",
+          flush=True)
+    check(rows[1]["pd"] == 1.0, f"Pd at 33 dB-Hz {rows[1]['pd']} != 1.00")
+    check(rows[2]["pfa"] == 0.0, f"Pfa {rows[2]['pfa']} != 0/32")
+    check(launches["pcps_bins"] > 0, f"acquisition never ran K2: {launches}")
+    return {"launches": launches,
+            "grid_pts_per_s": [r["grid_pts_per_s"] for r in rows]}
+
+
+def trace_phase(device) -> dict:
+    """(d) the production superblock's device profile (cut to
+    TRACE_SUPERBLOCK blocks) in both boundary forms."""
+    from sydr_tpu_torch.tools import trace_profile
+
+    launches = {}
+    for mode in ("prefix", "rowsum"):
+        reset_launches()
+        rec = trace_profile.profile_form(mode, device,
+                                         superblock=TRACE_SUPERBLOCK)
+        n = read_launches()
+        split = rec["pass_split"]
+        check(all(split[p]["device_ms"] is not None
+                  for p in trace_profile.PASSES)
+              and split["pass C"]["device_ms"] > 0,
+              f"trace_profile [{mode}]: no device time per pass: {split}")
+        kernel = ("block_cumsum_streams" if mode == "prefix"
+                  else "epoch_correlate")
+        check(n[kernel] > 0, f"trace_profile [{mode}] never ran {kernel}")
+        if mode == "prefix":
+            check(n["epoch_correlate"] == 0,
+                  f"trace_profile [prefix] launched K1: {n}")
+        launches[mode] = n
+    return {"launches": {k: sum(n[k] for n in launches.values())
+                         for k in launches["rowsum"]}}
+
+
+def scaling_phase(device) -> dict:
+    """(e) the per-shard curve: the production step (cut to
+    SCALING_SUPERBLOCK blocks) at 32, 16, 8 and 4 channels, 3 timed steps
+    each."""
+    from sydr_tpu_torch.tools import scaling_bench
+
+    reset_launches()
+    res = scaling_bench.chip_section(device, superblock=SCALING_SUPERBLOCK,
+                                     n_blocks=3, warmup=1)
+    launches = read_launches()
+    eff = res["ch_mesh_strong_32ch"]
+    check(all(n in eff for n in (2, 4, 8)),
+          f"scaling_bench: eff(n) missing: {eff}")
+    print(f"scaling_bench: {json.dumps(res)}", flush=True)
+    check(launches["epoch_correlate"] > 0,
+          f"scaling_bench never ran K1: {launches}")
+    return {"launches": launches}
+
+
+def acq_profile_phase(device) -> dict:
+    """(f) both PCPS maps at the bench's acquisition shape."""
+    from sydr_tpu_torch.tools import acq_profile
+
+    reset_launches()
+    res = acq_profile.profile_maps(device)
+    launches = read_launches()
+    print(f"acq_profile: {json.dumps(res)}", flush=True)
+    check(res["max_rel_diff"] <= K2_RTOL,
+          f"acq_profile: the maps differ by {res['max_rel_diff']}")
+    check(launches["pcps_bins"] > 0, f"acq_profile never ran K2: {launches}")
+    return {"launches": launches}
+
+
+def tools_phase(device, soak_queue, producer) -> dict:
+    """Phase 15: the measuring tools (``sydr_tpu_torch.tools``). The soak
+    runs here while a child process runs the tracking trials; the timed
+    tools run after both, alone."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    tracker = ctx.Process(target=track_trials, args=(results, str(device)),
+                          daemon=True)
+    tracker.start()
+    paths = {}
+    try:
+        paths["tools: soak"] = timed("tools: soak", soak_phase, device,
+                                     soak_queue, producer)
+        paths["tools: track_benchmark"] = timed(
+            "tools: track_benchmark (waited for)", track_phase, results,
+            tracker)
+    finally:
+        stop_process(tracker)
+    paths["tools: acq_benchmark"] = timed("tools: acq_benchmark", acq_phase,
+                                          device)
+    paths["tools: trace_profile"] = timed("tools: trace_profile",
+                                          trace_phase, device)
+    paths["tools: scaling_bench"] = timed("tools: scaling_bench",
+                                          scaling_phase, device)
+    paths["tools: acq_profile"] = timed("tools: acq_profile",
+                                        acq_profile_phase, device)
+    return paths
+
+
 def timed(name, fn, *args, **kwargs):
     t0 = time.perf_counter()
     res = fn(*args, **kwargs)
@@ -1712,44 +2038,10 @@ RECORD = (
 )
 
 
-def main(argv=None) -> int:
-    import argparse
-
+def path_phases(device, card, soak_queue, producer) -> dict:
+    """Phases 4-15; per path, what it returns (its launch counts among
+    them)."""
     import torch
-
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--kernels", action="store_true",
-                        help="stop after the kernel checks (phase 3)")
-    opts = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("FAIL: no CUDA device: this smoke test runs only on a GPU",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, REPO)
-    from sydr_tpu_torch.ops import correlator_kernel, native
-
-    card = card_line()
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}", flush=True)
-    print(f"card: {card}", flush=True)
-    device = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    t0 = time.perf_counter()
-    built = [*kernels().values(), native.EMPTY_LAUNCH,
-             correlator_kernel.STORE_CEILING]
-    native.build_all(built)
-    for kern in built:
-        usage = [ln.strip() for ln in kern.build_log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"built {kern.source} in {kern.build_seconds or 0:.2f} s: "
-              f"{'; '.join(usage) or 'cached'}", flush=True)
-    print(f"phase build: {time.perf_counter() - t0:.1f} s", flush=True)
-
-    cases = timed("kernel checks", kernel_phase, device)
-    if opts.kernels:
-        return 0
 
     timed("parity", parity_phase, device)
     paths = {}
@@ -1813,6 +2105,61 @@ def main(argv=None) -> int:
     paths["multi-device"] = timed("multi-device", multi_device_phase,
                                   device, capture, paths["session"], card)
     del capture
+    paths.update(timed("tools", tools_phase, device, soak_queue, producer))
+    return paths
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernels", action="store_true",
+                        help="stop after the kernel checks (phase 3)")
+    opts = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device: this smoke test runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from sydr_tpu_torch.ops import correlator_kernel, native
+
+    card = card_line()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+    print(f"card: {card}", flush=True)
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    built = [*kernels().values(), native.EMPTY_LAUNCH,
+             correlator_kernel.STORE_CEILING]
+    native.build_all(built)
+    for kern in built:
+        usage = [ln.strip() for ln in kern.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"built {kern.source} in {kern.build_seconds or 0:.2f} s: "
+              f"{'; '.join(usage) or 'cached'}", flush=True)
+    print(f"phase build: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    cases = timed("kernel checks", kernel_phase, device)
+    if opts.kernels:
+        return 0
+
+    # The soak's scenario is made in a child process from here on, while
+    # the other phases run.
+    ctx = multiprocessing.get_context("spawn")
+    soak_queue = ctx.Queue()
+    producer = ctx.Process(target=soak_producer,
+                           args=(soak_queue, SOAK_SECONDS, FS_IN,
+                                 SOAK_WORKERS))
+    producer.start()
+    try:
+        paths = path_phases(device, card, soak_queue, producer)
+    finally:
+        stop_process(producer)
 
     for name, by_case in cases.items():
         for case, res in by_case.items():

@@ -40,7 +40,7 @@ TINY = dict(sampling_frequency=1.023e6, block_ms=2, tail_ms=2,
             window_size=1152)
 
 
-def _tracking_inputs(cfg, n_channels, device, seed=0):
+def tracking_inputs(cfg, n_channels, device, seed=0):
     """PRNs (1..32 in turn), a tracking state of ``n_channels`` channels
     and the generator the windows are drawn from."""
     from sydr_tpu_torch.channels.state import MODE_TRACKING, init_state
@@ -111,7 +111,7 @@ def run_rank(rank: int, world: int, backend: str, device_kind: str,
     times = {}
 
     # 1. Acquisition: (channel x Doppler)-sharded PCPS.
-    prns, state, rng = _tracking_inputs(cfg, n_channels, device)
+    prns, state, rng = tracking_inputs(cfg, n_channels, device)
     coherent = non_coherent = 2
     n = cfg.samples_per_ms
     iq = [_window(rng, n_channels * coherent * non_coherent * n,
@@ -156,7 +156,7 @@ def run_rank(rank: int, world: int, backend: str, device_kind: str,
             TINY, sampling_frequency=2.046e6, window_size=2304,
             block_ms=sp_block), runtime="batch",
             use_pallas=form == "prefix", boundary_mode=form)
-        _, sp_state, sp_rng = _tracking_inputs(sp_cfg, n_channels, device)
+        _, sp_state, sp_rng = tracking_inputs(sp_cfg, n_channels, device)
         wre, wim = (_window(sp_rng, sp_cfg.window_samples, device)
                     for _ in range(2))
         (_, out), times[f"sp {form} block"] = _timed(

@@ -157,7 +157,11 @@ def test_package_imports_no_jax():
             "channels/runtime.py", "channels/batch_runtime.py",
             "ops/tracking.py", "ops/acquisition.py",
             "parallel/distributed.py", "parallel/mesh.py",
-            "parallel/timeshard.py", "parallel/dryrun.py"):
+            "parallel/timeshard.py", "parallel/dryrun.py",
+            "tools/soak.py", "tools/soak_debug.py",
+            "tools/false_lock_probe.py", "tools/acq_benchmark.py",
+            "tools/track_benchmark.py", "tools/trace_profile.py",
+            "tools/scaling_bench.py", "tools/acq_profile.py"):
         if rel.endswith("__init__.py") or rel == "__main__.py":
             continue
         assert "sydr_tpu_torch." + rel[:-3].replace("/", ".") in mods, rel
