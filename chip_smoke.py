@@ -13,8 +13,13 @@ printing its wall time:
    process per source, all at once;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the receiver gives it, with its error bound: K1 ``epoch_correlate``, K2
-   ``pcps_bins`` (the radix FFT, at n = 4092 through its prime radices 31
-   and 11, and the four-step entry at n = 4070 = 2 * 5 * 11 * 37), K3
+   ``pcps_bins`` (the one-block radix FFT, at n = 4092 through its prime
+   radices 31 and 11; the cluster entry at n = 16368 and 40920, with its
+   cluster size and ``cudaOccupancyMaxActiveClusters``, then a sweep over
+   the front-end code periods that need a cluster, 12276 to 65536, each
+   on the cluster ``cluster_size`` gives; the refusal of n = 16370, which
+   no entry takes, before any launch; the four-step entry at
+   n = 4070 = 2 * 5 * 11 * 37), K3
    ``block_cumsum_streams`` (with its two launches timed apart, the time
    of a kernel that only makes its stores, and a second run that must be
    bit-identical). Each case prints four times and a bound:
@@ -54,24 +59,28 @@ printing its wall time:
    11) and find the visible satellites;
 9. the same at 4.070 Msps (n = 4070 = 2 * 5 * 11 * 37, no radix plan):
    acquisition must go through K2's four-step entry;
-10. the per-ms scan runtime at full width: phase 5's capture (its first
+10. a session at 16.368 Msps, full rate (no decimation: n = 16368 =
+    2^4 * 3 * 11 * 31, above one block's shared memory): 8 channels, 4
+    visible, 300 ms; acquisition must go through K2's cluster entry (and
+    neither other entry) and find the visible satellites, K1 must run;
+11. the per-ms scan runtime at full width: phase 5's capture (its first
     2 s) through a 32-channel ``TrackingSession`` with ``runtime="scan"``,
     borre loops, 20 ms blocks: acquisition through K2, bit sync and the
     5 Hz carrier bound on the visible channels, no K1 or K3 launch; its
     real-time factor is printed, and ``torch.profiler`` over one more block
     counts its kernel launches per epoch and the device's busy share;
-11. a serial-search session: 8 channels at 2.5 Msps, 4 visible at
+12. a serial-search session: 8 channels at 2.5 Msps, 4 visible at
     50 dB-Hz (one code period is all a serial search integrates),
     ``AcquisitionConfig(method="serial")`` on 250 Hz bins, 300 ms: the
     visible satellites within one Doppler bin and one chip, and no K2
     launch; one PRN's search is then timed apart (the host's shift-matrix
     build, its upload, the search on the card);
-12. the direct PCPS map: phase 5's capture with ``doppler_step=130`` (77
+13. the direct PCPS map: phase 5's capture with ``doppler_step=130`` (77
     bins on 77 phases: no shift plan), where ``acquire`` must take
     ``pcps_map`` and launch no K2, the satellites within one bin; then
     ``pcps_map`` against ``pcps_shift_map`` (K2) on the same 50 ms at the
     production grid (step 100), within 1e-4 of the map's maximum;
-13. checkpoint and resume (run right after phase 7, while its IQ file
+14. checkpoint and resume (run right after phase 7, while its IQ file
     exists): a 6-channel ``Receiver`` on that file runs to a block
     boundary after promotion, saves, and continues; a
     fresh ``Receiver`` loads the checkpoint, is promoted without running
@@ -81,7 +90,7 @@ printing its wall time:
     CLI in process with ``--runtime scan --checkpoint-every``, which must
     leave a ``.ckpt.npz`` that a receiver of the demo's configuration
     loads;
-14. the multi-device layer (``sydr_tpu_torch.parallel``): (a) a one-rank
+15. the multi-device layer (``sydr_tpu_torch.parallel``): (a) a one-rank
     NCCL process group, ``TrackingSession(mesh=make_mesh(1, 1))`` on the
     first 2 s of phase 5's capture, every output of every call bit for bit
     phase 5's; (b) two gloo ranks sharing the card (spawned processes):
@@ -96,13 +105,13 @@ printing its wall time:
     on a time shard timed as in phase 3; (c) ``python -m
     sydr_tpu_torch.parallel.dryrun --world 2 --backend gloo``, which must
     print its OK line;
-15. the measuring tools (``sydr_tpu_torch.tools``): (a) the soak, 60 s of
+16. the measuring tools (``sydr_tpu_torch.tools``): (a) the soak, 60 s of
     the production receiver (10 Msps, decimate 4, kaplan pull-in, the
     narrow-only cruise at superblock 25, quantised taps, seed 3) within the
     soak's fix, prompt-ratio and C/N0 bounds (its Doppler drift is printed:
     the > 50 Hz bound needs 300 s); its scenario is made from the end of
     phase 3 on by a child process (``soak.scenario_chunks``, 3 workers)
-    while phases 4-14 run; (b) beside the soak, in a child process, one
+    while phases 4-15 run; (b) beside the soak, in a child process, one
     kaplan ``track_benchmark`` trial at 45 dB-Hz (retained, BER 0) and one
     at 35 dB-Hz (printed); (c) ``acq_benchmark``: 32 trials at 30 and 33
     dB-Hz and 32 signal-absent, 4 Msps, 5 x 10 ms (Pd 1.00 at 33 dB-Hz,
@@ -112,9 +121,9 @@ printing its wall time:
     steps) at 32, 16, 8, 4 channels with eff(n); (f) ``acq_profile``'s two
     maps.
 
-Each of phases 5-15 sets every kernel's launch count to 0 just before it
-(phase 15: each of its parts) and reads the counts just after (phase 14's
-ranks and phase 15's tracking trials count in their own processes, from
+Each of phases 5-16 sets every kernel's launch count to 0 just before it
+(phase 16: each of its parts) and reads the counts just after (phase 15's
+ranks and phase 16's tracking trials count in their own processes, from
 0). The last three lines are the kernels'
 JSON record, the ``nvidia-smi`` line and ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits non-zero before printing
@@ -587,12 +596,91 @@ def k2_case(name, fs, n_ch, entry, device, rng):
            "library_ms": ifft_library_ms(spectra, code_k, bin_shifts),
            **roofline(tensor_bytes(spectra, code_k, out) + 8 * n
                       + 8 * len(bin_shifts), flops)}
+    if entry == "pcps_bins_cluster":
+        print(f"   cluster of {acq_kernel.cluster_size(n)} blocks of "
+              f"{cargs[10]} threads, cudaOccupancyMaxActiveClusters "
+              f"{acq_kernel.cluster_occupancy(n)}", flush=True)
     report("K2", f"[{entry}] {name}", got.shape,
            f"max_abs_err {err:.3e} (bound {bound:.3e}, "
            f"{err / float(ref.abs().max()):.2e} of the map's maximum)", res)
     check(bool(torch.isfinite(got).all()), f"K2 {name}: non-finite output")
     check(err <= bound, f"K2 {name}: error {err} above bound {bound}")
     return res
+
+
+# Code periods of front ends whose transform takes a cluster (12.276 to
+# 65.536 Msps), each at 1 channel x 11 bins x 2 blocks.
+SWEEP_N = (12276, 16368, 20000, 20460, 25000, 26000, 30690, 40000, 40920,
+           50000, 65536)
+
+
+def k2_cluster_sweep(device) -> None:
+    """The cluster entry at every n of :data:`SWEEP_N`: the wrapper must
+    launch it (and nothing else) on the cluster that ``cluster_size``
+    gives, within 1e-4 of the map's maximum; its device time printed."""
+    import torch
+
+    from sydr_tpu_torch.ops import acq_kernel
+
+    g = torch.Generator().manual_seed(SEED)
+    bins = tuple((b - 5, b % 2) for b in range(11))
+    for n in SWEEP_N:
+        spec = torch.randn(2, 1, 2, n, dtype=torch.complex64,
+                           generator=g).to(device)
+        code = torch.randn(1, n, dtype=torch.complex64,
+                           generator=g).to(device)
+        cluster = acq_kernel.cluster_size(n)
+        before = read_launches()
+        got = acq_kernel.pcps_bins(spec, code, bins)
+        launched = {k: v - before[k] for k, v in read_launches().items()
+                    if v != before[k]}
+        check(cluster > 1 and launched == {"pcps_bins_cluster": 1},
+              f"K2 sweep n={n}: launched {launched} on a cluster of "
+              f"{cluster}, expected the cluster entry")
+        ref = acq_kernel.pcps_bins_ref(spec, code, bins)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        kernel, out, cargs = acq_kernel.pcps_bins_launch_args(
+            spec, code, bins)
+        check(cargs[11] == cluster, f"K2 sweep n={n}: cluster argument "
+                                    f"{cargs[11]}, expected {cluster}")
+        fn = kernel.function()
+        ms = device_ms(lambda: fn(*cargs), 20)
+        print(f"K2 sweep n={n}: plan {acq_kernel.radix_plan(n)}, cluster "
+              f"of {cluster} x {cargs[10]} threads "
+              f"(max active clusters {acq_kernel.cluster_occupancy(n)}), "
+              f"1 ch x 11 bins x 2 blocks: device {ms:.4f} ms, max_abs_err "
+              f"{err:.3e} ({rel:.2e} of the map's maximum)", flush=True)
+        check(bool(torch.isfinite(got).all()), f"K2 sweep n={n}: non-finite")
+        check(rel <= K2_RTOL, f"K2 sweep n={n}: error {rel:.2e} of the "
+                              f"maximum, above {K2_RTOL}")
+
+
+def k2_refusal(device) -> None:
+    """n = 16370 = 2 * 5 * 1637 has no K2 kernel (no radix plan, four-step
+    buffers above a block's shared memory): ``kernel_for`` and the wrapper
+    must raise ValueError, and nothing may launch."""
+    import torch
+
+    from sydr_tpu_torch.ops import acq_kernel
+
+    n = 16370
+    spec = torch.zeros(1, 1, 1, n, dtype=torch.complex64, device=device)
+    code = torch.zeros(1, n, dtype=torch.complex64, device=device)
+    before = read_launches()
+    msgs = []
+    for call in (lambda: acq_kernel.kernel_for(n),
+                 lambda: acq_kernel.pcps_bins(spec, code, ((0, 0),))):
+        try:
+            call()
+        except ValueError as exc:
+            msgs.append(str(exc))
+    torch.cuda.synchronize()
+    check(len(msgs) == 2, f"K2 refusal: n={n} did not raise ValueError")
+    check(read_launches() == before, f"K2 refusal: n={n} launched a kernel")
+    print(f"K2 refusal: n={n} raised ValueError from kernel_for and the "
+          f"wrapper, no launch: {msgs[0]}", flush=True)
 
 
 def empty_launch_ms() -> float:
@@ -631,13 +719,19 @@ def kernel_phase(device) -> dict:
                for name, fs, n_ch in (("8 ch n=4092", 4.092e6, 8),)})
     k2f = {name: k2_case(name, fs, n_ch, "pcps_bins_fourstep", device, rng)
            for name, fs, n_ch in (("8 ch n=4070", 4.070e6, 8),)}
+    k2c = {name: k2_case(name, fs, n_ch, "pcps_bins_cluster", device, rng)
+           for name, fs, n_ch in (("8 ch n=16368", 16.368e6, 8),
+                                  ("8 ch n=40920", 40.92e6, 8))}
+    k2_cluster_sweep(device)
+    k2_refusal(device)
     k3 = {name: k3_case(name, fs, bm, prof, device, rng)
           for name, fs, bm, prof in (
               ("cruise 2.5 Msps 20 ms 6 streams", 2.5e6, 20, "narrow"),
               ("pull-in 2.5 Msps 5 ms 10 streams", 2.5e6, 5, "kaplan"),
               ("full-rate 10 Msps 20 ms 6 streams", 10e6, 20, "narrow"))}
     return {"epoch_correlate": k1, "pcps_bins": k2,
-            "pcps_bins_fourstep": k2f, "block_cumsum_streams": k3}
+            "pcps_bins_cluster": k2c, "pcps_bins_fourstep": k2f,
+            "block_cumsum_streams": k3}
 
 
 # ---------------------------------------------------------------------------
@@ -691,20 +785,20 @@ def make_scenario(rng, signal_ms, fs_in, n_channels, n_visible,
     return sats, np.float32(iq.real), np.float32(iq.imag)
 
 
-def session_configs(fs_in, superblock, runtime="batch"):
+def session_configs(fs_in, superblock, runtime="batch", decimate=DECIMATE):
     """(pull-in, cruise) of the batch runtime, as the CLI builds them; or
     the CLI's scan-runtime configuration (borre, 20 ms blocks) and no
     cruise."""
     from sydr_tpu_torch.channels.runtime import TrackingConfig
 
-    fs = fs_in / DECIMATE
+    fs = fs_in / decimate
     if runtime == "scan":
         return TrackingConfig(
-            sampling_frequency=fs, input_decimate=DECIMATE,
+            sampling_frequency=fs, input_decimate=decimate,
             window_size=round(fs * 1e-3) + 256, runtime="scan",
             profile="borre", block_ms=20, quantize_spacing=True), None
     pull_in = TrackingConfig(
-        sampling_frequency=fs, input_decimate=DECIMATE,
+        sampling_frequency=fs, input_decimate=decimate,
         window_size=round(fs * 1e-3) + 256, runtime="batch",
         profile="kaplan", block_ms=5, quantize_spacing=True)
     cruise = dataclasses.replace(
@@ -716,7 +810,8 @@ def slice_phase(device, capture=None, signal_ms=SIGNAL_MS, fs_in=FS_IN,
                 n_channels=N_CHANNELS, n_visible=N_VISIBLE,
                 superblock=CRUISE_SUPERBLOCK, sync=None, card="",
                 acq_kernel_name="pcps_bins", settled=True, runtime="batch",
-                acq_cfg=None, cn0_dbhz=CN0_DBHZ, code_index_tol=2) -> dict:
+                acq_cfg=None, cn0_dbhz=CN0_DBHZ, code_index_tol=2,
+                decimate=DECIMATE) -> dict:
     """Drive the port's TrackingSession; check and return what it did.
 
     ``capture``: ``(sats, re, im)`` of :func:`make_scenario`, made here
@@ -736,7 +831,7 @@ def slice_phase(device, capture=None, signal_ms=SIGNAL_MS, fs_in=FS_IN,
     sats, sig_re, sig_im = capture
     sig_re = sig_re[:signal_ms * round(fs_in * 1e-3)]
     sig_im = sig_im[:len(sig_re)]
-    pull_in, cruise = session_configs(fs_in, superblock, runtime)
+    pull_in, cruise = session_configs(fs_in, superblock, runtime, decimate)
     session = TrackingSession(pull_in, list(range(1, n_channels + 1)),
                               acq_cfg, cruise=cruise, device=device)
     sync = sync or (lambda: None)
@@ -774,7 +869,7 @@ def slice_phase(device, capture=None, signal_ms=SIGNAL_MS, fs_in=FS_IN,
           f"{session.cfg.block_ms} ms/sb{session.cfg.superblock})",
           flush=True)
 
-    fs = fs_in / DECIMATE
+    fs = fs_in / decimate
     spms = round(fs * 1e-3)
     ok = True
     for s in sats:
@@ -1122,6 +1217,7 @@ def kernels():
     from sydr_tpu_torch.ops import correlator_kernel as ck
 
     return {"epoch_correlate": ck.KERNEL, "pcps_bins": acq_kernel.KERNEL,
+            "pcps_bins_cluster": acq_kernel.CLUSTER_KERNEL,
             "pcps_bins_fourstep": acq_kernel.FOURSTEP_KERNEL,
             "block_cumsum_streams": ck.CUMSUM_KERNEL}
 
@@ -2030,6 +2126,9 @@ RECORD = (
      "cruise 2.5 Msps 20 ms 6 streams", "cli"),
     ("pcps_bins", "pcps_bins.cu", "sydr_tpu/ops/acq_kernel.py:54",
      "session 32 ch n=2500", "cli"),
+    ("pcps_bins_cluster", "pcps_bins_cluster.cu",
+     "sydr_tpu/ops/acq_kernel.py:54", "8 ch n=16368",
+     "session at 16.368 Msps"),
     ("pcps_bins_fourstep", "pcps_bins_fourstep.cu",
      "sydr_tpu/ops/acq_kernel.py:54", "8 ch n=4070", "session at n=4070"),
     ("block_cumsum_streams", "block_cumsum_streams.cu",
@@ -2039,7 +2138,7 @@ RECORD = (
 
 
 def path_phases(device, card, soak_queue, producer) -> dict:
-    """Phases 4-15; per path, what it returns (its launch counts among
+    """Phases 4-16; per path, what it returns (its launch counts among
     them)."""
     import torch
 
@@ -2081,6 +2180,19 @@ def path_phases(device, card, soak_queue, producer) -> dict:
             f"session at n={n}", slice_phase, device, signal_ms=300,
             fs_in=n * 1e3 * DECIMATE, n_channels=8, n_visible=4,
             acq_kernel_name=entry, settled=False, card=card)
+    # A 16.368 Msps front end at full rate: n = 16368 = 2^4 * 3 * 11 * 31,
+    # above one block's shared memory, takes K2's cluster entry; K1 runs
+    # on every sample.
+    res = timed(
+        "session at 16.368 Msps", slice_phase, device, signal_ms=300,
+        fs_in=16.368e6, decimate=1, n_channels=8, n_visible=4,
+        acq_kernel_name="pcps_bins_cluster", settled=False, card=card)
+    cfg = res["session"].cfg
+    print(f"16.368 Msps: K1 at {cfg.samples_per_ms} samples a ms "
+          f"(decimate {cfg.input_decimate})", flush=True)
+    check(cfg.samples_per_ms == 16368 and cfg.input_decimate == 1,
+          "the 16.368 Msps session did not track at full rate")
+    paths["session at 16.368 Msps"] = res
 
     # The scan runtime at full width, on the first 2 s of the capture.
     res = timed("scan session", slice_phase, device, capture,

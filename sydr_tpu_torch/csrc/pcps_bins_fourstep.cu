@@ -1,8 +1,8 @@
 // K2, four-step entry: non-coherent PCPS correlation magnitudes for every
 // (Doppler bin, channel) of the shift-theorem acquisition plan, for a code
-// period n that the radix FFT of pcps_bins.cu does not take: one with a
-// prime factor above 31 (n = 4070 = 2 * 5 * 11 * 37), or with a prime
-// radix above n = 8192. The wrapper chooses from n alone.
+// period n that the radix FFTs (pcps_bins.cu, pcps_bins_cluster.cu) do
+// not take: one with a prime factor above 31 (n = 4070 = 2 * 5 * 11 * 37)
+// whose buffers (below) fit one block. The wrapper chooses from n alone.
 //
 // Replaces the Pallas kernel sydr_tpu/ops/acq_kernel.py (_kernel, launched by
 // pcps_fused_bins). For bin b with plan entry (k_b, p_b) and channel c:

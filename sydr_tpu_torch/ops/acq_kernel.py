@@ -2,23 +2,31 @@
 DFT -> magnitude -> non-coherent sum) for every (Doppler bin, channel).
 
 Replaces ``sydr_tpu.ops.acq_kernel.pcps_fused_bins`` (Pallas ``_kernel``).
-On CUDA tensors :func:`pcps_bins` launches one of two hand-written
-kernels, chosen from the code period ``n`` alone:
+On CUDA tensors :func:`pcps_bins` launches one of three hand-written
+kernels, chosen from the code period ``n`` alone (:func:`kernel_for`):
 
 * ``csrc/pcps_bins.cu`` (:data:`KERNEL`), a mixed-radix Stockham FFT in
-  shared memory (radices 10, 5, 4, 3, 2 and the odd primes 7 to 31), for
-  every ``n`` whose prime factors are at most 31 (:func:`radix_plan`):
-  2500, 5000, 10000, 2048, and the code periods of the front ends clocked
-  at a multiple of 1.023 MHz, 2046, 4092 = 2^2 * 3 * 11 * 31, 8184;
+  shared memory (radices 10, 5, 4, 3, 2 and the odd primes 7 to 31), one
+  block a transform, for every ``n`` whose prime factors are at most 31
+  (:func:`radix_plan`) and whose transform fits one block
+  (:func:`cluster_size` 1): 2500, 5000, 10000, 2048, and the code periods
+  of the front ends clocked at a multiple of 1.023 MHz, 2046,
+  4092 = 2^2 * 3 * 11 * 31, 8184;
+* ``csrc/pcps_bins_cluster.cu`` (:data:`CLUSTER_KERNEL`), the same FFT
+  on a thread-block cluster of 2, 4 or 8 blocks that pool their shared
+  memory, for the other such ``n`` up to 65,536 and beyond (16368 at
+  16.368 Msps, 20000, 25000, 40920, 65536);
 * ``csrc/pcps_bins_fourstep.cu`` (:data:`FOURSTEP_KERNEL`), the direct
   four-step DFT of length ``n = n1 * n2`` (:func:`balanced_factors`), for
-  every other ``n`` (4070 = 2 * 5 * 11 * 37, or a prime radix at
-  ``n`` above 8192).
+  an ``n`` with a prime factor above 31 (4070 = 2 * 5 * 11 * 37) whose
+  buffers fit one block.
 
+Any other ``n`` has no kernel: :func:`kernel_for` raises ``ValueError``
+before anything is launched.
 :func:`pcps_bins_ref` is the plain PyTorch version (``torch.fft.ifft`` of
 the product, ``abs``, sum), used on CPU tensors; there is no fallback from
-a kernel to it or from one kernel to the other.
-:func:`stockham_ifft_ref` walks the FFT kernel's passes, strides and
+a kernel to it or from one kernel to another.
+:func:`stockham_ifft_ref` walks the FFT kernels' passes, strides and
 integer twiddle indices in PyTorch, for the tests of that arithmetic.
 """
 
@@ -37,6 +45,9 @@ _INT = ctypes.c_int
 KERNEL = native.CudaKernel(
     "pcps_bins.cu", "pcps_bins_launch",
     [_VP] * 5 + [_INT] * 3 + [ctypes.POINTER(_INT)] + [_INT] * 3 + [_VP, _VP])
+CLUSTER_KERNEL = native.CudaKernel(
+    "pcps_bins_cluster.cu", "pcps_bins_cluster_launch",
+    [_VP] * 5 + [_INT] * 3 + [ctypes.POINTER(_INT)] + [_INT] * 4 + [_VP, _VP])
 FOURSTEP_KERNEL = native.CudaKernel(
     "pcps_bins_fourstep.cu", "pcps_bins_fourstep_launch",
     [_VP] * 5 + [_INT] * 6 + [_VP, _VP])
@@ -61,9 +72,16 @@ def balanced_factors(n: int) -> tuple[int, int]:
 
 
 PRIME_RADICES = (31, 29, 23, 19, 17, 13, 11, 7)
-# The largest n a plan with a prime radix takes: its kernel variants run at
-# most 512 threads, 16 points each.
-PRIME_PLAN_MAX_N = 8192
+# The H100's shared memory a block (227 KB) and the points a block of each
+# FFT variant holds in the last pass: 1024 threads x 20 points without a
+# prime radix (kAccSmall), 512 x 16 with one (kAccPrime: the registers of a
+# wide butterfly cap the block at 512 threads).
+BLOCK_SMEM_BYTES = 232_448
+SMALL_BLOCK_POINTS = 1024 * 20
+PRIME_BLOCK_POINTS = 512 * 16
+# Blocks a transform: 1 is csrc/pcps_bins.cu, the others a cluster of
+# csrc/pcps_bins_cluster.cu (8 is the portable maximum).
+CLUSTER_SIZES = (1, 2, 4, 8)
 
 
 def radix_plan(n: int) -> tuple[int, ...]:
@@ -78,9 +96,9 @@ def radix_plan(n: int) -> tuple[int, ...]:
     primes first and 20% ahead of radix 31 last
     (``tools/torch_kernel_variants.py``); without a prime radix the order
     is the one that measured fastest before there were any.
-    Raises ``ValueError`` for an ``n`` with a prime factor above 31, with
-    a prime radix above :data:`PRIME_PLAN_MAX_N`, or with fewer than two
-    passes."""
+    Raises ``ValueError`` for an ``n`` with a prime factor above 31 or
+    with fewer than two passes (whether a block or a cluster takes the
+    plan is :func:`cluster_size`'s question)."""
     rest, count = n, {}
     for p in (2, 3, 5) + PRIME_RADICES:
         count[p] = 0
@@ -90,9 +108,6 @@ def radix_plan(n: int) -> tuple[int, ...]:
     if rest != 1 or n < 2:
         raise ValueError(f"n={n} has a prime factor above 31: no radix plan")
     primes = [p for p in PRIME_RADICES for _ in range(count[p])]
-    if primes and n > PRIME_PLAN_MAX_N:
-        raise ValueError(f"n={n}: a plan with a prime radix ends at "
-                         f"n={PRIME_PLAN_MAX_N}")
     tens = min(count[2], count[5])
     twos = count[2] - tens
     plan = (primes[:1] + [10] * tens + [4] * (twos // 2) + [2] * (twos % 2)
@@ -102,17 +117,25 @@ def radix_plan(n: int) -> tuple[int, ...]:
     return tuple(plan)
 
 
-def fft_threads(n: int, plan: tuple[int, ...] | None = None) -> int:
-    """Threads of an FFT-kernel block for ``plan`` (default
-    ``radix_plan(n)``), in whole warps.
+def has_prime_radix(plan: tuple[int, ...]) -> bool:
+    """Whether ``plan`` takes the kernels' prime-radix variants (any of
+    7 to 31, as the C entry points decide)."""
+    return any(r in PRIME_RADICES for r in plan)
 
-    Without a prime radix: one per radix-10 butterfly of a pass (n / 10),
-    between 128 and 1024. The block's two buffers take 16 n bytes of the
-    SM's shared memory, so small n runs several blocks an SM (4 of 256
-    threads at n = 2500) and large n one full block (1024 threads at
+
+def fft_threads(n: int, plan: tuple[int, ...] | None = None,
+                cluster: int = 1) -> int:
+    """Threads of an FFT-kernel block for ``plan`` (default
+    ``radix_plan(n)``) when ``cluster`` blocks share the transform, in
+    whole warps. A block holds ``s = ceil(n / cluster)`` points.
+
+    Without a prime radix: one per radix-10 butterfly of its share
+    (s / 10), between 128 and 1024. A block's two buffers take 16 s bytes
+    of the SM's shared memory, so small n runs several blocks an SM (4 of
+    256 threads at n = 2500) and large n one full block (1024 threads at
     n = 10000); a thread holds at most 20 output points.
 
-    With a prime radix: n / 16, between 128 and 512 (256 at n = 4092). A
+    With a prime radix: s / 16, between 128 and 512 (256 at n = 4092). A
     wide butterfly lives in registers (the kernel variant for blocks of up
     to 256 threads takes 224 a thread and spills nothing; the one for up
     to 512 has 128 and spills), and a wide pass has few butterflies (132
@@ -121,13 +144,61 @@ def fft_threads(n: int, plan: tuple[int, ...] | None = None) -> int:
     (``tools/torch_kernel_variants.py``).
     """
     plan = radix_plan(n) if plan is None else plan
-    if max(plan) > 10:
-        return min(512, max(128, 32 * -(-n // 512)))
-    return min(1024, max(128, 32 * -(-n // 320)))
+    s = -(-n // cluster)
+    if has_prime_radix(plan):
+        return min(512, max(128, 32 * -(-s // 512)))
+    return min(1024, max(128, 32 * -(-s // 320)))
+
+
+def block_fits(n: int, plan: tuple[int, ...], cluster: int,
+               threads: int) -> bool:
+    """Whether a block of ``threads`` that shares one transform of
+    ``plan`` with ``cluster - 1`` others fits the card and its kernel
+    variant: two buffers of ``ceil(n / cluster)`` points in
+    :data:`BLOCK_SMEM_BYTES`, those points within the variant's block
+    (:data:`SMALL_BLOCK_POINTS`, :data:`PRIME_BLOCK_POINTS`), at most
+    1024 threads (512 with a prime radix), and its share of the last
+    pass's butterflies within the threads' accumulators (the launchers'
+    own test)."""
+    prime = has_prime_radix(plan)
+    points, acc, max_threads = ((PRIME_BLOCK_POINTS, 32, 512) if prime
+                                else (SMALL_BLOCK_POINTS, 21, 1024))
+    share = -(-n // cluster)
+    return (16 * share <= BLOCK_SMEM_BYTES and share <= points
+            and threads <= max_threads
+            and -(-(n // plan[-1]) // cluster) <= (acc // plan[-1]) * threads)
+
+
+def cluster_size(n: int, plan: tuple[int, ...] | None = None) -> int:
+    """Blocks that share one transform of ``plan`` (default
+    ``radix_plan(n)``): the smallest of :data:`CLUSTER_SIZES` whose block
+    of ``fft_threads`` fits (:func:`block_fits`). C = 1 is the one-block
+    kernel, unchanged; C = 2 at n = 12276, 16368, 20000 and 25000, C = 4
+    at 20460 to 50000, C = 8 at 40920 and 65536. Raises ``ValueError``
+    where C = 8 does not fit."""
+    plan = radix_plan(n) if plan is None else plan
+    for c in CLUSTER_SIZES:
+        if block_fits(n, plan, c, fft_threads(n, plan, c)):
+            return c
+    share = -(-n // CLUSTER_SIZES[-1])
+    points = PRIME_BLOCK_POINTS if has_prime_radix(plan) \
+        else SMALL_BLOCK_POINTS
+    raise ValueError(
+        f"n={n}: no K2 kernel on the card: a transform of {n} points needs "
+        f"a cluster of more than {CLUSTER_SIZES[-1]} blocks ({16 * share} "
+        f"bytes of buffers a block, at most {BLOCK_SMEM_BYTES}; {share} "
+        f"points, at most {points})")
+
+
+def fourstep_smem_bytes(n: int, n1: int, n2: int) -> int:
+    """Shared memory of a four-step block (``pcps_bins_fourstep.cu``'s
+    launcher): product and column-DFT buffers, magnitude sums, twiddles."""
+    return 20 * n + 8 * (n1 + n2)
 
 
 def has_radix_plan(n: int) -> bool:
-    """Whether ``n`` goes to the FFT kernel (else to the four-step one)."""
+    """Whether ``n`` has a radix plan, i.e. goes to an FFT kernel (one
+    block or a cluster) and not to the four-step one."""
     try:
         radix_plan(n)
     except ValueError:
@@ -155,7 +226,8 @@ def _plan_tensors(bin_shifts, device):
 
 def stockham_ifft_ref(x, plan, tw):
     """Unnormalised inverse DFT of ``x [..., n]`` complex64 by the FFT
-    kernel's own passes (``csrc/pcps_bins.cu``), in PyTorch.
+    kernels' own passes (``csrc/pcps_bins.cu`` and, on a cluster,
+    ``csrc/pcps_bins_cluster.cu``), in PyTorch.
 
     With ``ns`` the product of the radices done so far, the pass of radix
     ``r`` reads ``v[q] = in[j + q * n/r]`` for ``j < n/r``, multiplies by
@@ -205,14 +277,45 @@ def pcps_bins_ref(spectra, code_k, bin_shifts):
 
 def kernel_for(n: int):
     """The kernel that ``n`` selects and the launch arguments that depend
-    on ``n`` alone: the FFT kernel with its plan (radices, their count,
-    threads) where ``n`` has one, else the four-step kernel with its two
-    factors."""
+    on ``n`` alone: an FFT kernel with its plan (radices, their count,
+    threads a block) where ``n`` has one, on one block or, with the
+    cluster size last, on a cluster (:func:`cluster_size`); else the
+    four-step kernel with its two factors. Raises ``ValueError`` for an
+    ``n`` that no kernel takes (a cluster above 8 blocks, four-step
+    buffers above a block's shared memory, a prime ``n``)."""
     if not has_radix_plan(n):
-        return FOURSTEP_KERNEL, balanced_factors(n)
+        n1, n2 = balanced_factors(n)
+        smem = fourstep_smem_bytes(n, n1, n2)
+        if smem > BLOCK_SMEM_BYTES:
+            raise ValueError(
+                f"n={n}: no K2 kernel on the card: a prime factor above 31 "
+                f"and four-step buffers of {smem} bytes, above a block's "
+                f"{BLOCK_SMEM_BYTES}")
+        return FOURSTEP_KERNEL, (n1, n2)
     plan = radix_plan(n)
-    return KERNEL, ((_INT * len(plan))(*plan), len(plan),
-                    fft_threads(n, plan))
+    cluster = cluster_size(n, plan)
+    shape = ((_INT * len(plan))(*plan), len(plan),
+             fft_threads(n, plan, cluster))
+    if cluster == 1:
+        return KERNEL, shape
+    return CLUSTER_KERNEL, (*shape, cluster)
+
+
+def cluster_occupancy(n: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` for the cluster launch that
+    ``n`` selects (on the current card; launches nothing)."""
+    kernel, shape = kernel_for(n)
+    if kernel is not CLUSTER_KERNEL:
+        raise ValueError(f"n={n} does not take the cluster kernel")
+    fn = CLUSTER_KERNEL.entry(
+        "pcps_bins_cluster_occupancy",
+        [_INT, ctypes.POINTER(_INT)] + [_INT] * 3 + [ctypes.POINTER(_INT)])
+    count = _INT(0)
+    err = fn(n, *shape, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"pcps_bins_cluster_occupancy: CUDA error {err}: "
+                           f"{CLUSTER_KERNEL.error_string(err)}")
+    return count.value
 
 
 def pcps_bins_launch_args(spectra, code_k, bin_shifts):
@@ -229,6 +332,7 @@ def pcps_bins_launch_args(spectra, code_k, bin_shifts):
     bin_shifts = tuple(map(tuple, bin_shifts))
     if any(not 0 <= p < n_ph for _, p in bin_shifts):
         raise ValueError("pcps_bins: phase index out of range")
+    kernel, shape = kernel_for(n)
     shift, phase = _plan_tensors(bin_shifts, dev)
     tw = twiddle_table(n, dev)
     out = torch.empty((n_ch, len(bin_shifts), n), dtype=torch.float32,
@@ -236,7 +340,6 @@ def pcps_bins_launch_args(spectra, code_k, bin_shifts):
     head = (native.ptr(spectra), native.ptr(code_k), native.ptr(tw),
             native.ptr(shift), native.ptr(phase), n_ch, nc, n)
     tail = (len(bin_shifts), native.ptr(out), native.stream_of(out))
-    kernel, shape = kernel_for(n)
     return kernel, out, (*head, *shape, *tail)
 
 

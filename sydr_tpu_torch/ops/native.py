@@ -24,7 +24,6 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -47,12 +46,16 @@ def find_nvcc() -> str:
 class CudaKernel:
     """One ``csrc/<source>`` kernel: its build, its C entry point and its
     launch counter (``launches``, incremented once per successful launch).
+    ``csrc_dir`` builds the source of another tree instead (into that
+    tree's ``_build/``), as a tool that compares two versions does.
     """
 
-    def __init__(self, source: str, symbol: str, argtypes: list):
+    def __init__(self, source: str, symbol: str, argtypes: list,
+                 csrc_dir: Path = CSRC_DIR):
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
+        self.csrc_dir = Path(csrc_dir)
         self.launches = 0
         self.build_seconds: float | None = None
         self.build_log = ""
@@ -60,22 +63,23 @@ class CudaKernel:
         self._fn = None
 
     def library_path(self) -> Path:
-        src = CSRC_DIR / self.source
+        src = self.csrc_dir / self.source
         text = src.read_bytes() + b"".join(
-            h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+            h.read_bytes() for h in sorted(self.csrc_dir.glob("*.cuh")))
         digest = hashlib.sha256(
             text + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
+        return self.csrc_dir.parent / "_build" / \
+            f"{src.stem}-{digest[:16]}.so"
 
     def build(self) -> Path:
         """Compile the source unless its library exists; return its path."""
         out = self.library_path()
         if out.exists():
             return out
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / self.source)]
+               str(self.csrc_dir / self.source)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         self.build_seconds = time.perf_counter() - t0
@@ -100,12 +104,24 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
+    def entry(self, symbol: str, argtypes: list):
+        """Another C function of the same library (an ``int``-returning
+        query that launches nothing, so it is not counted)."""
+        self.function()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
+    def error_string(self, err: int) -> str:
+        return self._lib.sydr_cuda_error_string(err).decode()
+
     def launch(self, *args) -> None:
         """Call the entry point; raise on a CUDA error, else count it."""
         err = self.function()(*args)
         if err != 0:
-            msg = self._lib.sydr_cuda_error_string(err).decode()
-            raise RuntimeError(f"{self.symbol}: CUDA error {err}: {msg}")
+            raise RuntimeError(f"{self.symbol}: CUDA error {err}: "
+                               f"{self.error_string(err)}")
         self.launches += 1
 
 

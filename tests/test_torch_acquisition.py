@@ -184,6 +184,48 @@ def test_acquire_matches_jax_map(case, jax_map):
     assert abs(float(m_r[0]) - float(metric[0])) < 0.05
 
 
+# A 16.368 Msps front end (the classic GPS L1 clock): n = 16368 =
+# 2^4 * 3 * 11 * 31, whose transform the card runs on a cluster of two
+# blocks; the JAX map factors it 124 x 132.
+FS_16 = 16.368e6
+N_16 = 16368
+
+
+def test_acquire_matches_jax_at_16368_ksps():
+    """The module's capture and bounds at 16.368 Msps, 1 channel, 61 bins,
+    1 x 2 blocks: the port's ``acquire`` against JAX's ``pcps_shift_map``
+    and ``peak_metric``."""
+    coher, noncoh = 1, 2
+    gen = IQGenerator(FS_16, noise=True, seed=5)
+    gen.add_satellite(17, doppler_hz=-2360.0, code_phase_chips=77.7,
+                      cn0_dbhz=45.0)
+    iq = gen.generate_ms(coher * noncoh)
+    iq_re, iq_im = np.float32(iq.real)[None], np.float32(iq.imag)[None]
+    k = jacq.code_fft_conj(17, FS_16)[None]
+    bins = jacq.doppler_bins(3000, 100)
+    assert len(bins) == 61
+    phases, bin_shifts = jacq.shift_plan(bins, FS_16, N_16, mode="shift")
+    ref = np.asarray(jacq.pcps_shift_map(
+        jnp.asarray(iq_re), jnp.asarray(iq_im),
+        jnp.asarray(np.float32(k.real)), jnp.asarray(np.float32(k.imag)),
+        mmfft.make_plan(N_16), mmfft.make_plan(N_16, inverse=True),
+        sampling_frequency=FS_16, coherent=coher, non_coherent=noncoh,
+        phases=phases, bin_shifts=bin_shifts))
+    dop, ci, metric, got = tacq.acquire(
+        (torch.from_numpy(iq_re), torch.from_numpy(iq_im)), k, bins,
+        sampling_frequency=FS_16, coherent=coher, non_coherent=noncoh)
+    got = got.numpy()
+    assert got.shape == ref.shape == (1, 61, N_16)
+    assert (np.abs(got - ref) / np.abs(ref).max()).max() < 5e-3
+    spc = round(FS_16 / 1.023e6)
+    d_r, c_r, m_r = jacq.peak_metric(jnp.asarray(ref), jnp.asarray(bins),
+                                     samples_per_chip=spc)
+    assert float(d_r[0]) == float(dop[0])
+    assert abs(float(dop[0]) + 2360.0) <= 100.0
+    assert int(c_r[0]) == int(ci[0])
+    assert abs(float(m_r[0]) - float(metric[0])) < 0.05
+
+
 def test_peak_metric_matches_jax(case):
     m = case["maps"]["shift"]
     spc = round(FS / 1.023e6)
@@ -221,30 +263,50 @@ def test_balanced_factors_matches_jax():
         assert acq_kernel.balanced_factors(n) == mmfft._balanced_factors(n)
 
 
-SMOOTH_N = (2048, 2500, 4000, 5000, 10000)
+# 20000 (20 Msps) and 16368, 40920 (16.368 and 40.92 Msps) take the
+# cluster kernel.
+SMOOTH_N = (2048, 2500, 4000, 5000, 10000, 20000)
 # Code periods of front ends clocked at a multiple of 1.023 MHz
 # (1023 = 3 * 11 * 31), and one length for each other prime radix.
-PRIME_N = (1023, 2046, 4092, 8184, 7 * 13 * 20, 17 * 19 * 6, 23 * 29 * 4)
+PRIME_N = (1023, 2046, 4092, 8184, 16368, 40920, 7 * 13 * 20, 17 * 19 * 6,
+           23 * 29 * 4)
 PRIME_RADICES = {7, 11, 13, 17, 19, 23, 29, 31}
+SMEM = 232_448   # the H100's shared memory a block (227 KB)
+
+
+def assert_block_fits(n, plan, cluster, threads):
+    """A block of ``cluster`` sharing one transform of ``plan``: its two
+    buffers of ceil(n / C) complex64 points fit 227 KB; its points fit its
+    variant's block, 1024 threads x 20 points without a prime radix,
+    512 x 16 with one; its threads hold its share of the last pass's
+    outputs, floor(21 / r) (floor(32 / r) with a prime radix) butterflies
+    of the last radix r a thread."""
+    prime = bool(set(plan) & PRIME_RADICES)
+    share = -(-n // cluster)
+    assert cluster in (1, 2, 4, 8)
+    assert 16 * share <= SMEM
+    assert share <= (512 * 16 if prime else 1024 * 20)
+    assert threads % 32 == 0 and 128 <= threads <= (512 if prime else 1024)
+    acc = 32 if prime else 21
+    assert -(-(n // plan[-1]) // cluster) <= (acc // plan[-1]) * threads
 
 
 @pytest.mark.parametrize("n", SMOOTH_N + PRIME_N)
 def test_radix_plan_multiplies_to_n(n):
-    """The FFT kernel's plan: radices it has butterflies for (10 = 2 x 5
-    in registers, the odd primes 7 to 31), product n, and a block whose
-    threads hold the last pass's outputs: floor(21 / r) butterflies of the
-    last radix r without a prime radix (at most 20 points), floor(32 / r)
-    in at most 512 threads with one."""
+    """The FFT kernels' plan: radices they have butterflies for (10 = 2 x 5
+    in registers, the odd primes 7 to 31), product n, and blocks that fit
+    the card (:func:`assert_block_fits`) on the cluster that
+    ``cluster_size`` gives."""
     plan = acq_kernel.radix_plan(n)
     assert set(plan) <= {2, 3, 4, 5, 10} | PRIME_RADICES and len(plan) >= 2
     assert int(np.prod(plan)) == n
     assert acq_kernel.has_radix_plan(n)
-    threads = acq_kernel.fft_threads(n)
     prime = bool(set(plan) & PRIME_RADICES)
     assert prime == (n in PRIME_N)
-    assert threads % 32 == 0 and 128 <= threads <= (512 if prime else 1024)
-    acc = 32 if prime else 21
-    assert n // plan[-1] <= (acc // plan[-1]) * threads
+    cluster = acq_kernel.cluster_size(n, plan)
+    assert cluster == (1 if n <= 10000 else 2 if n <= 20000 else 8)
+    assert_block_fits(n, plan, cluster,
+                      acq_kernel.fft_threads(n, plan, cluster))
     if prime:   # the largest prime radix leads, the others close the plan
         wide = sorted((r for r in plan if r in PRIME_RADICES), reverse=True)
         assert plan[0] == wide[0]
@@ -254,19 +316,20 @@ def test_radix_plan_multiplies_to_n(n):
 def test_radix_plan_refused_for_large_prime_factors():
     """n = 4070 = 2 * 5 * 11 * 37 has a prime factor above the largest
     radix, 31: no plan, so it goes to the four-step kernel, chosen from n
-    alone; so does a prime radix above n = 8192. n = 7 has one pass only.
-    n = 4092 = 2^2 * 3 * 11 * 31 (4.092 Msps) has a plan and goes to the
-    FFT kernel."""
+    alone. n = 7 has one pass only. A prime radix has no whole-n cap:
+    n = 10230 (10.23 Msps), above the one-block kernel's 8192 points with
+    a prime radix, has a plan and a cluster of two. n = 4092 =
+    2^2 * 3 * 11 * 31 (4.092 Msps) has a plan and goes to the FFT kernel."""
     for n in (4070, 37, 2 * 1013):
         with pytest.raises(ValueError, match="prime factor above 31"):
             acq_kernel.radix_plan(n)
         assert not acq_kernel.has_radix_plan(n)
     with pytest.raises(ValueError, match="two passes"):
         acq_kernel.radix_plan(7)
-    with pytest.raises(ValueError, match="ends at n=8192"):
-        acq_kernel.radix_plan(10230)
     assert not acq_kernel.has_radix_plan(7)
-    assert not acq_kernel.has_radix_plan(10230)
+    assert acq_kernel.radix_plan(10230) == (31, 10, 3, 11)
+    assert acq_kernel.has_radix_plan(10230)
+    assert acq_kernel.cluster_size(10230) == 2
     assert acq_kernel.radix_plan(2500) == (10, 10, 5, 5)
     assert acq_kernel.radix_plan(10000) == (10, 10, 10, 10)
     assert acq_kernel.radix_plan(4092) == (31, 4, 3, 11)
@@ -275,11 +338,13 @@ def test_radix_plan_refused_for_large_prime_factors():
 
 @pytest.mark.parametrize("n, kernel", [
     (4092, "KERNEL"), (2046, "KERNEL"), (2500, "KERNEL"),
-    (4070, "FOURSTEP_KERNEL"), (10230, "FOURSTEP_KERNEL")])
+    (4070, "FOURSTEP_KERNEL"), (10230, "CLUSTER_KERNEL"),
+    (16368, "CLUSTER_KERNEL"), (40920, "CLUSTER_KERNEL")])
 def test_kernel_choice_from_n(n, kernel):
     """``pcps_bins_launch_args`` picks the entry from n alone
-    (``kernel_for``): the FFT kernel with its plan where n has one, else
-    the four-step kernel with its balanced factors."""
+    (``kernel_for``): an FFT kernel with its plan where n has one, on one
+    block or, with the cluster size last, on a cluster, else the four-step
+    kernel with its balanced factors."""
     got, shape = acq_kernel.kernel_for(n)
     assert got is getattr(acq_kernel, kernel)
     if kernel == "FOURSTEP_KERNEL":
@@ -287,8 +352,67 @@ def test_kernel_choice_from_n(n, kernel):
         assert shape[0] * shape[1] == n
     else:
         plan = acq_kernel.radix_plan(n)
+        cluster = 1 if kernel == "KERNEL" else shape[3]
+        assert cluster == acq_kernel.cluster_size(n)
+        assert len(shape) == (3 if cluster == 1 else 4)
         assert list(shape[0]) == list(plan) and shape[1] == len(plan)
-        assert shape[2] == acq_kernel.fft_threads(n)
+        assert shape[2] == acq_kernel.fft_threads(n, plan, cluster)
+
+
+def smooth_31(lo, hi):
+    """Every n in [lo, hi] whose prime factors are at most 31."""
+    out = []
+    for n in range(lo, hi + 1):
+        rest = n
+        for p in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31):
+            while rest % p == 0:
+                rest //= p
+        if rest == 1:
+            out.append(n)
+    return out
+
+
+@pytest.mark.parametrize("lo, hi", [
+    (64, 8192), (8193, 16384), (16385, 32768), (32769, 65536)])
+def test_every_smooth_n_has_a_radix_entry(lo, hi):
+    """Every 31-smooth code period in [64, 65536] with a radix plan gets an
+    FFT kernel on the card: one block, or a cluster of at most 8 whose
+    blocks fit (:func:`assert_block_fits`), never the four-step entry and
+    never a refusal. (Before the cluster kernel, 16368 went to the
+    four-step entry with 329 KB of buffers, above a block's 227 KB.)"""
+    ns = [n for n in smooth_31(lo, hi) if acq_kernel.has_radix_plan(n)]
+    assert ns
+    for n in ns:
+        kernel, shape = acq_kernel.kernel_for(n)
+        assert kernel in (acq_kernel.KERNEL, acq_kernel.CLUSTER_KERNEL), n
+        cluster = 1 if kernel is acq_kernel.KERNEL else shape[3]
+        assert cluster > 1 or len(shape) == 3
+        assert_block_fits(n, tuple(shape[0]), cluster, shape[2])
+
+
+@pytest.mark.parametrize("n, cluster", [
+    (12276, 2), (16368, 2), (20000, 2), (25000, 2), (20460, 4), (26000, 4),
+    (30690, 4), (40000, 4), (50000, 4), (40920, 8), (65536, 8),
+    (2500, 1), (10000, 1), (4092, 1), (8184, 1)])
+def test_cluster_size_at_front_end_rates(n, cluster):
+    """Code periods of front ends at 12.276 to 65.536 Msps: the smallest
+    cluster whose blocks fit; the one-block shapes keep C = 1 and their
+    thread counts."""
+    assert acq_kernel.cluster_size(n) == cluster
+    if cluster == 1:
+        assert acq_kernel.fft_threads(n, None, 1) == acq_kernel.fft_threads(n)
+
+
+@pytest.mark.parametrize("n, why", [
+    (16370, "four-step buffers"),      # 2 * 5 * 1637
+    (9722, "four-step buffers"),       # 2 * 4861: the first such n
+    (66000, "more than 8 blocks"),     # a prime radix: 8250 points a block
+    (131072, "more than 8 blocks")])   # 2^17: 256 KB of buffers a block
+def test_kernel_for_refuses_n_without_entry(n, why):
+    """An n that no kernel takes raises ValueError from ``kernel_for``,
+    naming n and the limit, before any launch."""
+    with pytest.raises(ValueError, match=f"n={n}: no K2 kernel.*{why}"):
+        acq_kernel.kernel_for(n)
 
 
 @pytest.mark.parametrize("n", SMOOTH_N + (90,) + PRIME_N)

@@ -7,9 +7,10 @@ no JAX, so it also runs on a machine without it:
 
 Bounds: K1 picks the same chips as its plain version (the same rounding of
 the index arithmetic) and sums in another order: 1e-2 + 1e-4 of the
-largest correlator. K2 is a float32 radix FFT in shared memory (or, for a
-code period with a prime factor above 31, a direct-summation four-step DFT)
-against cuFFT, both float32: 1e-4 of the map's maximum. K3 builds the same
+largest correlator. K2 is a float32 radix FFT in shared memory, on one
+block or on a cluster of blocks (or, for a code period with a prime factor
+above 31, a direct-summation four-step DFT) against cuFFT, both float32:
+1e-4 of the map's maximum. K3 builds the same
 per-sample values as K1 and scans them in another order than
 ``torch.cumsum``: the raw prefix within ``4 * sqrt(n_win) * 2^-24`` of its
 largest magnitude (a random walk of float32 roundings over n_win additions,
@@ -168,23 +169,54 @@ def _k2_inputs(n, n_ch, dev):
 @pytest.mark.parametrize("n, n_ch", [
     (2500, 32), (10000, 12), (4000, 8), (5000, 4), (2048, 4),
     (4092, 8), (2046, 4), (1023, 4), (8184, 2),      # 1023 = 3 * 11 * 31
-    (7 * 13 * 20, 2), (17 * 19 * 6, 2), (23 * 29 * 4, 2)])
+    (7 * 13 * 20, 2), (17 * 19 * 6, 2), (23 * 29 * 4, 2), (7000, 2)])
 def test_pcps_bins_kernel_matches_plain(n, n_ch):
     """The FFT entry at the session's (n = 2500) and the bench's
     (n = 10000) acquisition shapes, at three more lengths with radices up
     to 10, at the code periods of the 1.023 MHz family (radices 31 and 11;
-    n = 8184 in the 512-thread variant) and at one length for each other
-    prime radix: the wrapper launches it, and only it."""
+    n = 8184 in the 512-thread variant), at one length for each other
+    prime radix and at n = 7000, plan (7, 10, 10, 10), whose launch the
+    card refused while its block was sized as if it had no prime radix
+    (704 threads): the wrapper launches it, and only it."""
     spec, code, plan = _k2_inputs(n, n_ch, _cuda())
-    before = (acq_kernel.KERNEL.launches,
-              acq_kernel.FOURSTEP_KERNEL.launches)
+    before = _k2_launches()
     got = acq_kernel.pcps_bins(spec, code, plan)
-    assert (acq_kernel.KERNEL.launches,
-            acq_kernel.FOURSTEP_KERNEL.launches) == (before[0] + 1,
-                                                     before[1])
+    assert _k2_launches() == (before[0] + 1, before[1], before[2])
     ref = acq_kernel.pcps_bins_ref(spec, code, plan)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def _k2_launches():
+    """Launch counts of K2's one-block, cluster and four-step entries."""
+    return (acq_kernel.KERNEL.launches, acq_kernel.CLUSTER_KERNEL.launches,
+            acq_kernel.FOURSTEP_KERNEL.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16368, 20000, 40920, 65536])
+def test_pcps_bins_cluster_kernel_matches_plain(n):
+    """Code periods above one block's shared memory (16.368, 20, 40.92 and
+    65.536 Msps: clusters of 2, 2, 8 and 8 blocks): the wrapper launches
+    the cluster entry, and only it."""
+    spec, code, plan = _k2_inputs(n, 2, _cuda())
+    before = _k2_launches()
+    got = acq_kernel.pcps_bins(spec, code, plan)
+    assert _k2_launches() == (before[0], before[1] + 1, before[2])
+    ref = acq_kernel.pcps_bins_ref(spec, code, plan)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_pcps_bins_refuses_n_without_entry():
+    """n = 16370 = 2 * 5 * 1637: no radix plan and four-step buffers above
+    227 KB. The wrapper raises ValueError and launches nothing."""
+    spec, code, plan = _k2_inputs(16370, 1, _cuda())
+    before = _k2_launches()
+    with pytest.raises(ValueError, match="n=16370: no K2 kernel"):
+        acq_kernel.pcps_bins(spec, code, plan)
+    assert _k2_launches() == before
 
 
 @pytest.mark.cuda
@@ -192,12 +224,9 @@ def test_pcps_bins_fourstep_kernel_matches_plain():
     """n = 4070 = 2 * 5 * 11 * 37 has no radix plan: the wrapper launches
     the four-step entry, chosen from n alone, and only it."""
     spec, code, plan = _k2_inputs(4070, 8, _cuda())
-    before = (acq_kernel.KERNEL.launches,
-              acq_kernel.FOURSTEP_KERNEL.launches)
+    before = _k2_launches()
     got = acq_kernel.pcps_bins(spec, code, plan)
-    assert (acq_kernel.KERNEL.launches,
-            acq_kernel.FOURSTEP_KERNEL.launches) == (before[0],
-                                                     before[1] + 1)
+    assert _k2_launches() == (before[0], before[1], before[2] + 1)
     ref = acq_kernel.pcps_bins_ref(spec, code, plan)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())

@@ -4,12 +4,19 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
 
     python3 tools/torch_kernel_variants.py            # K2 and K3
     python3 tools/torch_kernel_variants.py --k2 | --k3
+    python3 tools/torch_kernel_variants.py --k2 --n 16368
+    python3 tools/torch_kernel_variants.py --parent DIR
 
 * K2 ``pcps_bins`` at n = 4092 (8 channels x 101 bins x 10 blocks), and
   with ``--n`` at another length with a radix plan: the device time of
-  every order of the plan's radices at several block sizes, each held
-  against the plain version (1e-4 of the map's maximum), beside the plain
-  version and ``torch.fft.ifft`` alone.
+  every order of the plan's radices at several block sizes, on the entry
+  that n selects (one block, or a cluster of ``cluster_size(n)``
+  blocks), each held against the plain version (1e-4 of the map's
+  maximum), beside the plain version and ``torch.fft.ifft`` alone; then
+  the default plan on every cluster size whose blocks fit.
+* ``--parent DIR`` (a checkout of another commit): the one-block K2 entry
+  of DIR against this tree's at the production shapes, maps bit for bit,
+  device times in turns parent, this, this, parent.
 * K3 ``block_cumsum_streams`` at its three shapes (cruise, pull-in, full
   rate): the device time of the totals launch, the prefix launch and both,
   and of the kernel that only makes K3's stores, for several segment
@@ -34,10 +41,10 @@ sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
 
 
-def k2_variants(n: int, n_ch: int, device) -> None:
+def k2_inputs(n: int, n_ch: int, device):
+    """Seeded spectra [10, n_ch, 10, n], code [n_ch, n] and a 101-bin
+    plan over the 10 phases."""
     import torch
-
-    from sydr_tpu_torch.ops import acq_kernel
 
     g = torch.Generator().manual_seed(0)
     spec = torch.randn(10, n_ch, 10, n, dtype=torch.complex64,
@@ -45,42 +52,125 @@ def k2_variants(n: int, n_ch: int, device) -> None:
     code = torch.randn(n_ch, n, dtype=torch.complex64,
                        generator=g).to(device)
     bins = tuple((b // 10 - 5, b % 10) for b in range(101))
+    return spec, code, bins
+
+
+def k2_args(cargs, plan, threads, cluster):
+    """``pcps_bins_launch_args``' C arguments with another plan, block size
+    and cluster size (1: the one-block entry's arguments)."""
+    from sydr_tpu_torch.ops import acq_kernel
+
+    radices = (acq_kernel._INT * len(plan))(*plan)
+    extra = () if cluster == 1 else (cluster,)
+    return (*cargs[:8], radices, len(plan), threads, *extra, *cargs[-3:])
+
+
+def k2_variants(n: int, n_ch: int, device) -> None:
+    """Every order of ``n``'s radices x block sizes, on the entry (one
+    block or a cluster of the wrapper's size) that ``n`` selects; then the
+    default plan on every cluster size whose blocks fit."""
+    import torch
+
+    from sydr_tpu_torch.ops import acq_kernel
+
+    spec, code, bins = k2_inputs(n, n_ch, device)
     ref = acq_kernel.pcps_bins_ref(spec, code, bins)
     bound = chip_smoke.K2_RTOL * float(ref.abs().max())
     plain = chip_smoke.cuda_ms(
         lambda: acq_kernel.pcps_bins_ref(spec, code, bins), 5)
     library = chip_smoke.ifft_library_ms(spec, code, bins)
-    print(f"K2 n={n}, {n_ch} ch x {len(bins)} bins: plain {plain:.4f} ms, "
-          f"library {library:.4f} ms, default plan "
-          f"{acq_kernel.radix_plan(n)} x {acq_kernel.fft_threads(n)} "
-          f"threads", flush=True)
+    kernel, shape = acq_kernel.kernel_for(n)
+    chip_smoke.check(kernel is not acq_kernel.FOURSTEP_KERNEL,
+                     f"n={n} has no radix plan")
+    cluster = 1 if kernel is acq_kernel.KERNEL else shape[3]
     base = acq_kernel.radix_plan(n)
+    print(f"K2 n={n}, {n_ch} ch x {len(bins)} bins: plain {plain:.4f} ms, "
+          f"library {library:.4f} ms, default plan {base} x {shape[2]} "
+          f"threads on {cluster} block(s) ({kernel.source})", flush=True)
+    _, out, cargs = acq_kernel.pcps_bins_launch_args(spec, code, bins)
+
+    def run(plan, threads, c):
+        fn = (acq_kernel.KERNEL if c == 1
+              else acq_kernel.CLUSTER_KERNEL).function()
+        args = k2_args(cargs, plan, threads, c)
+        chip_smoke.check(fn(*args) == 0,
+                         f"launch failed: {plan} x {threads} on {c}")
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        chip_smoke.check(err <= bound, f"{plan} x {threads} on {c}: error "
+                                       f"{err}")
+        return chip_smoke.device_ms(lambda: fn(*args), 10), err
+
     plans = sorted(set(itertools.permutations(base)))
     if len(plans) > 24:   # the default and its rotations
         plans = [base[i:] + base[:i] for i in range(len(base))]
-    prime = max(base) > 10
+    prime = acq_kernel.has_prime_radix(base)
     sizes = (128, 192, 256, 384, 512) if prime else (128, 256, 512, 1024)
-    fn = acq_kernel.KERNEL.function()
     rows = []
     for plan, threads in itertools.product(plans, sizes):
-        limit = 32 // plan[-1] if prime else 21 // plan[-1]
-        if n // plan[-1] > limit * threads:
+        if not acq_kernel.block_fits(n, plan, cluster, threads):
             continue
-        acq_kernel.radix_plan = lambda _n, plan=plan: plan
-        acq_kernel.fft_threads = lambda _n, _p=None, t=threads: t
-        acq_kernel.has_radix_plan = lambda _n: True
-        _, out, cargs = acq_kernel.pcps_bins_launch_args(spec, code, bins)
-        chip_smoke.check(fn(*cargs) == 0, f"launch failed: {plan} {threads}")
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        chip_smoke.check(err <= bound, f"{plan} x {threads}: error {err}")
-        ms = chip_smoke.device_ms(lambda: fn(*cargs), 10)
-        rows.append((ms, plan, threads, err))
+        ms, err = run(plan, threads, cluster)
+        rows.append((ms, plan, threads))
         print(f"   plan {plan} x {threads} threads: {ms:.4f} ms "
               f"(max_abs_err {err:.3e}, bound {bound:.3e})", flush=True)
-    for ms, plan, threads, _ in sorted(rows)[:5]:
+    for ms, plan, threads in sorted(rows)[:5]:
         print(f"K2 n={n} best: {ms:.4f} ms plan {plan} x {threads}",
               flush=True)
+    for c in acq_kernel.CLUSTER_SIZES:
+        threads = acq_kernel.fft_threads(n, base, c)
+        if not acq_kernel.block_fits(n, base, c, threads):
+            continue
+        ms, _ = run(base, threads, c)
+        chosen = " (the wrapper's choice)" if c == cluster else ""
+        print(f"K2 n={n} on {c} block(s) of {threads} threads: {ms:.4f} "
+              f"ms{chosen}", flush=True)
+
+
+# The one-block entry's production shapes (chip_smoke.py's phase 3).
+PARENT_CASES = ((2500, 32), (10000, 12), (4092, 8))
+
+
+def k2_against_parent(parent: str, device) -> None:
+    """The one-block entry of another tree (``parent``, a checkout) against
+    this tree's on the same inputs at :data:`PARENT_CASES`: the maps bit
+    for bit, and the device times in turns parent, this, this, parent."""
+    from pathlib import Path
+
+    import torch
+
+    from sydr_tpu_torch.ops import acq_kernel, native
+
+    theirs = native.CudaKernel(
+        acq_kernel.KERNEL.source, acq_kernel.KERNEL.symbol,
+        acq_kernel.KERNEL.argtypes,
+        csrc_dir=Path(parent) / "sydr_tpu_torch" / "csrc")
+    native.build_all([theirs])
+    for n, n_ch in PARENT_CASES:
+        spec, code, bins = k2_inputs(n, n_ch, device)
+        kernel, out, cargs = acq_kernel.pcps_bins_launch_args(
+            spec, code, bins)
+        chip_smoke.check(kernel is acq_kernel.KERNEL,
+                         f"n={n} left the one-block entry")
+        fns = {"parent": theirs.function(), "this": kernel.function()}
+        maps = {}
+        for name in ("this", "parent", "this"):
+            chip_smoke.check(fns[name](*cargs) == 0, f"{name} launch failed")
+            torch.cuda.synchronize()
+            if name in maps:
+                chip_smoke.check(torch.equal(maps[name], out),
+                                 "the entry is not deterministic")
+            maps[name] = out.clone()
+        same = torch.equal(maps["parent"], maps["this"])
+        ms = {name: [] for name in fns}
+        for name in ("parent", "this", "this", "parent"):
+            ms[name].append(chip_smoke.device_ms(
+                lambda fn=fns[name]: fn(*cargs), 10))
+        print(f"K2 one-block n={n}, {n_ch} ch x 101 bins: maps "
+              f"{'bit-identical' if same else 'DIFFER'}; device ms parent "
+              f"{ms['parent'][0]:.4f} / {ms['parent'][1]:.4f}, this "
+              f"{ms['this'][0]:.4f} / {ms['this'][1]:.4f}", flush=True)
+        chip_smoke.check(same, f"n={n}: the maps differ from the parent's")
 
 
 def k3_variants(device) -> None:
@@ -145,6 +235,9 @@ def main(argv=None) -> int:
     parser.add_argument("--k3", action="store_true")
     parser.add_argument("--n", type=int, default=4092)
     parser.add_argument("--channels", type=int, default=8)
+    parser.add_argument("--parent", metavar="DIR",
+                        help="hold the one-block K2 entry of the checkout "
+                             "DIR against this tree's")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -154,7 +247,8 @@ def main(argv=None) -> int:
 
     print(f"card: {chip_smoke.card_line()}", flush=True)
     device = torch.device("cuda")
-    built = [acq_kernel.KERNEL, ck.CUMSUM_KERNEL, ck.STORE_CEILING]
+    built = [acq_kernel.KERNEL, acq_kernel.CLUSTER_KERNEL, ck.CUMSUM_KERNEL,
+             ck.STORE_CEILING]
     native.build_all(built)
     for kern in built:
         usage = [ln.strip() for ln in kern.build_log.splitlines()
@@ -162,9 +256,11 @@ def main(argv=None) -> int:
                  or "Compiling entry" in ln]
         print(f"built {kern.source} in {kern.build_seconds or 0:.2f} s:\n   "
               + "\n   ".join(usage), flush=True)
-    both = not (opts.k2 or opts.k3)
+    both = not (opts.k2 or opts.k3 or opts.parent)
     if opts.k2 or both:
         k2_variants(opts.n, opts.channels, device)
+    if opts.parent:
+        k2_against_parent(opts.parent, device)
     if opts.k3 or both:
         k3_variants(device)
     return 0
