@@ -14,12 +14,15 @@ printing its wall time:
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the receiver gives it, with its error bound: K1 ``epoch_correlate``, K2
    ``pcps_bins`` (the one-block radix FFT, at n = 4092 through its prime
-   radices 31 and 11; the cluster entry at n = 16368 and 40920, with its
-   cluster size and ``cudaOccupancyMaxActiveClusters``, then a sweep over
-   the front-end code periods that need a cluster, 12276 to 65536, each
-   on the cluster ``cluster_size`` gives; the refusal of n = 16370, which
-   no entry takes, before any launch; the four-step entry at
-   n = 4070 = 2 * 5 * 11 * 37), K3
+   radices 31 and 11, and at n = 4070 = 2 * 5 * 11 * 37 through the
+   generic pass of radix 37; the cluster entry at n = 16368 and 40920,
+   and at n = 26500 = 2^2 * 5^3 * 53 through a generic pass, with its
+   cluster size and ``cudaOccupancyMaxActiveClusters``; then a sweep over
+   the front-end code periods that need a cluster, 12276 to 65536, and one
+   over lengths with prime factors above 31, 1517 = 37 * 41 to 65498 =
+   2 * 32749, each on the entry and cluster that ``kernel_for`` gives,
+   with ``torch.fft.ifft`` beside it; the refusal of a prime n before any
+   launch), K3
    ``block_cumsum_streams`` (with its two launches timed apart, the time
    of a kernel that only makes its stores, and a second run that must be
    bit-identical). Each case prints four times and a bound:
@@ -57,8 +60,9 @@ printing its wall time:
 8. a session at 4.092 Msps (n = 4092 = 2^2 * 3 * 11 * 31): 8 channels,
    300 ms; acquisition must go through K2's FFT entry (radices 31, 4, 3,
    11) and find the visible satellites;
-9. the same at 4.070 Msps (n = 4070 = 2 * 5 * 11 * 37, no radix plan):
-   acquisition must go through K2's four-step entry;
+9. the same at 4.070 Msps (n = 4070 = 2 * 5 * 11 * 37): acquisition must
+   go through K2's one-block entry (plan 11, 37, 10: a generic pass of
+   radix 37) and no other K2 entry;
 10. a session at 16.368 Msps, full rate (no decimation: n = 16368 =
     2^4 * 3 * 11 * 31, above one block's shared memory): 8 channels, 4
     visible, 300 ms; acquisition must go through K2's cluster entry (and
@@ -193,7 +197,7 @@ STREAM_TAP_FLOPS = 8
 
 # Kernel-vs-plain bounds. K1: identical chips (same rounding of the index
 # arithmetic), sums in another order: 1e-2 + 1e-4 of the largest correlator.
-# K2: a float32 FFT (or the direct-summation four-step DFT) against cuFFT,
+# K2: a float32 FFT (a direct sum in its generic passes) against cuFFT,
 # both float32: 1e-4 of the map's maximum.
 # K3: the same per-sample values as K1, scanned in another order than
 # torch.cumsum: the raw prefix within 4 * sqrt(n_win) * 2^-24 of its largest
@@ -531,9 +535,10 @@ def k3_case(name, fs, block_ms, profile, device, rng):
     return res
 
 
-def ifft_library_ms(spectra, code_k, bin_shifts) -> float:
+def ifft_library_ms(spectra, code_k, bin_shifts, quiet=False) -> float:
     """``torch.fft.ifft`` alone over the pre-made product ``[n_bins, n_ch,
-    nc, n]`` complex64: the part of K2 that one PyTorch call computes."""
+    nc, n]`` complex64: the part of K2 that one PyTorch call computes
+    (printed unless ``quiet``)."""
     import torch
 
     n_ph, n_ch, nc, n = spectra.shape
@@ -543,6 +548,8 @@ def ifft_library_ms(spectra, code_k, bin_shifts) -> float:
         torch.mul(spectra[p], torch.roll(code_k, k, dims=-1)[:, None, :],
                   out=prod[b])
     ms = cuda_ms(lambda: torch.fft.ifft(prod, dim=-1), 5)
+    if quiet:
+        return ms
     print(f"   library yardstick: torch.fft.ifft over {tuple(prod.shape)} "
           f"complex64 ({tensor_bytes(prod) / 1e6:.0f} MB): {ms:.4f} ms",
           flush=True)
@@ -597,9 +604,13 @@ def k2_case(name, fs, n_ch, entry, device, rng):
            **roofline(tensor_bytes(spectra, code_k, out) + 8 * n
                       + 8 * len(bin_shifts), flops)}
     if entry == "pcps_bins_cluster":
-        print(f"   cluster of {acq_kernel.cluster_size(n)} blocks of "
-              f"{cargs[10]} threads, cudaOccupancyMaxActiveClusters "
+        print(f"   plan {acq_kernel.radix_plan(n)}, cluster of "
+              f"{acq_kernel.cluster_size(n)} blocks of {cargs[10]} threads, "
+              f"cudaOccupancyMaxActiveClusters "
               f"{acq_kernel.cluster_occupancy(n)}", flush=True)
+    else:
+        print(f"   plan {acq_kernel.radix_plan(n)}, one block of "
+              f"{cargs[10]} threads", flush=True)
     report("K2", f"[{entry}] {name}", got.shape,
            f"max_abs_err {err:.3e} (bound {bound:.3e}, "
            f"{err / float(ref.abs().max()):.2e} of the map's maximum)", res)
@@ -612,60 +623,85 @@ def k2_case(name, fs, n_ch, entry, device, rng):
 # 65.536 Msps), each at 1 channel x 11 bins x 2 blocks.
 SWEEP_N = (12276, 16368, 20000, 20460, 25000, 26000, 30690, 40000, 40920,
            50000, 65536)
+# Lengths with prime factors above 31 (generic passes), at the same shape:
+# no factor up to 31 (1517 = 37 * 41, 65231 = 37 * 41 * 43), one twice
+# that, a large prime factor on a cluster of 2 (9722 = 2 * 4861, 16370 =
+# 2 * 5 * 1637), a 53 Msps front end (53000 = 2^3 * 5^3 * 53) and the
+# largest prime factor of any n up to 65536 (65498 = 2 * 32749).
+GENERIC_SWEEP_N = (1517, 3034, 9722, 16370, 53000, 65231, 65498)
+# A prime code period, which no entry takes (as the JAX package refuses
+# a prime above 64).
+REFUSED_N = 4093
 
 
-def k2_cluster_sweep(device) -> None:
-    """The cluster entry at every n of :data:`SWEEP_N`: the wrapper must
-    launch it (and nothing else) on the cluster that ``cluster_size``
-    gives, within 1e-4 of the map's maximum; its device time printed."""
+def k2_sweep(device, ns) -> None:
+    """K2 at every n of ``ns``, 1 channel x 11 bins x 2 blocks: the
+    wrapper must launch the entry ``kernel_for`` gives (and nothing else)
+    on its cluster, within 1e-4 of the map's maximum; its plan, device
+    time, time through the wrapper, the plain version's, the bound and
+    ``torch.fft.ifft``'s time over the same product printed."""
     import torch
 
     from sydr_tpu_torch.ops import acq_kernel
 
     g = torch.Generator().manual_seed(SEED)
     bins = tuple((b - 5, b % 2) for b in range(11))
-    for n in SWEEP_N:
+    for n in ns:
         spec = torch.randn(2, 1, 2, n, dtype=torch.complex64,
                            generator=g).to(device)
         code = torch.randn(1, n, dtype=torch.complex64,
                            generator=g).to(device)
         cluster = acq_kernel.cluster_size(n)
+        entry = "pcps_bins" if cluster == 1 else "pcps_bins_cluster"
         before = read_launches()
         got = acq_kernel.pcps_bins(spec, code, bins)
         launched = {k: v - before[k] for k, v in read_launches().items()
                     if v != before[k]}
-        check(cluster > 1 and launched == {"pcps_bins_cluster": 1},
+        check(launched == {entry: 1},
               f"K2 sweep n={n}: launched {launched} on a cluster of "
-              f"{cluster}, expected the cluster entry")
+              f"{cluster}, expected {entry}")
         ref = acq_kernel.pcps_bins_ref(spec, code, bins)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
         kernel, out, cargs = acq_kernel.pcps_bins_launch_args(
             spec, code, bins)
-        check(cargs[11] == cluster, f"K2 sweep n={n}: cluster argument "
-                                    f"{cargs[11]}, expected {cluster}")
+        check(cluster == 1 or cargs[11] == cluster,
+              f"K2 sweep n={n}: cluster argument {cargs[11]}, expected "
+              f"{cluster}")
         fn = kernel.function()
-        ms = device_ms(lambda: fn(*cargs), 20)
-        print(f"K2 sweep n={n}: plan {acq_kernel.radix_plan(n)}, cluster "
-              f"of {cluster} x {cargs[10]} threads "
-              f"(max active clusters {acq_kernel.cluster_occupancy(n)}), "
-              f"1 ch x 11 bins x 2 blocks: device {ms:.4f} ms, max_abs_err "
-              f"{err:.3e} ({rel:.2e} of the map's maximum)", flush=True)
+        # About 50 ms of launches: the large prime factors run for tens of
+        # milliseconds a launch.
+        once = cuda_ms(lambda: fn(*cargs), 1)
+        reps = max(2, min(20, int(50 / once)))
+        ms = device_ms(lambda: fn(*cargs), reps)
+        call = cuda_ms(lambda: acq_kernel.pcps_bins(spec, code, bins), reps)
+        plain = cuda_ms(lambda: acq_kernel.pcps_bins_ref(spec, code, bins), 5)
+        lib = ifft_library_ms(spec, code, bins, quiet=True)
+        bound = roofline(tensor_bytes(spec, code, out) + 8 * n + 8 * 11,
+                         22 * (5.0 * n * np.log2(n) + 10.0 * n))
+        occupancy = ("" if cluster == 1 else f" (max active clusters "
+                     f"{acq_kernel.cluster_occupancy(n)})")
+        print(f"K2 sweep n={n}: plan {acq_kernel.radix_plan(n)}, "
+              f"{cluster} block(s) x {cargs[10]} threads{occupancy}, 1 ch x "
+              f"11 bins x 2 blocks: device {ms:.4f} ms, call {call:.4f} ms, "
+              f"plain {plain:.4f} ms, ifft {lib:.4f} ms ({ms / lib:.1f}x), "
+              f"bound {bound['bound_ms']:.6f} ms ({bound['bound_by']}), "
+              f"max_abs_err {err:.3e} ({rel:.2e} of the map's maximum)",
+              flush=True)
         check(bool(torch.isfinite(got).all()), f"K2 sweep n={n}: non-finite")
         check(rel <= K2_RTOL, f"K2 sweep n={n}: error {rel:.2e} of the "
                               f"maximum, above {K2_RTOL}")
 
 
 def k2_refusal(device) -> None:
-    """n = 16370 = 2 * 5 * 1637 has no K2 kernel (no radix plan, four-step
-    buffers above a block's shared memory): ``kernel_for`` and the wrapper
-    must raise ValueError, and nothing may launch."""
+    """A prime n has no K2 kernel: ``kernel_for`` and the wrapper must
+    raise ValueError, and nothing may launch."""
     import torch
 
     from sydr_tpu_torch.ops import acq_kernel
 
-    n = 16370
+    n = REFUSED_N
     spec = torch.zeros(1, 1, 1, n, dtype=torch.complex64, device=device)
     code = torch.zeros(1, n, dtype=torch.complex64, device=device)
     before = read_launches()
@@ -716,13 +752,14 @@ def kernel_phase(device) -> dict:
               ("session 32 ch n=2500", 2.5e6, 32),
               ("bench 12 ch n=10000", 10e6, 12))}
     k2.update({name: k2_case(name, fs, n_ch, "pcps_bins", device, rng)
-               for name, fs, n_ch in (("8 ch n=4092", 4.092e6, 8),)})
-    k2f = {name: k2_case(name, fs, n_ch, "pcps_bins_fourstep", device, rng)
-           for name, fs, n_ch in (("8 ch n=4070", 4.070e6, 8),)}
+               for name, fs, n_ch in (("8 ch n=4092", 4.092e6, 8),
+                                      ("8 ch n=4070", 4.070e6, 8))})
     k2c = {name: k2_case(name, fs, n_ch, "pcps_bins_cluster", device, rng)
            for name, fs, n_ch in (("8 ch n=16368", 16.368e6, 8),
-                                  ("8 ch n=40920", 40.92e6, 8))}
-    k2_cluster_sweep(device)
+                                  ("8 ch n=40920", 40.92e6, 8),
+                                  ("8 ch n=26500", 26.5e6, 8))}
+    k2_sweep(device, SWEEP_N)
+    k2_sweep(device, GENERIC_SWEEP_N)
     k2_refusal(device)
     k3 = {name: k3_case(name, fs, bm, prof, device, rng)
           for name, fs, bm, prof in (
@@ -730,8 +767,7 @@ def kernel_phase(device) -> dict:
               ("pull-in 2.5 Msps 5 ms 10 streams", 2.5e6, 5, "kaplan"),
               ("full-rate 10 Msps 20 ms 6 streams", 10e6, 20, "narrow"))}
     return {"epoch_correlate": k1, "pcps_bins": k2,
-            "pcps_bins_cluster": k2c, "pcps_bins_fourstep": k2f,
-            "block_cumsum_streams": k3}
+            "pcps_bins_cluster": k2c, "block_cumsum_streams": k3}
 
 
 # ---------------------------------------------------------------------------
@@ -1218,7 +1254,6 @@ def kernels():
 
     return {"epoch_correlate": ck.KERNEL, "pcps_bins": acq_kernel.KERNEL,
             "pcps_bins_cluster": acq_kernel.CLUSTER_KERNEL,
-            "pcps_bins_fourstep": acq_kernel.FOURSTEP_KERNEL,
             "block_cumsum_streams": ck.CUMSUM_KERNEL}
 
 
@@ -1744,7 +1779,7 @@ def mesh_ranks_phase(device, capture, mesh_run, card) -> dict:
     for r, (_, info) in enumerate(ranks):
         n = info["launches"]
         check(n["epoch_correlate"] > 0 and n["block_cumsum_streams"] > 0
-              and n["pcps_bins"] == 0 and n["pcps_bins_fourstep"] == 0,
+              and n["pcps_bins"] == 0 and n["pcps_bins_cluster"] == 0,
               f"rank {r} launched {n}: expected K1 and K3, and no K2")
     launches = {name: sum(info["launches"][name] for _, info in ranks)
                 for name in ranks[0][1]["launches"]}
@@ -2129,8 +2164,6 @@ RECORD = (
     ("pcps_bins_cluster", "pcps_bins_cluster.cu",
      "sydr_tpu/ops/acq_kernel.py:54", "8 ch n=16368",
      "session at 16.368 Msps"),
-    ("pcps_bins_fourstep", "pcps_bins_fourstep.cu",
-     "sydr_tpu/ops/acq_kernel.py:54", "8 ch n=4070", "session at n=4070"),
     ("block_cumsum_streams", "block_cumsum_streams.cu",
      "sydr_tpu/ops/correlator_kernel.py:282",
      "cruise 2.5 Msps 20 ms 6 streams", "prefix receiver"),
@@ -2173,13 +2206,12 @@ def path_phases(device, card, soak_queue, producer) -> dict:
                 writer.terminate()
                 writer.join()
     # n = 4092 = 2^2 * 3 * 11 * 31 takes the FFT entry's prime radices;
-    # n = 4070 = 2 * 5 * 11 * 37 has no radix plan and takes the four-step
-    # entry.
-    for n, entry in ((4092, "pcps_bins"), (4070, "pcps_bins_fourstep")):
+    # n = 4070 = 2 * 5 * 11 * 37 its generic pass (radix 37).
+    for n in (4092, 4070):
         paths[f"session at n={n}"] = timed(
             f"session at n={n}", slice_phase, device, signal_ms=300,
             fs_in=n * 1e3 * DECIMATE, n_channels=8, n_visible=4,
-            acq_kernel_name=entry, settled=False, card=card)
+            acq_kernel_name="pcps_bins", settled=False, card=card)
     # A 16.368 Msps front end at full rate: n = 16368 = 2^4 * 3 * 11 * 31,
     # above one block's shared memory, takes K2's cluster entry; K1 runs
     # on every sample.

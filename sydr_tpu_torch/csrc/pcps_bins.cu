@@ -11,17 +11,23 @@
 // The TPU kernel formed the inverse DFT as two matrix products (a four-step
 // transform on the MXU, the chip having no complex type and no FFT); on this
 // card that form reads 16 bytes of shared memory per multiply-add and sits
-// at the shared-memory ceiling (pcps_bins_fourstep.cu keeps it for lengths
-// with a prime factor above 31).
+// at the shared-memory ceiling (the four-step entry that served the
+// lengths with a prime factor above 31 before the generic pass below ran
+// n = 4070 in 3.92 ms against torch.fft.ifft's 0.57 on an NVIDIA H100
+// 80GB HBM3).
 //
 // This entry is a mixed-radix Stockham (autosort) FFT in shared memory, in
 // float32 on the CUDA cores, for n = r_0 r_1 ... r_{P-1} with radices from
 // {10, 5, 4, 3, 2} and the odd primes 7 to 31 (the wrapper's radix_plan:
 // 10 10 5 5 at n = 2500, 10 10 10 10 at n = 10000, and 31 4 3 11 at
 // n = 4092 = 2^2 3 11 31, the code period of every front end clocked at a
-// multiple of 1.023 MHz), one block a transform; a transform that does
-// not fit one block runs on a cluster of blocks (pcps_bins_cluster.cu,
-// same passes and arithmetic; the butterflies of both in pcps_fft.cuh).
+// multiple of 1.023 MHz), and every prime factor above 31 as a generic
+// pass of runtime radix between the first and the last (11 37 10 at
+// n = 4070; 1 41 37 1 at n = 1517 = 37 x 41, the radix-1 ends only
+// forming the product and its magnitude), one block a transform; a
+// transform that does not fit one block runs on a cluster of blocks
+// (pcps_bins_cluster.cu, same passes and arithmetic; the butterflies and
+// the generic pass of both in pcps_fft.cuh).
 // With ns the product of the radices already done, pass p takes for
 // j < n / r
 //
@@ -39,14 +45,20 @@
 // and d_q = v[q] - v[r-q] for q <= (r-1)/2, outputs k and r - k are
 // A_k +- i B_k, A_k = v[0] + sum_q cos(2 pi k q / r) s_q, B_k = sum_q
 // sin(2 pi k q / r) d_q: (r-1)^2 real multiply-adds for r complex points
-// (29 a point at r = 31, 9 at r = 11) where the four-step entry spends
+// (29 a point at r = 31, 9 at r = 11) where a four-step DFT spends
 // 4 (n1 + n2) = 512 at n = 4092, every operand in a register or the
 // constant bank. Its loops are fully unrolled, so a thread needs some 4 r
-// registers; the kernel is compiled three times, by the block's largest
-// size: 1024 threads (64 registers, radices up to 10 only, as before the
-// prime radices existed), 512 and 256 threads (128 and 255 registers) for
-// plans with a prime radix, chosen at the launch from the plan and the
-// thread count.
+// registers; the kernel is compiled by the block's largest size: 1024
+// threads (64 registers, radices up to 10 only, as before the prime
+// radices existed), 512 and 256 threads (128 and 255 registers) for plans
+// with a prime radix, chosen at the launch from the plan and the thread
+// count. A radix above 31 (a prime factor of n, up to 32,749 at
+// n = 65,498) cannot live in registers: generic_pass (pcps_fft.cuh) folds
+// the twiddled inputs into sums and differences in place, then sums them
+// against roots read from the twiddle table. Plans with such a radix run
+// two more variants (256 and 512 threads) that add it and radix 1; in the
+// prime variants themselves it made n = 4092 4.7% slower (NVIDIA H100
+// 80GB HBM3).
 //
 // Bound on the H100: operations. Each input byte once is 97 MB at the
 // session shape (32 ch x 101 bins x n = 2500; 0.03 ms of HBM time), while
@@ -85,6 +97,14 @@
 #include "pcps_fft.cuh"
 
 namespace {
+
+// The block's buffers, for generic_pass.
+struct Local {
+  float2* p;
+  __device__ __forceinline__ float2 load(int i) const { return p[i]; }
+  __device__ __forceinline__ void store(int i, float2 v) const { p[i] = v; }
+  static __device__ __forceinline__ void sync() { __syncthreads(); }
+};
 
 // Pass 0 (ns = 1, no twiddles), fused with the spectrum product: reads
 // global memory, writes out[j R + q].
@@ -178,8 +198,9 @@ __device__ __forceinline__ void store_map(const float (&acc)[kAcc], int n,
 }
 
 // kMaxT: the largest block (it sets the registers a thread may have);
-// kAcc: the accumulators a thread holds; kPrimes: with the prime radices.
-template <int kMaxT, int kAcc, bool kPrimes>
+// kAcc: the accumulators a thread holds; kPrimes: with the prime radices;
+// kGeneric: also with the generic pass and radix 1.
+template <int kMaxT, int kAcc, bool kPrimes, bool kGeneric>
 __global__ void __launch_bounds__(kMaxT) pcps_bins_kernel(
     const float2* __restrict__ spec, const float2* __restrict__ code,
     const float2* __restrict__ tw, const int* __restrict__ shift,
@@ -212,7 +233,9 @@ __global__ void __launch_bounds__(kMaxT) pcps_bins_kernel(
     int ns = r_first;
     for (int ps = 1; ps + 1 < plan.n_pass; ++ps) {
       const int r = plan.radix[ps];
-      SYDR_RADIX_SWITCH(r, middle_pass<R>(in, other, tw, n, ns));
+      SYDR_MIDDLE_SWITCH(r, middle_pass<R>(in, other, tw, n, ns),
+                         generic_pass(Local{in}, Local{other}, tw, n, ns, r,
+                                      0, 1));
       __syncthreads();
       float2* t = in;
       in = other;
@@ -230,7 +253,7 @@ __global__ void __launch_bounds__(kMaxT) pcps_bins_kernel(
 
 // Launch one variant of the kernel; its shared memory is above the 48 KB
 // a kernel gets unasked from n = 3073 on.
-template <int kMaxT, int kAcc, bool kPrimes>
+template <int kMaxT, int kAcc, bool kPrimes, bool kGeneric>
 int launch_variant(const float2* spec, const float2* code, const float2* tw,
                    const int* shift, const int* phase, int n_ch, int nc,
                    int n, int n_bins, const Plan& plan, int threads,
@@ -241,10 +264,10 @@ int launch_variant(const float2* spec, const float2* code, const float2* tw,
   }
   const size_t smem = static_cast<size_t>(n) * 2 * sizeof(float2);
   const cudaError_t err = cudaFuncSetAttribute(
-      pcps_bins_kernel<kMaxT, kAcc, kPrimes>,
+      pcps_bins_kernel<kMaxT, kAcc, kPrimes, kGeneric>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  pcps_bins_kernel<kMaxT, kAcc, kPrimes>
+  pcps_bins_kernel<kMaxT, kAcc, kPrimes, kGeneric>
       <<<dim3(n_bins, n_ch), threads, smem, stream>>>(
           spec, code, tw, shift, phase, n_ch, nc, n, n_bins, plan, out);
   return static_cast<int>(cudaGetLastError());
@@ -258,17 +281,18 @@ extern "C" const char* sydr_cuda_error_string(int err) {
 
 // spec [n_ph, n_ch, nc, n] complex64, code [n_ch, n]
 // complex64, tw [n] complex64, shift / phase [n_bins] int32 (device), out
-// [n_ch, n_bins, n]; radices: host array of n_pass >= 2 radices from
-// {2, 3, 4, 5, 10} and the odd primes 7..31 whose product is n; threads: a
-// multiple of 32, at most 1024 without a prime radix (n <= 20 threads) and
-// 512 with one (n / r_last <= floor(32 / r_last) threads).
+// [n_ch, n_bins, n]; radices: host array of n_pass >= 2 radices whose
+// product is n, as parse_plan (pcps_fft.cuh) takes them; threads: a
+// multiple of 32, at most 1024 without a radix outside {2, 3, 4, 5, 10}
+// (n <= 20 threads) and 512 with one (n / r_last <= floor(32 / r_last)
+// threads).
 extern "C" int pcps_bins_launch(
     const void* spec, const void* code, const void* tw, const void* shift,
     const void* phase, int n_ch, int nc, int n, const int* radices,
     int n_pass, int threads, int n_bins, void* out, void* stream) {
   Plan plan;
-  bool primes;
-  const int bad = parse_plan(radices, n_pass, n, &plan, &primes);
+  bool primes, generic;
+  const int bad = parse_plan(radices, n_pass, n, &plan, &primes, &generic);
   if (bad != 0) return bad;
   if (threads < 32 || threads % 32 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -281,13 +305,21 @@ extern "C" int pcps_bins_launch(
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!primes) {
-    return launch_variant<1024, kAccSmall, false>(
+    return launch_variant<1024, kAccSmall, false, false>(
+        s, kc, t, sh, ph, n_ch, nc, n, n_bins, plan, threads, o, st);
+  }
+  if (generic) {
+    if (threads <= 256) {
+      return launch_variant<256, kAccPrime, true, true>(
+          s, kc, t, sh, ph, n_ch, nc, n, n_bins, plan, threads, o, st);
+    }
+    return launch_variant<512, kAccPrime, true, true>(
         s, kc, t, sh, ph, n_ch, nc, n, n_bins, plan, threads, o, st);
   }
   if (threads <= 256) {
-    return launch_variant<256, kAccPrime, true>(
+    return launch_variant<256, kAccPrime, true, false>(
         s, kc, t, sh, ph, n_ch, nc, n, n_bins, plan, threads, o, st);
   }
-  return launch_variant<512, kAccPrime, true>(
+  return launch_variant<512, kAccPrime, true, false>(
       s, kc, t, sh, ph, n_ch, nc, n, n_bins, plan, threads, o, st);
 }

@@ -10,7 +10,9 @@
 //
 // One block of pcps_bins.cu holds two ping-pong buffers of n complex
 // points (16 n bytes), so the H100's 227 KB a block end it at n = 14,528,
-// and a plan with a prime radix ends at 512 threads x 16 points, n = 8192.
+// and a plan with a prime radix (or a generic pass) ends at 512 threads x
+// 16 points, n = 8192: 9722 = 2 x 4861 takes C = 2, 26,500 = 2^2 5^3 53
+// C = 4, 65,498 = 2 x 32,749 C = 8.
 // The front ends' code periods above that (16,368 at 16.368 Msps, 20,000,
 // 25,000, 40,920 at 40.92 Msps, ...) run here. The wrapper
 // (acq_kernel.cluster_size) takes the smallest C whose per-block share
@@ -42,11 +44,21 @@
 // indices, the butterflies (pcps_fft.cuh), the first pass with the fused
 // spectrum product and rolled code, the last pass's outputs in registers
 // (a thread owns the same points for every non-coherent block) and their
-// coalesced store: each block stores its own chunk of the map. So
+// coalesced store: each block stores its own chunk of the map; the
+// generic pass of a radix above 31 (pcps_fft.cuh), its fold and sum items
+// cut over the blocks, a cluster barrier between its two steps. So
 // acq_kernel.stockham_ifft_ref describes this arithmetic too. The kernel
-// variants are pcps_bins.cu's three (1024 threads without a prime radix;
-// 256 and 512 with one), chosen from the plan and the per-block thread
-// count.
+// variants are pcps_bins.cu's five (1024 threads without a prime radix;
+// 256 and 512 with one; 256 and 512 with a radix above 31), chosen from
+// the plan and the per-block thread count.
+//
+// A generic pass reads each of its points about R / 16 times (once for
+// every kGenericPairs output pairs), and where those points live is the
+// whole cluster: at C blocks (C - 1) / C of those reads cross SMs, where
+// a fixed radix reads each point once. n = 4070 ran 1.8x / 2.4x / 4.5x
+// its one-block time on 2 / 4 / 8 blocks, 8140 1.5x / 2.0x / 2.7x
+// (NVIDIA H100 80GB HBM3, tools/torch_kernel_variants.py --k2 --n 4070
+// 8140).
 //
 // Bound on the H100: operations, as pcps_bins.cu (the map's 5 n log2 n +
 // 10 n flops a transform at the f32 rate); in practice every point of
@@ -60,6 +72,14 @@
 #include "pcps_fft.cuh"
 
 namespace {
+
+// Arrive (release) and wait (acquire): every block's shared-memory
+// stores before it are visible to every block's loads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.aligned;\n\t"
+      "barrier.cluster.wait.aligned;" ::: "memory");
+}
 
 // One ping-pong buffer spread over the cluster: point i at rank i / S,
 // offset i mod S, at the same shared-memory offset in every block.
@@ -86,24 +106,7 @@ struct Spread {
     asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};"
                  :: "r"(at(i)), "f"(v.x), "f"(v.y) : "memory");
   }
-};
-
-// Arrive (release) and wait (acquire): every block's shared-memory
-// stores before it are visible to every block's loads after it.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.aligned;\n\t"
-      "barrier.cluster.wait.aligned;" ::: "memory");
-}
-
-// This block's butterflies [lo, hi) of a pass with m of them.
-struct Chunk {
-  int lo, hi;
-  __device__ __forceinline__ Chunk(int m, int rank, int ranks) {
-    const int size = (m + ranks - 1) / ranks;
-    lo = rank * size;
-    hi = min(m, lo + size);
-  }
+  static __device__ __forceinline__ void sync() { cluster_sync(); }
 };
 
 // Pass 0 (ns = 1, no twiddles), fused with the spectrum product: reads
@@ -197,7 +200,7 @@ __device__ __forceinline__ void store_map(const float (&acc)[kAcc], int n,
 }
 
 // One cluster per (bin, channel): blockIdx.x = bin * C + rank.
-template <int kMaxT, int kAcc, bool kPrimes>
+template <int kMaxT, int kAcc, bool kPrimes, bool kGeneric>
 __global__ void __launch_bounds__(kMaxT) pcps_bins_cluster_kernel(
     const float2* __restrict__ spec, const float2* __restrict__ code,
     const float2* __restrict__ tw, const int* __restrict__ shift,
@@ -241,7 +244,8 @@ __global__ void __launch_bounds__(kMaxT) pcps_bins_cluster_kernel(
     for (int ps = 1; ps + 1 < plan.n_pass; ++ps) {
       const int r = plan.radix[ps];
       const Chunk mid(n / r, rank, ranks);
-      SYDR_RADIX_SWITCH(r, middle_pass<R>(in, other, tw, n, ns, mid));
+      SYDR_MIDDLE_SWITCH(r, middle_pass<R>(in, other, tw, n, ns, mid),
+                         generic_pass(in, other, tw, n, ns, r, rank, ranks));
       cluster_sync();
       const Spread t = in;
       in = other;
@@ -263,7 +267,7 @@ __global__ void __launch_bounds__(kMaxT) pcps_bins_cluster_kernel(
 // Launch one variant on a grid of (n_bins C, n_ch) in clusters of C, or,
 // with max_clusters, ask how many such clusters the card runs at once
 // (cudaOccupancyMaxActiveClusters) and launch nothing.
-template <int kMaxT, int kAcc, bool kPrimes>
+template <int kMaxT, int kAcc, bool kPrimes, bool kGeneric>
 int launch_variant(const float2* spec, const float2* code, const float2* tw,
                    const int* shift, const int* phase, int n_ch, int nc,
                    int n, int n_bins, const Plan& plan, int threads,
@@ -276,7 +280,7 @@ int launch_variant(const float2* spec, const float2* code, const float2* tw,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = static_cast<size_t>(slice) * 2 * sizeof(float2);
-  auto* kernel = pcps_bins_cluster_kernel<kMaxT, kAcc, kPrimes>;
+  auto* kernel = pcps_bins_cluster_kernel<kMaxT, kAcc, kPrimes, kGeneric>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -309,8 +313,8 @@ int dispatch(const void* spec, const void* code, const void* tw,
              const int* radices, int n_pass, int threads, int cluster,
              int n_bins, void* out, void* stream, int* max_clusters) {
   Plan plan;
-  bool primes;
-  const int bad = parse_plan(radices, n_pass, n, &plan, &primes);
+  bool primes, generic;
+  const int bad = parse_plan(radices, n_pass, n, &plan, &primes, &generic);
   if (bad != 0) return bad;
   if (threads < 32 || threads % 32 != 0 ||
       (cluster != 2 && cluster != 4 && cluster != 8)) {
@@ -329,16 +333,26 @@ int dispatch(const void* spec, const void* code, const void* tw,
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!primes) {
-    return launch_variant<1024, kAccSmall, false>(
+    return launch_variant<1024, kAccSmall, false, false>(
+        s, kc, t, sh, ph, n_ch, nc, n, n_bins, plan, threads, cluster, o, st,
+        max_clusters);
+  }
+  if (generic) {
+    if (threads <= 256) {
+      return launch_variant<256, kAccPrime, true, true>(
+          s, kc, t, sh, ph, n_ch, nc, n, n_bins, plan, threads, cluster, o,
+          st, max_clusters);
+    }
+    return launch_variant<512, kAccPrime, true, true>(
         s, kc, t, sh, ph, n_ch, nc, n, n_bins, plan, threads, cluster, o, st,
         max_clusters);
   }
   if (threads <= 256) {
-    return launch_variant<256, kAccPrime, true>(
+    return launch_variant<256, kAccPrime, true, false>(
         s, kc, t, sh, ph, n_ch, nc, n, n_bins, plan, threads, cluster, o, st,
         max_clusters);
   }
-  return launch_variant<512, kAccPrime, true>(
+  return launch_variant<512, kAccPrime, true, false>(
       s, kc, t, sh, ph, n_ch, nc, n, n_bins, plan, threads, cluster, o, st,
       max_clusters);
 }

@@ -4,7 +4,9 @@
 // code period whose buffers outgrow one block's shared memory). Both run
 // the same arithmetic: these butterflies (radices 2, 3, 4, 5, 10 = 2 x 5
 // and the odd primes 7 to 31, inverse sign, roots as float64 literals
-// rounded once), the same plan and the same integer twiddle indices, so
+// rounded once), the generic pass of an odd radix above 31 (a runtime
+// value: the prime factors of n above the largest butterfly), the same
+// plan and the same integer twiddle indices, so
 // acq_kernel.stockham_ifft_ref describes either. See pcps_bins.cu's header
 // for the passes and their design.
 
@@ -16,6 +18,9 @@
 namespace {
 
 constexpr int kMaxPasses = 16;
+// The largest radix with a butterfly in registers; a plan's radices above
+// it (odd, between its first and last pass) run generic_pass.
+constexpr int kMaxFixedRadix = 31;
 // Output points a thread holds in the last pass (its accumulators), by
 // kernel variant: floor(kAcc / r) butterflies of the last radix r, so
 // n / r <= floor(kAcc / r) * threads.
@@ -44,6 +49,12 @@ __device__ __forceinline__ float2 mul_i(float2 a) {
 // v <- DFT_R(v) with the inverse sign: v[q] = sum_r v[r] e^{+2 pi i q r / R}.
 template <int R>
 __device__ __forceinline__ void butterfly(float2 (&v)[R]);
+
+// Radix 1, the ends of a plan whose n has no factor up to 31 (1517 =
+// 37 x 41): the first pass only forms the product, the last only its
+// magnitude.
+template <>
+__device__ __forceinline__ void butterfly<1>(float2 (&)[1]) {}
 
 template <>
 __device__ __forceinline__ void butterfly<2>(float2 (&v)[2]) {
@@ -348,26 +359,147 @@ SYDR_PRIME_BUTTERFLY(29)
 SYDR_PRIME_BUTTERFLY(31)
 #undef SYDR_PRIME_BUTTERFLY
 
-// Fill plan from a host array of n_pass radices, each from {2, 3, 4, 5,
-// 10} or the odd primes 7..31, whose product is n; *primes says whether a
-// prime radix is among them. Returns cudaSuccess or cudaErrorInvalidValue.
+// This block's share [lo, hi) of a pass's `count` work items: `ranks`
+// contiguous chunks, one a block of the cluster (rank 0 of 1: all).
+struct Chunk {
+  int lo, hi;
+  __device__ __forceinline__ Chunk(int count, int rank, int ranks) {
+    const int size = (count + ranks - 1) / ranks;
+    lo = rank * size;
+    hi = min(count, lo + size);
+  }
+};
+
+// Output pairs (q, R - q) of a generic pass that one work item makes:
+// each point it reads serves all of them. At 8 ch x 101 bins x 10 blocks
+// four ran 7-23% faster than two at every length measured (n = 1517 to
+// 65231), and eight 4-32% faster than four but at n = 4070 (3% slower:
+// 19 output pairs a butterfly fill 24 slots); NVIDIA H100 80GB HBM3,
+// 700.00 W, tools/torch_kernel_variants.py --parent.
+constexpr int kGenericPairs = 8;
+
+// A pass of odd radix R > kMaxFixedRadix, a runtime value, between the
+// first and the last pass. Its R inputs a butterfly do not fit a thread's
+// registers, so it runs in two steps over the buffers, in the
+// real-symmetric form of prime_butterfly (H = (R - 1) / 2, m = n / R):
+//   fold: for butterfly j (k = j mod ns) and 1 <= r <= H, the twiddled
+//         x_r = in[j + r m] tw[r k tstride] and x_{R-r} likewise, and in
+//         their places s_r = x_r + x_{R-r}, d_r = x_r - x_{R-r};
+//   sum:  outputs q and R - q of butterfly j, 0 <= q <= H, are A + i B
+//         and A - i B with A = in[j] + sum_r cos(2 pi q r / R) s_r and
+//         B = sum_r sin(2 pi q r / R) d_r, the root e^{+2 pi i q r / R}
+//         read as tw[(q r mod R) m]: the index grows by q m < n a term
+//         and wraps at n (q = 0 reads tw[0] = 1 throughout: A is
+//         in[j] + sum_r s_r exactly, B is 0, and output R is not
+//         stored). A work item is butterfly j and kGenericPairs
+//         consecutive q.
+// Every index is an exact integer below n (r k tstride < R m = n). An
+// output point costs prime_butterfly's 2 H real multiply-adds, but about
+// H / kGenericPairs point reads and H / 2 root reads, where a butterfly
+// in registers reads one point. Items are cut over the blocks (Chunk)
+// and strided over the threads with j fastest, so a warp reads
+// consecutive points and, where m >= 32, the same roots. Buf is the
+// buffers' accessor: load(i), store(i, v) and sync(), the barrier after
+// which every store is seen by every thread that reads the buffer.
+template <class Buf>
+__device__ __forceinline__ void generic_pass(const Buf& in, const Buf& out,
+                                             const float2* __restrict__ tw,
+                                             int n, int ns, int R, int rank,
+                                             int ranks) {
+  constexpr int P = kGenericPairs;
+  const int m = n / R;
+  const int h = (R - 1) / 2;
+  const int tstride = m / ns;
+  const Chunk fold(m * h, rank, ranks);
+  for (int t = fold.lo + threadIdx.x; t < fold.hi; t += blockDim.x) {
+    const int r = t / m + 1;
+    const int j = t - (r - 1) * m;
+    const int e = (j % ns) * tstride;
+    const int ia = j + r * m;
+    const int ib = j + (R - r) * m;
+    const float2 x = cmul(in.load(ia), __ldg(tw + r * e));
+    const float2 y = cmul(in.load(ib), __ldg(tw + (R - r) * e));
+    in.store(ia, cadd(x, y));
+    in.store(ib, csub(x, y));
+  }
+  Buf::sync();
+  const int groups = (h + P) / P;   // ceil((H + 1) / P)
+  const Chunk sum(m * groups, rank, ranks);
+  for (int t = sum.lo + threadIdx.x; t < sum.hi; t += blockDim.x) {
+    const int q0 = t / m * P;
+    const int j = t - q0 / P * m;
+    const int k = j % ns;
+    const int o = (j - k) * R + k;
+    const float2 x0 = in.load(j);
+    float2 a[P], b[P];
+    int idx[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      a[p] = x0;
+      b[p] = make_float2(0.0f, 0.0f);
+      idx[p] = 0;
+    }
+#pragma unroll 2
+    for (int r = 1; r <= h; ++r) {
+      const float2 sr = in.load(j + r * m);
+      const float2 dr = in.load(j + (R - r) * m);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        idx[p] += (q0 + p) * m;   // (q0 + p) m <= (H + P - 1) m < n
+        if (idx[p] >= n) idx[p] -= n;
+        const float2 w = __ldg(tw + idx[p]);
+        a[p].x += w.x * sr.x;
+        a[p].y += w.x * sr.y;
+        b[p].x += w.y * dr.x;
+        b[p].y += w.y * dr.y;
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int q = q0 + p;
+      if (q > h) break;
+      out.store(o + q * ns, make_float2(a[p].x - b[p].y, a[p].y + b[p].x));
+      if (q > 0) {
+        out.store(o + (R - q) * ns,
+                  make_float2(a[p].x + b[p].y, a[p].y - b[p].x));
+      }
+    }
+  }
+}
+
+// Fill plan from a host array of n_pass radices whose product is n: each
+// from {2, 3, 4, 5, 10} or the odd primes 7..31, an odd radix above 31
+// anywhere but first or last (generic_pass), radix 1 first or last only,
+// and first only before a radix above 31 or as one of two passes (a
+// templated middle pass needs ns >= 2). *primes says whether any radix is
+// outside {2, 3, 4, 5, 10} (the kernel variants with the prime radices),
+// *generic whether one is above 31 or 1 (the variants that also have the
+// generic pass and radix 1). Returns cudaSuccess or cudaErrorInvalidValue.
 inline int parse_plan(const int* radices, int n_pass, int n, Plan* plan,
-                      bool* primes) {
+                      bool* primes, bool* generic) {
   if (n_pass < 2 || n_pass > kMaxPasses || n < 4) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   plan->n_pass = n_pass;
   long long product = 1;
   *primes = false;
+  *generic = false;
   for (int i = 0; i < kMaxPasses; ++i) {
     plan->radix[i] = i < n_pass ? radices[i] : 1;
     if (i < n_pass) {
       const int r = radices[i];
+      const bool end = i == 0 || i == n_pass - 1;
       const bool small = (r >= 2 && r <= 5) || r == 10;
       const bool prime = r == 7 || r == 11 || r == 13 || r == 17 ||
                          r == 19 || r == 23 || r == 29 || r == 31;
-      if (!small && !prime) return static_cast<int>(cudaErrorInvalidValue);
-      *primes = *primes || prime;
+      const bool wide = r > kMaxFixedRadix && r % 2 == 1 && !end;
+      const bool one = r == 1 && end &&
+                       (i > 0 || n_pass == 2 || radices[1] > kMaxFixedRadix);
+      if (!small && !prime && !wide && !one) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      *primes = *primes || !small;
+      *generic = *generic || wide || one;
       product *= r;
     }
   }
@@ -381,7 +513,13 @@ inline int parse_plan(const int* radices, int n_pass, int n, Plan* plan,
 // five-way switch the kernel had before there were prime radices (a wider
 // switch compiles to a slower dispatch and cost the n = 2500 and n = 10000
 // shapes 4%), behind a chain of comparisons for the prime radices in the
-// kernel variants that have them.
+// kernel variants that have them (kPrimes). The variants for plans with a
+// radix above 31 (kGeneric) add radix 1 (first or last pass only) after
+// the primes, and SYDR_MIDDLE_SWITCH runs `generic` for a radix above 31
+// (a middle pass only; a radix that reached the small switch's default
+// would run as radix 10). Both are kept out of the other variants: in
+// the prime variant of 256 threads they cost n = 4092 4.7% (NVIDIA H100
+// 80GB HBM3).
 #define SYDR_SMALL_SWITCH(r, call)                   \
   switch (r) {                                       \
     case 2: { constexpr int R = 2; call; } break;     \
@@ -392,13 +530,26 @@ inline int parse_plan(const int* radices, int n_pass, int n, Plan* plan,
   }
 #define SYDR_PRIME_CASE(r, r_, call) \
   if (r == r_) { constexpr int R = r_; call; } else
+#define SYDR_PRIME_CHAIN(r, call)                           \
+  SYDR_PRIME_CASE(r, 31, call) SYDR_PRIME_CASE(r, 11, call)  \
+  SYDR_PRIME_CASE(r, 7, call) SYDR_PRIME_CASE(r, 13, call)   \
+  SYDR_PRIME_CASE(r, 17, call) SYDR_PRIME_CASE(r, 19, call)  \
+  SYDR_PRIME_CASE(r, 23, call) SYDR_PRIME_CASE(r, 29, call)
 #define SYDR_RADIX_SWITCH(r, call)                            \
-  if constexpr (kPrimes) {                                    \
-    SYDR_PRIME_CASE(r, 31, call) SYDR_PRIME_CASE(r, 11, call)  \
-    SYDR_PRIME_CASE(r, 7, call) SYDR_PRIME_CASE(r, 13, call)   \
-    SYDR_PRIME_CASE(r, 17, call) SYDR_PRIME_CASE(r, 19, call)  \
-    SYDR_PRIME_CASE(r, 23, call) SYDR_PRIME_CASE(r, 29, call)  \
+  if constexpr (kGeneric) {                                   \
+    SYDR_PRIME_CHAIN(r, call) SYDR_PRIME_CASE(r, 1, call)     \
+    { SYDR_SMALL_SWITCH(r, call) }                            \
+  } else if constexpr (kPrimes) {                             \
+    SYDR_PRIME_CHAIN(r, call)                                 \
     { SYDR_SMALL_SWITCH(r, call) }                            \
   } else {                                                    \
     SYDR_SMALL_SWITCH(r, call)                                \
+  }
+#define SYDR_MIDDLE_SWITCH(r, call, generic)                  \
+  if constexpr (kGeneric) {                                   \
+    SYDR_PRIME_CHAIN(r, call)                                 \
+    if (r > kMaxFixedRadix) { generic; }                      \
+    else { SYDR_SMALL_SWITCH(r, call) }                       \
+  } else {                                                    \
+    SYDR_RADIX_SWITCH(r, call)                                \
   }

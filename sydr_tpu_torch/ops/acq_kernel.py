@@ -2,27 +2,25 @@
 DFT -> magnitude -> non-coherent sum) for every (Doppler bin, channel).
 
 Replaces ``sydr_tpu.ops.acq_kernel.pcps_fused_bins`` (Pallas ``_kernel``).
-On CUDA tensors :func:`pcps_bins` launches one of three hand-written
-kernels, chosen from the code period ``n`` alone (:func:`kernel_for`):
+On CUDA tensors :func:`pcps_bins` launches one of two hand-written
+kernels, a mixed-radix Stockham FFT in shared memory (radices 10, 5, 4,
+3, 2, the odd primes 7 to 31, and a generic pass for each prime factor
+above 31; :func:`radix_plan`), chosen from the code period ``n`` alone
+(:func:`kernel_for`):
 
-* ``csrc/pcps_bins.cu`` (:data:`KERNEL`), a mixed-radix Stockham FFT in
-  shared memory (radices 10, 5, 4, 3, 2 and the odd primes 7 to 31), one
-  block a transform, for every ``n`` whose prime factors are at most 31
-  (:func:`radix_plan`) and whose transform fits one block
-  (:func:`cluster_size` 1): 2500, 5000, 10000, 2048, and the code periods
-  of the front ends clocked at a multiple of 1.023 MHz, 2046,
-  4092 = 2^2 * 3 * 11 * 31, 8184;
+* ``csrc/pcps_bins.cu`` (:data:`KERNEL`), one block a transform, where
+  the transform fits one block (:func:`cluster_size` 1): 2500, 5000,
+  10000, 2048, the code periods of the front ends clocked at a multiple
+  of 1.023 MHz, 2046, 4092 = 2^2 * 3 * 11 * 31, 8184, and 4070 =
+  2 * 5 * 11 * 37;
 * ``csrc/pcps_bins_cluster.cu`` (:data:`CLUSTER_KERNEL`), the same FFT
   on a thread-block cluster of 2, 4 or 8 blocks that pool their shared
-  memory, for the other such ``n`` up to 65,536 and beyond (16368 at
-  16.368 Msps, 20000, 25000, 40920, 65536);
-* ``csrc/pcps_bins_fourstep.cu`` (:data:`FOURSTEP_KERNEL`), the direct
-  four-step DFT of length ``n = n1 * n2`` (:func:`balanced_factors`), for
-  an ``n`` with a prime factor above 31 (4070 = 2 * 5 * 11 * 37) whose
-  buffers fit one block.
+  memory, for the other ``n`` up to 65,536 and beyond (16368 at
+  16.368 Msps, 20000, 25000, 26500 = 2^2 * 5^3 * 53, 40920, 65536).
 
-Any other ``n`` has no kernel: :func:`kernel_for` raises ``ValueError``
-before anything is launched.
+Every ``n`` in [64, 65536] that is not prime has a kernel; a prime
+``n``, or one whose cluster would need more than 8 blocks, raises
+``ValueError`` from :func:`kernel_for` before anything is launched.
 :func:`pcps_bins_ref` is the plain PyTorch version (``torch.fft.ifft`` of
 the product, ``abs``, sum), used on CPU tensors; there is no fallback from
 a kernel to it or from one kernel to another.
@@ -48,9 +46,6 @@ KERNEL = native.CudaKernel(
 CLUSTER_KERNEL = native.CudaKernel(
     "pcps_bins_cluster.cu", "pcps_bins_cluster_launch",
     [_VP] * 5 + [_INT] * 3 + [ctypes.POINTER(_INT)] + [_INT] * 4 + [_VP, _VP])
-FOURSTEP_KERNEL = native.CudaKernel(
-    "pcps_bins_fourstep.cu", "pcps_bins_fourstep_launch",
-    [_VP] * 5 + [_INT] * 6 + [_VP, _VP])
 
 # Bins per batch of the plain version: bounds its [bins, ch, nc, n]
 # complex64 intermediates (8 x 32 x 10 x 2500 x 8 B = 51 MB each at the
@@ -59,7 +54,10 @@ REF_BIN_CHUNK = 8
 
 
 def balanced_factors(n: int) -> tuple[int, int]:
-    """Factor n = n1 * n2 with n1 <= n2 as close to sqrt(n) as possible."""
+    """Factor n = n1 * n2 with n1 <= n2 as close to sqrt(n) as possible;
+    raises ``ValueError`` for a prime n above 64, in the words of the JAX
+    package's ``_balanced_factors`` (the refusal that both packages
+    share: :func:`kernel_for` applies it)."""
     f = math.isqrt(n)
     while f >= 1:
         if n % f == 0:
@@ -72,6 +70,8 @@ def balanced_factors(n: int) -> tuple[int, int]:
 
 
 PRIME_RADICES = (31, 29, 23, 19, 17, 13, 11, 7)
+# Radices of the kernel variant without prime radices (1024 threads).
+SMALL_RADICES = (2, 3, 4, 5, 10)
 # The H100's shared memory a block (227 KB) and the points a block of each
 # FFT variant holds in the last pass: 1024 threads x 20 points without a
 # prime radix (kAccSmall), 512 x 16 with one (kAccPrime: the registers of a
@@ -84,43 +84,75 @@ PRIME_BLOCK_POINTS = 512 * 16
 CLUSTER_SIZES = (1, 2, 4, 8)
 
 
+def prime_factors(n: int) -> list[int]:
+    """The prime factors of ``n``, with multiplicity, ascending."""
+    out, p = [], 2
+    while p * p <= n:
+        while n % p == 0:
+            out.append(p)
+            n //= p
+        p += 1
+    return out + [n] if n > 1 else out
+
+
 def radix_plan(n: int) -> tuple[int, ...]:
-    """Radices of the FFT kernel's passes, in order: factors from
-    {10, 4, 2, 3, 5} and the odd primes 7 to 31 whose product is ``n``.
-    Every pair (2, 5) becomes one radix-10 pass (a 2 x 5 butterfly in
-    registers: a pass less to synchronise and to move through shared
-    memory). Order: the largest prime radix first (the first pass has no
-    twiddles), then tens, fours, a two, threes and fives, and the other
-    prime radices last, largest first: of the 24 orders of (31, 11, 4, 3)
-    at n = 4092 the card ran (31, 4, 3, 11) fastest, 10% ahead of both
-    primes first and 20% ahead of radix 31 last
+    """Radices of the FFT kernels' passes, in order, whose product is
+    ``n``: factors from {10, 4, 2, 3, 5}, the odd primes 7 to 31, and each
+    prime factor above 31 (with multiplicity), which runs as a generic
+    pass. Every pair (2, 5) becomes one radix-10 pass (a 2 x 5 butterfly
+    in registers: a pass less to synchronise and to move through shared
+    memory).
+
+    Order of the radices up to 31: the largest prime radix first (the
+    first pass has no twiddles), then tens, fours, a two, threes and
+    fives, and the other prime radices last, largest first: of the 24
+    orders of (31, 11, 4, 3) at n = 4092 the card ran (31, 4, 3, 11)
+    fastest, 10% ahead of both primes first and 20% ahead of radix 31 last
     (``tools/torch_kernel_variants.py``); without a prime radix the order
     is the one that measured fastest before there were any.
-    Raises ``ValueError`` for an ``n`` with a prime factor above 31 or
-    with fewer than two passes (whether a block or a cluster takes the
-    plan is :func:`cluster_size`'s question)."""
-    rest, count = n, {}
-    for p in (2, 3, 5) + PRIME_RADICES:
-        count[p] = 0
-        while rest % p == 0:
-            count[p] += 1
-            rest //= p
-    if rest != 1 or n < 2:
-        raise ValueError(f"n={n} has a prime factor above 31: no radix plan")
+
+    The radices above 31, largest first, come right before the last pass:
+    never first (the first pass reads the spectrum product from global
+    memory, which a generic pass would read R times) and never last (the
+    last pass keeps floor(32 / R) butterflies a thread in registers, none
+    for R > 32). Of the orders that keep them in the middle, the card ran
+    (10, 10, 53, 5) fastest at n = 26500 and (10, 10, 53, 10) at 53000,
+    3-7% ahead of 53 second, and the two orders of 4070, 1517, 9722 and
+    16370 within about 1%; at 8140 = 2^2 x 5 x 11 x 37 (11, 37, 2, 10) led
+    the rule's (11, 10, 37, 2) by 2.6% (``tools/torch_kernel_variants.py``,
+    NVIDIA H100 80GB HBM3, 700.00 W). An ``n`` whose radices up to 31
+    make one pass ends in a radix-1 pass (only the magnitude: 2 x 4861 is
+    (2, 4861, 1)); one with none begins in one too (only the product:
+    37 x 41 is (1, 41, 37, 1)).
+
+    Raises ``ValueError`` for an ``n`` with fewer than two prime factors
+    or fewer than two passes (10, 4): whether a block or a cluster takes
+    the plan is :func:`cluster_size`'s question."""
+    factors = prime_factors(n)
+    if len(factors) < 2:
+        raise ValueError(f"n={n}: the FFT kernel needs two passes or more")
+    count = {p: factors.count(p) for p in (2, 3, 5) + PRIME_RADICES}
+    generic = sorted((p for p in factors if p > PRIME_RADICES[0]),
+                     reverse=True)
     primes = [p for p in PRIME_RADICES for _ in range(count[p])]
     tens = min(count[2], count[5])
     twos = count[2] - tens
     plan = (primes[:1] + [10] * tens + [4] * (twos // 2) + [2] * (twos % 2)
             + [3] * count[3] + [5] * (count[5] - tens) + primes[1:])
+    if generic:
+        head, tail = ((plan[:-1], plan[-1:]) if len(plan) > 1
+                      else (plan or [1], [1]))
+        plan = head + generic + tail
     if len(plan) < 2:
         raise ValueError(f"n={n}: the FFT kernel needs two passes or more")
     return tuple(plan)
 
 
 def has_prime_radix(plan: tuple[int, ...]) -> bool:
-    """Whether ``plan`` takes the kernels' prime-radix variants (any of
-    7 to 31, as the C entry points decide)."""
-    return any(r in PRIME_RADICES for r in plan)
+    """Whether ``plan`` takes the kernels' variants with the prime
+    radices: any radix outside :data:`SMALL_RADICES` (7 to 31, a generic
+    radix above 31, radix 1), as the C entry points decide."""
+    return any(r not in SMALL_RADICES for r in plan)
 
 
 def fft_threads(n: int, plan: tuple[int, ...] | None = None,
@@ -142,9 +174,20 @@ def fft_threads(n: int, plan: tuple[int, ...] | None = None,
     of radix 31 at n = 4092), so more threads would idle in it; 256 ran
     fastest at n = 4092, 128 at n = 2046 and 384-512 at n = 8184
     (``tools/torch_kernel_variants.py``).
+
+    With a generic radix above 31: 512 from 2048 points a block, else
+    128. The generic pass has about s / 16 work items of H = (R - 1) / 2
+    steps each, and the variants' registers leave one block an SM at 192
+    to 512 threads (two at 128): at 8 ch x 101 bins x 10 blocks 512 ran
+    fastest at n = 4070 (0.67 ms against 0.74 at s / 16's 256), 26500,
+    9722 and 16370, within 8% at 53000 and 65231 (256 and 384 ahead),
+    and 128 fastest at n = 1517 (0.50 ms against 0.71 at 512), on an
+    NVIDIA H100 80GB HBM3, 700.00 W.
     """
     plan = radix_plan(n) if plan is None else plan
     s = -(-n // cluster)
+    if max(plan) > PRIME_RADICES[0]:
+        return 512 if s >= 2048 else 128
     if has_prime_radix(plan):
         return min(512, max(128, 32 * -(-s // 512)))
     return min(1024, max(128, 32 * -(-s // 320)))
@@ -159,7 +202,8 @@ def block_fits(n: int, plan: tuple[int, ...], cluster: int,
     (:data:`SMALL_BLOCK_POINTS`, :data:`PRIME_BLOCK_POINTS`), at most
     1024 threads (512 with a prime radix), and its share of the last
     pass's butterflies within the threads' accumulators (the launchers'
-    own test)."""
+    own test; a radix-1 last pass holds 32 points a thread). The generic
+    passes need no more: they run in the same two buffers."""
     prime = has_prime_radix(plan)
     points, acc, max_threads = ((PRIME_BLOCK_POINTS, 32, 512) if prime
                                 else (SMALL_BLOCK_POINTS, 21, 1024))
@@ -173,9 +217,9 @@ def cluster_size(n: int, plan: tuple[int, ...] | None = None) -> int:
     """Blocks that share one transform of ``plan`` (default
     ``radix_plan(n)``): the smallest of :data:`CLUSTER_SIZES` whose block
     of ``fft_threads`` fits (:func:`block_fits`). C = 1 is the one-block
-    kernel, unchanged; C = 2 at n = 12276, 16368, 20000 and 25000, C = 4
-    at 20460 to 50000, C = 8 at 40920 and 65536. Raises ``ValueError``
-    where C = 8 does not fit."""
+    kernel, unchanged; C = 2 at n = 9722, 12276, 16368, 20000 and 25000,
+    C = 4 at 20460 to 50000 (26500 among them), C = 8 at 40920, 65498 and
+    65536. Raises ``ValueError`` where C = 8 does not fit."""
     plan = radix_plan(n) if plan is None else plan
     for c in CLUSTER_SIZES:
         if block_fits(n, plan, c, fft_threads(n, plan, c)):
@@ -190,15 +234,10 @@ def cluster_size(n: int, plan: tuple[int, ...] | None = None) -> int:
         f"points, at most {points})")
 
 
-def fourstep_smem_bytes(n: int, n1: int, n2: int) -> int:
-    """Shared memory of a four-step block (``pcps_bins_fourstep.cu``'s
-    launcher): product and column-DFT buffers, magnitude sums, twiddles."""
-    return 20 * n + 8 * (n1 + n2)
-
-
 def has_radix_plan(n: int) -> bool:
-    """Whether ``n`` has a radix plan, i.e. goes to an FFT kernel (one
-    block or a cluster) and not to the four-step one."""
+    """Whether ``n`` has a radix plan (:func:`radix_plan`): every ``n``
+    with two prime factors or more but 4 and 10, whose radices make one
+    pass."""
     try:
         radix_plan(n)
     except ValueError:
@@ -224,6 +263,12 @@ def _plan_tensors(bin_shifts, device):
     return shift, phase
 
 
+# Roots a chunk of a generic radix's pass in stockham_ifft_ref holds (its
+# [q, r, m] index tensor): the [r, r] root matrix of r = 32749 would be
+# 8.6 GB.
+REF_ROOT_CHUNK = 1 << 22
+
+
 def stockham_ifft_ref(x, plan, tw):
     """Unnormalised inverse DFT of ``x [..., n]`` complex64 by the FFT
     kernels' own passes (``csrc/pcps_bins.cu`` and, on a cluster,
@@ -233,7 +278,12 @@ def stockham_ifft_ref(x, plan, tw):
     ``r`` reads ``v[q] = in[j + q * n/r]`` for ``j < n/r``, multiplies by
     ``tw[q * (j mod ns) * n/(ns*r)]`` (an exact integer index below n),
     takes the r-point inverse DFT and writes it to
-    ``out[(j // ns) * ns*r + (j mod ns) + q * ns]``.
+    ``out[(j // ns) * ns*r + (j mod ns) + q * ns]``. A radix above 31 (the
+    kernels' generic pass) takes its DFT in chunks of outputs q, each
+    with the pass's fused index: output q of butterfly j is ``sum_p
+    in[j + p * n/r] * tw[p * ((j mod ns) * n/(ns*r) + q * n/r) mod n]``,
+    the twiddle and the root in one exact table index (the kernels
+    twiddle first and pair p with r - p: the same sum, grouped otherwise).
     """
     n = x.shape[-1]
     if math.prod(plan) != n:
@@ -245,16 +295,35 @@ def stockham_ifft_ref(x, plan, tw):
         k = j % ns
         q = torch.arange(r, device=x.device)
         v = x[..., (j[None, :] + q[:, None] * m)]             # [..., r, m]
-        idx = q[:, None] * (k * (m // ns))[None, :]           # [r, m] < n
-        v = v * tw[idx]
-        root = tw[(q[:, None] * q[None, :] * (n // r)) % n]   # [r, r]
-        y = torch.einsum("pq,...qm->...pm", root, v)
+        if r > PRIME_RADICES[0]:
+            y = _generic_dft_ref(v, k * (m // ns), n, tw)
+        else:
+            idx = q[:, None] * (k * (m // ns))[None, :]       # [r, m] < n
+            v = v * tw[idx]
+            root = tw[(q[:, None] * q[None, :] * (n // r)) % n]   # [r, r]
+            y = torch.einsum("pq,...qm->...pm", root, v)
         dest = ((j - k) * r + k)[None, :] + q[:, None] * ns   # [r, m]
         out = torch.empty_like(x)
         out[..., dest.reshape(-1)] = y.reshape(*y.shape[:-2], -1)
         x = out
         ns *= r
     return x
+
+
+def _generic_dft_ref(v, twiddle, n, tw):
+    """Outputs ``[..., r, m]`` of a generic pass of radix r over its inputs
+    ``v [..., r, m]`` (``twiddle[j] = (j mod ns) * n/(ns*r)``), by the fused
+    index, in chunks of outputs q."""
+    r, m = v.shape[-2:]
+    p = torch.arange(r, device=v.device)
+    chunk = max(1, REF_ROOT_CHUNK // (r * m))
+    ys = []
+    for q0 in range(0, r, chunk):
+        q = torch.arange(q0, min(r, q0 + chunk), device=v.device)
+        base = twiddle[None, :] + q[:, None] * m              # [c, m] < n
+        idx = (p[None, :, None] * base[:, None, :]) % n      # [c, r, m]
+        ys.append(torch.einsum("...pm,cpm->...cm", v, tw[idx]))
+    return torch.cat(ys, dim=-2)
 
 
 def pcps_bins_ref(spectra, code_k, bin_shifts):
@@ -278,20 +347,11 @@ def pcps_bins_ref(spectra, code_k, bin_shifts):
 def kernel_for(n: int):
     """The kernel that ``n`` selects and the launch arguments that depend
     on ``n`` alone: an FFT kernel with its plan (radices, their count,
-    threads a block) where ``n`` has one, on one block or, with the
-    cluster size last, on a cluster (:func:`cluster_size`); else the
-    four-step kernel with its two factors. Raises ``ValueError`` for an
-    ``n`` that no kernel takes (a cluster above 8 blocks, four-step
-    buffers above a block's shared memory, a prime ``n``)."""
-    if not has_radix_plan(n):
-        n1, n2 = balanced_factors(n)
-        smem = fourstep_smem_bytes(n, n1, n2)
-        if smem > BLOCK_SMEM_BYTES:
-            raise ValueError(
-                f"n={n}: no K2 kernel on the card: a prime factor above 31 "
-                f"and four-step buffers of {smem} bytes, above a block's "
-                f"{BLOCK_SMEM_BYTES}")
-        return FOURSTEP_KERNEL, (n1, n2)
+    threads a block), on one block or, with the cluster size last, on a
+    cluster (:func:`cluster_size`). Raises ``ValueError`` for an ``n``
+    that no kernel takes: a prime (in :func:`balanced_factors`' words
+    above 64), or one whose cluster would need more than 8 blocks."""
+    balanced_factors(n)
     plan = radix_plan(n)
     cluster = cluster_size(n, plan)
     shape = ((_INT * len(plan))(*plan), len(plan),

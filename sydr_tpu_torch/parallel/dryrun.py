@@ -81,8 +81,7 @@ def _kernels():
     return {"epoch_correlate": ck.KERNEL,
             "block_cumsum_streams": ck.CUMSUM_KERNEL,
             "pcps_bins": acq_kernel.KERNEL,
-            "pcps_bins_cluster": acq_kernel.CLUSTER_KERNEL,
-            "pcps_bins_fourstep": acq_kernel.FOURSTEP_KERNEL}
+            "pcps_bins_cluster": acq_kernel.CLUSTER_KERNEL}
 
 
 def run_rank(rank: int, world: int, backend: str, device_kind: str,

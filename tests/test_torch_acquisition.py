@@ -226,6 +226,48 @@ def test_acquire_matches_jax_at_16368_ksps():
     assert abs(float(m_r[0]) - float(metric[0])) < 0.05
 
 
+# A 26.5 Msps front end: n = 26500 = 2^2 * 5^3 * 53, whose prime factor 53
+# the card's FFT runs as a generic pass, on a cluster of four blocks; the
+# JAX map factors it 125 x 212.
+FS_26 = 26.5e6
+N_26 = 26500
+
+
+def test_acquire_matches_jax_at_26500_ksps():
+    """The module's capture and bounds at 26.5 Msps, 1 channel, 61 bins,
+    1 x 2 blocks: the port's ``acquire`` against JAX's ``pcps_shift_map``
+    and ``peak_metric``, as at 16.368 Msps."""
+    coher, noncoh = 1, 2
+    assert mmfft._balanced_factors(N_26) == (125, 212)
+    gen = IQGenerator(FS_26, noise=True, seed=5)
+    gen.add_satellite(17, doppler_hz=-2360.0, code_phase_chips=77.7,
+                      cn0_dbhz=45.0)
+    iq = gen.generate_ms(coher * noncoh)
+    iq_re, iq_im = np.float32(iq.real)[None], np.float32(iq.imag)[None]
+    k = jacq.code_fft_conj(17, FS_26)[None]
+    bins = jacq.doppler_bins(3000, 100)
+    phases, bin_shifts = jacq.shift_plan(bins, FS_26, N_26, mode="shift")
+    ref = np.asarray(jacq.pcps_shift_map(
+        jnp.asarray(iq_re), jnp.asarray(iq_im),
+        jnp.asarray(np.float32(k.real)), jnp.asarray(np.float32(k.imag)),
+        mmfft.make_plan(N_26), mmfft.make_plan(N_26, inverse=True),
+        sampling_frequency=FS_26, coherent=coher, non_coherent=noncoh,
+        phases=phases, bin_shifts=bin_shifts))
+    dop, ci, metric, got = tacq.acquire(
+        (torch.from_numpy(iq_re), torch.from_numpy(iq_im)), k, bins,
+        sampling_frequency=FS_26, coherent=coher, non_coherent=noncoh)
+    got = got.numpy()
+    assert got.shape == ref.shape == (1, 61, N_26)
+    assert (np.abs(got - ref) / np.abs(ref).max()).max() < 5e-3
+    spc = round(FS_26 / 1.023e6)
+    d_r, c_r, m_r = jacq.peak_metric(jnp.asarray(ref), jnp.asarray(bins),
+                                     samples_per_chip=spc)
+    assert float(d_r[0]) == float(dop[0])
+    assert abs(float(dop[0]) + 2360.0) <= 100.0
+    assert int(c_r[0]) == int(ci[0])
+    assert abs(float(m_r[0]) - float(metric[0])) < 0.05
+
+
 def test_peak_metric_matches_jax(case):
     m = case["maps"]["shift"]
     spc = round(FS / 1.023e6)
@@ -271,6 +313,7 @@ SMOOTH_N = (2048, 2500, 4000, 5000, 10000, 20000)
 PRIME_N = (1023, 2046, 4092, 8184, 16368, 40920, 7 * 13 * 20, 17 * 19 * 6,
            23 * 29 * 4)
 PRIME_RADICES = {7, 11, 13, 17, 19, 23, 29, 31}
+SMALL_RADICES = {2, 3, 4, 5, 10}
 SMEM = 232_448   # the H100's shared memory a block (227 KB)
 
 
@@ -278,10 +321,14 @@ def assert_block_fits(n, plan, cluster, threads):
     """A block of ``cluster`` sharing one transform of ``plan``: its two
     buffers of ceil(n / C) complex64 points fit 227 KB; its points fit its
     variant's block, 1024 threads x 20 points without a prime radix,
-    512 x 16 with one; its threads hold its share of the last pass's
+    512 x 16 with one (or with a generic radix above 31, or radix 1:
+    the same variants); its threads hold its share of the last pass's
     outputs, floor(21 / r) (floor(32 / r) with a prime radix) butterflies
-    of the last radix r a thread."""
-    prime = bool(set(plan) & PRIME_RADICES)
+    of the last radix r a thread. A generic radix is neither first nor
+    last, radix 1 at an end only (the kernels' ``parse_plan``)."""
+    prime = not set(plan) <= SMALL_RADICES
+    assert all(r <= 31 for r in (plan[0], plan[-1]))
+    assert 1 not in plan[1:-1]
     share = -(-n // cluster)
     assert cluster in (1, 2, 4, 8)
     assert 16 * share <= SMEM
@@ -314,19 +361,38 @@ def test_radix_plan_multiplies_to_n(n):
 
 
 def test_radix_plan_refused_for_large_prime_factors():
-    """n = 4070 = 2 * 5 * 11 * 37 has a prime factor above the largest
-    radix, 31: no plan, so it goes to the four-step kernel, chosen from n
-    alone. n = 7 has one pass only. A prime radix has no whole-n cap:
-    n = 10230 (10.23 Msps), above the one-block kernel's 8192 points with
-    a prime radix, has a plan and a cluster of two. n = 4092 =
-    2^2 * 3 * 11 * 31 (4.092 Msps) has a plan and goes to the FFT kernel."""
-    for n in (4070, 37, 2 * 1013):
-        with pytest.raises(ValueError, match="prime factor above 31"):
+    """A prime factor above the largest butterfly, 31, is a generic pass
+    of its own, after the first pass: n = 4070 = 2 * 5 * 11 * 37 is
+    (11, 37, 10), 2 * 1013 ends in a radix-1 (magnitude only) pass, and
+    1517 = 37 * 41, with no factor up to 31, begins in one too (product
+    only). A prime n is refused: 4093 and 65521 by ``kernel_for`` in the
+    JAX package's words (``_balanced_factors`` refuses a prime above 64),
+    37 and 7 by ``radix_plan`` for their single pass (JAX would take 37 as
+    1 x 37; no front end samples at 37 ksps). A prime radix has no
+    whole-n cap: n = 10230 (10.23 Msps), above the one-block kernel's
+    8192 points with a prime radix, has a plan and a cluster of two.
+    n = 4092 = 2^2 * 3 * 11 * 31 (4.092 Msps) has a plan and goes to the
+    FFT kernel."""
+    assert acq_kernel.radix_plan(4070) == (11, 37, 10)
+    assert acq_kernel.radix_plan(2 * 1013) == (2, 1013, 1)
+    assert acq_kernel.radix_plan(1517) == (1, 41, 37, 1)
+    assert acq_kernel.radix_plan(65231) == (1, 43, 41, 37, 1)
+    assert acq_kernel.radix_plan(26500) == (10, 10, 53, 5)
+    for n in (4070, 2 * 1013, 1517):
+        assert acq_kernel.has_radix_plan(n)
+        assert acq_kernel.has_prime_radix(acq_kernel.radix_plan(n))
+    for n in (4093, 65521):
+        with pytest.raises(ValueError, match="two passes"):
+            acq_kernel.radix_plan(n)
+        with pytest.raises(ValueError, match=f"N={n} has no useful "
+                                             r"factorisation \(prime\?\)"):
+            acq_kernel.kernel_for(n)
+        with pytest.raises(ValueError, match="no useful factorisation"):
+            mmfft._balanced_factors(n)
+    for n in (37, 7):
+        with pytest.raises(ValueError, match="two passes"):
             acq_kernel.radix_plan(n)
         assert not acq_kernel.has_radix_plan(n)
-    with pytest.raises(ValueError, match="two passes"):
-        acq_kernel.radix_plan(7)
-    assert not acq_kernel.has_radix_plan(7)
     assert acq_kernel.radix_plan(10230) == (31, 10, 3, 11)
     assert acq_kernel.has_radix_plan(10230)
     assert acq_kernel.cluster_size(10230) == 2
@@ -338,25 +404,21 @@ def test_radix_plan_refused_for_large_prime_factors():
 
 @pytest.mark.parametrize("n, kernel", [
     (4092, "KERNEL"), (2046, "KERNEL"), (2500, "KERNEL"),
-    (4070, "FOURSTEP_KERNEL"), (10230, "CLUSTER_KERNEL"),
+    (4070, "KERNEL"), (10230, "CLUSTER_KERNEL"),
     (16368, "CLUSTER_KERNEL"), (40920, "CLUSTER_KERNEL")])
 def test_kernel_choice_from_n(n, kernel):
     """``pcps_bins_launch_args`` picks the entry from n alone
-    (``kernel_for``): an FFT kernel with its plan where n has one, on one
-    block or, with the cluster size last, on a cluster, else the four-step
-    kernel with its balanced factors."""
+    (``kernel_for``): an FFT kernel with its plan, on one block or, with
+    the cluster size last, on a cluster (4070 = 2 * 5 * 11 * 37, its
+    radix 37 a generic pass, on one block)."""
     got, shape = acq_kernel.kernel_for(n)
     assert got is getattr(acq_kernel, kernel)
-    if kernel == "FOURSTEP_KERNEL":
-        assert shape == acq_kernel.balanced_factors(n)
-        assert shape[0] * shape[1] == n
-    else:
-        plan = acq_kernel.radix_plan(n)
-        cluster = 1 if kernel == "KERNEL" else shape[3]
-        assert cluster == acq_kernel.cluster_size(n)
-        assert len(shape) == (3 if cluster == 1 else 4)
-        assert list(shape[0]) == list(plan) and shape[1] == len(plan)
-        assert shape[2] == acq_kernel.fft_threads(n, plan, cluster)
+    plan = acq_kernel.radix_plan(n)
+    cluster = 1 if kernel == "KERNEL" else shape[3]
+    assert cluster == acq_kernel.cluster_size(n)
+    assert len(shape) == (3 if cluster == 1 else 4)
+    assert list(shape[0]) == list(plan) and shape[1] == len(plan)
+    assert shape[2] == acq_kernel.fft_threads(n, plan, cluster)
 
 
 def smooth_31(lo, hi):
@@ -377,9 +439,9 @@ def smooth_31(lo, hi):
 def test_every_smooth_n_has_a_radix_entry(lo, hi):
     """Every 31-smooth code period in [64, 65536] with a radix plan gets an
     FFT kernel on the card: one block, or a cluster of at most 8 whose
-    blocks fit (:func:`assert_block_fits`), never the four-step entry and
-    never a refusal. (Before the cluster kernel, 16368 went to the
-    four-step entry with 329 KB of buffers, above a block's 227 KB.)"""
+    blocks fit (:func:`assert_block_fits`), never a refusal. (Before the
+    cluster kernel, 16368 went to a four-step entry, since retired, with
+    329 KB of buffers, above a block's 227 KB.)"""
     ns = [n for n in smooth_31(lo, hi) if acq_kernel.has_radix_plan(n)]
     assert ns
     for n in ns:
@@ -388,6 +450,46 @@ def test_every_smooth_n_has_a_radix_entry(lo, hi):
         cluster = 1 if kernel is acq_kernel.KERNEL else shape[3]
         assert cluster > 1 or len(shape) == 3
         assert_block_fits(n, tuple(shape[0]), cluster, shape[2])
+
+
+def is_prime(n):
+    return n > 1 and all(n % p for p in range(2, int(n ** 0.5) + 1))
+
+
+# Non-prime n in each range: (31-smooth, with a prime factor above 31).
+NON_PRIME_COUNTS = {(64, 8192): (1530, 5589), (8193, 16384): (760, 6560),
+                    (16385, 32768): (1068, 13704),
+                    (32769, 65536): (1484, 28254)}
+
+
+@pytest.mark.parametrize("lo, hi", sorted(NON_PRIME_COUNTS))
+def test_every_non_prime_n_has_a_radix_entry(lo, hi):
+    """Every code period in [64, 65536] that is not prime gets an FFT
+    kernel on the card, its prime factors above 31 as generic passes: one
+    block, or a cluster of at most 8 whose blocks fit
+    (:func:`assert_block_fits`), never a refusal; 4,842 n are 31-smooth
+    and 54,107 have a prime factor above 31, 58,949 in all. Every prime
+    raises ``ValueError``."""
+    smooth = generic = 0
+    for n in range(lo, hi + 1):
+        if is_prime(n):
+            with pytest.raises(ValueError, match="factorisation"):
+                acq_kernel.kernel_for(n)
+            continue
+        kernel, shape = acq_kernel.kernel_for(n)
+        assert kernel in (acq_kernel.KERNEL, acq_kernel.CLUSTER_KERNEL), n
+        cluster = 1 if kernel is acq_kernel.KERNEL else shape[3]
+        assert cluster > 1 or len(shape) == 3
+        plan = tuple(shape[0])
+        assert int(np.prod(plan)) == n
+        assert_block_fits(n, plan, cluster, shape[2])
+        if max(plan) > 31:
+            generic += 1
+        else:
+            smooth += 1
+    assert (smooth, generic) == NON_PRIME_COUNTS[(lo, hi)]
+    totals = np.sum(list(NON_PRIME_COUNTS.values()), axis=0)
+    assert tuple(totals) == (4842, 54107) and totals.sum() == 58949
 
 
 @pytest.mark.parametrize("n, cluster", [
@@ -404,18 +506,28 @@ def test_cluster_size_at_front_end_rates(n, cluster):
 
 
 @pytest.mark.parametrize("n, why", [
-    (16370, "four-step buffers"),      # 2 * 5 * 1637
-    (9722, "four-step buffers"),       # 2 * 4861: the first such n
-    (66000, "more than 8 blocks"),     # a prime radix: 8250 points a block
-    (131072, "more than 8 blocks")])   # 2^17: 256 KB of buffers a block
+    (16381, r"N=16381 has no useful factorisation \(prime\?\)"),
+    (65538, "n=65538: no K2 kernel.*more than 8 blocks"),  # 2*3^2*11*331
+    (66000, "n=66000: no K2 kernel.*more than 8 blocks"),  # a prime radix
+    (131072, "n=131072: no K2 kernel.*more than 8 blocks")])   # 2^17
 def test_kernel_for_refuses_n_without_entry(n, why):
     """An n that no kernel takes raises ValueError from ``kernel_for``,
-    naming n and the limit, before any launch."""
-    with pytest.raises(ValueError, match=f"n={n}: no K2 kernel.*{why}"):
+    naming n and the limit, before any launch: a prime, in the JAX
+    package's words; above 65,536 a plan with a generic radix (65538, the
+    first n refused with a radix above 10: 8193 points a block) or a
+    prime radix (66000: 8250 points a block), or 256 KB of buffers a
+    block (2^17)."""
+    with pytest.raises(ValueError, match=why):
         acq_kernel.kernel_for(n)
 
 
-@pytest.mark.parametrize("n", SMOOTH_N + (90,) + PRIME_N)
+# Lengths with prime factors above 31 (generic passes): 4070 = 2 * 5 *
+# 11 * 37, 1517 = 37 * 41 and 3034 (radix-1 ends), 9722 = 2 * 4861, 16370
+# = 2 * 5 * 1637, 26500 = 2^2 * 5^3 * 53, 65231 = 37 * 41 * 43.
+GENERIC_N = (4070, 1517, 3034, 9722, 16370, 26500, 65231)
+
+
+@pytest.mark.parametrize("n", SMOOTH_N + (90,) + PRIME_N + GENERIC_N)
 def test_stockham_ifft_ref_matches_ifft(n):
     """The kernel's passes, strides and integer twiddle indices, walked in
     PyTorch, against torch.fft.ifft (unnormalised) on seeded inputs:

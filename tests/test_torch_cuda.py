@@ -8,13 +8,13 @@ no JAX, so it also runs on a machine without it:
 Bounds: K1 picks the same chips as its plain version (the same rounding of
 the index arithmetic) and sums in another order: 1e-2 + 1e-4 of the
 largest correlator. K2 is a float32 radix FFT in shared memory, on one
-block or on a cluster of blocks (or, for a code period with a prime factor
-above 31, a direct-summation four-step DFT) against cuFFT, both float32:
-1e-4 of the map's maximum. K3 builds the same
-per-sample values as K1 and scans them in another order than
-``torch.cumsum``: the raw prefix within ``4 * sqrt(n_win) * 2^-24`` of its
-largest magnitude (a random walk of float32 roundings over n_win additions,
-four sigma), and the per-epoch correlators picked from it within K1's bound.
+block or on a cluster of blocks (a prime factor above 31 a generic pass,
+a direct sum) against cuFFT, both float32: 1e-4 of the map's maximum.
+K3 builds the same per-sample values as K1 and scans them in another
+order than ``torch.cumsum``: the raw prefix within ``4 * sqrt(n_win) *
+2^-24`` of its largest magnitude (a random walk of float32 roundings over
+n_win additions, four sigma), and the per-epoch correlators picked from it
+within K1's bound.
 """
 
 import dataclasses
@@ -155,13 +155,13 @@ def test_block_cumsum_streams_ragged_window_and_determinism(n_taps):
     assert float((got - ref).abs().max()) <= prefix_bound(ref)
 
 
-def _k2_inputs(n, n_ch, dev):
-    """101 bins over 10 phases, 10 non-coherent blocks."""
+def _k2_inputs(n, n_ch, dev, n_bins=101, nc=10):
+    """``n_bins`` bins over 10 phases, ``nc`` non-coherent blocks."""
     g = torch.Generator().manual_seed(0)
-    spec = torch.randn(10, n_ch, 10, n, dtype=torch.complex64,
+    spec = torch.randn(10, n_ch, nc, n, dtype=torch.complex64,
                        generator=g).to(dev)
     code = torch.randn(n_ch, n, dtype=torch.complex64, generator=g).to(dev)
-    plan = tuple((b // 10 - 5, b % 10) for b in range(101))
+    plan = tuple((b // 10 - 5, b % 10) for b in range(n_bins))
     return spec, code, plan
 
 
@@ -181,16 +181,15 @@ def test_pcps_bins_kernel_matches_plain(n, n_ch):
     spec, code, plan = _k2_inputs(n, n_ch, _cuda())
     before = _k2_launches()
     got = acq_kernel.pcps_bins(spec, code, plan)
-    assert _k2_launches() == (before[0] + 1, before[1], before[2])
+    assert _k2_launches() == (before[0] + 1, before[1])
     ref = acq_kernel.pcps_bins_ref(spec, code, plan)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
 def _k2_launches():
-    """Launch counts of K2's one-block, cluster and four-step entries."""
-    return (acq_kernel.KERNEL.launches, acq_kernel.CLUSTER_KERNEL.launches,
-            acq_kernel.FOURSTEP_KERNEL.launches)
+    """Launch counts of K2's one-block and cluster entries."""
+    return acq_kernel.KERNEL.launches, acq_kernel.CLUSTER_KERNEL.launches
 
 
 @pytest.mark.cuda
@@ -202,31 +201,44 @@ def test_pcps_bins_cluster_kernel_matches_plain(n):
     spec, code, plan = _k2_inputs(n, 2, _cuda())
     before = _k2_launches()
     got = acq_kernel.pcps_bins(spec, code, plan)
-    assert _k2_launches() == (before[0], before[1] + 1, before[2])
+    assert _k2_launches() == (before[0], before[1] + 1)
     ref = acq_kernel.pcps_bins_ref(spec, code, plan)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
 @pytest.mark.cuda
-def test_pcps_bins_refuses_n_without_entry():
-    """n = 16370 = 2 * 5 * 1637: no radix plan and four-step buffers above
-    227 KB. The wrapper raises ValueError and launches nothing."""
-    spec, code, plan = _k2_inputs(16370, 1, _cuda())
+@pytest.mark.parametrize("n, why", [
+    (4093, "N=4093 has no useful factorisation"),
+    (65538, "n=65538: no K2 kernel")])
+def test_pcps_bins_refuses_n_without_entry(n, why):
+    """A prime n (4093), and n = 65538 = 2 * 3^2 * 11 * 331, whose cluster
+    would need more than 8 blocks: the wrapper raises ValueError and
+    launches nothing."""
+    spec, code, plan = _k2_inputs(n, 1, _cuda(), n_bins=1, nc=1)
     before = _k2_launches()
-    with pytest.raises(ValueError, match="n=16370: no K2 kernel"):
+    with pytest.raises(ValueError, match=why):
         acq_kernel.pcps_bins(spec, code, plan)
+    torch.cuda.synchronize()
     assert _k2_launches() == before
 
 
 @pytest.mark.cuda
-def test_pcps_bins_fourstep_kernel_matches_plain():
-    """n = 4070 = 2 * 5 * 11 * 37 has no radix plan: the wrapper launches
-    the four-step entry, chosen from n alone, and only it."""
-    spec, code, plan = _k2_inputs(4070, 8, _cuda())
+@pytest.mark.parametrize("n", [4070, 1517, 9722, 16370, 26500, 65231,
+                               65498])
+def test_pcps_bins_generic_pass_matches_plain(n):
+    """Code periods with a prime factor above 31, its radix a generic
+    pass, at 1 channel x 11 bins x 2 blocks: 4070 = 2 * 5 * 11 * 37 (one
+    block), 1517 = 37 * 41 (radix-1 ends), 9722 = 2 * 4861 and 16370 =
+    2 * 5 * 1637 (a cluster of 2), 26500 = 2^2 * 5^3 * 53 (4), 65231 =
+    37 * 41 * 43 and 65498 = 2 * 32749 (8). The wrapper launches the
+    entry that ``kernel_for`` gives, and only it."""
+    spec, code, plan = _k2_inputs(n, 1, _cuda(), n_bins=11, nc=2)
+    one_block = acq_kernel.kernel_for(n)[0] is acq_kernel.KERNEL
     before = _k2_launches()
     got = acq_kernel.pcps_bins(spec, code, plan)
-    assert _k2_launches() == (before[0], before[1], before[2] + 1)
+    assert _k2_launches() == (before[0] + one_block,
+                              before[1] + (not one_block))
     ref = acq_kernel.pcps_bins_ref(spec, code, plan)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())

@@ -4,19 +4,23 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
 
     python3 tools/torch_kernel_variants.py            # K2 and K3
     python3 tools/torch_kernel_variants.py --k2 | --k3
-    python3 tools/torch_kernel_variants.py --k2 --n 16368
-    python3 tools/torch_kernel_variants.py --parent DIR
+    python3 tools/torch_kernel_variants.py --k2 --n 16368 [26500 ...]
+    python3 tools/torch_kernel_variants.py --parent DIR [--n 4070 ...]
 
 * K2 ``pcps_bins`` at n = 4092 (8 channels x 101 bins x 10 blocks), and
-  with ``--n`` at another length with a radix plan: the device time of
-  every order of the plan's radices at several block sizes, on the entry
-  that n selects (one block, or a cluster of ``cluster_size(n)``
-  blocks), each held against the plain version (1e-4 of the map's
-  maximum), beside the plain version and ``torch.fft.ifft`` alone; then
-  the default plan on every cluster size whose blocks fit.
-* ``--parent DIR`` (a checkout of another commit): the one-block K2 entry
-  of DIR against this tree's at the production shapes, maps bit for bit,
-  device times in turns parent, this, this, parent.
+  with ``--n`` at any other length that is not prime: the device time of
+  every order of the plan's radices that the kernels take (a generic
+  radix above 31 neither first nor last, radix 1 only at an end) at
+  several block sizes, on the entry that n selects (one block, or a
+  cluster of ``cluster_size(n)`` blocks), each held against the plain
+  version (1e-4 of the map's maximum), beside the plain version and
+  ``torch.fft.ifft`` alone; then the default plan on every cluster size
+  whose blocks fit.
+* ``--parent DIR`` (a checkout of another commit): DIR's K2 entries
+  against this tree's at the production shapes of the 31-smooth lengths
+  (one block at n = 2500, 10000, 4092; a cluster at 16368, 40920), or
+  at ``--n`` with ``--channels``, maps bit for bit, device times in turns
+  parent, this, this, parent.
 * K3 ``block_cumsum_streams`` at its three shapes (cruise, pull-in, full
   rate): the device time of the totals launch, the prefix launch and both,
   and of the kernel that only makes K3's stores, for several segment
@@ -65,6 +69,18 @@ def k2_args(cargs, plan, threads, cluster):
     return (*cargs[:8], radices, len(plan), threads, *extra, *cargs[-3:])
 
 
+def plan_runs(plan) -> bool:
+    """Whether the kernels take ``plan`` in this order (``parse_plan`` in
+    ``csrc/pcps_fft.cuh``): a radix above 31 neither first nor last,
+    radix 1 at an end only, and first only before a radix above 31."""
+    last = len(plan) - 1
+    for i, r in enumerate(plan):
+        end = i in (0, last)
+        if (r > 31 and end) or (r == 1 and not end):
+            return False
+    return plan[0] != 1 or len(plan) == 2 or plan[1] > 31
+
+
 def k2_variants(n: int, n_ch: int, device) -> None:
     """Every order of ``n``'s radices x block sizes, on the entry (one
     block or a cluster of the wrapper's size) that ``n`` selects; then the
@@ -80,8 +96,6 @@ def k2_variants(n: int, n_ch: int, device) -> None:
         lambda: acq_kernel.pcps_bins_ref(spec, code, bins), 5)
     library = chip_smoke.ifft_library_ms(spec, code, bins)
     kernel, shape = acq_kernel.kernel_for(n)
-    chip_smoke.check(kernel is not acq_kernel.FOURSTEP_KERNEL,
-                     f"n={n} has no radix plan")
     cluster = 1 if kernel is acq_kernel.KERNEL else shape[3]
     base = acq_kernel.radix_plan(n)
     print(f"K2 n={n}, {n_ch} ch x {len(bins)} bins: plain {plain:.4f} ms, "
@@ -101,9 +115,11 @@ def k2_variants(n: int, n_ch: int, device) -> None:
                                        f"{err}")
         return chip_smoke.device_ms(lambda: fn(*args), 10), err
 
-    plans = sorted(set(itertools.permutations(base)))
+    plans = [p for p in sorted(set(itertools.permutations(base)))
+             if plan_runs(p)]
     if len(plans) > 24:   # the default and its rotations
-        plans = [base[i:] + base[:i] for i in range(len(base))]
+        plans = [p for p in (base[i:] + base[:i] for i in range(len(base)))
+                 if plan_runs(p)]
     prime = acq_kernel.has_prime_radix(base)
     sizes = (128, 192, 256, 384, 512) if prime else (128, 256, 512, 1024)
     rows = []
@@ -127,32 +143,33 @@ def k2_variants(n: int, n_ch: int, device) -> None:
               f"ms{chosen}", flush=True)
 
 
-# The one-block entry's production shapes (chip_smoke.py's phase 3).
-PARENT_CASES = ((2500, 32), (10000, 12), (4092, 8))
+# The 31-smooth production shapes (chip_smoke.py's phase 3): one block,
+# then a cluster.
+PARENT_CASES = ((2500, 32), (10000, 12), (4092, 8), (16368, 8), (40920, 8))
 
 
-def k2_against_parent(parent: str, device) -> None:
-    """The one-block entry of another tree (``parent``, a checkout) against
-    this tree's on the same inputs at :data:`PARENT_CASES`: the maps bit
-    for bit, and the device times in turns parent, this, this, parent."""
+def k2_against_parent(parent: str, device, cases=PARENT_CASES) -> None:
+    """The K2 entries of another tree (``parent``, a checkout) against this
+    tree's on the same inputs at ``cases`` ((n, channels) pairs): the maps
+    bit for bit, and the device times in turns parent, this, this,
+    parent."""
     from pathlib import Path
 
     import torch
 
     from sydr_tpu_torch.ops import acq_kernel, native
 
-    theirs = native.CudaKernel(
-        acq_kernel.KERNEL.source, acq_kernel.KERNEL.symbol,
-        acq_kernel.KERNEL.argtypes,
+    theirs = {kern.source: native.CudaKernel(
+        kern.source, kern.symbol, kern.argtypes,
         csrc_dir=Path(parent) / "sydr_tpu_torch" / "csrc")
-    native.build_all([theirs])
-    for n, n_ch in PARENT_CASES:
+        for kern in (acq_kernel.KERNEL, acq_kernel.CLUSTER_KERNEL)}
+    native.build_all(list(theirs.values()))
+    for n, n_ch in cases:
         spec, code, bins = k2_inputs(n, n_ch, device)
         kernel, out, cargs = acq_kernel.pcps_bins_launch_args(
             spec, code, bins)
-        chip_smoke.check(kernel is acq_kernel.KERNEL,
-                         f"n={n} left the one-block entry")
-        fns = {"parent": theirs.function(), "this": kernel.function()}
+        fns = {"parent": theirs[kernel.source].function(),
+               "this": kernel.function()}
         maps = {}
         for name in ("this", "parent", "this"):
             chip_smoke.check(fns[name](*cargs) == 0, f"{name} launch failed")
@@ -166,7 +183,7 @@ def k2_against_parent(parent: str, device) -> None:
         for name in ("parent", "this", "this", "parent"):
             ms[name].append(chip_smoke.device_ms(
                 lambda fn=fns[name]: fn(*cargs), 10))
-        print(f"K2 one-block n={n}, {n_ch} ch x 101 bins: maps "
+        print(f"K2 {kernel.source} n={n}, {n_ch} ch x 101 bins: maps "
               f"{'bit-identical' if same else 'DIFFER'}; device ms parent "
               f"{ms['parent'][0]:.4f} / {ms['parent'][1]:.4f}, this "
               f"{ms['this'][0]:.4f} / {ms['this'][1]:.4f}", flush=True)
@@ -233,7 +250,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--k2", action="store_true")
     parser.add_argument("--k3", action="store_true")
-    parser.add_argument("--n", type=int, default=4092)
+    parser.add_argument("--n", type=int, nargs="+",
+                        help="code periods (default 4092; with --parent, "
+                             "the 31-smooth production shapes)")
     parser.add_argument("--channels", type=int, default=8)
     parser.add_argument("--parent", metavar="DIR",
                         help="hold the one-block K2 entry of the checkout "
@@ -258,9 +277,11 @@ def main(argv=None) -> int:
               + "\n   ".join(usage), flush=True)
     both = not (opts.k2 or opts.k3 or opts.parent)
     if opts.k2 or both:
-        k2_variants(opts.n, opts.channels, device)
+        for n in opts.n or [4092]:
+            k2_variants(n, opts.channels, device)
     if opts.parent:
-        k2_against_parent(opts.parent, device)
+        k2_against_parent(opts.parent, device, PARENT_CASES if opts.n is None
+                          else [(n, opts.channels) for n in opts.n])
     if opts.k3 or both:
         k3_variants(device)
     return 0
