@@ -18,11 +18,17 @@ printing its wall time:
    generic pass of radix 37; the cluster entry at n = 16368 and 40920,
    and at n = 26500 = 2^2 * 5^3 * 53 through a generic pass, with its
    cluster size and ``cudaOccupancyMaxActiveClusters``; then a sweep over
-   the front-end code periods that need a cluster, 12276 to 65536, and one
-   over lengths with prime factors above 31, 1517 = 37 * 41 to 65498 =
-   2 * 32749, each on the entry and cluster that ``kernel_for`` gives,
-   with ``torch.fft.ifft`` beside it; the refusal of a prime n before any
-   launch), K3
+   the front-end code periods that need a cluster, 12276 to 65536, on the
+   entry and cluster that ``kernel_for`` gives, one over lengths with
+   prime factors above 31, 1517 = 37 * 41 to 65498 = 2 * 32749, on the
+   radix entry that holds the plan (its generic pass), and one over the
+   lengths that take the Bluestein entry, 9722 = 2 * 4861 to 2^20 - 2,
+   each with ``torch.fft.ifft`` beside it (and, on the Bluestein entry,
+   the radix entry's time where one holds the plan); the Bluestein entry
+   at 8 ch x 101 bins x 10 blocks at the 70 Msps session's n = 70000
+   (its pairs in several chunks of the scratch cap) and at n = 9722; the
+   refusal of a prime n
+   and of n = 2^20 + 2 before any launch), K3
    ``block_cumsum_streams`` (with its two launches timed apart, the time
    of a kernel that only makes its stores, and a second run that must be
    bit-identical). Each case prints four times and a bound:
@@ -66,7 +72,10 @@ printing its wall time:
 10. a session at 16.368 Msps, full rate (no decimation: n = 16368 =
     2^4 * 3 * 11 * 31, above one block's shared memory): 8 channels, 4
     visible, 300 ms; acquisition must go through K2's cluster entry (and
-    neither other entry) and find the visible satellites, K1 must run;
+    no other entry) and find the visible satellites, K1 must run; then
+    the same at 70 Msps (n = 70000 = 2^4 * 5^4 * 7, above the clusters'
+    65,536 points) through K2's Bluestein entry alone, K1 at 70000
+    samples a ms, the entry's scratch printed;
 11. the per-ms scan runtime at full width: phase 5's capture (its first
     2 s) through a 32-channel ``TrackingSession`` with ``runtime="scan"``,
     borre loops, 20 ms blocks: acquisition through K2, bit sync and the
@@ -183,6 +192,12 @@ SERIAL_CN0_DBHZ = 50.0
 SERIAL_DOPPLER_STEP = 250.0
 SERIAL_THRESHOLD = 1.8
 SERIAL_CODE_INDEX_TOL = 3
+# The 70 Msps session's code index: the map's peak sits at the code phase
+# of the 50 ms search's middle, which drifts from the capture's start by
+# 4040 Hz / 1540 carrier cycles a chip x 25 ms = 0.066 chip = 4.5 samples
+# at 68.4 samples a chip at the scenario's largest Doppler; so 2 samples
+# plus 5. (At 2.5-16.368 Msps the sessions keep 2.)
+SESSION_70_CODE_INDEX_TOL = 7
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate and the float32 rate outside the tensor cores.
@@ -603,7 +618,10 @@ def k2_case(name, fs, n_ch, entry, device, rng):
            "library_ms": ifft_library_ms(spectra, code_k, bin_shifts),
            **roofline(tensor_bytes(spectra, code_k, out) + 8 * n
                       + 8 * len(bin_shifts), flops)}
-    if entry == "pcps_bins_cluster":
+    if entry == "pcps_bins_bluestein":
+        print(f"   {bluestein_shape(n, n_ch * len(bin_shifts), non_coherent)}",
+              flush=True)
+    elif entry == "pcps_bins_cluster":
         print(f"   plan {acq_kernel.radix_plan(n)}, cluster of "
               f"{acq_kernel.cluster_size(n)} blocks of {cargs[10]} threads, "
               f"cudaOccupancyMaxActiveClusters "
@@ -623,100 +641,159 @@ def k2_case(name, fs, n_ch, entry, device, rng):
 # 65.536 Msps), each at 1 channel x 11 bins x 2 blocks.
 SWEEP_N = (12276, 16368, 20000, 20460, 25000, 26000, 30690, 40000, 40920,
            50000, 65536)
-# Lengths with prime factors above 31 (generic passes), at the same shape:
-# no factor up to 31 (1517 = 37 * 41, 65231 = 37 * 41 * 43), one twice
-# that, a large prime factor on a cluster of 2 (9722 = 2 * 4861, 16370 =
-# 2 * 5 * 1637), a 53 Msps front end (53000 = 2^3 * 5^3 * 53) and the
-# largest prime factor of any n up to 65536 (65498 = 2 * 32749).
+# Lengths with prime factors above 31 (generic passes), at the same shape,
+# on the radix entry that holds the plan: no factor up to 31 (1517 =
+# 37 * 41, 65231 = 37 * 41 * 43), one twice that, a large prime factor on
+# a cluster of 2 (9722 = 2 * 4861, 16370 = 2 * 5 * 1637), a 53 Msps front
+# end (53000 = 2^3 * 5^3 * 53) and the largest prime factor of any n up
+# to 65536 (65498 = 2 * 32749).
 GENERIC_SWEEP_N = (1517, 3034, 9722, 16370, 53000, 65231, 65498)
-# A prime code period, which no entry takes (as the JAX package refuses
-# a prime above 64).
-REFUSED_N = 4093
+# Lengths that take the Bluestein entry, at the same shape: large prime
+# factors (9722, 16370, 65498), the first n above the clusters (65538 =
+# 2 * 3^2 * 11 * 331), front ends at 70 Msps (70000 = 2^4 * 5^4 * 7) and
+# 122.88 Msps (122880 = 2^13 * 3 * 5), 131074 = 2 * 65537, 245.52 Msps
+# (245520 = 2^4 * 3^2 * 5 * 11 * 31) and the largest even n, 2^20 - 2.
+BLUESTEIN_SWEEP_N = (9722, 16370, 65498, 65538, 70000, 122880, 131074,
+                     245520, 1048574)
+# Code periods that no entry takes: a prime (as the JAX package refuses
+# a prime above 64) and the first even n above the Bluestein entry's 2^20.
+REFUSED_N = (4093, 1048578)
 
 
-def k2_sweep(device, ns) -> None:
+def entry_name(kernel) -> str:
+    """The JSON record's name of a K2 entry."""
+    return next(name for name, kern in kernels().items() if kern is kernel)
+
+
+def bluestein_shape(n, pairs, nc) -> str:
+    """The Bluestein entry's lengths and scratch at ``pairs`` (bin,
+    channel) pairs of ``nc`` blocks, as text."""
+    from sydr_tpu_torch.ops import acq_kernel
+
+    m, m1, m2 = acq_kernel.bluestein_lengths(n)
+    chunk = acq_kernel.bluestein_chunk_pairs(pairs, nc, m)
+    return (f"Bluestein M = {m} = {m1} x {m2}, {pairs} pairs in chunks of "
+            f"{chunk}, scratch {chunk * nc * m * 8 / 2 ** 20:.1f} MiB")
+
+
+def k2_sweep(device, ns, entry=None) -> dict:
     """K2 at every n of ``ns``, 1 channel x 11 bins x 2 blocks: the
     wrapper must launch the entry ``kernel_for`` gives (and nothing else)
-    on its cluster, within 1e-4 of the map's maximum; its plan, device
-    time, time through the wrapper, the plain version's, the bound and
-    ``torch.fft.ifft``'s time over the same product printed."""
+    on its cluster (``entry="radix"``: the radix entry that holds n's
+    plan, launched from ``pcps_bins_launch_args``, whichever entry the
+    wrapper would take), within 1e-4 of the map's maximum; its plan,
+    device time, time through the wrapper (or the launch path), the plain
+    version's, the bound and ``torch.fft.ifft``'s time over the same
+    product printed, and, on the Bluestein entry, the radix entry's device
+    time where one holds the plan. Returns the JSON record's numbers by
+    case."""
     import torch
 
     from sydr_tpu_torch.ops import acq_kernel
 
     g = torch.Generator().manual_seed(SEED)
     bins = tuple((b - 5, b % 2) for b in range(11))
+    cases = {}
     for n in ns:
         spec = torch.randn(2, 1, 2, n, dtype=torch.complex64,
                            generator=g).to(device)
         code = torch.randn(1, n, dtype=torch.complex64,
                            generator=g).to(device)
-        cluster = acq_kernel.cluster_size(n)
-        entry = "pcps_bins" if cluster == 1 else "pcps_bins_cluster"
+
+        def call():
+            kernel, out, cargs = acq_kernel.pcps_bins_launch_args(
+                spec, code, bins, entry=entry)
+            kernel.launch(*cargs)
+            return out
+
+        kernel, shape = (acq_kernel.radix_kernel_for(n) if entry
+                         else acq_kernel.kernel_for(n))
+        name = entry_name(kernel)
         before = read_launches()
-        got = acq_kernel.pcps_bins(spec, code, bins)
+        got = call() if entry else acq_kernel.pcps_bins(spec, code, bins)
         launched = {k: v - before[k] for k, v in read_launches().items()
                     if v != before[k]}
-        check(launched == {entry: 1},
-              f"K2 sweep n={n}: launched {launched} on a cluster of "
-              f"{cluster}, expected {entry}")
+        check(launched == {name: 1},
+              f"K2 sweep n={n}: launched {launched}, expected {name}")
         ref = acq_kernel.pcps_bins_ref(spec, code, bins)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
-        kernel, out, cargs = acq_kernel.pcps_bins_launch_args(
-            spec, code, bins)
-        check(cluster == 1 or cargs[11] == cluster,
-              f"K2 sweep n={n}: cluster argument {cargs[11]}, expected "
-              f"{cluster}")
+        _, out, cargs = acq_kernel.pcps_bins_launch_args(spec, code, bins,
+                                                         entry=entry)
         fn = kernel.function()
         # About 50 ms of launches: the large prime factors run for tens of
-        # milliseconds a launch.
+        # milliseconds a launch on the radix entries.
         once = cuda_ms(lambda: fn(*cargs), 1)
         reps = max(2, min(20, int(50 / once)))
         ms = device_ms(lambda: fn(*cargs), reps)
-        call = cuda_ms(lambda: acq_kernel.pcps_bins(spec, code, bins), reps)
+        call_ms = cuda_ms(
+            call if entry else lambda: acq_kernel.pcps_bins(spec, code, bins),
+            reps)
         plain = cuda_ms(lambda: acq_kernel.pcps_bins_ref(spec, code, bins), 5)
         lib = ifft_library_ms(spec, code, bins, quiet=True)
         bound = roofline(tensor_bytes(spec, code, out) + 8 * n + 8 * 11,
                          22 * (5.0 * n * np.log2(n) + 10.0 * n))
-        occupancy = ("" if cluster == 1 else f" (max active clusters "
-                     f"{acq_kernel.cluster_occupancy(n)})")
-        print(f"K2 sweep n={n}: plan {acq_kernel.radix_plan(n)}, "
-              f"{cluster} block(s) x {cargs[10]} threads{occupancy}, 1 ch x "
-              f"11 bins x 2 blocks: device {ms:.4f} ms, call {call:.4f} ms, "
-              f"plain {plain:.4f} ms, ifft {lib:.4f} ms ({ms / lib:.1f}x), "
-              f"bound {bound['bound_ms']:.6f} ms ({bound['bound_by']}), "
+        if kernel is acq_kernel.BLUESTEIN_KERNEL:
+            where = bluestein_shape(n, 11, 2)
+            plan = (acq_kernel.radix_plan(n) if acq_kernel.has_radix_plan(n)
+                    else None)
+            if plan is not None and acq_kernel.fitting_cluster(n, plan):
+                rk, _, rargs = acq_kernel.pcps_bins_launch_args(
+                    spec, code, bins, entry="radix")
+                rfn = rk.function()
+                rms = device_ms(lambda: rfn(*rargs), max(
+                    2, min(20, int(50 / cuda_ms(lambda: rfn(*rargs), 1)))))
+                where += (f"; the radix entry (plan {plan}, {rk.source}) "
+                          f"{rms:.4f} ms")
+        else:
+            cluster = 1 if kernel is acq_kernel.KERNEL else shape[3]
+            check(cluster == 1 or cargs[11] == cluster,
+                  f"K2 sweep n={n}: cluster argument {cargs[11]}, expected "
+                  f"{cluster}")
+            occupancy = ("" if cluster == 1 else f" (max active clusters "
+                         f"{acq_kernel.cluster_occupancy(n)})")
+            where = (f"plan {acq_kernel.radix_plan(n)}, {cluster} block(s) x "
+                     f"{cargs[10]} threads{occupancy}")
+        print(f"K2 sweep [{name}] n={n}: {where}, 1 ch x 11 bins x 2 "
+              f"blocks: device {ms:.4f} ms, call {call_ms:.4f} ms, plain "
+              f"{plain:.4f} ms, ifft {lib:.4f} ms ({ms / lib:.1f}x), bound "
+              f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}), "
               f"max_abs_err {err:.3e} ({rel:.2e} of the map's maximum)",
               flush=True)
         check(bool(torch.isfinite(got).all()), f"K2 sweep n={n}: non-finite")
         check(rel <= K2_RTOL, f"K2 sweep n={n}: error {rel:.2e} of the "
                               f"maximum, above {K2_RTOL}")
+        cases[f"1 ch n={n}"] = {
+            "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain, "library_ms": lib, **bound}
+    return cases
 
 
 def k2_refusal(device) -> None:
-    """A prime n has no K2 kernel: ``kernel_for`` and the wrapper must
-    raise ValueError, and nothing may launch."""
+    """A prime n, and an n above 2^20, have no K2 kernel: ``kernel_for``
+    and the wrapper must raise ValueError, and nothing may launch."""
     import torch
 
     from sydr_tpu_torch.ops import acq_kernel
 
-    n = REFUSED_N
-    spec = torch.zeros(1, 1, 1, n, dtype=torch.complex64, device=device)
-    code = torch.zeros(1, n, dtype=torch.complex64, device=device)
-    before = read_launches()
-    msgs = []
-    for call in (lambda: acq_kernel.kernel_for(n),
-                 lambda: acq_kernel.pcps_bins(spec, code, ((0, 0),))):
-        try:
-            call()
-        except ValueError as exc:
-            msgs.append(str(exc))
-    torch.cuda.synchronize()
-    check(len(msgs) == 2, f"K2 refusal: n={n} did not raise ValueError")
-    check(read_launches() == before, f"K2 refusal: n={n} launched a kernel")
-    print(f"K2 refusal: n={n} raised ValueError from kernel_for and the "
-          f"wrapper, no launch: {msgs[0]}", flush=True)
+    for n in REFUSED_N:
+        spec = torch.zeros(1, 1, 1, n, dtype=torch.complex64, device=device)
+        code = torch.zeros(1, n, dtype=torch.complex64, device=device)
+        before = read_launches()
+        msgs = []
+        for call in (lambda: acq_kernel.kernel_for(n),
+                     lambda: acq_kernel.pcps_bins(spec, code, ((0, 0),))):
+            try:
+                call()
+            except ValueError as exc:
+                msgs.append(str(exc))
+        torch.cuda.synchronize()
+        check(len(msgs) == 2, f"K2 refusal: n={n} did not raise ValueError")
+        check(read_launches() == before,
+              f"K2 refusal: n={n} launched a kernel")
+        print(f"K2 refusal: n={n} raised ValueError from kernel_for and the "
+              f"wrapper, no launch: {msgs[0]}", flush=True)
 
 
 def empty_launch_ms() -> float:
@@ -737,6 +814,8 @@ def empty_launch_ms() -> float:
 def kernel_phase(device) -> dict:
     """Every kernel against its plain version; per kernel name, per case,
     the numbers of the JSON record."""
+    from sydr_tpu_torch.ops import acq_kernel
+
     rng = np.random.default_rng(SEED)
     empty_launch_ms()
     k1 = {name: k1_case(name, fs, bm, prof, quant, device, rng)
@@ -759,7 +838,18 @@ def kernel_phase(device) -> dict:
                                   ("8 ch n=40920", 40.92e6, 8),
                                   ("8 ch n=26500", 26.5e6, 8))}
     k2_sweep(device, SWEEP_N)
-    k2_sweep(device, GENERIC_SWEEP_N)
+    k2_sweep(device, GENERIC_SWEEP_N, entry="radix")
+    k2b = k2_sweep(device, BLUESTEIN_SWEEP_N)
+    check(all(entry_name(acq_kernel.kernel_for(n)[0])
+              == "pcps_bins_bluestein" for n in BLUESTEIN_SWEEP_N),
+          "a length of the Bluestein sweep took another entry")
+    # The 70 Msps session's K2 shape (8 ch x 101 bins x 10 blocks, M =
+    # 2^18, the pairs in several chunks of the scratch cap) and a large
+    # prime factor at the same shape.
+    k2b.update({name: k2_case(name, fs, 8, "pcps_bins_bluestein", device,
+                              rng)
+                for name, fs in (("8 ch n=70000", 70e6),
+                                 ("8 ch n=9722", 9.722e6))})
     k2_refusal(device)
     k3 = {name: k3_case(name, fs, bm, prof, device, rng)
           for name, fs, bm, prof in (
@@ -767,7 +857,8 @@ def kernel_phase(device) -> dict:
               ("pull-in 2.5 Msps 5 ms 10 streams", 2.5e6, 5, "kaplan"),
               ("full-rate 10 Msps 20 ms 6 streams", 10e6, 20, "narrow"))}
     return {"epoch_correlate": k1, "pcps_bins": k2,
-            "pcps_bins_cluster": k2c, "block_cumsum_streams": k3}
+            "pcps_bins_cluster": k2c, "pcps_bins_bluestein": k2b,
+            "block_cumsum_streams": k3}
 
 
 # ---------------------------------------------------------------------------
@@ -920,11 +1011,17 @@ def slice_phase(device, capture=None, signal_ms=SIGNAL_MS, fs_in=FS_IN,
         cf = merged["carrier_freq"][-200:, i]
         err_hz = abs(float(cf.mean()) - s["doppler"])
         synced = bool(merged["flags"][-1, i] & FLAG_BIT_SYNC)
+        rows = len(merged["carrier_freq"])
+        track = [round(float(merged["carrier_freq"][j, i]), 1)
+                 for j in (99, 149, 199, 249, rows - 1) if j < rows]
         print(f"PRN {s['prn']:2d}: doppler {acq['doppler']:8.1f} Hz "
               f"(truth {s['doppler']:8.1f}) code_index {acq['code_index']:4d} "
               f"(truth {ci_truth:4d}) metric {acq['metric']:.2f} | "
               f"bit_sync {synced} carrier error (last 200 ms) "
               f"{err_hz:.3f} Hz", flush=True)
+        if ms_fed <= 300:
+            print(f"        carrier at 100/150/200/250 ms and the end: "
+                  f"{track} Hz", flush=True)
         ok &= (abs(acq["doppler"] - s["doppler"])
                <= session.acq_cfg.doppler_step
                and abs(d_ci) <= code_index_tol)
@@ -1254,6 +1351,7 @@ def kernels():
 
     return {"epoch_correlate": ck.KERNEL, "pcps_bins": acq_kernel.KERNEL,
             "pcps_bins_cluster": acq_kernel.CLUSTER_KERNEL,
+            "pcps_bins_bluestein": acq_kernel.BLUESTEIN_KERNEL,
             "block_cumsum_streams": ck.CUMSUM_KERNEL}
 
 
@@ -1779,7 +1877,8 @@ def mesh_ranks_phase(device, capture, mesh_run, card) -> dict:
     for r, (_, info) in enumerate(ranks):
         n = info["launches"]
         check(n["epoch_correlate"] > 0 and n["block_cumsum_streams"] > 0
-              and n["pcps_bins"] == 0 and n["pcps_bins_cluster"] == 0,
+              and n["pcps_bins"] == 0 and n["pcps_bins_cluster"] == 0
+              and n["pcps_bins_bluestein"] == 0,
               f"rank {r} launched {n}: expected K1 and K3, and no K2")
     launches = {name: sum(info["launches"][name] for _, info in ranks)
                 for name in ranks[0][1]["launches"]}
@@ -2164,6 +2263,8 @@ RECORD = (
     ("pcps_bins_cluster", "pcps_bins_cluster.cu",
      "sydr_tpu/ops/acq_kernel.py:54", "8 ch n=16368",
      "session at 16.368 Msps"),
+    ("pcps_bins_bluestein", "pcps_bins_bluestein.cu",
+     "sydr_tpu/ops/acq_kernel.py:54", "8 ch n=70000", "session at 70 Msps"),
     ("block_cumsum_streams", "block_cumsum_streams.cu",
      "sydr_tpu/ops/correlator_kernel.py:282",
      "cruise 2.5 Msps 20 ms 6 streams", "prefix receiver"),
@@ -2225,6 +2326,26 @@ def path_phases(device, card, soak_queue, producer) -> dict:
     check(cfg.samples_per_ms == 16368 and cfg.input_decimate == 1,
           "the 16.368 Msps session did not track at full rate")
     paths["session at 16.368 Msps"] = res
+    # A 70 Msps front end at full rate: n = 70000 = 2^4 * 5^4 * 7, above
+    # the clusters' 65,536 points, takes K2's Bluestein entry; K1 runs on
+    # every sample.
+    res = timed(
+        "session at 70 Msps", slice_phase, device, signal_ms=300,
+        fs_in=70e6, decimate=1, n_channels=8, n_visible=4,
+        acq_kernel_name="pcps_bins_bluestein", settled=False, card=card,
+        code_index_tol=SESSION_70_CODE_INDEX_TOL)
+    from sydr_tpu_torch.ops.acquisition import doppler_bins
+
+    cfg, acq_cfg = res["session"].cfg, res["session"].acq_cfg
+    n_bins = len(doppler_bins(acq_cfg.doppler_range, acq_cfg.doppler_step))
+    print(f"70 Msps: K1 at {cfg.samples_per_ms} samples a ms (decimate "
+          f"{cfg.input_decimate}); K2 at 8 ch x {n_bins} bins x "
+          f"{acq_cfg.non_coherent} blocks: "
+          f"{bluestein_shape(70000, 8 * n_bins, acq_cfg.non_coherent)}",
+          flush=True)
+    check(cfg.samples_per_ms == 70000 and cfg.input_decimate == 1,
+          "the 70 Msps session did not track at full rate")
+    paths["session at 70 Msps"] = res
 
     # The scan runtime at full width, on the first 2 s of the capture.
     res = timed("scan session", slice_phase, device, capture,

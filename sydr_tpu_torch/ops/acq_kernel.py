@@ -2,30 +2,37 @@
 DFT -> magnitude -> non-coherent sum) for every (Doppler bin, channel).
 
 Replaces ``sydr_tpu.ops.acq_kernel.pcps_fused_bins`` (Pallas ``_kernel``).
-On CUDA tensors :func:`pcps_bins` launches one of two hand-written
-kernels, a mixed-radix Stockham FFT in shared memory (radices 10, 5, 4,
-3, 2, the odd primes 7 to 31, and a generic pass for each prime factor
-above 31; :func:`radix_plan`), chosen from the code period ``n`` alone
-(:func:`kernel_for`):
+On CUDA tensors :func:`pcps_bins` launches one of three hand-written
+entries, chosen from the code period ``n`` alone (:func:`kernel_for`):
 
-* ``csrc/pcps_bins.cu`` (:data:`KERNEL`), one block a transform, where
-  the transform fits one block (:func:`cluster_size` 1): 2500, 5000,
-  10000, 2048, the code periods of the front ends clocked at a multiple
-  of 1.023 MHz, 2046, 4092 = 2^2 * 3 * 11 * 31, 8184, and 4070 =
-  2 * 5 * 11 * 37;
+* ``csrc/pcps_bins.cu`` (:data:`KERNEL`), a mixed-radix Stockham FFT in
+  one block's shared memory (radices 10, 5, 4, 3, 2, the odd primes 7 to
+  31, and a generic pass for each prime factor above 31;
+  :func:`radix_plan`), where the transform fits one block
+  (:func:`cluster_size` 1): 2500, 5000, 10000, 2048, the code periods of
+  the front ends clocked at a multiple of 1.023 MHz, 2046, 4092 =
+  2^2 * 3 * 11 * 31, 8184, and 4070 = 2 * 5 * 11 * 37;
 * ``csrc/pcps_bins_cluster.cu`` (:data:`CLUSTER_KERNEL`), the same FFT
   on a thread-block cluster of 2, 4 or 8 blocks that pool their shared
-  memory, for the other ``n`` up to 65,536 and beyond (16368 at
-  16.368 Msps, 20000, 25000, 26500 = 2^2 * 5^3 * 53, 40920, 65536).
+  memory, for the other ``n`` up to 65,536 and 38 5-smooth ``n`` above
+  it (16368 at 16.368 Msps, 20000, 25000, 26500 = 2^2 * 5^3 * 53, 40920,
+  65536, 80000, 100000);
+* ``csrc/pcps_bins_bluestein.cu`` (:data:`BLUESTEIN_KERNEL`), Bluestein's
+  chirp convolution as power-of-two FFTs through global memory, for
+  every other ``n`` up to 2^20 that is not prime (70000 at 70 Msps,
+  65538 = 2 * 3^2 * 11 * 331, 122880, 245520) and for the ``n`` whose
+  largest prime factor is above :data:`GENERIC_MAX_PRIME`, where the
+  radix entries' generic pass costs p operations a point (9722 =
+  2 * 4861, 65498 = 2 * 32749).
 
-Every ``n`` in [64, 65536] that is not prime has a kernel; a prime
-``n``, or one whose cluster would need more than 8 blocks, raises
-``ValueError`` from :func:`kernel_for` before anything is launched.
+A prime ``n``, or one above 2^20, raises ``ValueError`` from
+:func:`kernel_for` before anything is launched.
 :func:`pcps_bins_ref` is the plain PyTorch version (``torch.fft.ifft`` of
 the product, ``abs``, sum), used on CPU tensors; there is no fallback from
 a kernel to it or from one kernel to another.
-:func:`stockham_ifft_ref` walks the FFT kernels' passes, strides and
-integer twiddle indices in PyTorch, for the tests of that arithmetic.
+:func:`stockham_ifft_ref` walks the radix entries' passes, strides and
+integer twiddle indices in PyTorch, :func:`bluestein_ifft_ref` the
+Bluestein entry's steps, for the tests of that arithmetic.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import ctypes
 import functools
 import math
 
+import numpy as np
 import torch
 
 from sydr_tpu_torch.ops import native
@@ -46,6 +54,9 @@ KERNEL = native.CudaKernel(
 CLUSTER_KERNEL = native.CudaKernel(
     "pcps_bins_cluster.cu", "pcps_bins_cluster_launch",
     [_VP] * 5 + [_INT] * 3 + [ctypes.POINTER(_INT)] + [_INT] * 4 + [_VP, _VP])
+BLUESTEIN_KERNEL = native.CudaKernel(
+    "pcps_bins_bluestein.cu", "pcps_bins_bluestein_launch",
+    [_VP] * 7 + [_INT] * 6 + [_VP, _INT, _VP, _VP])
 
 # Bins per batch of the plain version: bounds its [bins, ch, nc, n]
 # complex64 intermediates (8 x 32 x 10 x 2500 x 8 B = 51 MB each at the
@@ -82,16 +93,41 @@ PRIME_BLOCK_POINTS = 512 * 16
 # Blocks a transform: 1 is csrc/pcps_bins.cu, the others a cluster of
 # csrc/pcps_bins_cluster.cu (8 is the portable maximum).
 CLUSTER_SIZES = (1, 2, 4, 8)
+# The Bluestein entry (csrc/pcps_bins_bluestein.cu): n up to 2^20, so its
+# convolution length M = M1 * M2 up to 2^21 with M1, M2 <= 2048; its
+# scratch (M complex64 a transform, nc transforms a (bin, channel) pair)
+# holds as many pairs as fit in 512 MB, and always one: a pair's nc x M x
+# 8 bytes pass the cap from nc = 33 at M = 2^21.
+BLUESTEIN_MAX_N = 1 << 20
+BLUESTEIN_MAX_SUB = 1 << 11
+BLUESTEIN_SCRATCH_BYTES = 512 << 20
+# The largest prime factor that a plan with a generic pass keeps on the
+# radix entries; above it the Bluestein entry (kernel_for).
+GENERIC_MAX_PRIME = 233
+
+
+# The primes up to 1024 (the square root of 2^20): the trial divisors of
+# prime_factors before the odd numbers above them.
+_SMALL_PRIMES = tuple(p for p in range(2, 1025)
+                      if all(p % q for q in range(2, math.isqrt(p) + 1)))
 
 
 def prime_factors(n: int) -> list[int]:
     """The prime factors of ``n``, with multiplicity, ascending."""
-    out, p = [], 2
-    while p * p <= n:
+    out = []
+    for p in _SMALL_PRIMES:
+        if p * p > n:
+            break
         while n % p == 0:
             out.append(p)
             n //= p
-        p += 1
+    else:
+        p = _SMALL_PRIMES[-1] + 2
+        while p * p <= n:
+            while n % p == 0:
+                out.append(p)
+                n //= p
+            p += 2
     return out + [n] if n > 1 else out
 
 
@@ -213,17 +249,25 @@ def block_fits(n: int, plan: tuple[int, ...], cluster: int,
             and -(-(n // plan[-1]) // cluster) <= (acc // plan[-1]) * threads)
 
 
+def fitting_cluster(n: int, plan: tuple[int, ...]) -> int | None:
+    """The smallest of :data:`CLUSTER_SIZES` whose block of
+    ``fft_threads`` fits (:func:`block_fits`), or None."""
+    for c in CLUSTER_SIZES:
+        if block_fits(n, plan, c, fft_threads(n, plan, c)):
+            return c
+    return None
+
+
 def cluster_size(n: int, plan: tuple[int, ...] | None = None) -> int:
     """Blocks that share one transform of ``plan`` (default
-    ``radix_plan(n)``): the smallest of :data:`CLUSTER_SIZES` whose block
-    of ``fft_threads`` fits (:func:`block_fits`). C = 1 is the one-block
+    ``radix_plan(n)``): :func:`fitting_cluster`. C = 1 is the one-block
     kernel, unchanged; C = 2 at n = 9722, 12276, 16368, 20000 and 25000,
     C = 4 at 20460 to 50000 (26500 among them), C = 8 at 40920, 65498 and
     65536. Raises ``ValueError`` where C = 8 does not fit."""
     plan = radix_plan(n) if plan is None else plan
-    for c in CLUSTER_SIZES:
-        if block_fits(n, plan, c, fft_threads(n, plan, c)):
-            return c
+    cluster = fitting_cluster(n, plan)
+    if cluster is not None:
+        return cluster
     share = -(-n // CLUSTER_SIZES[-1])
     points = PRIME_BLOCK_POINTS if has_prime_radix(plan) \
         else SMALL_BLOCK_POINTS
@@ -252,6 +296,52 @@ def twiddle_table(n: int, device) -> torch.Tensor:
     t = torch.arange(n, dtype=torch.float64, device=device) \
         * (2.0 * math.pi / n)
     return torch.polar(torch.ones_like(t), t).to(torch.complex64)
+
+
+def bluestein_lengths(n: int) -> tuple[int, int, int]:
+    """``(M, M1, M2)`` of the Bluestein entry: the convolution length M,
+    the least power of two >= 2 n - 1, and its split M = M1 * M2 with
+    M1 = 2^floor(m / 2) <= M2 = 2^ceil(m / 2) (M = 2^m): 32768 = 128 x
+    256 at n = 9722 and 16370, 131072 = 256 x 512 at 65498, 262144 =
+    512 x 512 at 70000 and 122880, 2^21 = 1024 x 2048 at 2^20."""
+    m = (2 * n - 2).bit_length()
+    return 1 << m, 1 << (m // 2), 1 << (m - m // 2)
+
+
+def chirp_index(j, n: int):
+    """``t = j^2 mod 2n`` for the int tensor ``j``, in int64 (exact: j^2 <
+    2^41 for j below 2^20), the index of the chirp ``c_j = e^{+i pi j^2 /
+    n}`` in :func:`chirp_table`; the kernel takes j^2 in 64 bits too."""
+    j = j.to(torch.int64)
+    return (j * j) % (2 * n)
+
+
+@functools.lru_cache(maxsize=8)
+def chirp_table(n: int, device) -> torch.Tensor:
+    """``[2n]`` complex64 ``e^{+i pi t / n}``, from float64 angles; built
+    once per ``(n, device)``."""
+    t = torch.arange(2 * n, dtype=torch.float64, device=device) \
+        * (math.pi / n)
+    return torch.polar(torch.ones_like(t), t).to(torch.complex64)
+
+
+@functools.lru_cache(maxsize=8)
+def bluestein_filter(n: int, device) -> torch.Tensor:
+    """``[M1, M2]`` complex64: the transform of the Bluestein filter
+    ``b_j = conj(c_j)`` for ``|j| < n`` (``b_{M-j} = b_j``; zero between),
+    ``B[k] = FFT_M(b)[k] / (M n)`` (the convolution's 1/M and
+    ``torch.fft.ifft``'s 1/n folded in), stored at ``[k1, k2]`` for
+    ``k = k1 + M1 k2``: the order the entry's row step reads. A constant
+    of ``n``, built once per ``(n, device)`` in float64 on the host."""
+    m, m1, m2 = bluestein_lengths(n)
+    j = np.arange(n, dtype=np.int64)
+    c = np.exp(1j * np.pi * ((j * j) % (2 * n)) / n)
+    b = np.zeros(m, dtype=np.complex128)
+    b[:n] = np.conj(c)
+    b[m - n + 1:] = np.conj(c[1:])[::-1]
+    big = np.fft.fft(b) / (m * n)
+    return torch.from_numpy(np.ascontiguousarray(big.reshape(m2, m1).T)) \
+        .to(torch.complex64).to(device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -344,14 +434,61 @@ def pcps_bins_ref(spectra, code_k, bin_shifts):
     return torch.cat(maps).permute(1, 0, 2).contiguous()
 
 
-def kernel_for(n: int):
-    """The kernel that ``n`` selects and the launch arguments that depend
-    on ``n`` alone: an FFT kernel with its plan (radices, their count,
-    threads a block), on one block or, with the cluster size last, on a
-    cluster (:func:`cluster_size`). Raises ``ValueError`` for an ``n``
-    that no kernel takes: a prime (in :func:`balanced_factors`' words
-    above 64), or one whose cluster would need more than 8 blocks."""
-    balanced_factors(n)
+def bluestein_ifft_ref(x, n: int):
+    """``torch.fft.ifft(x)`` of ``x [..., n]`` complex64 by the Bluestein
+    entry's own steps (``csrc/pcps_bins_bluestein.cu``), in PyTorch: the
+    chirp at its integer index (:func:`chirp_index`), the padding to M,
+    the split M = M1 * M2 (:func:`bluestein_lengths`; input j = j1 M2 +
+    j2) with its twiddle indices ``k1 * j2`` below M, the column and row
+    transforms (``torch.fft`` of length M1 and M2 stand for the kernel's
+    shared-memory FFTs), the filter in its ``[k1, k2]`` order
+    (:func:`bluestein_filter`), the inverse steps, and the last chirp,
+    which the kernel skips (``|c_k| = 1`` under the magnitude)."""
+    if x.shape[-1] != n:
+        raise ValueError(f"x has {x.shape[-1]} points, expected n={n}")
+    m, m1, m2 = bluestein_lengths(n)
+    dev = x.device
+    chirp = chirp_table(n, dev)[chirp_index(torch.arange(n, device=dev), n)]
+    tw = twiddle_table(m, dev)
+    idx = torch.arange(m1, device=dev)[:, None] \
+        * torch.arange(m2, device=dev)[None, :]              # [M1, M2] < M
+    a = torch.zeros(*x.shape[:-1], m, dtype=torch.complex64, device=dev)
+    a[..., :n] = x * chirp
+    a = a.reshape(*x.shape[:-1], m1, m2)                     # [j1, j2]
+    a = torch.fft.fft(a, dim=-2) * tw[idx].conj()            # [k1, j2]
+    a = torch.fft.fft(a, dim=-1) * bluestein_filter(n, dev)  # [k1, k2]
+    a = torch.fft.ifft(a, dim=-1, norm="forward") * tw[idx]  # [k1, j2]
+    a = torch.fft.ifft(a, dim=-2, norm="forward")            # [j1, j2]
+    return a.reshape(*x.shape[:-1], m)[..., :n] * chirp
+
+
+def bluestein_bins_ref(spectra, code_k, bin_shifts):
+    """:func:`pcps_bins` by the Bluestein entry's steps: the product at
+    the kernel's fused index (the bin's phase, the code read at ``i - k``
+    wrapped into [0, n), ``k = shift mod n``), :func:`bluestein_ifft_ref`,
+    the magnitude, and the nc blocks summed in order."""
+    n = spectra.shape[-1]
+    i = torch.arange(n, device=spectra.device)
+    maps = []
+    for k, p in bin_shifts:
+        src = i - k % n
+        src = torch.where(src < 0, src + n, src)
+        mag = bluestein_ifft_ref(spectra[p] * code_k[:, None, src], n).abs()
+        acc = mag[:, 0]
+        for jb in range(1, mag.shape[1]):
+            acc = acc + mag[:, jb]
+        maps.append(acc)
+    return torch.stack(maps, dim=1)                          # [ch, bins, n]
+
+
+def radix_kernel_for(n: int):
+    """The radix entry that takes ``n``'s plan and its launch arguments
+    that depend on ``n`` alone: an FFT kernel with its plan (radices,
+    their count, threads a block), on one block or, with the cluster size
+    last, on a cluster (:func:`cluster_size`). Raises ``ValueError``
+    where the plan fits no cluster of 8 blocks or fewer. The tools and
+    tests launch it at any such ``n``; the wrapper at the ``n``
+    :func:`kernel_for` routes to it."""
     plan = radix_plan(n)
     cluster = cluster_size(n, plan)
     shape = ((_INT * len(plan))(*plan), len(plan),
@@ -361,10 +498,59 @@ def kernel_for(n: int):
     return CLUSTER_KERNEL, (*shape, cluster)
 
 
+def kernel_for(n: int):
+    """The entry that ``n`` selects and its launch arguments that depend
+    on ``n`` alone: :func:`radix_kernel_for` where its plan fits a block
+    or a cluster of 8 and ``n``'s largest prime factor is at most
+    :data:`GENERIC_MAX_PRIME`, else the Bluestein entry with ``(M, M1,
+    M2)`` (:func:`bluestein_lengths`). So every 31-smooth n up to 65536
+    and the 38 5-smooth n above it that a cluster holds keep the radix
+    entries; every other n that is not prime, up to 2^20, has the
+    Bluestein entry.
+
+    The threshold is where the Bluestein entry overtakes the radix
+    entries' generic pass: at 8 ch x 101 bins x 10 blocks the radix
+    entry's device time over the Bluestein entry's read 0.42 at p = 37
+    (n = 4070), 0.58-0.67 at 41, 0.43-0.61 at 53, 0.44-0.73 from 73 to
+    157, 0.88 / 0.94 / 0.96 / 0.96 / 0.97 at 181 / 193 / 227 / 229 /
+    233, then 1.21 at 239 (1.43 at n = 478 = 2 x 239), 1.18 at 257, 1.40
+    at 311, 1.71 at 409, 1.38 at 509, 8.65 at 1637 and 12.2 at 4861
+    (``tools/torch_kernel_variants.py --k2 --entries``,
+    NVIDIA H100 80GB HBM3, 700.00 W). One exception to the rule: n =
+    65231 = 37 x 41 x 43, three generic passes, read 1.46 and stays on
+    the radix entry.
+
+    Raises ``ValueError`` for an ``n`` above 2^20, naming the limit, and
+    for a prime (in :func:`balanced_factors`' words above 64)."""
+    if n > BLUESTEIN_MAX_N:
+        return bluestein_kernel_for(n)     # raises, naming the limit
+    factors = prime_factors(n)
+    if len(factors) < 2:
+        balanced_factors(n)                # a prime above 64 raises
+    if max(factors, default=1) <= GENERIC_MAX_PRIME:
+        plan = radix_plan(n)
+        if fitting_cluster(n, plan) is not None:
+            return radix_kernel_for(n)
+    return bluestein_kernel_for(n)
+
+
+def bluestein_kernel_for(n: int):
+    """The Bluestein entry and ``(M, M1, M2)`` (:func:`bluestein_lengths`)
+    at any ``n`` up to 2^20; the tools and tests launch it at ``n`` that
+    :func:`kernel_for` routes elsewhere. Raises ``ValueError`` above
+    2^20, naming the limit."""
+    if n > BLUESTEIN_MAX_N:
+        raise ValueError(f"n={n}: no K2 kernel on the card above "
+                         f"{BLUESTEIN_MAX_N} points (2^20, the Bluestein "
+                         f"entry's limit)")
+    return BLUESTEIN_KERNEL, bluestein_lengths(n)
+
+
 def cluster_occupancy(n: int) -> int:
-    """``cudaOccupancyMaxActiveClusters`` for the cluster launch that
-    ``n`` selects (on the current card; launches nothing)."""
-    kernel, shape = kernel_for(n)
+    """``cudaOccupancyMaxActiveClusters`` for the cluster launch of ``n``'s
+    radix plan (:func:`radix_kernel_for`; on the current card; launches
+    nothing)."""
+    kernel, shape = radix_kernel_for(n)
     if kernel is not CLUSTER_KERNEL:
         raise ValueError(f"n={n} does not take the cluster kernel")
     fn = CLUSTER_KERNEL.entry(
@@ -378,10 +564,31 @@ def cluster_occupancy(n: int) -> int:
     return count.value
 
 
-def pcps_bins_launch_args(spectra, code_k, bin_shifts):
+class _DevicePointer:
+    """A tensor passed to a C entry point as its device pointer
+    (``_as_parameter_``), kept alive while the arguments are."""
+
+    def __init__(self, tensor):
+        self.tensor = tensor
+        self._as_parameter_ = ctypes.c_void_p(tensor.data_ptr())
+
+
+def bluestein_chunk_pairs(pairs: int, nc: int, m: int) -> int:
+    """(bin, channel) pairs a chunk of the Bluestein entry: as many as
+    :data:`BLUESTEIN_SCRATCH_BYTES` holds at nc transforms of M complex64
+    each, at most ``pairs``, and at least one, so a chunk of one pair
+    takes its nc x M x 8 bytes of scratch even where they pass the cap
+    (the last launch sums a pair's nc blocks in one pass)."""
+    return max(1, min(pairs, BLUESTEIN_SCRATCH_BYTES // (nc * m * 8)))
+
+
+def pcps_bins_launch_args(spectra, code_k, bin_shifts, entry=None):
     """Check the arguments of :func:`pcps_bins` (CUDA tensors), allocate
-    its output and return ``(kernel, out, args)``: the kernel that ``n``
-    selects and the C arguments of its entry point."""
+    its output (and the Bluestein entry's scratch) and return ``(kernel,
+    out, args)``: the entry that ``n`` selects (:func:`kernel_for`; or,
+    for the tools and tests, ``entry="radix"``: :func:`radix_kernel_for`,
+    ``entry="bluestein"``: :func:`bluestein_kernel_for`) and the C
+    arguments of its entry point."""
     dev = spectra.device
     if dev.type != "cuda":
         raise ValueError(f"pcps_bins: unsupported device {dev}")
@@ -392,14 +599,28 @@ def pcps_bins_launch_args(spectra, code_k, bin_shifts):
     bin_shifts = tuple(map(tuple, bin_shifts))
     if any(not 0 <= p < n_ph for _, p in bin_shifts):
         raise ValueError("pcps_bins: phase index out of range")
-    kernel, shape = kernel_for(n)
+    kernel, shape = {None: kernel_for, "radix": radix_kernel_for,
+                     "bluestein": bluestein_kernel_for}[entry](n)
     shift, phase = _plan_tensors(bin_shifts, dev)
-    tw = twiddle_table(n, dev)
     out = torch.empty((n_ch, len(bin_shifts), n), dtype=torch.float32,
                       device=dev)
-    head = (native.ptr(spectra), native.ptr(code_k), native.ptr(tw),
-            native.ptr(shift), native.ptr(phase), n_ch, nc, n)
     tail = (len(bin_shifts), native.ptr(out), native.stream_of(out))
+    if kernel is BLUESTEIN_KERNEL:
+        m, m1, m2 = shape
+        chunk = bluestein_chunk_pairs(n_ch * len(bin_shifts), nc, m)
+        scratch = _DevicePointer(
+            torch.empty(chunk * nc * m, dtype=c64, device=dev))
+        args = (native.ptr(spectra), native.ptr(code_k),
+                native.ptr(chirp_table(n, dev)),
+                native.ptr(bluestein_filter(n, dev)),
+                native.ptr(twiddle_table(m, dev)), native.ptr(shift),
+                native.ptr(phase), n_ch, nc, n, m1.bit_length() - 1,
+                m2.bit_length() - 1, len(bin_shifts), scratch, chunk,
+                *tail[1:])
+        return kernel, out, args
+    head = (native.ptr(spectra), native.ptr(code_k),
+            native.ptr(twiddle_table(n, dev)), native.ptr(shift),
+            native.ptr(phase), n_ch, nc, n)
     return kernel, out, (*head, *shape, *tail)
 
 

@@ -10,6 +10,8 @@ the port's complex64 FFT sits far inside it), the same Doppler bin and
 code index, and a two-peak metric within 0.05.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -456,40 +458,52 @@ def is_prime(n):
     return n > 1 and all(n % p for p in range(2, int(n ** 0.5) + 1))
 
 
-# Non-prime n in each range: (31-smooth, with a prime factor above 31).
-NON_PRIME_COUNTS = {(64, 8192): (1530, 5589), (8193, 16384): (760, 6560),
-                    (16385, 32768): (1068, 13704),
-                    (32769, 65536): (1484, 28254)}
+# Non-prime n in each range: (31-smooth, a prime factor above 31 on a
+# radix entry, on the Bluestein entry).
+NON_PRIME_COUNTS = {(64, 8192): (1530, 2974, 2615),
+                    (8193, 16384): (760, 2586, 3974),
+                    (16385, 32768): (1068, 4528, 9176),
+                    (32769, 65536): (1484, 7661, 20593)}
 
 
 @pytest.mark.parametrize("lo, hi", sorted(NON_PRIME_COUNTS))
 def test_every_non_prime_n_has_a_radix_entry(lo, hi):
-    """Every code period in [64, 65536] that is not prime gets an FFT
-    kernel on the card, its prime factors above 31 as generic passes: one
-    block, or a cluster of at most 8 whose blocks fit
-    (:func:`assert_block_fits`), never a refusal; 4,842 n are 31-smooth
-    and 54,107 have a prime factor above 31, 58,949 in all. Every prime
-    raises ``ValueError``."""
-    smooth = generic = 0
+    """Every code period in [64, 65536] that is not prime gets a kernel
+    on the card, never a refusal: 4,842 n are 31-smooth and take an FFT
+    kernel, one block or a cluster of at most 8 whose blocks fit
+    (:func:`assert_block_fits`); 54,107 have a prime factor above 31,
+    17,749 of them on the radix entries (their largest prime factor at
+    most ``GENERIC_MAX_PRIME``, 233: generic passes) and 36,358 on the
+    Bluestein entry (above it), 58,949 in all. Every prime raises
+    ``ValueError``."""
+    smooth = generic = bluestein = 0
     for n in range(lo, hi + 1):
         if is_prime(n):
             with pytest.raises(ValueError, match="factorisation"):
                 acq_kernel.kernel_for(n)
             continue
         kernel, shape = acq_kernel.kernel_for(n)
+        if kernel is acq_kernel.BLUESTEIN_KERNEL:
+            assert acq_kernel.prime_factors(n)[-1] > \
+                acq_kernel.GENERIC_MAX_PRIME, n
+            assert shape == acq_kernel.bluestein_lengths(n)
+            bluestein += 1
+            continue
         assert kernel in (acq_kernel.KERNEL, acq_kernel.CLUSTER_KERNEL), n
         cluster = 1 if kernel is acq_kernel.KERNEL else shape[3]
         assert cluster > 1 or len(shape) == 3
         plan = tuple(shape[0])
         assert int(np.prod(plan)) == n
+        assert max(plan) <= acq_kernel.GENERIC_MAX_PRIME
         assert_block_fits(n, plan, cluster, shape[2])
         if max(plan) > 31:
             generic += 1
         else:
             smooth += 1
-    assert (smooth, generic) == NON_PRIME_COUNTS[(lo, hi)]
+    assert (smooth, generic, bluestein) == NON_PRIME_COUNTS[(lo, hi)]
     totals = np.sum(list(NON_PRIME_COUNTS.values()), axis=0)
-    assert tuple(totals) == (4842, 54107) and totals.sum() == 58949
+    assert tuple(totals) == (4842, 17749, 36358)
+    assert totals[1] + totals[2] == 54107 and totals.sum() == 58949
 
 
 @pytest.mark.parametrize("n, cluster", [
@@ -507,16 +521,26 @@ def test_cluster_size_at_front_end_rates(n, cluster):
 
 @pytest.mark.parametrize("n, why", [
     (16381, r"N=16381 has no useful factorisation \(prime\?\)"),
-    (65538, "n=65538: no K2 kernel.*more than 8 blocks"),  # 2*3^2*11*331
-    (66000, "n=66000: no K2 kernel.*more than 8 blocks"),  # a prime radix
-    (131072, "n=131072: no K2 kernel.*more than 8 blocks")])   # 2^17
+    (65538, "BLUESTEIN_KERNEL"),          # 2 * 3^2 * 11 * 331
+    (66000, "BLUESTEIN_KERNEL"),          # 2^4 * 3 * 5^3 * 11, prime radix
+    (131072, "BLUESTEIN_KERNEL"),         # 2^17
+    (1048578, "n=1048578: no K2 kernel on the card above 1048576 points")])
 def test_kernel_for_refuses_n_without_entry(n, why):
     """An n that no kernel takes raises ValueError from ``kernel_for``,
     naming n and the limit, before any launch: a prime, in the JAX
-    package's words; above 65,536 a plan with a generic radix (65538, the
-    first n refused with a radix above 10: 8193 points a block) or a
-    prime radix (66000: 8250 points a block), or 256 KB of buffers a
-    block (2^17)."""
+    package's words, and an n above 2^20 (1048578 = 2 * 3 * 174763, the
+    Bluestein entry's limit). The n that no cluster holds, which raised
+    before the Bluestein entry, take it: a plan with a generic radix
+    (65538, the first n above the clusters with a radix above 10: 8193
+    points a block) or a prime radix (66000: 8250 points a block), or
+    256 KB of buffers a block (2^17)."""
+    if why == "BLUESTEIN_KERNEL":
+        with pytest.raises(ValueError, match="more than 8 blocks"):
+            acq_kernel.cluster_size(n)
+        kernel, shape = acq_kernel.kernel_for(n)
+        assert kernel is acq_kernel.BLUESTEIN_KERNEL
+        assert shape == acq_kernel.bluestein_lengths(n) == (262144, 512, 512)
+        return
     with pytest.raises(ValueError, match=why):
         acq_kernel.kernel_for(n)
 
@@ -541,3 +565,176 @@ def test_stockham_ifft_ref_matches_ifft(n):
     got = acq_kernel.stockham_ifft_ref(x, acq_kernel.radix_plan(n), tw)
     ref = torch.fft.ifft(x, norm="forward")
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+# Bluestein lengths: large prime factors (9722 = 2 * 4861, 16370 =
+# 2 * 5 * 1637, 65498 = 2 * 32749), 1517 = 37 * 41, and front ends at 70
+# and 122.88 Msps (70000 = 2^4 * 5^4 * 7, 122880 = 2^13 * 3 * 5).
+BLUESTEIN_N = (1517, 9722, 16370, 65498, 70000, 122880)
+
+
+@pytest.mark.parametrize("n", BLUESTEIN_N)
+def test_bluestein_ifft_ref_matches_ifft(n):
+    """The Bluestein entry's steps (chirp index, padding to M, the split
+    M = M1 * M2 with its twiddle indices, the filter in its [k1, k2]
+    order), walked in PyTorch, against torch.fft.ifft on seeded inputs:
+    within 1e-5 of the largest output."""
+    rng = np.random.default_rng(n)
+    x = torch.tensor(rng.normal(size=(3, n)) + 1j * rng.normal(size=(3, n)),
+                     dtype=torch.complex64)
+    m, m1, m2 = acq_kernel.bluestein_lengths(n)
+    assert m == 1 << (2 * n - 2).bit_length() and m // 2 < 2 * n - 1 <= m
+    assert m1 * m2 == m and m1 <= m2 <= acq_kernel.BLUESTEIN_MAX_SUB
+    filt = acq_kernel.bluestein_filter(n, torch.device("cpu"))
+    assert filt.shape == (m1, m2) and filt.dtype == torch.complex64
+    got = acq_kernel.bluestein_ifft_ref(x, n)
+    ref = torch.fft.ifft(x)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("pairs, nc, m, chunk", [
+    (808, 10, 1 << 18, 25),    # the 70 Msps session: 33 chunks
+    (22, 2, 1 << 21, 16),      # 2^20 - 2 at 1 ch x 11 bins x 2 blocks
+    (3, 1, 1 << 15, 3),        # fewer pairs than the cap holds
+    (808, 32, 1 << 21, 1),     # one pair fills the cap exactly
+    (808, 33, 1 << 21, 1),     # one pair passes the cap: still one
+])
+def test_bluestein_chunk_pairs_at_the_scratch_cap(pairs, nc, m, chunk):
+    """Pairs a chunk of the Bluestein entry's scratch: as many as fit in
+    :data:`BLUESTEIN_SCRATCH_BYTES`, at most ``pairs``, and at least one,
+    whose nc x M x 8 bytes pass the cap from nc = 33 at M = 2^21."""
+    cap = acq_kernel.BLUESTEIN_SCRATCH_BYTES
+    assert cap == 512 << 20
+    got = acq_kernel.bluestein_chunk_pairs(pairs, nc, m)
+    assert got == chunk
+    assert got * nc * m * 8 <= cap or got == 1
+    assert (nc * m * 8 > cap) == (nc == 33)
+
+
+def test_chirp_index_is_exact_at_large_j():
+    """The chirp index ``j^2 mod 2n`` (the kernel takes j^2 in 64 bits)
+    against Python's integers at j up to 2^20, where j^2 passes 2^32, for
+    the largest n of the entry and two front ends; the table holds
+    ``e^{i pi t / n}`` (float64 angles)."""
+    for n in (1048574, 1048576, 245520, 70000):
+        j = np.concatenate([np.arange(n - 4096, n), np.arange(65530, 65540),
+                            np.arange(46340, 46345)])
+        got = acq_kernel.chirp_index(torch.from_numpy(j), n).numpy()
+        assert got.tolist() == [int(v) * int(v) % (2 * n) for v in j]
+    table = acq_kernel.chirp_table(1517, torch.device("cpu")).numpy()
+    t = np.arange(2 * 1517)
+    np.testing.assert_allclose(table, np.exp(1j * np.pi * t / 1517),
+                               atol=1e-7)
+
+
+# A 70 Msps front end: n = 70000 = 2^4 * 5^4 * 7, above the clusters'
+# 65,536 points, whose transform the card runs on the Bluestein entry;
+# the JAX map factors it 250 x 280.
+FS_70 = 70e6
+N_70 = 70000
+
+
+def test_acquire_matches_jax_at_70000_ksps():
+    """The module's capture and bounds at 70 Msps, 1 channel, 61 bins,
+    1 x 2 blocks: the port's ``acquire`` and a map built by the Bluestein
+    entry's steps (``bluestein_bins_ref`` on the same spectra) against
+    JAX's ``pcps_shift_map`` and ``peak_metric``, as at 16.368 Msps (5e-3
+    of the map's maximum: the JAX map's matmul DFT)."""
+    coher, noncoh = 1, 2
+    assert mmfft._balanced_factors(N_70) == (250, 280)
+    assert acq_kernel.kernel_for(N_70)[0] is acq_kernel.BLUESTEIN_KERNEL
+    gen = IQGenerator(FS_70, noise=True, seed=5)
+    gen.add_satellite(17, doppler_hz=-2360.0, code_phase_chips=77.7,
+                      cn0_dbhz=45.0)
+    iq = gen.generate_ms(coher * noncoh)
+    iq_re, iq_im = np.float32(iq.real)[None], np.float32(iq.imag)[None]
+    k = jacq.code_fft_conj(17, FS_70)[None]
+    bins = jacq.doppler_bins(3000, 100)
+    phases, bin_shifts = jacq.shift_plan(bins, FS_70, N_70, mode="shift")
+    ref = np.asarray(jacq.pcps_shift_map(
+        jnp.asarray(iq_re), jnp.asarray(iq_im),
+        jnp.asarray(np.float32(k.real)), jnp.asarray(np.float32(k.imag)),
+        mmfft.make_plan(N_70), mmfft.make_plan(N_70, inverse=True),
+        sampling_frequency=FS_70, coherent=coher, non_coherent=noncoh,
+        phases=phases, bin_shifts=bin_shifts))
+    dop, ci, metric, got = tacq.acquire(
+        (torch.from_numpy(iq_re), torch.from_numpy(iq_im)), k, bins,
+        sampling_frequency=FS_70, coherent=coher, non_coherent=noncoh)
+    got = got.numpy()
+    assert got.shape == ref.shape == (1, 61, N_70)
+    assert (np.abs(got - ref) / np.abs(ref).max()).max() < 5e-3
+    spectra = tacq.phase_spectra(
+        torch.from_numpy(iq_re), torch.from_numpy(iq_im), n=N_70,
+        sampling_frequency=FS_70, coherent=coher, non_coherent=noncoh,
+        phases=phases)
+    walk = acq_kernel.bluestein_bins_ref(
+        spectra, torch.from_numpy(k).to(torch.complex64), bin_shifts).numpy()
+    assert (np.abs(walk - ref) / np.abs(ref).max()).max() < 5e-3
+    spc = round(FS_70 / 1.023e6)
+    d_r, c_r, m_r = jacq.peak_metric(jnp.asarray(ref), jnp.asarray(bins),
+                                     samples_per_chip=spc)
+    assert float(d_r[0]) == float(dop[0])
+    assert abs(float(dop[0]) + 2360.0) <= 100.0
+    assert int(c_r[0]) == int(ci[0])
+    assert abs(float(m_r[0]) - float(metric[0])) < 0.05
+    d_w, c_w, m_w = tacq.peak_metric(torch.from_numpy(walk),
+                                     torch.from_numpy(bins),
+                                     samples_per_chip=spc)
+    assert float(d_w[0]) == float(d_r[0]) and int(c_w[0]) == int(c_r[0])
+    assert abs(float(m_w[0]) - float(m_r[0])) < 0.05
+
+
+@functools.lru_cache(maxsize=1)
+def prime_sieve(limit=(1 << 20) + 8):
+    """``sieve[n]``: whether n is prime, for n up to ``limit`` (numpy,
+    once per module)."""
+    sieve = np.ones(limit + 1, dtype=bool)
+    sieve[:2] = False
+    for p in range(2, int(limit ** 0.5) + 1):
+        if sieve[p]:
+            sieve[p * p::p] = False
+    return sieve
+
+
+# n above 65536 by range (every n in the first two, every 7th n from
+# 262145 in the third): (radix entry, Bluestein entry, primes). The
+# radix entries keep the 38 5-smooth n whose cluster of 8 fits (65610 to
+# 115200); every other n that is not prime has the Bluestein entry:
+# 59,827 + 120,323 non-prime n in (65536, 262144].
+ABOVE_COUNTS = {(65537, 131072, 1): (38, 59789, 5709),
+                (131073, 262144, 1): (0, 120323, 10749),
+                (262145, 1048576, 7): (0, 102525, 9823)}
+
+
+@pytest.mark.parametrize("lo, hi, step", sorted(ABOVE_COUNTS))
+def test_every_non_prime_n_above_65536_has_an_entry(lo, hi, step):
+    """Every n in (65536, 262144] and every 7th n in (262144, 2^20]
+    that is not prime has a K2 entry on the card: a radix entry whose
+    block or cluster of 8 fits (:func:`assert_block_fits`), or the
+    Bluestein entry with M the least power of two >= 2n - 1 and M = M1 *
+    M2, M1 <= M2 <= 2048. Every prime raises ``ValueError``, as JAX's
+    ``_balanced_factors`` does."""
+    sieve = prime_sieve()
+    radix = bluestein = primes = 0
+    for n in range(lo, hi + 1, step):
+        if sieve[n]:
+            with pytest.raises(ValueError, match=f"N={n} has no useful "
+                                                 "factorisation"):
+                acq_kernel.kernel_for(n)
+            with pytest.raises(ValueError, match="no useful factorisation"):
+                mmfft._balanced_factors(n)
+            primes += 1
+            continue
+        kernel, shape = acq_kernel.kernel_for(n)
+        if kernel is acq_kernel.BLUESTEIN_KERNEL:
+            m, m1, m2 = shape
+            assert m & (m - 1) == 0 and m // 2 < 2 * n - 1 <= m, n
+            assert m1 * m2 == m and m1 <= m2 <= 2048, n
+            bluestein += 1
+            continue
+        assert kernel is acq_kernel.CLUSTER_KERNEL, n
+        plan = tuple(shape[0])
+        assert int(np.prod(plan)) == n and max(plan) <= 10, n
+        assert_block_fits(n, plan, shape[3], shape[2])
+        radix += 1
+    assert (radix, bluestein, primes) == ABOVE_COUNTS[(lo, hi, step)]

@@ -9,7 +9,9 @@ Bounds: K1 picks the same chips as its plain version (the same rounding of
 the index arithmetic) and sums in another order: 1e-2 + 1e-4 of the
 largest correlator. K2 is a float32 radix FFT in shared memory, on one
 block or on a cluster of blocks (a prime factor above 31 a generic pass,
-a direct sum) against cuFFT, both float32: 1e-4 of the map's maximum.
+a direct sum), or Bluestein's chirp convolution as power-of-two FFTs
+through global memory, against cuFFT, both float32: 1e-4 of the map's
+maximum.
 K3 builds the same per-sample values as K1 and scans them in another
 order than ``torch.cumsum``: the raw prefix within ``4 * sqrt(n_win) *
 2^-24`` of its largest magnitude (a random walk of float32 roundings over
@@ -181,15 +183,16 @@ def test_pcps_bins_kernel_matches_plain(n, n_ch):
     spec, code, plan = _k2_inputs(n, n_ch, _cuda())
     before = _k2_launches()
     got = acq_kernel.pcps_bins(spec, code, plan)
-    assert _k2_launches() == (before[0] + 1, before[1])
+    assert _k2_launches() == (before[0] + 1, before[1], before[2])
     ref = acq_kernel.pcps_bins_ref(spec, code, plan)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
 def _k2_launches():
-    """Launch counts of K2's one-block and cluster entries."""
-    return acq_kernel.KERNEL.launches, acq_kernel.CLUSTER_KERNEL.launches
+    """Launch counts of K2's one-block, cluster and Bluestein entries."""
+    return (acq_kernel.KERNEL.launches, acq_kernel.CLUSTER_KERNEL.launches,
+            acq_kernel.BLUESTEIN_KERNEL.launches)
 
 
 @pytest.mark.cuda
@@ -201,7 +204,7 @@ def test_pcps_bins_cluster_kernel_matches_plain(n):
     spec, code, plan = _k2_inputs(n, 2, _cuda())
     before = _k2_launches()
     got = acq_kernel.pcps_bins(spec, code, plan)
-    assert _k2_launches() == (before[0], before[1] + 1)
+    assert _k2_launches() == (before[0], before[1] + 1, before[2])
     ref = acq_kernel.pcps_bins_ref(spec, code, plan)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
@@ -210,11 +213,11 @@ def test_pcps_bins_cluster_kernel_matches_plain(n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n, why", [
     (4093, "N=4093 has no useful factorisation"),
-    (65538, "n=65538: no K2 kernel")])
+    (1048578, "n=1048578: no K2 kernel on the card above 1048576")])
 def test_pcps_bins_refuses_n_without_entry(n, why):
-    """A prime n (4093), and n = 65538 = 2 * 3^2 * 11 * 331, whose cluster
-    would need more than 8 blocks: the wrapper raises ValueError and
-    launches nothing."""
+    """A prime n (4093), and n = 1048578 = 2 * 3 * 174763, above the
+    Bluestein entry's 2^20: the wrapper raises ValueError and launches
+    nothing."""
     spec, code, plan = _k2_inputs(n, 1, _cuda(), n_bins=1, nc=1)
     before = _k2_launches()
     with pytest.raises(ValueError, match=why):
@@ -228,17 +231,60 @@ def test_pcps_bins_refuses_n_without_entry(n, why):
                                65498])
 def test_pcps_bins_generic_pass_matches_plain(n):
     """Code periods with a prime factor above 31, its radix a generic
-    pass, at 1 channel x 11 bins x 2 blocks: 4070 = 2 * 5 * 11 * 37 (one
-    block), 1517 = 37 * 41 (radix-1 ends), 9722 = 2 * 4861 and 16370 =
-    2 * 5 * 1637 (a cluster of 2), 26500 = 2^2 * 5^3 * 53 (4), 65231 =
-    37 * 41 * 43 and 65498 = 2 * 32749 (8). The wrapper launches the
-    entry that ``kernel_for`` gives, and only it."""
+    pass, at 1 channel x 11 bins x 2 blocks, on the radix entry that holds
+    the plan (``entry="radix"``, whichever entry ``kernel_for`` routes n
+    to): 4070 = 2 * 5 * 11 * 37 (one block), 1517 = 37 * 41 (radix-1
+    ends), 9722 = 2 * 4861 and 16370 = 2 * 5 * 1637 (a cluster of 2),
+    26500 = 2^2 * 5^3 * 53 (4), 65231 = 37 * 41 * 43 and 65498 = 2 *
+    32749 (8)."""
     spec, code, plan = _k2_inputs(n, 1, _cuda(), n_bins=11, nc=2)
-    one_block = acq_kernel.kernel_for(n)[0] is acq_kernel.KERNEL
+    kernel, got, args = acq_kernel.pcps_bins_launch_args(
+        spec, code, plan, entry="radix")
+    assert kernel is acq_kernel.radix_kernel_for(n)[0]
+    before = _k2_launches()
+    kernel.launch(*args)
+    one_block = kernel is acq_kernel.KERNEL
+    assert _k2_launches() == (before[0] + one_block,
+                              before[1] + (not one_block), before[2])
+    ref = acq_kernel.pcps_bins_ref(spec, code, plan)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [9722, 65498, 70000, 131074])
+def test_pcps_bins_bluestein_matches_plain(n):
+    """The Bluestein entry at a large prime factor (9722 = 2 * 4861,
+    65498 = 2 * 32749), at 70 Msps (70000 = 2^4 * 5^4 * 7, above the
+    clusters) and at 131074 = 2 * 65537, 1 channel x 11 bins x 2 blocks:
+    the wrapper launches it, and only it, once; a second run is
+    bit-identical (the nc blocks are summed in order, no atomics)."""
+    spec, code, plan = _k2_inputs(n, 1, _cuda(), n_bins=11, nc=2)
+    assert acq_kernel.kernel_for(n)[0] is acq_kernel.BLUESTEIN_KERNEL
     before = _k2_launches()
     got = acq_kernel.pcps_bins(spec, code, plan)
-    assert _k2_launches() == (before[0] + one_block,
-                              before[1] + (not one_block))
+    assert _k2_launches() == (before[0], before[1], before[2] + 1)
+    again = acq_kernel.pcps_bins(spec, code, plan)
+    ref = acq_kernel.pcps_bins_ref(spec, code, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_pcps_bins_bluestein_chunks_the_pairs():
+    """More (bin, channel) pairs than the scratch holds: the entry runs
+    them in chunks inside one call and equals the plain version."""
+    spec, code, plan = _k2_inputs(9722, 3, _cuda(), n_bins=7, nc=2)
+    cap = acq_kernel.BLUESTEIN_SCRATCH_BYTES
+    acq_kernel.BLUESTEIN_SCRATCH_BYTES = 2 * 2 * 32768 * 8   # 2 pairs
+    try:
+        kernel, got, args = acq_kernel.pcps_bins_launch_args(spec, code,
+                                                             plan)
+    finally:
+        acq_kernel.BLUESTEIN_SCRATCH_BYTES = cap
+    assert kernel is acq_kernel.BLUESTEIN_KERNEL and args[14] == 2
+    kernel.launch(*args)
     ref = acq_kernel.pcps_bins_ref(spec, code, plan)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())

@@ -163,3 +163,84 @@ def test_or_flags_and_reset_channel_in_place():
     assert s.state.mode.tolist()[2] != MODE_TRACKING
     assert s.state.flags.tolist() == [1, 1 | FLAG_BIT_SYNC, 0]
     assert s.mode_host[2] != MODE_TRACKING
+
+
+# chip_smoke.py's 70 Msps session: 8 channels, 4 visible at 45 dB-Hz,
+# 300 ms at full rate (n = 70000, K2's Bluestein entry on the card), the
+# scenario drawn as its make_scenario draws it from its seed.
+SEED_70, FS_70, MS_70, CH_70 = 20261016, 70e6, 300, 8
+
+
+def _scenario_70():
+    rng = np.random.default_rng(SEED_70)
+    prns = sorted(rng.choice(np.arange(1, CH_70 + 1), 4,
+                             replace=False).tolist())
+    dopplers = np.linspace(-4000.0, 4000.0, 4) + rng.uniform(-40.0, 40.0, 4)
+    rng.shuffle(dopplers)
+    sats = [dict(prn=p, doppler=float(d), code_phase=float(c))
+            for p, d, c in zip(prns, dopplers, rng.uniform(0.0, 1023.0, 4))]
+    gen = IQGenerator(FS_70, noise=True, seed=int(rng.integers(1 << 31)))
+    for s in sats:
+        gen.add_satellite(s["prn"], doppler_hz=s["doppler"],
+                          code_phase_chips=s["code_phase"], cn0_dbhz=45.0,
+                          nav_bits=rng.integers(0, 2, 300))
+    iq = gen.generate_ms(MS_70)
+    return sats, np.float32(iq.real), np.float32(iq.imag)
+
+
+def _drive_70(session, re, im):
+    outs, pos = [], 0
+    while pos + session.block_input_samples <= len(re):
+        n = session.block_input_samples
+        outs.append(session.process_block(re[pos:pos + n], im[pos:pos + n]))
+        pos += n
+    return np.concatenate([np.asarray(o["carrier_freq"]) for o in outs])
+
+
+@pytest.mark.slow
+def test_session_at_70_msps_beside_jax():
+    """chip_smoke.py's 70 Msps scenario through both sessions on the CPU
+    (kaplan pull-in, 5 ms blocks; about 2 minutes and several GB): the
+    same acquisition (Doppler bin and code index, within one bin and 7
+    samples of the truth) and carrier tracks within 1 Hz over the first
+    100 ms. Prints, per visible PRN, the carrier at 100-300 ms, its mean
+    over the last 200 ms against the truth in each package, and the first
+    millisecond at which the two tracks part by more than 1 Hz."""
+    sats, re, im = _scenario_70()
+    tracks, acqs = {}, {}
+    for name, session_cls, config_cls, kw in (
+            ("port", TrackingSession, TrackingConfig,
+             dict(device=torch.device("cpu"))),
+            ("jax", JaxSession, JaxConfig, {})):
+        pull_in = config_cls(
+            sampling_frequency=FS_70, input_decimate=1,
+            window_size=round(FS_70 * 1e-3) + 256, runtime="batch",
+            profile="kaplan", block_ms=5, quantize_spacing=True)
+        cruise = dataclasses.replace(pull_in, kaplan_narrow_only=True,
+                                     block_ms=20, superblock=50)
+        session = session_cls(pull_in, list(range(1, CH_70 + 1)), None,
+                              cruise=cruise, **kw)
+        tracks[name] = _drive_70(session, re, im)
+        acqs[name] = session.acq_results
+    spms = round(FS_70 * 1e-3)
+    at = (99, 149, 199, 249, MS_70 - 1)
+    for s in sats:
+        i = s["prn"] - 1
+        a, b = acqs["port"][i], acqs["jax"][i]
+        assert (a["doppler"], a["code_index"]) == (b["doppler"],
+                                                   b["code_index"])
+        truth_ci = round((-s["code_phase"]) % 1023.0 * spms / 1023.0) % spms
+        assert abs(a["doppler"] - s["doppler"]) <= 100.0
+        assert abs((a["code_index"] - truth_ci + spms // 2) % spms
+                   - spms // 2) <= 7
+        cf = {k: t[:, i] for k, t in tracks.items()}
+        apart = np.flatnonzero(np.abs(cf["port"] - cf["jax"]) > 1.0)
+        print(f"PRN {s['prn']} truth {s['doppler']:.1f} Hz, acquired "
+              f"{a['doppler']:.0f}; " + "; ".join(
+                  f"{k}: carrier at 100/150/200/250/300 ms "
+                  f"{[round(float(v[j]), 1) for j in at]}, last 200 ms "
+                  f"{float(v[-200:].mean()):.1f} ({abs(float(v[-200:].mean()) - s['doppler']):.1f} Hz off)"
+                  for k, v in cf.items())
+              + f"; tracks part by > 1 Hz from ms "
+                f"{int(apart[0]) + 1 if len(apart) else None}")
+        assert np.abs(cf["port"][:100] - cf["jax"][:100]).max() <= 1.0
