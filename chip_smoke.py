@@ -21,13 +21,16 @@ printing its wall time:
    the front-end code periods that need a cluster, 12276 to 65536, on the
    entry and cluster that ``kernel_for`` gives, one over lengths with
    prime factors above 31, 1517 = 37 * 41 to 65498 = 2 * 32749, on the
-   radix entry that holds the plan (its generic pass), and one over the
-   lengths that take the Bluestein entry, 9722 = 2 * 4861 to 2^20 - 2,
-   each with ``torch.fft.ifft`` beside it (and, on the Bluestein entry,
-   the radix entry's time where one holds the plan); the Bluestein entry
-   at 8 ch x 101 bins x 10 blocks at the 70 Msps session's n = 70000
-   (its pairs in several chunks of the scratch cap) and at n = 9722; the
-   refusal of a prime n
+   radix entry that holds the plan (its generic pass), one over the
+   31-smooth lengths above the clusters that take the two-step entry,
+   66000 to 2^20, with the Bluestein entry's time at the same inputs
+   beside each, and one over the lengths that take the Bluestein entry,
+   9722 = 2 * 4861 to 2^20 - 2, each with ``torch.fft.ifft`` beside it
+   (and, on the Bluestein entry, the radix entry's time where one holds
+   the plan); the two-step entry at 8 ch x 101 bins x 10 blocks at the
+   70 Msps session's n = 70000 (its pairs in chunks of the scratch cap),
+   the Bluestein entry's time beside it, and the Bluestein entry at the
+   same shape at n = 9722; the refusal of a prime n
    and of n = 2^20 + 2 before any launch), K3
    ``block_cumsum_streams`` (with its two launches timed apart, the time
    of a kernel that only makes its stores, and a second run that must be
@@ -74,8 +77,10 @@ printing its wall time:
     visible, 300 ms; acquisition must go through K2's cluster entry (and
     no other entry) and find the visible satellites, K1 must run; then
     the same at 70 Msps (n = 70000 = 2^4 * 5^4 * 7, above the clusters'
-    65,536 points) through K2's Bluestein entry alone, K1 at 70000
-    samples a ms, the entry's scratch printed;
+    65,536 points) through K2's two-step entry alone, K1 at 70000
+    samples a ms, the entry's split and scratch printed; and at 9.722
+    Msps (n = 9722 = 2 * 4861, a prime factor above the radix entries'
+    233) through K2's Bluestein entry alone;
 11. the per-ms scan runtime at full width: phase 5's capture (its first
     2 s) through a 32-channel ``TrackingSession`` with ``runtime="scan"``,
     borre loops, 20 ms blocks: acquisition through K2, bit sync and the
@@ -618,7 +623,12 @@ def k2_case(name, fs, n_ch, entry, device, rng):
            "library_ms": ifft_library_ms(spectra, code_k, bin_shifts),
            **roofline(tensor_bytes(spectra, code_k, out) + 8 * n
                       + 8 * len(bin_shifts), flops)}
-    if entry == "pcps_bins_bluestein":
+    if entry == "pcps_bins_twostep":
+        bms = entry_ms(spectra, code_k, bin_shifts, "bluestein")
+        print(f"   {twostep_shape(n, n_ch * len(bin_shifts), non_coherent)}; "
+              f"the Bluestein entry at the same inputs {bms:.4f} ms "
+              f"({bms / res['ms']:.2f}x this)", flush=True)
+    elif entry == "pcps_bins_bluestein":
         print(f"   {bluestein_shape(n, n_ch * len(bin_shifts), non_coherent)}",
               flush=True)
     elif entry == "pcps_bins_cluster":
@@ -648,13 +658,19 @@ SWEEP_N = (12276, 16368, 20000, 20460, 25000, 26000, 30690, 40000, 40920,
 # end (53000 = 2^3 * 5^3 * 53) and the largest prime factor of any n up
 # to 65536 (65498 = 2 * 32749).
 GENERIC_SWEEP_N = (1517, 3034, 9722, 16370, 53000, 65231, 65498)
+# Front ends above the clusters' 65,536 points whose code period is
+# 31-smooth, at the same shape, on the two-step entry (each took the
+# Bluestein entry before it; 80 and 100 Msps stay on a cluster): 66,
+# 70 (70000 = 2^4 * 5^4 * 7), 120, 122.88, 131.072, 163.68 (radices 31 and
+# 11), 200, 245.52 (245520 = 2^4 * 3^2 * 5 * 11 * 31), 400 and 1000 Msps,
+# and 2^20.
+TWOSTEP_SWEEP_N = (66000, 70000, 120000, 122880, 131072, 163680, 200000,
+                   245520, 400000, 1000000, 1048576)
 # Lengths that take the Bluestein entry, at the same shape: large prime
 # factors (9722, 16370, 65498), the first n above the clusters (65538 =
-# 2 * 3^2 * 11 * 331), front ends at 70 Msps (70000 = 2^4 * 5^4 * 7) and
-# 122.88 Msps (122880 = 2^13 * 3 * 5), 131074 = 2 * 65537, 245.52 Msps
-# (245520 = 2^4 * 3^2 * 5 * 11 * 31) and the largest even n, 2^20 - 2.
-BLUESTEIN_SWEEP_N = (9722, 16370, 65498, 65538, 70000, 122880, 131074,
-                     245520, 1048574)
+# 2 * 3^2 * 11 * 331), 131074 = 2 * 65537 and the largest even n,
+# 2^20 - 2.
+BLUESTEIN_SWEEP_N = (9722, 16370, 65498, 65538, 131074, 1048574)
 # Code periods that no entry takes: a prime (as the JAX package refuses
 # a prime above 64) and the first even n above the Bluestein entry's 2^20.
 REFUSED_N = (4093, 1048578)
@@ -671,9 +687,33 @@ def bluestein_shape(n, pairs, nc) -> str:
     from sydr_tpu_torch.ops import acq_kernel
 
     m, m1, m2 = acq_kernel.bluestein_lengths(n)
-    chunk = acq_kernel.bluestein_chunk_pairs(pairs, nc, m)
+    chunk = acq_kernel.scratch_chunk_pairs(pairs, nc, m)
     return (f"Bluestein M = {m} = {m1} x {m2}, {pairs} pairs in chunks of "
             f"{chunk}, scratch {chunk * nc * m * 8 / 2 ** 20:.1f} MiB")
+
+
+def twostep_shape(n, pairs, nc) -> str:
+    """The two-step entry's split, sub-plans and scratch at ``pairs``
+    (bin, channel) pairs of ``nc`` blocks, as text."""
+    from sydr_tpu_torch.ops import acq_kernel
+
+    n1, n2, plan1, plan2 = acq_kernel.twostep_kernel_for(n)[1]
+    chunk = acq_kernel.scratch_chunk_pairs(pairs, nc, n)
+    return (f"two-step n = {n1} x {n2}, plans {plan1} {plan2}, {pairs} pairs "
+            f"in chunks of {chunk}, scratch "
+            f"{chunk * nc * n * 8 / 2 ** 20:.1f} MiB")
+
+
+def entry_ms(spec, code, bins, entry) -> float:
+    """Device time of the K2 entry ``entry`` (``pcps_bins_launch_args``'
+    name) at these inputs: launches of about 50 ms in all."""
+    from sydr_tpu_torch.ops import acq_kernel
+
+    kern, _, args = acq_kernel.pcps_bins_launch_args(spec, code, bins,
+                                                     entry=entry)
+    fn = kern.function()
+    return device_ms(lambda: fn(*args),
+                     max(2, min(20, int(50 / cuda_ms(lambda: fn(*args), 1)))))
 
 
 def k2_sweep(device, ns, entry=None) -> dict:
@@ -684,9 +724,10 @@ def k2_sweep(device, ns, entry=None) -> dict:
     wrapper would take), within 1e-4 of the map's maximum; its plan,
     device time, time through the wrapper (or the launch path), the plain
     version's, the bound and ``torch.fft.ifft``'s time over the same
-    product printed, and, on the Bluestein entry, the radix entry's device
-    time where one holds the plan. Returns the JSON record's numbers by
-    case."""
+    product printed, and the device time of another entry at the same
+    inputs: on the two-step entry the Bluestein entry's, on the Bluestein
+    entry the radix entry's where one holds the plan. Returns the JSON
+    record's numbers by case."""
     import torch
 
     from sydr_tpu_torch.ops import acq_kernel
@@ -734,18 +775,20 @@ def k2_sweep(device, ns, entry=None) -> dict:
         lib = ifft_library_ms(spec, code, bins, quiet=True)
         bound = roofline(tensor_bytes(spec, code, out) + 8 * n + 8 * 11,
                          22 * (5.0 * n * np.log2(n) + 10.0 * n))
-        if kernel is acq_kernel.BLUESTEIN_KERNEL:
+        if kernel is acq_kernel.TWOSTEP_KERNEL:
+            bms = entry_ms(spec, code, bins, "bluestein")
+            where = (f"{twostep_shape(n, 11, 2)}; the Bluestein entry "
+                     f"{bms:.4f} ms ({bms / ms:.1f}x this)")
+            check(ms < bms, f"K2 sweep n={n}: the two-step entry "
+                            f"({ms:.4f} ms) not under the Bluestein entry "
+                            f"({bms:.4f} ms)")
+        elif kernel is acq_kernel.BLUESTEIN_KERNEL:
             where = bluestein_shape(n, 11, 2)
             plan = (acq_kernel.radix_plan(n) if acq_kernel.has_radix_plan(n)
                     else None)
             if plan is not None and acq_kernel.fitting_cluster(n, plan):
-                rk, _, rargs = acq_kernel.pcps_bins_launch_args(
-                    spec, code, bins, entry="radix")
-                rfn = rk.function()
-                rms = device_ms(lambda: rfn(*rargs), max(
-                    2, min(20, int(50 / cuda_ms(lambda: rfn(*rargs), 1)))))
-                where += (f"; the radix entry (plan {plan}, {rk.source}) "
-                          f"{rms:.4f} ms")
+                rms = entry_ms(spec, code, bins, "radix")
+                where += (f"; the radix entry (plan {plan}) {rms:.4f} ms")
         else:
             cluster = 1 if kernel is acq_kernel.KERNEL else shape[3]
             check(cluster == 1 or cargs[11] == cluster,
@@ -839,17 +882,20 @@ def kernel_phase(device) -> dict:
                                   ("8 ch n=26500", 26.5e6, 8))}
     k2_sweep(device, SWEEP_N)
     k2_sweep(device, GENERIC_SWEEP_N, entry="radix")
+    for ns, name in ((TWOSTEP_SWEEP_N, "pcps_bins_twostep"),
+                     (BLUESTEIN_SWEEP_N, "pcps_bins_bluestein")):
+        check(all(entry_name(acq_kernel.kernel_for(n)[0]) == name
+                  for n in ns), f"a length of the {name} sweep took "
+                                f"another entry")
+    k2t = k2_sweep(device, TWOSTEP_SWEEP_N)
     k2b = k2_sweep(device, BLUESTEIN_SWEEP_N)
-    check(all(entry_name(acq_kernel.kernel_for(n)[0])
-              == "pcps_bins_bluestein" for n in BLUESTEIN_SWEEP_N),
-          "a length of the Bluestein sweep took another entry")
-    # The 70 Msps session's K2 shape (8 ch x 101 bins x 10 blocks, M =
-    # 2^18, the pairs in several chunks of the scratch cap) and a large
-    # prime factor at the same shape.
-    k2b.update({name: k2_case(name, fs, 8, "pcps_bins_bluestein", device,
-                              rng)
-                for name, fs in (("8 ch n=70000", 70e6),
-                                 ("8 ch n=9722", 9.722e6))})
+    # The 70 Msps session's K2 shape (8 ch x 101 bins x 10 blocks, the
+    # pairs in chunks of the scratch cap), and a large prime factor at the
+    # same shape on the Bluestein entry.
+    k2t["8 ch n=70000"] = k2_case("8 ch n=70000", 70e6, 8,
+                                  "pcps_bins_twostep", device, rng)
+    k2b["8 ch n=9722"] = k2_case("8 ch n=9722", 9.722e6, 8,
+                                 "pcps_bins_bluestein", device, rng)
     k2_refusal(device)
     k3 = {name: k3_case(name, fs, bm, prof, device, rng)
           for name, fs, bm, prof in (
@@ -857,8 +903,8 @@ def kernel_phase(device) -> dict:
               ("pull-in 2.5 Msps 5 ms 10 streams", 2.5e6, 5, "kaplan"),
               ("full-rate 10 Msps 20 ms 6 streams", 10e6, 20, "narrow"))}
     return {"epoch_correlate": k1, "pcps_bins": k2,
-            "pcps_bins_cluster": k2c, "pcps_bins_bluestein": k2b,
-            "block_cumsum_streams": k3}
+            "pcps_bins_cluster": k2c, "pcps_bins_twostep": k2t,
+            "pcps_bins_bluestein": k2b, "block_cumsum_streams": k3}
 
 
 # ---------------------------------------------------------------------------
@@ -1351,6 +1397,7 @@ def kernels():
 
     return {"epoch_correlate": ck.KERNEL, "pcps_bins": acq_kernel.KERNEL,
             "pcps_bins_cluster": acq_kernel.CLUSTER_KERNEL,
+            "pcps_bins_twostep": acq_kernel.TWOSTEP_KERNEL,
             "pcps_bins_bluestein": acq_kernel.BLUESTEIN_KERNEL,
             "block_cumsum_streams": ck.CUMSUM_KERNEL}
 
@@ -1878,6 +1925,7 @@ def mesh_ranks_phase(device, capture, mesh_run, card) -> dict:
         n = info["launches"]
         check(n["epoch_correlate"] > 0 and n["block_cumsum_streams"] > 0
               and n["pcps_bins"] == 0 and n["pcps_bins_cluster"] == 0
+              and n["pcps_bins_twostep"] == 0
               and n["pcps_bins_bluestein"] == 0,
               f"rank {r} launched {n}: expected K1 and K3, and no K2")
     launches = {name: sum(info["launches"][name] for _, info in ranks)
@@ -2263,8 +2311,11 @@ RECORD = (
     ("pcps_bins_cluster", "pcps_bins_cluster.cu",
      "sydr_tpu/ops/acq_kernel.py:54", "8 ch n=16368",
      "session at 16.368 Msps"),
-    ("pcps_bins_bluestein", "pcps_bins_bluestein.cu",
+    ("pcps_bins_twostep", "pcps_bins_twostep.cu",
      "sydr_tpu/ops/acq_kernel.py:54", "8 ch n=70000", "session at 70 Msps"),
+    ("pcps_bins_bluestein", "pcps_bins_bluestein.cu",
+     "sydr_tpu/ops/acq_kernel.py:54", "8 ch n=9722",
+     "session at 9.722 Msps"),
     ("block_cumsum_streams", "block_cumsum_streams.cu",
      "sydr_tpu/ops/correlator_kernel.py:282",
      "cruise 2.5 Msps 20 ms 6 streams", "prefix receiver"),
@@ -2327,12 +2378,12 @@ def path_phases(device, card, soak_queue, producer) -> dict:
           "the 16.368 Msps session did not track at full rate")
     paths["session at 16.368 Msps"] = res
     # A 70 Msps front end at full rate: n = 70000 = 2^4 * 5^4 * 7, above
-    # the clusters' 65,536 points, takes K2's Bluestein entry; K1 runs on
+    # the clusters' 65,536 points, takes K2's two-step entry; K1 runs on
     # every sample.
     res = timed(
         "session at 70 Msps", slice_phase, device, signal_ms=300,
         fs_in=70e6, decimate=1, n_channels=8, n_visible=4,
-        acq_kernel_name="pcps_bins_bluestein", settled=False, card=card,
+        acq_kernel_name="pcps_bins_twostep", settled=False, card=card,
         code_index_tol=SESSION_70_CODE_INDEX_TOL)
     from sydr_tpu_torch.ops.acquisition import doppler_bins
 
@@ -2341,11 +2392,20 @@ def path_phases(device, card, soak_queue, producer) -> dict:
     print(f"70 Msps: K1 at {cfg.samples_per_ms} samples a ms (decimate "
           f"{cfg.input_decimate}); K2 at 8 ch x {n_bins} bins x "
           f"{acq_cfg.non_coherent} blocks: "
-          f"{bluestein_shape(70000, 8 * n_bins, acq_cfg.non_coherent)}",
+          f"{twostep_shape(70000, 8 * n_bins, acq_cfg.non_coherent)}",
           flush=True)
     check(cfg.samples_per_ms == 70000 and cfg.input_decimate == 1,
           "the 70 Msps session did not track at full rate")
     paths["session at 70 Msps"] = res
+    # n = 9722 = 2 * 4861: a prime factor above GENERIC_MAX_PRIME takes
+    # K2's Bluestein entry.
+    res = timed(
+        "session at 9.722 Msps", slice_phase, device, signal_ms=300,
+        fs_in=9.722e6, decimate=1, n_channels=8, n_visible=4,
+        acq_kernel_name="pcps_bins_bluestein", settled=False, card=card)
+    check(res["session"].cfg.samples_per_ms == 9722,
+          "the 9.722 Msps session did not track at full rate")
+    paths["session at 9.722 Msps"] = res
 
     # The scan runtime at full width, on the first 2 s of the capture.
     res = timed("scan session", slice_phase, device, capture,

@@ -2,7 +2,7 @@
 DFT -> magnitude -> non-coherent sum) for every (Doppler bin, channel).
 
 Replaces ``sydr_tpu.ops.acq_kernel.pcps_fused_bins`` (Pallas ``_kernel``).
-On CUDA tensors :func:`pcps_bins` launches one of three hand-written
+On CUDA tensors :func:`pcps_bins` launches one of four hand-written
 entries, chosen from the code period ``n`` alone (:func:`kernel_for`):
 
 * ``csrc/pcps_bins.cu`` (:data:`KERNEL`), a mixed-radix Stockham FFT in
@@ -17,13 +17,18 @@ entries, chosen from the code period ``n`` alone (:func:`kernel_for`):
   memory, for the other ``n`` up to 65,536 and 38 5-smooth ``n`` above
   it (16368 at 16.368 Msps, 20000, 25000, 26500 = 2^2 * 5^3 * 53, 40920,
   65536, 80000, 100000);
+* ``csrc/pcps_bins_twostep.cu`` (:data:`TWOSTEP_KERNEL`), the FFT of
+  length n in two passes through global memory, n = N1 * N2
+  (:func:`balanced_factors`), its sub-FFTs the radix entries'
+  butterflies over tiles in shared memory, for every other ``n`` up to
+  2^20 whose prime factors are at most 31 (66000, 70000 at 70 Msps,
+  122880, 245520 at 245.52 Msps, 2^20);
 * ``csrc/pcps_bins_bluestein.cu`` (:data:`BLUESTEIN_KERNEL`), Bluestein's
   chirp convolution as power-of-two FFTs through global memory, for
-  every other ``n`` up to 2^20 that is not prime (70000 at 70 Msps,
-  65538 = 2 * 3^2 * 11 * 331, 122880, 245520) and for the ``n`` whose
-  largest prime factor is above :data:`GENERIC_MAX_PRIME`, where the
-  radix entries' generic pass costs p operations a point (9722 =
-  2 * 4861, 65498 = 2 * 32749).
+  every other ``n`` up to 2^20 that is not prime (65538 = 2 * 3^2 * 11 *
+  331, 131074 = 2 * 65537) and for the ``n`` whose largest prime factor
+  is above :data:`GENERIC_MAX_PRIME`, where the radix entries' generic
+  pass costs p operations a point (9722 = 2 * 4861, 65498 = 2 * 32749).
 
 A prime ``n``, or one above 2^20, raises ``ValueError`` from
 :func:`kernel_for` before anything is launched.
@@ -31,8 +36,9 @@ A prime ``n``, or one above 2^20, raises ``ValueError`` from
 the product, ``abs``, sum), used on CPU tensors; there is no fallback from
 a kernel to it or from one kernel to another.
 :func:`stockham_ifft_ref` walks the radix entries' passes, strides and
-integer twiddle indices in PyTorch, :func:`bluestein_ifft_ref` the
-Bluestein entry's steps, for the tests of that arithmetic.
+integer twiddle indices in PyTorch, :func:`twostep_ifft_ref` and
+:func:`bluestein_ifft_ref` the other entries' steps, for the tests of that
+arithmetic.
 """
 
 from __future__ import annotations
@@ -54,6 +60,10 @@ KERNEL = native.CudaKernel(
 CLUSTER_KERNEL = native.CudaKernel(
     "pcps_bins_cluster.cu", "pcps_bins_cluster_launch",
     [_VP] * 5 + [_INT] * 3 + [ctypes.POINTER(_INT)] + [_INT] * 4 + [_VP, _VP])
+TWOSTEP_KERNEL = native.CudaKernel(
+    "pcps_bins_twostep.cu", "pcps_bins_twostep_launch",
+    [_VP] * 6 + [_INT] * 4 + [ctypes.POINTER(_INT), _INT] * 2
+    + [_INT, _VP, _INT, _VP, _VP])
 BLUESTEIN_KERNEL = native.CudaKernel(
     "pcps_bins_bluestein.cu", "pcps_bins_bluestein_launch",
     [_VP] * 7 + [_INT] * 6 + [_VP, _INT, _VP, _VP])
@@ -94,13 +104,18 @@ PRIME_BLOCK_POINTS = 512 * 16
 # csrc/pcps_bins_cluster.cu (8 is the portable maximum).
 CLUSTER_SIZES = (1, 2, 4, 8)
 # The Bluestein entry (csrc/pcps_bins_bluestein.cu): n up to 2^20, so its
-# convolution length M = M1 * M2 up to 2^21 with M1, M2 <= 2048; its
-# scratch (M complex64 a transform, nc transforms a (bin, channel) pair)
-# holds as many pairs as fit in 512 MB, and always one: a pair's nc x M x
-# 8 bytes pass the cap from nc = 33 at M = 2^21.
+# convolution length M = M1 * M2 up to 2^21 with M1, M2 <= 2048.
 BLUESTEIN_MAX_N = 1 << 20
 BLUESTEIN_MAX_SUB = 1 << 11
-BLUESTEIN_SCRATCH_BYTES = 512 << 20
+# The two-step entry (csrc/pcps_bins_twostep.cu): n = N1 * N2 with N1 <=
+# 1024 (at least 4 columns of its 4096-point tile) and N2 <= 4096 (at
+# least one row).
+TWOSTEP_MAX_N1 = 1 << 10
+TWOSTEP_MAX_N2 = 1 << 12
+# The scratch of the global-memory entries (a transform's M or n complex64,
+# nc transforms a (bin, channel) pair) holds as many pairs as fit in 512
+# MB, and always one (:func:`scratch_chunk_pairs`).
+SCRATCH_BYTES = 512 << 20
 # The largest prime factor that a plan with a generic pass keeps on the
 # radix entries; above it the Bluestein entry (kernel_for).
 GENERIC_MAX_PRIME = 233
@@ -278,6 +293,17 @@ def cluster_size(n: int, plan: tuple[int, ...] | None = None) -> int:
         f"points, at most {points})")
 
 
+def sub_plan(n: int) -> tuple[int, ...]:
+    """Radices of a sub-FFT of the two-step entry: :func:`radix_plan`, or
+    ``(n,)`` for a length that is one of its radices (4, 10, 2, 3, 5, 7 to
+    31). Raises ``ValueError`` for a length with a prime factor above
+    31."""
+    if prime_factors(n)[-1] > PRIME_RADICES[0]:
+        raise ValueError(f"n={n}: a prime factor above "
+                         f"{PRIME_RADICES[0]}, no two-step plan")
+    return (n,) if n in SMALL_RADICES + PRIME_RADICES else radix_plan(n)
+
+
 def has_radix_plan(n: int) -> bool:
     """Whether ``n`` has a radix plan (:func:`radix_plan`): every ``n``
     with two prime factors or more but 4 and 10, whose radices make one
@@ -351,6 +377,15 @@ def _plan_tensors(bin_shifts, device):
     phase = torch.tensor([p for _, p in bin_shifts], dtype=torch.int32,
                          device=device)
     return shift, phase
+
+
+@functools.lru_cache(maxsize=8)
+def _bin_order(bin_shifts, device):
+    """The bins sorted by phase (stable): the order in which the two-step
+    entry runs a channel's (bin, channel) pairs, so that the bins of one
+    phase read its spectrum rows in turn (from L2)."""
+    phase = torch.tensor([p for _, p in bin_shifts], dtype=torch.int64)
+    return torch.argsort(phase, stable=True).to(torch.int32).to(device)
 
 
 # Roots a chunk of a generic radix's pass in stockham_ifft_ref holds (its
@@ -434,6 +469,26 @@ def pcps_bins_ref(spectra, code_k, bin_shifts):
     return torch.cat(maps).permute(1, 0, 2).contiguous()
 
 
+def twostep_ifft_ref(x, n: int):
+    """``torch.fft.ifft(x)`` of ``x [..., n]`` complex64 by the two-step
+    entry's own steps (``csrc/pcps_bins_twostep.cu``), in PyTorch: the
+    split n = N1 * N2 (:func:`balanced_factors`; input j = N2 j1 + j2),
+    the column transforms of length N1 over j1, the twiddle at its exact
+    integer index ``k1 * j2`` below n, the row transforms of length N2
+    (``torch.fft`` of length N1 and N2 stand for the kernel's tile FFTs),
+    and the output order ``k = k1 + N1 k2``."""
+    if x.shape[-1] != n:
+        raise ValueError(f"x has {x.shape[-1]} points, expected n={n}")
+    n1, n2 = balanced_factors(n)
+    dev = x.device
+    idx = torch.arange(n1, device=dev)[:, None] \
+        * torch.arange(n2, device=dev)[None, :]              # [N1, N2] < n
+    a = x.reshape(*x.shape[:-1], n1, n2)                     # [j1, j2]
+    a = torch.fft.ifft(a, dim=-2, norm="forward") * twiddle_table(n, dev)[idx]
+    a = torch.fft.ifft(a, dim=-1, norm="forward")            # [k1, k2]
+    return a.transpose(-1, -2).reshape(*x.shape[:-1], n) / n
+
+
 def bluestein_ifft_ref(x, n: int):
     """``torch.fft.ifft(x)`` of ``x [..., n]`` complex64 by the Bluestein
     entry's own steps (``csrc/pcps_bins_bluestein.cu``), in PyTorch: the
@@ -467,13 +522,24 @@ def bluestein_bins_ref(spectra, code_k, bin_shifts):
     the kernel's fused index (the bin's phase, the code read at ``i - k``
     wrapped into [0, n), ``k = shift mod n``), :func:`bluestein_ifft_ref`,
     the magnitude, and the nc blocks summed in order."""
+    return _bins_ref(bluestein_ifft_ref, spectra, code_k, bin_shifts)
+
+
+def twostep_bins_ref(spectra, code_k, bin_shifts):
+    """:func:`pcps_bins` by the two-step entry's steps: the product at the
+    kernel's fused index, :func:`twostep_ifft_ref`, the magnitude, and the
+    nc blocks summed in order."""
+    return _bins_ref(twostep_ifft_ref, spectra, code_k, bin_shifts)
+
+
+def _bins_ref(ifft, spectra, code_k, bin_shifts):
     n = spectra.shape[-1]
     i = torch.arange(n, device=spectra.device)
     maps = []
     for k, p in bin_shifts:
         src = i - k % n
         src = torch.where(src < 0, src + n, src)
-        mag = bluestein_ifft_ref(spectra[p] * code_k[:, None, src], n).abs()
+        mag = ifft(spectra[p] * code_k[:, None, src], n).abs()
         acc = mag[:, 0]
         for jb in range(1, mag.shape[1]):
             acc = acc + mag[:, jb]
@@ -502,11 +568,13 @@ def kernel_for(n: int):
     """The entry that ``n`` selects and its launch arguments that depend
     on ``n`` alone: :func:`radix_kernel_for` where its plan fits a block
     or a cluster of 8 and ``n``'s largest prime factor is at most
-    :data:`GENERIC_MAX_PRIME`, else the Bluestein entry with ``(M, M1,
-    M2)`` (:func:`bluestein_lengths`). So every 31-smooth n up to 65536
-    and the 38 5-smooth n above it that a cluster holds keep the radix
-    entries; every other n that is not prime, up to 2^20, has the
-    Bluestein entry.
+    :data:`GENERIC_MAX_PRIME`; else, for an ``n`` whose prime factors are
+    at most 31, the two-step entry (:func:`twostep_kernel_for`); else the
+    Bluestein entry with ``(M, M1, M2)`` (:func:`bluestein_lengths`). So
+    every 31-smooth n up to 65536 and the 38 5-smooth n above it that a
+    cluster holds keep the radix entries, the 13,533 other 31-smooth n up
+    to 2^20 take the two-step entry, and every other n that is not prime,
+    up to 2^20, has the Bluestein entry.
 
     The threshold is where the Bluestein entry overtakes the radix
     entries' generic pass: at 8 ch x 101 bins x 10 blocks the radix
@@ -531,7 +599,29 @@ def kernel_for(n: int):
         plan = radix_plan(n)
         if fitting_cluster(n, plan) is not None:
             return radix_kernel_for(n)
+    if max(factors) <= PRIME_RADICES[0]:
+        return twostep_kernel_for(n)
     return bluestein_kernel_for(n)
+
+
+def twostep_kernel_for(n: int):
+    """The two-step entry and ``(N1, N2, plan1, plan2)``: the split of
+    :func:`balanced_factors` and each factor's :func:`sub_plan`; the tools
+    and tests launch it at ``n`` that :func:`kernel_for` routes
+    elsewhere. Raises ``ValueError`` for an ``n`` above 2^20 or with a
+    prime factor above 31, or whose split passes the tile (N1 above
+    1024 or N2 above 4096; no such n is 31-smooth up to 2^20)."""
+    if n > BLUESTEIN_MAX_N:
+        raise ValueError(f"n={n}: no K2 kernel on the card above "
+                         f"{BLUESTEIN_MAX_N} points (2^20)")
+    n1, n2 = balanced_factors(n)
+    if prime_factors(n)[-1] > PRIME_RADICES[0]:
+        raise ValueError(f"n={n}: a prime factor above "
+                         f"{PRIME_RADICES[0]}, no two-step plan")
+    if n1 > TWOSTEP_MAX_N1 or n2 > TWOSTEP_MAX_N2:
+        raise ValueError(f"n={n} = {n1} x {n2}: the two-step entry takes "
+                         f"N1 <= {TWOSTEP_MAX_N1}, N2 <= {TWOSTEP_MAX_N2}")
+    return TWOSTEP_KERNEL, (n1, n2, sub_plan(n1), sub_plan(n2))
 
 
 def bluestein_kernel_for(n: int):
@@ -573,22 +663,24 @@ class _DevicePointer:
         self._as_parameter_ = ctypes.c_void_p(tensor.data_ptr())
 
 
-def bluestein_chunk_pairs(pairs: int, nc: int, m: int) -> int:
-    """(bin, channel) pairs a chunk of the Bluestein entry: as many as
-    :data:`BLUESTEIN_SCRATCH_BYTES` holds at nc transforms of M complex64
-    each, at most ``pairs``, and at least one, so a chunk of one pair
-    takes its nc x M x 8 bytes of scratch even where they pass the cap
-    (the last launch sums a pair's nc blocks in one pass)."""
-    return max(1, min(pairs, BLUESTEIN_SCRATCH_BYTES // (nc * m * 8)))
+def scratch_chunk_pairs(pairs: int, nc: int, points: int) -> int:
+    """(bin, channel) pairs a chunk of a global-memory entry (Bluestein:
+    ``points`` = M, two-step: n): as many as :data:`SCRATCH_BYTES` holds
+    at nc transforms of ``points`` complex64 each, at most ``pairs``, and
+    at least one, so a chunk of one pair takes its nc x points x 8 bytes
+    of scratch even where they pass the cap (the last launch sums a
+    pair's nc blocks in one pass)."""
+    return max(1, min(pairs, SCRATCH_BYTES // (nc * points * 8)))
 
 
 def pcps_bins_launch_args(spectra, code_k, bin_shifts, entry=None):
     """Check the arguments of :func:`pcps_bins` (CUDA tensors), allocate
-    its output (and the Bluestein entry's scratch) and return ``(kernel,
-    out, args)``: the entry that ``n`` selects (:func:`kernel_for`; or,
-    for the tools and tests, ``entry="radix"``: :func:`radix_kernel_for`,
-    ``entry="bluestein"``: :func:`bluestein_kernel_for`) and the C
-    arguments of its entry point."""
+    its output (and the global-memory entries' scratch) and return
+    ``(kernel, out, args)``: the entry that ``n`` selects
+    (:func:`kernel_for`; or, for the tools and tests, ``entry="radix"``:
+    :func:`radix_kernel_for`, ``"twostep"``: :func:`twostep_kernel_for`,
+    ``"bluestein"``: :func:`bluestein_kernel_for`) and the C arguments of
+    its entry point."""
     dev = spectra.device
     if dev.type != "cuda":
         raise ValueError(f"pcps_bins: unsupported device {dev}")
@@ -600,14 +692,28 @@ def pcps_bins_launch_args(spectra, code_k, bin_shifts, entry=None):
     if any(not 0 <= p < n_ph for _, p in bin_shifts):
         raise ValueError("pcps_bins: phase index out of range")
     kernel, shape = {None: kernel_for, "radix": radix_kernel_for,
+                     "twostep": twostep_kernel_for,
                      "bluestein": bluestein_kernel_for}[entry](n)
     shift, phase = _plan_tensors(bin_shifts, dev)
     out = torch.empty((n_ch, len(bin_shifts), n), dtype=torch.float32,
                       device=dev)
     tail = (len(bin_shifts), native.ptr(out), native.stream_of(out))
+    if kernel is TWOSTEP_KERNEL:
+        n1, _, plan1, plan2 = shape
+        chunk = scratch_chunk_pairs(n_ch * len(bin_shifts), nc, n)
+        scratch = _DevicePointer(
+            torch.empty(chunk * nc * n, dtype=c64, device=dev))
+        args = (native.ptr(spectra), native.ptr(code_k),
+                native.ptr(twiddle_table(n, dev)), native.ptr(shift),
+                native.ptr(phase), native.ptr(_bin_order(bin_shifts, dev)),
+                n_ch, nc, n, n1,
+                (_INT * len(plan1))(*plan1), len(plan1),
+                (_INT * len(plan2))(*plan2), len(plan2), len(bin_shifts),
+                scratch, chunk, *tail[1:])
+        return kernel, out, args
     if kernel is BLUESTEIN_KERNEL:
         m, m1, m2 = shape
-        chunk = bluestein_chunk_pairs(n_ch * len(bin_shifts), nc, m)
+        chunk = scratch_chunk_pairs(n_ch * len(bin_shifts), nc, m)
         scratch = _DevicePointer(
             torch.empty(chunk * nc * m, dtype=c64, device=dev))
         args = (native.ptr(spectra), native.ptr(code_k),

@@ -82,6 +82,7 @@ def _kernels():
             "block_cumsum_streams": ck.CUMSUM_KERNEL,
             "pcps_bins": acq_kernel.KERNEL,
             "pcps_bins_cluster": acq_kernel.CLUSTER_KERNEL,
+            "pcps_bins_twostep": acq_kernel.TWOSTEP_KERNEL,
             "pcps_bins_bluestein": acq_kernel.BLUESTEIN_KERNEL}
 
 

@@ -522,24 +522,30 @@ def test_cluster_size_at_front_end_rates(n, cluster):
 @pytest.mark.parametrize("n, why", [
     (16381, r"N=16381 has no useful factorisation \(prime\?\)"),
     (65538, "BLUESTEIN_KERNEL"),          # 2 * 3^2 * 11 * 331
-    (66000, "BLUESTEIN_KERNEL"),          # 2^4 * 3 * 5^3 * 11, prime radix
-    (131072, "BLUESTEIN_KERNEL"),         # 2^17
+    (66000, "TWOSTEP_KERNEL"),            # 2^4 * 3 * 5^3 * 11, prime radix
+    (131072, "TWOSTEP_KERNEL"),           # 2^17
     (1048578, "n=1048578: no K2 kernel on the card above 1048576 points")])
 def test_kernel_for_refuses_n_without_entry(n, why):
     """An n that no kernel takes raises ValueError from ``kernel_for``,
     naming n and the limit, before any launch: a prime, in the JAX
     package's words, and an n above 2^20 (1048578 = 2 * 3 * 174763, the
-    Bluestein entry's limit). The n that no cluster holds, which raised
-    before the Bluestein entry, take it: a plan with a generic radix
-    (65538, the first n above the clusters with a radix above 10: 8193
-    points a block) or a prime radix (66000: 8250 points a block), or
-    256 KB of buffers a block (2^17)."""
-    if why == "BLUESTEIN_KERNEL":
+    global-memory entries' limit). The n that no cluster holds, which
+    raised before the Bluestein entry, take a global-memory entry: a plan
+    with a generic radix (65538, the first n above the clusters with a
+    radix above 10: 8193 points a block) the Bluestein entry; a prime
+    radix (66000: 8250 points a block) or 256 KB of buffers a block (2^17),
+    31-smooth, the two-step entry at n = N1 * N2."""
+    if why in ("BLUESTEIN_KERNEL", "TWOSTEP_KERNEL"):
         with pytest.raises(ValueError, match="more than 8 blocks"):
             acq_kernel.cluster_size(n)
         kernel, shape = acq_kernel.kernel_for(n)
-        assert kernel is acq_kernel.BLUESTEIN_KERNEL
-        assert shape == acq_kernel.bluestein_lengths(n) == (262144, 512, 512)
+        assert kernel is getattr(acq_kernel, why)
+        if why == "BLUESTEIN_KERNEL":
+            assert shape == acq_kernel.bluestein_lengths(n) \
+                == (262144, 512, 512)
+        else:
+            assert shape[:2] == acq_kernel.balanced_factors(n) \
+                == {66000: (250, 264), 131072: (256, 512)}[n]
         return
     with pytest.raises(ValueError, match=why):
         acq_kernel.kernel_for(n)
@@ -593,22 +599,127 @@ def test_bluestein_ifft_ref_matches_ifft(n):
 
 
 @pytest.mark.parametrize("pairs, nc, m, chunk", [
-    (808, 10, 1 << 18, 25),    # the 70 Msps session: 33 chunks
+    (808, 10, 1 << 18, 25),    # 70 Msps on the Bluestein entry: 33 chunks
     (22, 2, 1 << 21, 16),      # 2^20 - 2 at 1 ch x 11 bins x 2 blocks
     (3, 1, 1 << 15, 3),        # fewer pairs than the cap holds
     (808, 32, 1 << 21, 1),     # one pair fills the cap exactly
     (808, 33, 1 << 21, 1),     # one pair passes the cap: still one
 ])
 def test_bluestein_chunk_pairs_at_the_scratch_cap(pairs, nc, m, chunk):
-    """Pairs a chunk of the Bluestein entry's scratch: as many as fit in
-    :data:`BLUESTEIN_SCRATCH_BYTES`, at most ``pairs``, and at least one,
-    whose nc x M x 8 bytes pass the cap from nc = 33 at M = 2^21."""
-    cap = acq_kernel.BLUESTEIN_SCRATCH_BYTES
+    """Pairs a chunk of the Bluestein entry's scratch
+    (:func:`scratch_chunk_pairs` at M points a transform): as many as fit
+    in :data:`SCRATCH_BYTES`, at most ``pairs``, and at least one, whose
+    nc x M x 8 bytes pass the cap from nc = 33 at M = 2^21."""
+    cap = acq_kernel.SCRATCH_BYTES
     assert cap == 512 << 20
-    got = acq_kernel.bluestein_chunk_pairs(pairs, nc, m)
+    got = acq_kernel.scratch_chunk_pairs(pairs, nc, m)
     assert got == chunk
     assert got * nc * m * 8 <= cap or got == 1
     assert (nc * m * 8 > cap) == (nc == 33)
+
+
+@pytest.mark.parametrize("pairs, nc, n, chunk", [
+    (808, 10, 70000, 95),      # the 70 Msps session: 9 chunks
+    (808, 10, 245520, 27),     # 245.52 Msps
+    (22, 2, 1 << 20, 22),      # 2^20 at 1 ch x 11 bins x 2: one chunk
+    (808, 64, 1 << 20, 1),     # one pair fills the cap exactly
+    (808, 65, 1 << 20, 1),     # one pair passes the cap: still one
+    (808, 63, 1 << 20, 1),     # the cap holds one pair and not two
+])
+def test_twostep_chunk_pairs_at_the_scratch_cap(pairs, nc, n, chunk):
+    """The two-step entry's scratch under the same rule at n points a
+    transform (the Bluestein entry's M = 2^18 at n = 70000 gave 25 pairs
+    a chunk): one pair's nc x n x 8 bytes reach the cap at nc = 64 for
+    n = 2^20."""
+    cap = acq_kernel.SCRATCH_BYTES
+    got = acq_kernel.scratch_chunk_pairs(pairs, nc, n)
+    assert got == chunk
+    assert got * nc * n * 8 <= cap or got == 1
+    assert (got + 1) * nc * n * 8 > cap or got == pairs
+
+
+# Two-step lengths: front ends at 66, 70, 122.88 and 245.52 Msps (66000 =
+# 250 x 264, 70000 = 250 x 280, 122880 = 320 x 384, 245520 = 495 x 496,
+# radices 11 and 31), and 4000 = 50 x 80, below the clusters, forced
+# through the split.
+TWOSTEP_N = (66000, 70000, 122880, 245520, 4000)
+
+
+@pytest.mark.parametrize("n", TWOSTEP_N)
+def test_twostep_ifft_ref_matches_ifft(n):
+    """The two-step entry's steps (the split n = N1 * N2, the column
+    transforms, the twiddle at its integer index ``k1 * j2``, the row
+    transforms, the output order ``k1 + N1 k2``), walked in PyTorch,
+    against torch.fft.ifft on seeded inputs: within 1e-5 of the largest
+    output."""
+    rng = np.random.default_rng(n)
+    x = torch.tensor(rng.normal(size=(3, n)) + 1j * rng.normal(size=(3, n)),
+                     dtype=torch.complex64)
+    n1, n2 = acq_kernel.balanced_factors(n)
+    assert n1 * n2 == n and n1 <= n2
+    assert n1 <= acq_kernel.TWOSTEP_MAX_N1 and n2 <= acq_kernel.TWOSTEP_MAX_N2
+    got = acq_kernel.twostep_ifft_ref(x, n)
+    ref = torch.fft.ifft(x)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("n, split", [
+    (70000, (250, 280, (10, 5, 5), (7, 10, 4))),
+    (245520, (495, 496, (11, 3, 3, 5), (31, 4, 4))),
+    (1 << 20, (1024, 1024, (4,) * 5, (4,) * 5)),
+    (16368, (124, 132, (31, 4), (11, 4, 3))),
+    (40920, (186, 220, (31, 2, 3), (11, 10, 2))),
+    (4900, (70, 70, (7, 10), (7, 10)))])
+def test_twostep_kernel_for_splits_n(n, split):
+    """The two-step entry's launch shape: JAX's balanced split (250 x 280
+    at 70000, as ``_balanced_factors``) and each factor's sub-plan
+    (:func:`sub_plan`: :func:`radix_plan`, or one pass for a length that
+    is a radix); the entry takes n below 65,536 too when forced (16368,
+    40920: the tools' sweep)."""
+    kernel, shape = acq_kernel.twostep_kernel_for(n)
+    assert kernel is acq_kernel.TWOSTEP_KERNEL
+    assert shape == split
+    assert mmfft._balanced_factors(n) == split[:2]
+    for length, plan in zip(split[:2], split[2:]):
+        assert int(np.prod(plan)) == length
+
+
+@pytest.mark.parametrize("n, why", [
+    (65538, "a prime factor above 31"),          # 2 * 3^2 * 11 * 331
+    (1048578, "above 1048576 points"),
+    (2 * 37, "a prime factor above 31")])
+def test_twostep_kernel_for_refuses(n, why):
+    """The two-step entry takes no prime factor above 31 (its sub-FFTs
+    have no generic pass) and nothing above 2^20."""
+    with pytest.raises(ValueError, match=why):
+        acq_kernel.twostep_kernel_for(n)
+
+
+def test_twostep_bin_order_groups_phases():
+    """The two-step entry runs a channel's bins in phase order (stable), so
+    the bins of one phase read its spectrum rows in turn: the receiver's
+    101-bin plan at 70 Msps, a permutation of the bins."""
+    bins = tacq.doppler_bins(5000.0, 100.0)
+    _, bin_shifts = tacq.shift_plan(bins, FS_70, N_70)
+    order = acq_kernel._bin_order(tuple(map(tuple, bin_shifts)),
+                                  torch.device("cpu")).tolist()
+    assert sorted(order) == list(range(len(bin_shifts)))
+    phases = [bin_shifts[b][1] for b in order]
+    assert phases == sorted(phases)
+    for p in set(phases):
+        same = [b for b in order if bin_shifts[b][1] == p]
+        assert same == sorted(same)
+
+
+def test_sub_plan_single_pass_lengths():
+    """A sub-FFT whose length is a radix runs one pass; other lengths take
+    :func:`radix_plan`."""
+    for r in (2, 3, 4, 5, 10, 7, 11, 13, 17, 19, 23, 29, 31):
+        assert acq_kernel.sub_plan(r) == (r,)
+    assert acq_kernel.sub_plan(250) == (10, 5, 5)
+    assert acq_kernel.sub_plan(1024) == (4, 4, 4, 4, 4)
+    with pytest.raises(ValueError, match="prime factor above 31"):
+        acq_kernel.sub_plan(37 * 2)
 
 
 def test_chirp_index_is_exact_at_large_j():
@@ -636,13 +747,16 @@ N_70 = 70000
 
 def test_acquire_matches_jax_at_70000_ksps():
     """The module's capture and bounds at 70 Msps, 1 channel, 61 bins,
-    1 x 2 blocks: the port's ``acquire`` and a map built by the Bluestein
-    entry's steps (``bluestein_bins_ref`` on the same spectra) against
-    JAX's ``pcps_shift_map`` and ``peak_metric``, as at 16.368 Msps (5e-3
-    of the map's maximum: the JAX map's matmul DFT)."""
+    1 x 2 blocks: the port's ``acquire`` and maps built by the two-step
+    entry's steps (``twostep_bins_ref``, the entry the card takes at this
+    n) and by the Bluestein entry's (``bluestein_bins_ref``, which still
+    serves other n) on the same spectra, against JAX's ``pcps_shift_map``
+    and ``peak_metric``, as at 16.368 Msps (5e-3 of the map's maximum: the
+    JAX map's matmul DFT)."""
     coher, noncoh = 1, 2
     assert mmfft._balanced_factors(N_70) == (250, 280)
-    assert acq_kernel.kernel_for(N_70)[0] is acq_kernel.BLUESTEIN_KERNEL
+    kernel, shape = acq_kernel.kernel_for(N_70)
+    assert kernel is acq_kernel.TWOSTEP_KERNEL and shape[:2] == (250, 280)
     gen = IQGenerator(FS_70, noise=True, seed=5)
     gen.add_satellite(17, doppler_hz=-2360.0, code_phase_chips=77.7,
                       cn0_dbhz=45.0)
@@ -667,9 +781,6 @@ def test_acquire_matches_jax_at_70000_ksps():
         torch.from_numpy(iq_re), torch.from_numpy(iq_im), n=N_70,
         sampling_frequency=FS_70, coherent=coher, non_coherent=noncoh,
         phases=phases)
-    walk = acq_kernel.bluestein_bins_ref(
-        spectra, torch.from_numpy(k).to(torch.complex64), bin_shifts).numpy()
-    assert (np.abs(walk - ref) / np.abs(ref).max()).max() < 5e-3
     spc = round(FS_70 / 1.023e6)
     d_r, c_r, m_r = jacq.peak_metric(jnp.asarray(ref), jnp.asarray(bins),
                                      samples_per_chip=spc)
@@ -677,11 +788,16 @@ def test_acquire_matches_jax_at_70000_ksps():
     assert abs(float(dop[0]) + 2360.0) <= 100.0
     assert int(c_r[0]) == int(ci[0])
     assert abs(float(m_r[0]) - float(metric[0])) < 0.05
-    d_w, c_w, m_w = tacq.peak_metric(torch.from_numpy(walk),
-                                     torch.from_numpy(bins),
-                                     samples_per_chip=spc)
-    assert float(d_w[0]) == float(d_r[0]) and int(c_w[0]) == int(c_r[0])
-    assert abs(float(m_w[0]) - float(m_r[0])) < 0.05
+    code_k = torch.from_numpy(k).to(torch.complex64)
+    for walk_ref in (acq_kernel.twostep_bins_ref,
+                     acq_kernel.bluestein_bins_ref):
+        walk = walk_ref(spectra, code_k, bin_shifts).numpy()
+        assert (np.abs(walk - ref) / np.abs(ref).max()).max() < 5e-3
+        d_w, c_w, m_w = tacq.peak_metric(torch.from_numpy(walk),
+                                         torch.from_numpy(bins),
+                                         samples_per_chip=spc)
+        assert float(d_w[0]) == float(d_r[0]) and int(c_w[0]) == int(c_r[0])
+        assert abs(float(m_w[0]) - float(m_r[0])) < 0.05
 
 
 @functools.lru_cache(maxsize=1)
@@ -697,25 +813,27 @@ def prime_sieve(limit=(1 << 20) + 8):
 
 
 # n above 65536 by range (every n in the first two, every 7th n from
-# 262145 in the third): (radix entry, Bluestein entry, primes). The
-# radix entries keep the 38 5-smooth n whose cluster of 8 fits (65610 to
-# 115200); every other n that is not prime has the Bluestein entry:
-# 59,827 + 120,323 non-prime n in (65536, 262144].
-ABOVE_COUNTS = {(65537, 131072, 1): (38, 59789, 5709),
-                (131073, 262144, 1): (0, 120323, 10749),
-                (262145, 1048576, 7): (0, 102525, 9823)}
+# 262145 in the third): (radix entry, two-step entry, Bluestein entry,
+# primes). The radix entries keep the 38 5-smooth n whose cluster of 8
+# fits (65610 to 115200); every other 31-smooth n has the two-step entry,
+# every other n that is not prime the Bluestein entry: 59,827 + 120,323
+# non-prime n in (65536, 262144].
+ABOVE_COUNTS = {(65537, 131072, 1): (38, 2012, 57777, 5709),
+                (131073, 262144, 1): (0, 2783, 117540, 10749),
+                (262145, 1048576, 7): (0, 825, 101700, 9823)}
 
 
 @pytest.mark.parametrize("lo, hi, step", sorted(ABOVE_COUNTS))
 def test_every_non_prime_n_above_65536_has_an_entry(lo, hi, step):
     """Every n in (65536, 262144] and every 7th n in (262144, 2^20]
     that is not prime has a K2 entry on the card: a radix entry whose
-    block or cluster of 8 fits (:func:`assert_block_fits`), or the
+    block or cluster of 8 fits (:func:`assert_block_fits`), the two-step
+    entry (31-smooth: n = N1 * N2, N1 <= 1024, N2 <= 4096), or the
     Bluestein entry with M the least power of two >= 2n - 1 and M = M1 *
     M2, M1 <= M2 <= 2048. Every prime raises ``ValueError``, as JAX's
     ``_balanced_factors`` does."""
     sieve = prime_sieve()
-    radix = bluestein = primes = 0
+    radix = twostep = bluestein = primes = 0
     for n in range(lo, hi + 1, step):
         if sieve[n]:
             with pytest.raises(ValueError, match=f"N={n} has no useful "
@@ -730,11 +848,61 @@ def test_every_non_prime_n_above_65536_has_an_entry(lo, hi, step):
             m, m1, m2 = shape
             assert m & (m - 1) == 0 and m // 2 < 2 * n - 1 <= m, n
             assert m1 * m2 == m and m1 <= m2 <= 2048, n
+            assert acq_kernel.prime_factors(n)[-1] > 31, n
             bluestein += 1
+            continue
+        if kernel is acq_kernel.TWOSTEP_KERNEL:
+            n1, n2 = shape[:2]
+            assert n1 * n2 == n and n1 <= 1024 and n2 <= 4096, n
+            twostep += 1
             continue
         assert kernel is acq_kernel.CLUSTER_KERNEL, n
         plan = tuple(shape[0])
         assert int(np.prod(plan)) == n and max(plan) <= 10, n
         assert_block_fits(n, plan, shape[3], shape[2])
         radix += 1
-    assert (radix, bluestein, primes) == ABOVE_COUNTS[(lo, hi, step)]
+    assert (radix, twostep, bluestein, primes) == \
+        ABOVE_COUNTS[(lo, hi, step)]
+
+
+def smooth_31_above(lo, hi):
+    """Every 31-smooth n in (lo, hi], by products of the primes up to 31
+    (sorted)."""
+    out = {1}
+    for p in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31):
+        powers = set()
+        for v in out:
+            while v <= hi:
+                powers.add(v)
+                v *= p
+        out = powers
+    return sorted(v for v in out if v > lo)
+
+
+def test_every_smooth_n_above_65536_takes_the_two_step_entry():
+    """Every 31-smooth n in (65536, 2^20] (13,571) has an FFT at length n
+    on the card: the 38 5-smooth n whose cluster of 8 fits keep the
+    cluster entry; the other 13,533 take the two-step entry, whose split
+    is JAX's (N1 * N2 = n, N1 <= N2) with N1 <= 1024 (at least 4 columns
+    of the 4096-point tile) and N2 <= 4096 (at least one row), and whose
+    sub-plans multiply to N1 and N2."""
+    ns = smooth_31_above(65536, 1 << 20)
+    assert len(ns) == 13571
+    cluster = twostep = 0
+    widest = 0
+    for n in ns:
+        kernel, shape = acq_kernel.kernel_for(n)
+        if kernel is acq_kernel.CLUSTER_KERNEL:
+            assert max(acq_kernel.prime_factors(n)) <= 5, n
+            cluster += 1
+            continue
+        assert kernel is acq_kernel.TWOSTEP_KERNEL, n
+        n1, n2, plan1, plan2 = shape
+        assert n1 * n2 == n and n1 <= n2, n
+        assert n1 <= acq_kernel.TWOSTEP_MAX_N1 == 1024, n
+        assert n2 <= acq_kernel.TWOSTEP_MAX_N2 == 4096, n
+        assert int(np.prod(plan1)) == n1 and int(np.prod(plan2)) == n2, n
+        widest = max(widest, n2)
+        twostep += 1
+    assert (cluster, twostep) == (38, 13533)
+    assert widest == 3179

@@ -9,9 +9,10 @@ Bounds: K1 picks the same chips as its plain version (the same rounding of
 the index arithmetic) and sums in another order: 1e-2 + 1e-4 of the
 largest correlator. K2 is a float32 radix FFT in shared memory, on one
 block or on a cluster of blocks (a prime factor above 31 a generic pass,
-a direct sum), or Bluestein's chirp convolution as power-of-two FFTs
-through global memory, against cuFFT, both float32: 1e-4 of the map's
-maximum.
+a direct sum), the same butterflies over tiles of a length-n FFT in two
+passes through global memory, or Bluestein's chirp convolution as
+power-of-two FFTs through global memory, against cuFFT, both float32: 1e-4
+of the map's maximum.
 K3 builds the same per-sample values as K1 and scans them in another
 order than ``torch.cumsum``: the raw prefix within ``4 * sqrt(n_win) *
 2^-24`` of its largest magnitude (a random walk of float32 roundings over
@@ -183,16 +184,18 @@ def test_pcps_bins_kernel_matches_plain(n, n_ch):
     spec, code, plan = _k2_inputs(n, n_ch, _cuda())
     before = _k2_launches()
     got = acq_kernel.pcps_bins(spec, code, plan)
-    assert _k2_launches() == (before[0] + 1, before[1], before[2])
+    assert _k2_launches() == (before[0] + 1, *before[1:])
     ref = acq_kernel.pcps_bins_ref(spec, code, plan)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
 def _k2_launches():
-    """Launch counts of K2's one-block, cluster and Bluestein entries."""
+    """Launch counts of K2's one-block, cluster, Bluestein and two-step
+    entries."""
     return (acq_kernel.KERNEL.launches, acq_kernel.CLUSTER_KERNEL.launches,
-            acq_kernel.BLUESTEIN_KERNEL.launches)
+            acq_kernel.BLUESTEIN_KERNEL.launches,
+            acq_kernel.TWOSTEP_KERNEL.launches)
 
 
 @pytest.mark.cuda
@@ -204,7 +207,7 @@ def test_pcps_bins_cluster_kernel_matches_plain(n):
     spec, code, plan = _k2_inputs(n, 2, _cuda())
     before = _k2_launches()
     got = acq_kernel.pcps_bins(spec, code, plan)
-    assert _k2_launches() == (before[0], before[1] + 1, before[2])
+    assert _k2_launches() == (before[0], before[1] + 1, *before[2:])
     ref = acq_kernel.pcps_bins_ref(spec, code, plan)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
@@ -245,25 +248,26 @@ def test_pcps_bins_generic_pass_matches_plain(n):
     kernel.launch(*args)
     one_block = kernel is acq_kernel.KERNEL
     assert _k2_launches() == (before[0] + one_block,
-                              before[1] + (not one_block), before[2])
+                              before[1] + (not one_block), *before[2:])
     ref = acq_kernel.pcps_bins_ref(spec, code, plan)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [9722, 65498, 70000, 131074])
+@pytest.mark.parametrize("n", [9722, 65498, 131074])
 def test_pcps_bins_bluestein_matches_plain(n):
     """The Bluestein entry at a large prime factor (9722 = 2 * 4861,
-    65498 = 2 * 32749), at 70 Msps (70000 = 2^4 * 5^4 * 7, above the
-    clusters) and at 131074 = 2 * 65537, 1 channel x 11 bins x 2 blocks:
-    the wrapper launches it, and only it, once; a second run is
-    bit-identical (the nc blocks are summed in order, no atomics)."""
+    65498 = 2 * 32749, and 131074 = 2 * 65537, above the clusters), 1
+    channel x 11 bins x 2 blocks: the wrapper launches it, and only it,
+    once; a second run is bit-identical (the nc blocks are summed in
+    order, no atomics)."""
     spec, code, plan = _k2_inputs(n, 1, _cuda(), n_bins=11, nc=2)
     assert acq_kernel.kernel_for(n)[0] is acq_kernel.BLUESTEIN_KERNEL
     before = _k2_launches()
     got = acq_kernel.pcps_bins(spec, code, plan)
-    assert _k2_launches() == (before[0], before[1], before[2] + 1)
+    assert _k2_launches() == (before[0], before[1], before[2] + 1,
+                              before[3])
     again = acq_kernel.pcps_bins(spec, code, plan)
     ref = acq_kernel.pcps_bins_ref(spec, code, plan)
     torch.cuda.synchronize()
@@ -276,14 +280,58 @@ def test_pcps_bins_bluestein_chunks_the_pairs():
     """More (bin, channel) pairs than the scratch holds: the entry runs
     them in chunks inside one call and equals the plain version."""
     spec, code, plan = _k2_inputs(9722, 3, _cuda(), n_bins=7, nc=2)
-    cap = acq_kernel.BLUESTEIN_SCRATCH_BYTES
-    acq_kernel.BLUESTEIN_SCRATCH_BYTES = 2 * 2 * 32768 * 8   # 2 pairs
+    cap = acq_kernel.SCRATCH_BYTES
+    acq_kernel.SCRATCH_BYTES = 2 * 2 * 32768 * 8   # 2 pairs
     try:
         kernel, got, args = acq_kernel.pcps_bins_launch_args(spec, code,
                                                              plan)
     finally:
-        acq_kernel.BLUESTEIN_SCRATCH_BYTES = cap
+        acq_kernel.SCRATCH_BYTES = cap
     assert kernel is acq_kernel.BLUESTEIN_KERNEL and args[14] == 2
+    kernel.launch(*args)
+    ref = acq_kernel.pcps_bins_ref(spec, code, plan)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, n_ch, n_bins, nc", [
+    (70000, 8, 101, 10), (122880, 1, 11, 2), (245520, 1, 11, 2),
+    (1 << 20, 1, 3, 2)])
+def test_pcps_bins_twostep_matches_plain(n, n_ch, n_bins, nc):
+    """The two-step entry at the 70 Msps session's shape (n = 70000 = 250
+    x 280, 8 ch x 101 bins x 10 blocks, its pairs in 9 chunks), at 122.88
+    and 245.52 Msps (radices 11 and 31) and at 2^20 = 1024 x 1024: the
+    wrapper launches it, and only it, once; a second run is bit-identical
+    (the nc blocks are summed in order, no atomics)."""
+    spec, code, plan = _k2_inputs(n, n_ch, _cuda(), n_bins=n_bins, nc=nc)
+    assert acq_kernel.kernel_for(n)[0] is acq_kernel.TWOSTEP_KERNEL
+    before = _k2_launches()
+    got = acq_kernel.pcps_bins(spec, code, plan)
+    assert _k2_launches() == (*before[:3], before[3] + 1)
+    again = acq_kernel.pcps_bins(spec, code, plan)
+    ref = acq_kernel.pcps_bins_ref(spec, code, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4000, 16368])
+def test_pcps_bins_twostep_forced_and_chunked(n):
+    """The two-step entry forced below the clusters (``entry="twostep"``:
+    4000 = 50 x 80 in one tile each way, 16368 = 124 x 132) with its pairs
+    in chunks of 2 (the scratch cap lowered): equal to the plain
+    version."""
+    spec, code, plan = _k2_inputs(n, 3, _cuda(), n_bins=7, nc=2)
+    cap = acq_kernel.SCRATCH_BYTES
+    acq_kernel.SCRATCH_BYTES = 2 * 2 * n * 8   # 2 pairs
+    try:
+        kernel, got, args = acq_kernel.pcps_bins_launch_args(
+            spec, code, plan, entry="twostep")
+    finally:
+        acq_kernel.SCRATCH_BYTES = cap
+    assert kernel is acq_kernel.TWOSTEP_KERNEL and args[16] == 2
     kernel.launch(*args)
     ref = acq_kernel.pcps_bins_ref(spec, code, plan)
     torch.cuda.synchronize()

@@ -166,7 +166,7 @@ def test_or_flags_and_reset_channel_in_place():
 
 
 # chip_smoke.py's 70 Msps session: 8 channels, 4 visible at 45 dB-Hz,
-# 300 ms at full rate (n = 70000, K2's Bluestein entry on the card), the
+# 300 ms at full rate (n = 70000, K2's two-step entry on the card), the
 # scenario drawn as its make_scenario draws it from its seed.
 SEED_70, FS_70, MS_70, CH_70 = 20261016, 70e6, 300, 8
 

@@ -7,6 +7,7 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
     python3 tools/torch_kernel_variants.py --k2 --n 16368 [26500 ...]
     python3 tools/torch_kernel_variants.py --k2 --entries --n 9722 [...]
     python3 tools/torch_kernel_variants.py --k2 --bluestein --n 9722 [...]
+    python3 tools/torch_kernel_variants.py --twostep [--n 70000 245520]
     python3 tools/torch_kernel_variants.py --parent DIR [--n 4070 ...]
 
 * K2 ``pcps_bins`` at n = 4092 (8 channels x 101 bins x 10 blocks), and
@@ -26,6 +27,17 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
   entry built with each register cap of ``BLUESTEIN_MIN_BLOCKS`` (its
   ``kMinBlocks``: blocks an SM), timed in turns, and the split of the
   default's device time over its three kernels (``torch.profiler``).
+* ``--twostep``: K2's two-step entry at 8 ch x 101 bins x 10 blocks at
+  each ``--n`` (default 70000 and 245520): (1) the entry built with each
+  of :data:`TWOSTEP_SHAPES` (threads a block, and blocks an SM for each
+  of its three variants: the register cap), each held against the plain
+  version and timed in two turns, with the split of the source's device
+  time over its two kernels (``torch.profiler``); (2) chunks of
+  :data:`TWOSTEP_CHUNK_PAIRS` (bin, channel) pairs, whose scratch stays
+  in the 50 MB L2 between the passes, against the wrapper's one chunk of
+  up to 512 MiB; (3) the entry forced at 16368 and 40920, below 65,536,
+  beside the cluster entry that ``kernel_for`` gives there and
+  ``torch.fft.ifft`` (a record for a later routing decision).
 * ``--parent DIR`` (a checkout of another commit): DIR's K2 entries
   against this tree's radix entries at the production shapes of the
   lengths that keep them (one block at n = 2500, 10000, 4092, 4070; a
@@ -288,6 +300,194 @@ def k2_bluestein(ns, n_ch: int, device) -> None:
               flush=True)
 
 
+# (threads, (blocks an SM of the variants with radices up to 10, up to
+# 13, up to 31), the smaller tile's points, the L2 bytes of the order
+# rule) of csrc/pcps_bins_twostep.cu tried by --twostep (a small tile of
+# 4096: one tile size; L2 bytes 0: (a) always block-major, 2^40: always
+# pair by pair); the first is the source's.
+TWOSTEP_SHAPES = ((256, (4, 4, 2), 2048, 50 << 20),
+                  (256, (4, 4, 2), 2048, 0), (256, (4, 4, 2), 2048, 1 << 40),
+                  (256, (3, 3, 2), 2048, 50 << 20),
+                  (256, (4, 4, 1), 2048, 50 << 20),
+                  (256, (4, 4, 2), 4096, 50 << 20),
+                  (512, (2, 2, 1), 2048, 50 << 20),
+                  (128, (6, 6, 2), 2048, 50 << 20))
+# The source's twiddle of (a)'s last pass, as two factors of the table,
+# and the direct read that --twostep times beside it.
+TWOSTEP_TWIDDLE = ("cmul(__ldg(a.tw + (r & ~1023)), __ldg(a.tw + (r & 1023)))",
+                   "__ldg(a.tw + r)")
+# Pairs a chunk tried by --twostep beside the wrapper's own.
+TWOSTEP_CHUNK_PAIRS = (4, 8, 16, 32)
+# Lengths below 65,536 where --twostep forces the entry.
+TWOSTEP_FORCED_N = (16368, 40920)
+
+
+def twostep_variant(threads, blocks, small_tile, l2_bytes, swap=None):
+    """The two-step entry's source with another block size, register caps,
+    smaller tile and order rule (and the text ``swap[0]`` replaced by
+    ``swap[1]``), as a kernel built from a copy under
+    ``_build/variants``."""
+    from pathlib import Path
+
+    from sydr_tpu_torch.ops import acq_kernel, native
+
+    base = acq_kernel.TWOSTEP_KERNEL
+    text = (base.csrc_dir / base.source).read_text()
+    lines = {"constexpr int kThreads = ": threads,
+             "constexpr int kMinBlocksSmall = ": blocks[0],
+             "constexpr int kMinBlocksMid = ": blocks[1],
+             "constexpr int kMinBlocksWide = ": blocks[2],
+             "constexpr int kSmallTile = ": small_tile,
+             "constexpr long long kL2Bytes = ": f"{l2_bytes}LL"}
+    out = []
+    for line in text.splitlines(keepends=True):
+        for head, value in lines.items():
+            if line.startswith(head):
+                line = f"{head}{value};" + line.split(";", 1)[1]
+        out.append(line)
+    new = "".join(out)
+    if swap is not None:
+        chip_smoke.check(new.count(swap[0]) == 1, f"{swap[0]} not in source")
+        new = new.replace(*swap)
+    chip_smoke.check(all(f"{h}{v};" in new for h, v in lines.items()),
+                     "kThreads / kMinBlocks* / kSmallTile / kL2Bytes not "
+                     "found in the source")
+    folder = Path(native.PACKAGE_DIR, "_build", "variants",
+                  f"twostep_{threads}_{'_'.join(map(str, blocks))}_"
+                  f"{small_tile}_{l2_bytes}{'_swap' if swap else ''}")
+    folder.mkdir(parents=True, exist_ok=True)
+    (folder / base.source).write_text(new)
+    for header in base.csrc_dir.glob("*.cuh"):
+        (folder / header.name).write_text(header.read_text())
+    return native.CudaKernel(base.source, base.symbol, base.argtypes,
+                             csrc_dir=folder)
+
+
+def plain_ms(spec, code, bins) -> float:
+    """Milliseconds a call of the plain version takes (CUDA events)."""
+    from sydr_tpu_torch.ops import acq_kernel
+
+    return chip_smoke.cuda_ms(
+        lambda: acq_kernel.pcps_bins_ref(spec, code, bins), 3)
+
+
+def k2_twostep(ns, n_ch: int, device) -> None:
+    """``--twostep`` (module note)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sydr_tpu_torch.ops import acq_kernel, native
+
+    variants = {shape: twostep_variant(*shape) for shape in TWOSTEP_SHAPES}
+    direct = twostep_variant(*TWOSTEP_SHAPES[0], swap=TWOSTEP_TWIDDLE)
+    native.build_all([*variants.values(), direct])
+    for shape, kern in variants.items():
+        usage = [ln.strip() for ln in kern.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"two-step {shape[0]} threads, blocks an SM {shape[1]}, "
+              f"small tile {shape[2]}, order rule's L2 bytes {shape[3]}: "
+              + "; ".join(usage), flush=True)
+    for n in ns:
+        spec, code, bins = k2_inputs(n, n_ch, device)
+        ref = acq_kernel.pcps_bins_ref(spec, code, bins)
+        bound = chip_smoke.K2_RTOL * float(ref.abs().max())
+        _, out, cargs = acq_kernel.pcps_bins_launch_args(
+            spec, code, bins, entry="twostep")
+        times = {shape: [] for shape in variants}
+        for turn in (TWOSTEP_SHAPES, TWOSTEP_SHAPES[::-1]):
+            for shape in turn:
+                fn = variants[shape].function()
+                out.zero_()
+                chip_smoke.check(fn(*cargs) == 0, f"{shape}: launch failed")
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                chip_smoke.check(err <= bound, f"{shape}: error {err}")
+                times[shape].append(chip_smoke.device_ms(
+                    lambda: fn(*cargs), 5))
+        # The source against the direct twiddle read and against the pairs
+        # in the plan's own bin order (an identity `order`), in turns.
+        identity = torch.arange(len(bins), dtype=torch.int32, device=device)
+        unordered = (*cargs[:5], identity.data_ptr(), *cargs[6:])
+        fn = acq_kernel.TWOSTEP_KERNEL.function()
+        others = {"source": (fn, cargs), "direct twiddle": (
+            direct.function(), cargs), "bins unordered": (fn, unordered)}
+        turns = {name: [] for name in others}
+        for turn in (list(others), list(others)[::-1]):
+            for name in turn:
+                f, args = others[name]
+                out.zero_()
+                chip_smoke.check(f(*args) == 0, f"{name}: launch failed")
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                chip_smoke.check(err <= bound, f"{name}: error {err}")
+                turns[name].append(chip_smoke.device_ms(lambda: f(*args), 5))
+        print(f"K2 two-step n={n}: device ms " + ", ".join(
+            f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in turns.items())
+            + f"; the Bluestein entry "
+            f"{chip_smoke.entry_ms(spec, code, bins, 'bluestein'):.4f} ms, "
+            f"ifft {chip_smoke.ifft_library_ms(spec, code, bins, True):.4f} "
+            f"ms, the plain version {plain_ms(spec, code, bins):.4f} ms",
+            flush=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn(*cargs)
+            torch.cuda.synchronize()
+        split = {}
+        for ev in prof.key_averages():
+            if ev.device_time_total > 0:
+                key = next((k for k in ("column_pass", "row_pass")
+                            if k in ev.key), ev.key[:40])
+                split[key] = split.get(key, 0.0) + ev.device_time_total / 3e3
+        n1, n2, plan1, plan2 = acq_kernel.twostep_kernel_for(n)[1]
+        print(f"K2 two-step n={n} = {n1} x {n2}, plans {plan1} {plan2}, "
+              f"{n_ch} ch x {len(bins)} bins x 10 blocks, chunk "
+              f"{cargs[16]} pairs: device ms by (threads, blocks an SM, "
+              f"small tile, order rule's L2 bytes): "
+              + ", ".join(f"{s}: {t[0]:.4f} / {t[1]:.4f}"
+                          for s, t in times.items())
+              + "; the source's kernels a call: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()),
+              flush=True)
+        chunks = {}
+        for chunk in (*TWOSTEP_CHUNK_PAIRS, cargs[16]):
+            args = (*cargs[:16], chunk, *cargs[17:])
+            scratch = torch.empty(chunk * 10 * n, dtype=torch.complex64,
+                                  device=device)
+            args = (*args[:15], scratch.data_ptr(), *args[16:])
+            out.zero_()
+            chip_smoke.check(fn(*args) == 0, f"chunk {chunk}: launch failed")
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            chip_smoke.check(err <= bound, f"chunk {chunk}: error {err}")
+            # Up to 2 x 202 launches a call: a queue of five calls passes
+            # the launch queue's depth, so the host cannot run ahead of a
+            # spin (device_ms); the device is the slower side here.
+            chunks[chunk] = chip_smoke.cuda_ms(lambda: fn(*args), 3)
+            del scratch
+        print(f"K2 two-step n={n}: device ms by pairs a chunk (scratch MB): "
+              + ", ".join(f"{c} ({c * 10 * n * 8 / 1e6:.0f}): {t:.4f}"
+                          for c, t in chunks.items()), flush=True)
+    for n in TWOSTEP_FORCED_N:
+        spec, code, bins = k2_inputs(n, n_ch, device)
+        ref = acq_kernel.pcps_bins_ref(spec, code, bins)
+        bound = chip_smoke.K2_RTOL * float(ref.abs().max())
+        times = {}
+        for entry in ("twostep", None):
+            kernel, out, cargs = acq_kernel.pcps_bins_launch_args(
+                spec, code, bins, entry=entry)
+            fn = kernel.function()
+            chip_smoke.check(fn(*cargs) == 0, f"n={n}: launch failed")
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            chip_smoke.check(err <= bound, f"n={n} {entry}: error {err}")
+            times[kernel.source] = chip_smoke.device_ms(
+                lambda: fn(*cargs), 10)
+        library = chip_smoke.ifft_library_ms(spec, code, bins, quiet=True)
+        print(f"K2 n={n} forced, {n_ch} ch x {len(bins)} bins x 10 blocks: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+              + f", ifft {library:.4f} ms", flush=True)
+
+
 # The production shapes of the lengths that keep a radix entry
 # (chip_smoke.py's phase 3): one block, then a cluster.
 PARENT_CASES = ((2500, 32), (10000, 12), (4092, 8), (4070, 8), (16368, 8),
@@ -406,6 +606,9 @@ def main(argv=None) -> int:
     parser.add_argument("--bluestein", action="store_true",
                         help="with --k2: the Bluestein entry's register "
                              "caps and its kernels' split at each --n")
+    parser.add_argument("--twostep", action="store_true",
+                        help="K2's two-step entry: block shapes, chunks, "
+                             "and the entry forced below 65,536")
     parser.add_argument("--parent", metavar="DIR",
                         help="hold the one-block K2 entry of the checkout "
                              "DIR against this tree's")
@@ -419,7 +622,8 @@ def main(argv=None) -> int:
     print(f"card: {chip_smoke.card_line()}", flush=True)
     device = torch.device("cuda")
     built = [acq_kernel.KERNEL, acq_kernel.CLUSTER_KERNEL,
-             acq_kernel.BLUESTEIN_KERNEL, ck.CUMSUM_KERNEL, ck.STORE_CEILING]
+             acq_kernel.TWOSTEP_KERNEL, acq_kernel.BLUESTEIN_KERNEL,
+             ck.CUMSUM_KERNEL, ck.STORE_CEILING]
     native.build_all(built)
     for kern in built:
         usage = [ln.strip() for ln in kern.build_log.splitlines()
@@ -427,7 +631,9 @@ def main(argv=None) -> int:
                  or "Compiling entry" in ln]
         print(f"built {kern.source} in {kern.build_seconds or 0:.2f} s:\n   "
               + "\n   ".join(usage), flush=True)
-    both = not (opts.k2 or opts.k3 or opts.parent)
+    both = not (opts.k2 or opts.k3 or opts.parent or opts.twostep)
+    if opts.twostep:
+        k2_twostep(opts.n or [70000, 245520], opts.channels, device)
     if opts.k2 and opts.bluestein:
         k2_bluestein(opts.n or [9722], opts.channels, device)
     elif opts.k2 or both:
