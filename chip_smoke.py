@@ -25,7 +25,9 @@ printing its wall time:
    31-smooth lengths above the clusters that take the two-step entry,
    66000 to 2^20, with the Bluestein entry's time at the same inputs
    beside each, and one over the lengths that take the Bluestein entry,
-   9722 = 2 * 4861 to 2^20 - 2, each with ``torch.fft.ifft`` beside it
+   9722 = 2 * 4861 to 2^20 - 2 (99375 = 3 * 5^4 * 53 among them; each
+   with its convolution length M, its split and sub-plans), each with
+   ``torch.fft.ifft`` beside it
    (and, on the Bluestein entry, the radix entry's time where one holds
    the plan); the two-step entry at 8 ch x 101 bins x 10 blocks at the
    70 Msps session's n = 70000 (its pairs in chunks of the scratch cap),
@@ -668,9 +670,9 @@ TWOSTEP_SWEEP_N = (66000, 70000, 120000, 122880, 131072, 163680, 200000,
                    245520, 400000, 1000000, 1048576)
 # Lengths that take the Bluestein entry, at the same shape: large prime
 # factors (9722, 16370, 65498), the first n above the clusters (65538 =
-# 2 * 3^2 * 11 * 331), 131074 = 2 * 65537 and the largest even n,
-# 2^20 - 2.
-BLUESTEIN_SWEEP_N = (9722, 16370, 65498, 65538, 131074, 1048574)
+# 2 * 3^2 * 11 * 331), a 99.375 Msps front end (99375 = 3 * 5^4 * 53),
+# 131074 = 2 * 65537 and the largest even n, 2^20 - 2.
+BLUESTEIN_SWEEP_N = (9722, 16370, 65498, 65538, 99375, 131074, 1048574)
 # Code periods that no entry takes: a prime (as the JAX package refuses
 # a prime above 64) and the first even n above the Bluestein entry's 2^20.
 REFUSED_N = (4093, 1048578)
@@ -682,14 +684,17 @@ def entry_name(kernel) -> str:
 
 
 def bluestein_shape(n, pairs, nc) -> str:
-    """The Bluestein entry's lengths and scratch at ``pairs`` (bin,
-    channel) pairs of ``nc`` blocks, as text."""
+    """The Bluestein entry's convolution length, its split and sub-plans,
+    and the scratch at ``pairs`` (bin, channel) pairs of ``nc`` blocks, as
+    text."""
     from sydr_tpu_torch.ops import acq_kernel
 
-    m, m1, m2 = acq_kernel.bluestein_lengths(n)
+    m, m1, m2 = acq_kernel.bluestein_kernel_for(n)[1]
     chunk = acq_kernel.scratch_chunk_pairs(pairs, nc, m)
-    return (f"Bluestein M = {m} = {m1} x {m2}, {pairs} pairs in chunks of "
-            f"{chunk}, scratch {chunk * nc * m * 8 / 2 ** 20:.1f} MiB")
+    return (f"Bluestein M = {m} = {m1} x {m2} ({m / (2 * n - 1):.4f} x "
+            f"(2n - 1)), plans {acq_kernel.sub_plan(m1)} "
+            f"{acq_kernel.sub_plan(m2)}, {pairs} pairs in chunks of {chunk}, "
+            f"scratch {chunk * nc * m * 8 / 2 ** 20:.1f} MiB")
 
 
 def twostep_shape(n, pairs, nc) -> str:

@@ -52,39 +52,16 @@
 // tools/torch_kernel_variants.py --twostep).
 //
 // A sub-transform (length L = N1 or N2, plan acq_kernel.sub_plan(L):
-// radix_plan, or one pass for a length that is a radix) is a Stockham FFT
-// over the tile: the butterflies of pcps_fft.cuh (radices 2, 3, 4, 5, 10
-// and the odd primes 7 to 31), pass by pass over every transform of the
-// tile, between two buffers in shared memory (padded one slot in 16
-// against bank conflicts) beside the L roots (tw[x n / L], x < L). A pass
-// of radix R reads in[j + q m] (m = L / R) of its butterfly j, twiddles
-// by the roots rts[q (j mod ns) m / ns], and writes out[(j - j mod ns) R +
-// j mod ns + q ns]: the radix entries' arithmetic, so the walk of
-// acq_kernel.stockham_ifft_ref describes each sub-transform. The tile is
-// point-major in (a) (W columns side by side, a warp's butterflies on W
-// consecutive columns of scratch) and row-major in (b). A thread holds one
-// butterfly's points at a time, so the registers are a butterfly's: a
-// first form that held all of a pass's points across a barrier to run in
-// place in one buffer spilled 0.5-2.4 KB a thread at 80 and 128 registers
-// and took 21.55 ms at 8 ch x 101 bins x 10 blocks at n = 70000 where
-// this one took 12.40 in the same run, before its tuning below (NVIDIA
-// H100 80GB HBM3, 700.00 W).
-//
-// Variants by the largest radix of the sub-plan (each pass chooses its
-// own): radices up to 10, up to 13 and up to 31, each compiled for
-// kThreads threads and its own blocks an SM (the register cap): the
-// unrolled radix-31 butterfly needs some 4 x 31 registers a thread and
-// would cap the other plans' occupancy if they shared its code. At
-// 8 ch x 101 bins x 10 blocks 4 / 4 / 2 blocks of 256 threads ran
-// n = 70000 in 8.83 ms (3 / 3 / 2: 10.09; 512 threads: 12.66; a 4096-point
-// tile: 10.33) and n = 245520 in 51.72 (4 / 4 / 1: 55.26; 512 threads:
-// 48.70), in the order note's run.
+// radix_plan, or one pass for a length that is a radix) is pcps_tile.cuh's
+// Stockham FFT over a tile in shared memory (its header: the passes, the
+// buffers, the variants by the largest radix of the sub-plan), point-major
+// in (a) and row-major in (b).
 //
 // Bound on the H100: bytes. A transform moves ~24 n bytes through device
 // memory (the spectrum row in, the scratch written by (a) and read by (b),
 // the map out once a pair; the code row and the bins' shared spectrum
-// rows mostly from L2) where Bluestein's entry moves 32 M (M >= 2n - 1 a
-// power of two: 3.74 n at n = 70000) and the function itself ~12 n: 13.7
+// rows mostly from L2) where Bluestein's entry moves 32 M (M >= 2n - 1)
+// and the function itself ~12 n: 13.7
 // GB at the 70 Msps session's 8 ch x 101 bins x 10 blocks, 4.1 ms at
 // 3.35 TB/s, against its ~45 GFLOP of float32 butterflies, 0.7 ms at 67
 // TFLOP/s. It runs in 8.82 ms there (column pass 5.46, row pass 3.38;
@@ -92,144 +69,9 @@
 
 #include <cuda_runtime.h>
 
-#include "pcps_fft.cuh"
+#include "pcps_tile.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-// Blocks an SM each variant is compiled for (__launch_bounds__): at most
-// 65536 / (kThreads x blocks) registers a thread.
-constexpr int kMinBlocksSmall = 4;   // radices up to 10
-constexpr int kMinBlocksMid = 4;     // and 7, 11, 13
-constexpr int kMinBlocksWide = 2;    // and 17 to 31
-constexpr int kTile = 4096;          // the largest tile: N2 <= 4096
-// The tile where N2 and 8 N1 fit it (eight columns, 64 bytes a row of
-// the tile in (a)).
-constexpr int kSmallTile = 2048;
-constexpr int kMaxN1 = 1024;         // W = kTile / N1 >= 4 columns
-constexpr long long kL2Bytes = 50LL << 20;
-
-__device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
-
-// Slots of a tile buffer of `points` points: one spare slot every 16.
-__host__ __device__ constexpr int padded(int points) {
-  return points + points / 16;
-}
-
-// x / d by a multiply-high, exact for x d < 2^32 (here x, d <= 4096).
-struct Div {
-  int d;
-  unsigned magic;
-  __device__ __forceinline__ explicit Div(int d_)
-      : d(d_), magic(d_ == 1 ? 0u : 0xFFFFFFFFu / d_ + 1u) {}
-  __device__ __forceinline__ int operator()(int x) const {
-    return d == 1 ? x
-                  : static_cast<int>(__umulhi(static_cast<unsigned>(x),
-                                              magic));
-  }
-};
-
-template <int kMaxR>
-constexpr int kMinBlocks = kMaxR <= 10 ? kMinBlocksSmall
-                         : kMaxR <= 13 ? kMinBlocksMid : kMinBlocksWide;
-
-// Butterflies of radix R a thread owns in a pass over the largest tile.
-template <int R>
-constexpr int kItems = (kTile / R + kThreads - 1) / kThreads;
-
-// Accumulators a thread of the row pass holds: the largest kItems<R> R of
-// the variant's radices (its last pass's outputs).
-__host__ __device__ constexpr int acc_points(int max_radix) {
-  constexpr int kRadices[] = {2, 3, 4, 5, 10, 7, 11, 13, 17, 19, 23, 29, 31};
-  int most = 0;
-  for (int r : kRadices) {
-    const int points = (kTile / r + kThreads - 1) / kThreads * r;
-    if (r <= max_radix && points > most) most = points;
-  }
-  return most;
-}
-
-// Run `call` with R the compile-time value of the runtime radix r, among
-// the radices of the variant kMaxR (SYDR_SMALL_SWITCH and SYDR_PRIME_CASE:
-// pcps_fft.cuh).
-#define TWOSTEP_RADIX_SWITCH(r, call)                                    \
-  if constexpr (kMaxR > 13) {                                            \
-    SYDR_PRIME_CASE(r, 31, call) SYDR_PRIME_CASE(r, 29, call)            \
-    SYDR_PRIME_CASE(r, 23, call) SYDR_PRIME_CASE(r, 19, call)            \
-    SYDR_PRIME_CASE(r, 17, call) SYDR_PRIME_CASE(r, 13, call)            \
-    SYDR_PRIME_CASE(r, 11, call) SYDR_PRIME_CASE(r, 7, call)             \
-    { SYDR_SMALL_SWITCH(r, call) }                                       \
-  } else if constexpr (kMaxR > 10) {                                     \
-    SYDR_PRIME_CASE(r, 13, call) SYDR_PRIME_CASE(r, 11, call)            \
-    SYDR_PRIME_CASE(r, 7, call)                                          \
-    { SYDR_SMALL_SWITCH(r, call) }                                       \
-  } else {                                                               \
-    SYDR_SMALL_SWITCH(r, call)                                           \
-  }
-
-// A tile buffer of `count` transforms of length `len`: point-major (kCols:
-// the count columns side by side, as (a) reads them) or row-major.
-template <bool kCols>
-struct Tile {
-  float2* p;
-  int len, count;
-  __device__ __forceinline__ float2& at(int t, int i) const {
-    return p[pad(kCols ? i * count + t : t * len + i)];
-  }
-};
-
-// Butterfly w of a pass is (transform t, butterfly j): t fastest in the
-// point-major layout, j fastest in the row-major one, so that a warp's
-// global and shared accesses fall on consecutive points.
-template <bool kCols>
-__device__ __forceinline__ void item(int w, const Div& by, int count, int m,
-                                     int& t, int& j) {
-  const int a = by(w);
-  t = kCols ? w - a * count : a;
-  j = kCols ? a : w - a * m;
-}
-
-// The R inputs of butterfly j of transform t, twiddled: load(t, i) gives
-// point i; with ns the radices done so far (k = j mod ns), input q takes
-// rts[q k m / ns] (an exact index below len).
-template <int R, class Load>
-__device__ __forceinline__ void gather(float2 (&v)[R], const Load& load,
-                                       const float2* __restrict__ rts,
-                                       int t, int j, int k, int m, int ns) {
-#pragma unroll
-  for (int q = 0; q < R; ++q) v[q] = load(t, j + q * m);
-  if (ns > 1) {
-    const int e = k * (m / ns);
-#pragma unroll
-    for (int q = 1; q < R; ++q) v[q] = cmul(v[q], rts[q * e]);
-  }
-}
-
-// One Stockham pass of radix R over the tile's `count` transforms of length
-// `len`, out of place: butterfly j reads points j + q m (m = len / R)
-// through load(t, i) and writes DFT_R output q to point (j - k) R + k +
-// q ns through sink(t, i, v).
-template <int R, bool kCols, class Load, class Sink>
-__device__ __forceinline__ void pass(int len, int count, int ns,
-                                     const float2* __restrict__ rts,
-                                     const Load& load, const Sink& sink) {
-  const int m = len / R;
-  const int items = m * count;
-  const Div by(kCols ? count : m);
-  const Div by_ns(ns);
-  for (int w = threadIdx.x; w < items; w += kThreads) {
-    int t, j;
-    item<kCols>(w, by, count, m, t, j);
-    const int hi = by_ns(j);
-    const int k = j - hi * ns;
-    float2 v[R];
-    gather<R>(v, load, rts, t, j, k, m, ns);
-    butterfly<R>(v);
-    const int base = hi * ns * R + k;
-#pragma unroll
-    for (int q = 0; q < R; ++q) sink(t, base + q * ns, v[q]);
-  }
-}
 
 struct Args {
   const float2* spec;    // [n_ph, n_ch, nc, n]
@@ -246,15 +88,6 @@ struct Args {
   float2* scratch;       // [pairs of the chunk, nc, n]
   float* out;            // [n_ch, n_bins, n]
 };
-
-// rts[x] = tw[x n / len] = e^{+2 pi i x / len}, x < len.
-__device__ __forceinline__ void load_roots(float2* rts,
-                                           const float2* __restrict__ tw,
-                                           int len, int step) {
-  for (int x = threadIdx.x; x < len; x += kThreads) {
-    rts[x] = __ldg(tw + x * step);
-  }
-}
 
 // Pass p of P of the column FFTs (length N1 over the tile's W columns):
 // the first reads the spectrum product from global memory, the last
@@ -340,7 +173,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kMaxR>)
     const int r = a.plan1.radix[p];
     const Tile<true> in{p & 1 ? buf0 : buf1, n1, cols};
     const Tile<true> out{p & 1 ? buf1 : buf0, n1, cols};
-    TWOSTEP_RADIX_SWITCH(r, (column_step<R>(a, p, ns, in, out, rts, s, kc,
+    TILE_RADIX_SWITCH(r, (column_step<R>(a, p, ns, in, out, rts, s, kc,
                                             k, tile * cols, dst)));
     __syncthreads();
     ns *= r;
@@ -454,18 +287,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kMaxR>)
       const int r = a.plan2.radix[p];
       const Tile<false> in{p & 1 ? buf0 : buf1, n2, rows};
       const Tile<false> out{p & 1 ? buf1 : buf0, n2, rows};
-      TWOSTEP_RADIX_SWITCH(r, (row_step<R>(a, p, ns, in, out, rts, src,
+      TILE_RADIX_SWITCH(r, (row_step<R>(a, p, ns, in, out, rts, src,
                                            rows_left)));
       __syncthreads();
       ns *= r;
     }
     const Tile<false> last{n_pass & 1 ? buf1 : buf0, n2, rows};
-    TWOSTEP_RADIX_SWITCH(r_last, (row_last<R>(a, last, rts, src, rows_left,
-                                              acc)));
+    TILE_RADIX_SWITCH(r_last, (row_last<R>(a, last, rts, src, rows_left,
+                                           acc)));
     __syncthreads();   // the next transform's first pass overwrites bufs
   }
   float* sums = reinterpret_cast<float*>(buf0);
-  TWOSTEP_RADIX_SWITCH(r_last, (row_sums<R>(a, rows, acc, sums)));
+  TILE_RADIX_SWITCH(r_last, (row_sums<R>(a, rows, acc, sums)));
   __syncthreads();
   const int pair = a.pair0 + local;
   const int c = pair / a.n_bins;
@@ -478,33 +311,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kMaxR>)
     const int t = e - k2 * rows;
     if (t < rows_left) dst[row0 + t + n1 * k2] = sums[t * n2 + k2] * scale;
   }
-}
-
-// Fill plan from a host array of n_pass radices of product len, each from
-// {2, 3, 4, 5, 10} or the odd primes 7 to 31; *variant the kMaxR whose
-// radix switch holds them all: 10, 13 or 31.
-int sub_plan(const int* radices, int n_pass, int len, Plan* plan,
-             int* variant) {
-  if (n_pass < 1 || n_pass > kMaxPasses) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  long long product = 1;
-  *variant = 10;
-  plan->n_pass = n_pass;
-  for (int i = 0; i < kMaxPasses; ++i) {
-    plan->radix[i] = i < n_pass ? radices[i] : 1;
-  }
-  for (int i = 0; i < n_pass; ++i) {
-    const int r = radices[i];
-    const bool small = (r >= 2 && r <= 5) || r == 10;
-    const bool prime = r == 7 || r == 11 || r == 13 || r == 17 || r == 19 ||
-                       r == 23 || r == 29 || r == 31;
-    if (!small && !prime) return static_cast<int>(cudaErrorInvalidValue);
-    if (prime) *variant = r > 13 ? 31 : *variant > 13 ? 31 : 13;
-    product *= r;
-  }
-  return static_cast<int>(product == len ? cudaSuccess
-                                         : cudaErrorInvalidValue);
 }
 
 template <int kMaxR>
@@ -591,8 +397,7 @@ extern "C" int pcps_bins_twostep_launch(
   args.n_bins = n_bins;
   args.scratch = static_cast<float2*>(scratch);
   args.out = static_cast<float*>(out);
-  args.tile = args.n2 <= kSmallTile && 8 * n1 <= kSmallTile ? kSmallTile
-                                                            : kTile;
+  args.tile = tile_points(n1, args.n2);
   args.block_major = 2LL * nc * n * sizeof(float2) > kL2Bytes / 2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int cols = args.tile / n1 < args.n2 ? args.tile / n1 : args.n2;

@@ -24,11 +24,13 @@ entries, chosen from the code period ``n`` alone (:func:`kernel_for`):
   2^20 whose prime factors are at most 31 (66000, 70000 at 70 Msps,
   122880, 245520 at 245.52 Msps, 2^20);
 * ``csrc/pcps_bins_bluestein.cu`` (:data:`BLUESTEIN_KERNEL`), Bluestein's
-  chirp convolution as power-of-two FFTs through global memory, for
-  every other ``n`` up to 2^20 that is not prime (65538 = 2 * 3^2 * 11 *
-  331, 131074 = 2 * 65537) and for the ``n`` whose largest prime factor
-  is above :data:`GENERIC_MAX_PRIME`, where the radix entries' generic
-  pass costs p operations a point (9722 = 2 * 4861, 65498 = 2 * 32749).
+  chirp convolution at a 13-smooth length M just above 2n - 1
+  (:func:`bluestein_lengths`) on the two-step entry's tile FFTs through
+  global memory, for every other ``n`` up to 2^20 that is not prime
+  (65538 = 2 * 3^2 * 11 * 331, 99375 = 3 * 5^4 * 53, 131074 = 2 * 65537)
+  and for the ``n`` whose largest prime factor is above
+  :data:`GENERIC_MAX_PRIME`, where the radix entries' generic pass costs
+  p operations a point (9722 = 2 * 4861, 65498 = 2 * 32749).
 
 A prime ``n``, or one above 2^20, raises ``ValueError`` from
 :func:`kernel_for` before anything is launched.
@@ -43,6 +45,7 @@ arithmetic.
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import functools
 import math
@@ -66,7 +69,8 @@ TWOSTEP_KERNEL = native.CudaKernel(
     + [_INT, _VP, _INT, _VP, _VP])
 BLUESTEIN_KERNEL = native.CudaKernel(
     "pcps_bins_bluestein.cu", "pcps_bins_bluestein_launch",
-    [_VP] * 7 + [_INT] * 6 + [_VP, _INT, _VP, _VP])
+    [_VP] * 8 + [_INT] * 5 + [ctypes.POINTER(_INT), _INT] * 2
+    + [_INT, _VP, _INT, _VP, _VP])
 
 # Bins per batch of the plain version: bounds its [bins, ch, nc, n]
 # complex64 intermediates (8 x 32 x 10 x 2500 x 8 B = 51 MB each at the
@@ -103,15 +107,20 @@ PRIME_BLOCK_POINTS = 512 * 16
 # Blocks a transform: 1 is csrc/pcps_bins.cu, the others a cluster of
 # csrc/pcps_bins_cluster.cu (8 is the portable maximum).
 CLUSTER_SIZES = (1, 2, 4, 8)
-# The Bluestein entry (csrc/pcps_bins_bluestein.cu): n up to 2^20, so its
-# convolution length M = M1 * M2 up to 2^21 with M1, M2 <= 2048.
+# The global-memory entries take n up to 2^20; the Bluestein entry's
+# convolution length M (below 2^22) splits as the two-step entry's n
+# does.
 BLUESTEIN_MAX_N = 1 << 20
-BLUESTEIN_MAX_SUB = 1 << 11
-# The two-step entry (csrc/pcps_bins_twostep.cu): n = N1 * N2 with N1 <=
-# 1024 (at least 4 columns of its 4096-point tile) and N2 <= 4096 (at
-# least one row).
+# The tile FFT of the global-memory entries (csrc/pcps_tile.cuh): columns
+# of N1 (or M1) <= 1024 points (at least 4 of its 4096-point tile) and
+# rows of N2 (or M2) <= 4096 (at least one).
 TWOSTEP_MAX_N1 = 1 << 10
 TWOSTEP_MAX_N2 = 1 << 12
+# The prime factors of the Bluestein entry's convolution length M
+# (bluestein_lengths): radices of the tile FFT's variants with 4 blocks an
+# SM (none above 13); and its window: M from 2n - 1 up to 1/50 (2%) above.
+BLUESTEIN_PRIMES = (2, 3, 5, 7, 11, 13)
+BLUESTEIN_WINDOW = 50
 # The scratch of the global-memory entries (a transform's M or n complex64,
 # nc transforms a (bin, channel) pair) holds as many pairs as fit in 512
 # MB, and always one (:func:`scratch_chunk_pairs`).
@@ -324,14 +333,94 @@ def twiddle_table(n: int, device) -> torch.Tensor:
     return torch.polar(torch.ones_like(t), t).to(torch.complex64)
 
 
+def smooth_numbers(primes, limit: int) -> tuple[int, ...]:
+    """Every number up to ``limit`` whose prime factors are in ``primes``,
+    ascending."""
+    out = [1]
+    for p in primes:
+        more = []
+        for v in out:
+            while v <= limit:
+                more.append(v)
+                v *= p
+        out = more
+    return tuple(sorted(out))
+
+
+_BLUESTEIN_M = smooth_numbers(BLUESTEIN_PRIMES,
+                              TWOSTEP_MAX_N1 * TWOSTEP_MAX_N2)
+# The column lengths a split of such an M can take.
+_COLUMN_LENGTHS = tuple(v for v in _BLUESTEIN_M if 2 <= v <= TWOSTEP_MAX_N1)
+
+
+@functools.lru_cache(maxsize=None)
+def _passes(length: int) -> int:
+    return len(sub_plan(length))
+
+
+@functools.lru_cache(maxsize=None)
+def tile_split(m: int) -> tuple[int, int]:
+    """``(M1, M2)``, ``M = M1 * M2``, of a 13-smooth M for the tile FFT:
+    columns M1 <= :data:`TWOSTEP_MAX_N1`, rows M2 <= :data:`TWOSTEP_MAX_N2`
+    (both at least 2), the fewest passes of the two sub-plans
+    (:func:`sub_plan`), then the most balanced (the least larger factor),
+    then the longer columns: 19500 = 150 x 130 (plans (10, 3, 5) and (13,
+    10)) ran 4.31 ms at 8 ch x 101 bins x 10 blocks where 130 x 150 ran
+    4.57 (NVIDIA H100 80GB HBM3, 700.00 W; ``tools/torch_kernel_variants.py
+    --k2 --bluestein``). Raises ``ValueError`` where none is (a prime
+    M)."""
+    best = None
+    for m1 in _COLUMN_LENGTHS:
+        if m % m1 == 0 and 2 <= m // m1 <= TWOSTEP_MAX_N2:
+            key = (_passes(m1) + _passes(m // m1), max(m1, m // m1), -m1)
+            best = key if best is None or key < best else best
+    if best is None:
+        raise ValueError(f"M={m}: no split M1 x M2 with 2 <= M1 <= "
+                         f"{TWOSTEP_MAX_N1} and 2 <= M2 <= {TWOSTEP_MAX_N2}")
+    return -best[2], m // -best[2]
+
+
+@functools.lru_cache(maxsize=1)
+def _bluestein_keys() -> tuple[tuple[float, int], ...]:
+    """``(passes, M)`` for each M of ``_BLUESTEIN_M``: the passes of its
+    split (:func:`tile_split`), infinite where it has none."""
+    keys = []
+    for m in _BLUESTEIN_M:
+        try:
+            keys.append((sum(map(_passes, tile_split(m))), m))
+        except ValueError:
+            keys.append((math.inf, m))
+    return tuple(keys)
+
+
 def bluestein_lengths(n: int) -> tuple[int, int, int]:
-    """``(M, M1, M2)`` of the Bluestein entry: the convolution length M,
-    the least power of two >= 2 n - 1, and its split M = M1 * M2 with
-    M1 = 2^floor(m / 2) <= M2 = 2^ceil(m / 2) (M = 2^m): 32768 = 128 x
-    256 at n = 9722 and 16370, 131072 = 256 x 512 at 65498, 262144 =
-    512 x 512 at 70000 and 122880, 2^21 = 1024 x 2048 at 2^20."""
-    m = (2 * n - 2).bit_length()
-    return 1 << m, 1 << (m // 2), 1 << (m - m // 2)
+    """``(M, M1, M2)`` of the Bluestein entry: of the 13-smooth M
+    (:data:`BLUESTEIN_PRIMES`) from 2n - 1 up to 2% above it
+    (:data:`BLUESTEIN_WINDOW`) that split (:func:`tile_split`), the one
+    with the fewest passes, then the least; where none does (35 n below
+    236), the least 13-smooth M >= 2n - 1 that splits. 19500 = 150 x
+    130 at n = 9722 (5 passes), 32955 = 195 x 169 at 16370, 133100 = 121
+    x 1100 at 65498 and 65538, 199927 = 169 x 1183 at 99375, 265837 = 169
+    x 1573 at 131074. M stays below 2^22, the tile's largest split.
+
+    The rule that ran fastest at 8 ch x 101 bins x 10 blocks: over n =
+    9722, 16370, 65498, 65538, 99375 and 131074 its time over the fastest
+    of nine rules has a geometric mean of 1.0020 (worst 1.012), the least
+    7-smooth M split balanced 1.176 (worst 1.427): 4.31 / 8.04 / 40.55 /
+    40.31 / 60.25 / 79.03 ms against that one's 5.02 / 8.31 / 40.06 /
+    53.04 / 70.21 / 112.80 (M = 262440 = 2^3 3^8 5 at 131074 takes eleven
+    passes, 265837 = 13^3 11^2 five); at 1 ch x 11 bins x 2 blocks, 1.103
+    (worst 1.238), where the 7-smooth M within 2% with the fewest passes
+    reads 1.060 (``tools/torch_kernel_variants.py --k2 --bluestein``,
+    NVIDIA H100 80GB HBM3, 700.00 W)."""
+    need = 2 * n - 1
+    keys = _bluestein_keys()
+    lo = bisect.bisect_left(_BLUESTEIN_M, need)
+    hi = bisect.bisect_right(_BLUESTEIN_M, need + need // BLUESTEIN_WINDOW)
+    passes, m = min(keys[lo:hi], default=(math.inf, 0))
+    if passes == math.inf:
+        m = next(m for passes, m in keys[lo:] if passes < math.inf)
+    return (m, *tile_split(m))
 
 
 def chirp_index(j, n: int):
@@ -352,14 +441,15 @@ def chirp_table(n: int, device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=8)
-def bluestein_filter(n: int, device) -> torch.Tensor:
+def bluestein_filter(n: int, m1: int, m2: int, device) -> torch.Tensor:
     """``[M1, M2]`` complex64: the transform of the Bluestein filter
     ``b_j = conj(c_j)`` for ``|j| < n`` (``b_{M-j} = b_j``; zero between),
-    ``B[k] = FFT_M(b)[k] / (M n)`` (the convolution's 1/M and
-    ``torch.fft.ifft``'s 1/n folded in), stored at ``[k1, k2]`` for
-    ``k = k1 + M1 k2``: the order the entry's row step reads. A constant
-    of ``n``, built once per ``(n, device)`` in float64 on the host."""
-    m, m1, m2 = bluestein_lengths(n)
+    ``B[k] = FFT_M(b)[k] / (M n)`` at ``M = M1 * M2`` (the convolution's
+    1/M and ``torch.fft.ifft``'s 1/n folded in), stored at ``[k1, k2]``
+    for ``k = k1 + M1 k2``: the order the entry's row pass reads. A
+    constant of ``n`` and the split, built once per ``(n, M1, M2,
+    device)`` in float64 on the host."""
+    m = m1 * m2
     j = np.arange(n, dtype=np.int64)
     c = np.exp(1j * np.pi * ((j * j) % (2 * n)) / n)
     b = np.zeros(m, dtype=np.complex128)
@@ -381,9 +471,9 @@ def _plan_tensors(bin_shifts, device):
 
 @functools.lru_cache(maxsize=8)
 def _bin_order(bin_shifts, device):
-    """The bins sorted by phase (stable): the order in which the two-step
-    entry runs a channel's (bin, channel) pairs, so that the bins of one
-    phase read its spectrum rows in turn (from L2)."""
+    """The bins sorted by phase (stable): the order in which the
+    global-memory entries run a channel's (bin, channel) pairs, so that
+    the bins of one phase read its spectrum rows in turn (from L2)."""
     phase = torch.tensor([p for _, p in bin_shifts], dtype=torch.int64)
     return torch.argsort(phase, stable=True).to(torch.int32).to(device)
 
@@ -492,27 +582,31 @@ def twostep_ifft_ref(x, n: int):
 def bluestein_ifft_ref(x, n: int):
     """``torch.fft.ifft(x)`` of ``x [..., n]`` complex64 by the Bluestein
     entry's own steps (``csrc/pcps_bins_bluestein.cu``), in PyTorch: the
-    chirp at its integer index (:func:`chirp_index`), the padding to M,
-    the split M = M1 * M2 (:func:`bluestein_lengths`; input j = j1 M2 +
-    j2) with its twiddle indices ``k1 * j2`` below M, the column and row
-    transforms (``torch.fft`` of length M1 and M2 stand for the kernel's
-    shared-memory FFTs), the filter in its ``[k1, k2]`` order
-    (:func:`bluestein_filter`), the inverse steps, and the last chirp,
-    which the kernel skips (``|c_k| = 1`` under the magnitude)."""
+    chirp at its integer index (:func:`chirp_index`), the lengths and the
+    split M = M1 * M2 (:func:`bluestein_lengths`; input j = j1 M2 + j2,
+    its rows from ceil(n / M2) on zeros), the forward transform in the
+    conjugate (the inverse sign of the tile butterflies on ``conj(x c)``:
+    column transforms, the twiddle at its integer index ``k1 * j2`` below
+    M, row transforms), the product ``conj(v) B`` with the filter in its
+    ``[k1, k2]`` order (:func:`bluestein_filter`), the inverse row
+    transforms, the same twiddle, the inverse column transforms
+    (``torch.fft`` of length M1 and M2 stands for the kernel's tile FFTs),
+    and the last chirp, which the kernel skips (``|c_k| = 1`` under the
+    magnitude)."""
     if x.shape[-1] != n:
         raise ValueError(f"x has {x.shape[-1]} points, expected n={n}")
     m, m1, m2 = bluestein_lengths(n)
     dev = x.device
     chirp = chirp_table(n, dev)[chirp_index(torch.arange(n, device=dev), n)]
-    tw = twiddle_table(m, dev)
-    idx = torch.arange(m1, device=dev)[:, None] \
-        * torch.arange(m2, device=dev)[None, :]              # [M1, M2] < M
+    tw = twiddle_table(m, dev)[torch.arange(m1, device=dev)[:, None]
+                               * torch.arange(m2, device=dev)[None, :]]
     a = torch.zeros(*x.shape[:-1], m, dtype=torch.complex64, device=dev)
-    a[..., :n] = x * chirp
+    a[..., :n] = (x * chirp).conj()
     a = a.reshape(*x.shape[:-1], m1, m2)                     # [j1, j2]
-    a = torch.fft.fft(a, dim=-2) * tw[idx].conj()            # [k1, j2]
-    a = torch.fft.fft(a, dim=-1) * bluestein_filter(n, dev)  # [k1, k2]
-    a = torch.fft.ifft(a, dim=-1, norm="forward") * tw[idx]  # [k1, j2]
+    a = torch.fft.ifft(a, dim=-2, norm="forward") * tw       # [k1, j2]
+    a = torch.fft.ifft(a, dim=-1, norm="forward")            # [k1, k2]
+    a = a.conj() * bluestein_filter(n, m1, m2, dev)
+    a = torch.fft.ifft(a, dim=-1, norm="forward") * tw       # [k1, j2]
     a = torch.fft.ifft(a, dim=-2, norm="forward")            # [j1, j2]
     return a.reshape(*x.shape[:-1], m)[..., :n] * chirp
 
@@ -713,16 +807,19 @@ def pcps_bins_launch_args(spectra, code_k, bin_shifts, entry=None):
         return kernel, out, args
     if kernel is BLUESTEIN_KERNEL:
         m, m1, m2 = shape
+        plan1, plan2 = sub_plan(m1), sub_plan(m2)
         chunk = scratch_chunk_pairs(n_ch * len(bin_shifts), nc, m)
         scratch = _DevicePointer(
             torch.empty(chunk * nc * m, dtype=c64, device=dev))
         args = (native.ptr(spectra), native.ptr(code_k),
                 native.ptr(chirp_table(n, dev)),
-                native.ptr(bluestein_filter(n, dev)),
+                native.ptr(bluestein_filter(n, m1, m2, dev)),
                 native.ptr(twiddle_table(m, dev)), native.ptr(shift),
-                native.ptr(phase), n_ch, nc, n, m1.bit_length() - 1,
-                m2.bit_length() - 1, len(bin_shifts), scratch, chunk,
-                *tail[1:])
+                native.ptr(phase), native.ptr(_bin_order(bin_shifts, dev)),
+                n_ch, nc, n, m1, m2,
+                (_INT * len(plan1))(*plan1), len(plan1),
+                (_INT * len(plan2))(*plan2), len(plan2), len(bin_shifts),
+                scratch, chunk, *tail[1:])
         return kernel, out, args
     head = (native.ptr(spectra), native.ptr(code_k),
             native.ptr(twiddle_table(n, dev)), native.ptr(shift),

@@ -11,6 +11,7 @@ code index, and a two-peak metric within 0.05.
 """
 
 import functools
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -542,7 +543,7 @@ def test_kernel_for_refuses_n_without_entry(n, why):
         assert kernel is getattr(acq_kernel, why)
         if why == "BLUESTEIN_KERNEL":
             assert shape == acq_kernel.bluestein_lengths(n) \
-                == (262144, 512, 512)
+                == (133100, 121, 1100)
         else:
             assert shape[:2] == acq_kernel.balanced_factors(n) \
                 == {66000: (250, 264), 131072: (256, 512)}[n]
@@ -574,32 +575,126 @@ def test_stockham_ifft_ref_matches_ifft(n):
 
 
 # Bluestein lengths: large prime factors (9722 = 2 * 4861, 16370 =
-# 2 * 5 * 1637, 65498 = 2 * 32749), 1517 = 37 * 41, and front ends at 70
-# and 122.88 Msps (70000 = 2^4 * 5^4 * 7, 122880 = 2^13 * 3 * 5).
-BLUESTEIN_N = (1517, 9722, 16370, 65498, 70000, 122880)
+# 2 * 5 * 1637, 65498 = 2 * 32749), 1517 = 37 * 41, front ends at 70,
+# 99.375 and 122.88 Msps (70000 = 2^4 * 5^4 * 7, 99375 = 3 * 5^4 * 53,
+# 122880 = 2^13 * 3 * 5), the first n above the clusters (65538 = 2 *
+# 3^2 * 11 * 331) and 131074 = 2 * 65537.
+BLUESTEIN_N = (1517, 9722, 16370, 65498, 70000, 122880, 65538, 99375,
+               131074)
+
+
+def is_13_smooth(m):
+    """Whether m's prime factors are all at most 13."""
+    for p in (2, 3, 5, 7, 11, 13):
+        while m % p == 0:
+            m //= p
+    return m == 1
+
+
+def fewest_passes(lo, hi):
+    """By brute force, ``(passes, M, M1, M2)`` of the Bluestein length rule
+    over the 13-smooth M in [lo, hi] (:func:`smooth_13`): every split M =
+    M1 * M2 with 2 <= M1 <= 1024 and 2 <= M2 <= 4096 (M1 13-smooth, as
+    every divisor of M is), the passes of the two sub-plans; the fewest
+    passes, then the least M, then the least larger factor, then the
+    larger M1 (None where no M in the range splits)."""
+    smooth = smooth_13()
+    ms = smooth[np.searchsorted(smooth, lo):np.searchsorted(smooth, hi,
+                                                            "right")]
+    columns = smooth[(smooth >= 2) & (smooth <= 1024)].tolist()
+    best = None
+    for m in ms.tolist():
+        for m1 in columns:
+            if m % m1 == 0 and 2 <= m // m1 <= 4096:
+                m2 = m // m1
+                key = (len(acq_kernel.sub_plan(m1))
+                       + len(acq_kernel.sub_plan(m2)), m, max(m1, m2), -m1)
+                best = key if best is None or key < best else best
+    return None if best is None else (*best[:2], -best[3], best[1] // -best[3])
 
 
 @pytest.mark.parametrize("n", BLUESTEIN_N)
 def test_bluestein_ifft_ref_matches_ifft(n):
-    """The Bluestein entry's steps (chirp index, padding to M, the split
-    M = M1 * M2 with its twiddle indices, the filter in its [k1, k2]
-    order), walked in PyTorch, against torch.fft.ifft on seeded inputs:
-    within 1e-5 of the largest output."""
+    """The Bluestein entry's steps (chirp index, the length rule: of the
+    13-smooth M from 2n - 1 up to 2% above it, the one whose split M = M1 *
+    M2 within the tile FFT's limits has the fewest passes, then the least;
+    the split's twiddle indices, the forward transform in the conjugate,
+    the filter in its [k1, k2] order), walked in PyTorch, against
+    torch.fft.ifft on seeded inputs: within 1e-5 of the largest output."""
     rng = np.random.default_rng(n)
     x = torch.tensor(rng.normal(size=(3, n)) + 1j * rng.normal(size=(3, n)),
                      dtype=torch.complex64)
     m, m1, m2 = acq_kernel.bluestein_lengths(n)
-    assert m == 1 << (2 * n - 2).bit_length() and m // 2 < 2 * n - 1 <= m
-    assert m1 * m2 == m and m1 <= m2 <= acq_kernel.BLUESTEIN_MAX_SUB
-    filt = acq_kernel.bluestein_filter(n, torch.device("cpu"))
+    need = 2 * n - 1
+    assert need <= m <= need + need // 50 and is_13_smooth(m)
+    if n <= 9722:
+        assert fewest_passes(need, need + need // 50)[1:] == (m, m1, m2)
+    assert m1 * m2 == m
+    assert m1 <= acq_kernel.TWOSTEP_MAX_N1 and m2 <= acq_kernel.TWOSTEP_MAX_N2
+    filt = acq_kernel.bluestein_filter(n, m1, m2, torch.device("cpu"))
     assert filt.shape == (m1, m2) and filt.dtype == torch.complex64
     got = acq_kernel.bluestein_ifft_ref(x, n)
     ref = torch.fft.ifft(x)
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
+@functools.lru_cache(maxsize=1)
+def smooth_13(limit=1 << 22):
+    """Every 13-smooth number up to ``limit``, ascending, by stripping the
+    factors 2 to 13 from every number (numpy, once per module)."""
+    v = np.arange(limit + 1, dtype=np.int64)
+    rest = v.copy()
+    rest[0] = 0
+    for p in (2, 3, 5, 7, 11, 13):
+        while True:
+            hit = (rest % p == 0) & (rest > 0)
+            if not hit.any():
+                break
+            rest[hit] //= p
+    return v[rest == 1]
+
+
+@pytest.mark.parametrize("lo, hi", [
+    (2, 65536), (65537, 262144), (262145, 1 << 20)])
+def test_bluestein_lengths_rule(lo, hi):
+    """The Bluestein entry's convolution length for every n in [lo, hi]:
+    M 13-smooth (against every number stripped of the factors 2 to 13)
+    from 2n - 1 up to 2% above it, so below 2^22 up to n = 2^20; split M =
+    M1 * M2 with M1 <= 1024 and M2 <= 4096 (the tile FFT's columns and
+    rows), each a length with a sub-plan; and, on every n below 236 and
+    every 1001st n above, by brute force, the M whose split has the
+    fewest passes (then the least M), split with the fewest passes (then
+    the most balanced, then the longer columns): over the window, or,
+    where no M of the window splits (35 n below 236), over the 13-smooth
+    M above it up to the first that splits."""
+    smooth = smooth_13()
+    assert tuple(smooth[smooth <= 1 << 22]) == acq_kernel.smooth_numbers(
+        acq_kernel.BLUESTEIN_PRIMES, 1 << 22)
+    n = np.arange(lo, hi + 1)
+    need = 2 * n - 1
+    got = np.array([acq_kernel.bluestein_lengths(v) for v in n.tolist()])
+    m = got[:, 0]
+    assert np.isin(m, smooth).all()
+    assert (m >= need).all() and m.max() < 1 << 22
+    window = n >= 236
+    assert (m[window] <= need[window] + need[window] // 50).all()
+    assert (got[:, 1] * got[:, 2] == m).all()
+    assert (got[:, 1] >= 2).all() and (got[:, 1] <= 1024).all()
+    assert (got[:, 2] >= 2).all() and (got[:, 2] <= 4096).all()
+    for i in [*np.flatnonzero(~window), *range(0, len(n), 1001)]:
+        want = fewest_passes(need[i], need[i] + need[i] // 50)
+        if want is None:
+            up = smooth[smooth >= need[i]]
+            want = next(w for w in (fewest_passes(v, v) for v in up.tolist())
+                        if w is not None)
+        assert want[1:] == tuple(got[i]), int(n[i])
+    for v in np.unique(m).tolist():
+        m1, m2 = acq_kernel.tile_split(v)
+        assert acq_kernel.sub_plan(m1) and acq_kernel.sub_plan(m2)
+
+
 @pytest.mark.parametrize("pairs, nc, m, chunk", [
-    (808, 10, 1 << 18, 25),    # 70 Msps on the Bluestein entry: 33 chunks
+    (808, 10, 1 << 18, 25),    # M = 2^18: 33 chunks
     (22, 2, 1 << 21, 16),      # 2^20 - 2 at 1 ch x 11 bins x 2 blocks
     (3, 1, 1 << 15, 3),        # fewer pairs than the cap holds
     (808, 32, 1 << 21, 1),     # one pair fills the cap exactly
@@ -800,6 +895,69 @@ def test_acquire_matches_jax_at_70000_ksps():
         assert abs(float(m_w[0]) - float(m_r[0])) < 0.05
 
 
+# A 9.722 Msps front end: n = 9722 = 2 * 4861, a prime factor above the
+# radix entries' GENERIC_MAX_PRIME, whose transform the card runs on the
+# Bluestein entry (M = 19500 = 150 x 130); the JAX map factors it
+# 2 x 4861.
+FS_97 = 9.722e6
+N_97 = 9722
+
+
+def test_acquire_matches_jax_at_9722_ksps():
+    """The module's capture and bounds at 9.722 Msps, 1 channel, 11 bins,
+    1 x 2 blocks: the port's ``acquire`` and the map built by the
+    Bluestein entry's steps (``bluestein_bins_ref``, the entry the card
+    takes at this n) on the same spectra, against JAX's
+    ``pcps_shift_map`` and ``peak_metric``, as at 70 Msps (5e-3 of the
+    map's maximum: the JAX map's matmul DFT; the same Doppler bin and
+    code index)."""
+    coher, noncoh = 1, 2
+    assert mmfft._balanced_factors(N_97) == (2, 4861)
+    kernel, shape = acq_kernel.kernel_for(N_97)
+    assert kernel is acq_kernel.BLUESTEIN_KERNEL
+    assert shape == (19500, 150, 130)
+    gen = IQGenerator(FS_97, noise=True, seed=5)
+    gen.add_satellite(17, doppler_hz=-260.0, code_phase_chips=77.7,
+                      cn0_dbhz=45.0)
+    iq = gen.generate_ms(coher * noncoh)
+    iq_re, iq_im = np.float32(iq.real)[None], np.float32(iq.imag)[None]
+    k = jacq.code_fft_conj(17, FS_97)[None]
+    bins = jacq.doppler_bins(500, 100)
+    assert len(bins) == 11
+    phases, bin_shifts = jacq.shift_plan(bins, FS_97, N_97, mode="shift")
+    ref = np.asarray(jacq.pcps_shift_map(
+        jnp.asarray(iq_re), jnp.asarray(iq_im),
+        jnp.asarray(np.float32(k.real)), jnp.asarray(np.float32(k.imag)),
+        mmfft.make_plan(N_97), mmfft.make_plan(N_97, inverse=True),
+        sampling_frequency=FS_97, coherent=coher, non_coherent=noncoh,
+        phases=phases, bin_shifts=bin_shifts))
+    dop, ci, metric, got = tacq.acquire(
+        (torch.from_numpy(iq_re), torch.from_numpy(iq_im)), k, bins,
+        sampling_frequency=FS_97, coherent=coher, non_coherent=noncoh)
+    got = got.numpy()
+    assert got.shape == ref.shape == (1, 11, N_97)
+    assert (np.abs(got - ref) / np.abs(ref).max()).max() < 5e-3
+    spc = round(FS_97 / 1.023e6)
+    d_r, c_r, m_r = jacq.peak_metric(jnp.asarray(ref), jnp.asarray(bins),
+                                     samples_per_chip=spc)
+    assert float(d_r[0]) == float(dop[0])
+    assert abs(float(dop[0]) + 260.0) <= 100.0
+    assert int(c_r[0]) == int(ci[0])
+    assert abs(float(m_r[0]) - float(metric[0])) < 0.05
+    spectra = tacq.phase_spectra(
+        torch.from_numpy(iq_re), torch.from_numpy(iq_im), n=N_97,
+        sampling_frequency=FS_97, coherent=coher, non_coherent=noncoh,
+        phases=phases)
+    walk = acq_kernel.bluestein_bins_ref(
+        spectra, torch.from_numpy(k).to(torch.complex64), bin_shifts).numpy()
+    assert (np.abs(walk - ref) / np.abs(ref).max()).max() < 5e-3
+    d_w, c_w, m_w = tacq.peak_metric(torch.from_numpy(walk),
+                                     torch.from_numpy(bins),
+                                     samples_per_chip=spc)
+    assert float(d_w[0]) == float(d_r[0]) and int(c_w[0]) == int(c_r[0])
+    assert abs(float(m_w[0]) - float(m_r[0])) < 0.05
+
+
 @functools.lru_cache(maxsize=1)
 def prime_sieve(limit=(1 << 20) + 8):
     """``sieve[n]``: whether n is prime, for n up to ``limit`` (numpy,
@@ -829,9 +987,9 @@ def test_every_non_prime_n_above_65536_has_an_entry(lo, hi, step):
     that is not prime has a K2 entry on the card: a radix entry whose
     block or cluster of 8 fits (:func:`assert_block_fits`), the two-step
     entry (31-smooth: n = N1 * N2, N1 <= 1024, N2 <= 4096), or the
-    Bluestein entry with M the least power of two >= 2n - 1 and M = M1 *
-    M2, M1 <= M2 <= 2048. Every prime raises ``ValueError``, as JAX's
-    ``_balanced_factors`` does."""
+    Bluestein entry with M a 13-smooth number from 2n - 1 up to 2% above
+    it and M = M1 * M2, M1 <= 1024, M2 <= 4096. Every prime raises
+    ``ValueError``, as JAX's ``_balanced_factors`` does."""
     sieve = prime_sieve()
     radix = twostep = bluestein = primes = 0
     for n in range(lo, hi + 1, step):
@@ -846,8 +1004,9 @@ def test_every_non_prime_n_above_65536_has_an_entry(lo, hi, step):
         kernel, shape = acq_kernel.kernel_for(n)
         if kernel is acq_kernel.BLUESTEIN_KERNEL:
             m, m1, m2 = shape
-            assert m & (m - 1) == 0 and m // 2 < 2 * n - 1 <= m, n
-            assert m1 * m2 == m and m1 <= m2 <= 2048, n
+            need = 2 * n - 1
+            assert need <= m <= need + need // 50 and is_13_smooth(m), n
+            assert m1 * m2 == m and m1 <= 1024 and m2 <= 4096, n
             assert acq_kernel.prime_factors(n)[-1] > 31, n
             bluestein += 1
             continue

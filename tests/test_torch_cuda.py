@@ -10,9 +10,9 @@ the index arithmetic) and sums in another order: 1e-2 + 1e-4 of the
 largest correlator. K2 is a float32 radix FFT in shared memory, on one
 block or on a cluster of blocks (a prime factor above 31 a generic pass,
 a direct sum), the same butterflies over tiles of a length-n FFT in two
-passes through global memory, or Bluestein's chirp convolution as
-power-of-two FFTs through global memory, against cuFFT, both float32: 1e-4
-of the map's maximum.
+passes through global memory, or Bluestein's chirp convolution at a
+13-smooth length on those tile FFTs through global memory, against cuFFT,
+both float32: 1e-4 of the map's maximum.
 K3 builds the same per-sample values as K1 and scans them in another
 order than ``torch.cumsum``: the raw prefix within ``4 * sqrt(n_win) *
 2^-24`` of its largest magnitude (a random walk of float32 roundings over
@@ -255,10 +255,11 @@ def test_pcps_bins_generic_pass_matches_plain(n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [9722, 65498, 131074])
+@pytest.mark.parametrize("n", [9722, 65498, 65538, 99375, 131074])
 def test_pcps_bins_bluestein_matches_plain(n):
     """The Bluestein entry at a large prime factor (9722 = 2 * 4861,
-    65498 = 2 * 32749, and 131074 = 2 * 65537, above the clusters), 1
+    65498 = 2 * 32749; above the clusters: 65538 = 2 * 3^2 * 11 * 331,
+    99375 = 3 * 5^4 * 53 at 99.375 Msps, and 131074 = 2 * 65537), 1
     channel x 11 bins x 2 blocks: the wrapper launches it, and only it,
     once; a second run is bit-identical (the nc blocks are summed in
     order, no atomics)."""
@@ -280,14 +281,15 @@ def test_pcps_bins_bluestein_chunks_the_pairs():
     """More (bin, channel) pairs than the scratch holds: the entry runs
     them in chunks inside one call and equals the plain version."""
     spec, code, plan = _k2_inputs(9722, 3, _cuda(), n_bins=7, nc=2)
+    m = acq_kernel.bluestein_lengths(9722)[0]
     cap = acq_kernel.SCRATCH_BYTES
-    acq_kernel.SCRATCH_BYTES = 2 * 2 * 32768 * 8   # 2 pairs
+    acq_kernel.SCRATCH_BYTES = 2 * 2 * m * 8   # 2 pairs of 2 transforms
     try:
         kernel, got, args = acq_kernel.pcps_bins_launch_args(spec, code,
                                                              plan)
     finally:
         acq_kernel.SCRATCH_BYTES = cap
-    assert kernel is acq_kernel.BLUESTEIN_KERNEL and args[14] == 2
+    assert kernel is acq_kernel.BLUESTEIN_KERNEL and args[19] == 2
     kernel.launch(*args)
     ref = acq_kernel.pcps_bins_ref(spec, code, plan)
     torch.cuda.synchronize()

@@ -23,10 +23,17 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
   or a cluster holds n's plan), on the same inputs, each held against the
   plain version, beside ``torch.fft.ifft``: the measurement behind
   ``acq_kernel.GENERIC_MAX_PRIME``. A launch above half a second is
-  timed once, between CUDA events. With ``--bluestein``, the Bluestein
-  entry built with each register cap of ``BLUESTEIN_MIN_BLOCKS`` (its
-  ``kMinBlocks``: blocks an SM), timed in turns, and the split of the
-  default's device time over its three kernels (``torch.profiler``).
+  timed once, between CUDA events. With ``--bluestein`` (default n:
+  :data:`BLUESTEIN_N`), the Bluestein entry at the convolution lengths
+  of the source's rule and of each of :data:`BLUESTEIN_RULES` (the least
+  5-, 7-, 13- and 31-smooth M >= 2n - 1 split balanced, the least
+  7-smooth with the longest columns and with the fewest passes, and the
+  5- and 7-smooth M within 2% with the fewest passes), at 8 ch x 101
+  bins x 10 blocks and 1 ch x 11 bins x 2 blocks, timed in turns, with
+  each rule's geometric mean over the n of its time over the fastest:
+  the measurement behind ``acq_kernel.bluestein_lengths``; then the
+  split of the source rule's device time over its three kernels
+  (``torch.profiler``).
 * ``--twostep``: K2's two-step entry at 8 ch x 101 bins x 10 blocks at
   each ``--n`` (default 70000 and 245520): (1) the entry built with each
   of :data:`TWOSTEP_SHAPES` (threads a block, and blocks an SM for each
@@ -39,10 +46,13 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
   beside the cluster entry that ``kernel_for`` gives there and
   ``torch.fft.ifft`` (a record for a later routing decision).
 * ``--parent DIR`` (a checkout of another commit): DIR's K2 entries
-  against this tree's radix entries at the production shapes of the
-  lengths that keep them (one block at n = 2500, 10000, 4092, 4070; a
-  cluster at 16368, 26500, 40920), or at ``--n`` with ``--channels``,
-  maps bit for bit, device times in turns parent, this, this, parent.
+  against this tree's on the entry that ``kernel_for`` gives, at the
+  production shapes (one block at n = 2500, 10000, 4092, 4070; a cluster
+  at 16368, 26500, 40920; the two-step entry at 70000 and 245520; the
+  Bluestein entry at :data:`BLUESTEIN_N`), or at ``--n`` with
+  ``--channels``: the radix and two-step maps bit for bit, the Bluestein
+  maps (each tree's own arguments) against the plain version, device
+  times in turns parent, this, this, parent.
 * K3 ``block_cumsum_streams`` at its three shapes (cruise, pull-in, full
   rate): the device time of the totals launch, the prefix launch and both,
   and of the kernel that only makes K3's stores, for several segment
@@ -55,6 +65,7 @@ spinning kernel, between CUDA events). Needs a CUDA device; imports no JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import itertools
 import os
 import sys
@@ -230,74 +241,244 @@ def k2_entries(n: int, n_ch: int, device) -> None:
           f"{routed.source}", flush=True)
 
 
-# kMinBlocks of csrc/pcps_bins_bluestein.cu tried by --bluestein (3 is
-# the source's): a register cap of 128, 85 and 64 a thread.
-BLUESTEIN_MIN_BLOCKS = (2, 3, 4)
+# Code periods of --bluestein (and --parent): the 9.722 Msps session's,
+# large prime factors below the clusters, the first n above them, a
+# 99.375 Msps front end (3 x 5^4 x 53) and 2 x 65537.
+BLUESTEIN_N = (9722, 16370, 65498, 65538, 99375, 131074)
+PRIMES = {5: (2, 3, 5), 7: (2, 3, 5, 7), 13: (2, 3, 5, 7, 11, 13),
+          31: (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31)}
 
 
-def k2_bluestein(ns, n_ch: int, device) -> None:
-    """The Bluestein entry with each of :data:`BLUESTEIN_MIN_BLOCKS` (a
-    copy of its source under ``_build/``), each checked against the plain
-    version and timed in two turns, then the device time of each of the
-    source's three kernels in one call (``torch.profiler``)."""
-    from pathlib import Path
+@functools.lru_cache(maxsize=None)
+def smooth(top: int) -> tuple:
+    """The PRIMES[top]-smooth numbers up to 2^22."""
+    from sydr_tpu_torch.ops import acq_kernel
 
+    return acq_kernel.smooth_numbers(PRIMES[top], 1 << 22)
+
+
+@functools.lru_cache(maxsize=None)
+def split_of(m: int, how: str):
+    """``(M1, M2)`` of ``m`` for the tile FFT (M1 <= 1024, M2 <= 4096,
+    both at least 2) by the split ``how``: "balanced" (M1 the largest
+    divisor up to sqrt(M)), "long columns" (M1 the largest divisor) or
+    "fewest passes" (``acq_kernel.tile_split``: the fewest passes of the
+    two sub-plans, then the most balanced); None where there is none."""
+    from sydr_tpu_torch.ops import acq_kernel
+
+    fits = [(m1, m // m1) for m1 in range(2, acq_kernel.TWOSTEP_MAX_N1 + 1)
+            if m % m1 == 0 and 2 <= m // m1 <= acq_kernel.TWOSTEP_MAX_N2]
+    if not fits:
+        return None
+    if how == "balanced":
+        return max((f for f in fits if f[0] <= f[1]), default=None)
+    if how == "long columns":
+        return max(fits)
+    return acq_kernel.tile_split(m)
+
+
+def passes(m1: int, m2: int) -> int:
+    """Passes of the two sub-plans of the split M1 x M2."""
+    from sydr_tpu_torch.ops import acq_kernel
+
+    return len(acq_kernel.sub_plan(m1)) + len(acq_kernel.sub_plan(m2))
+
+
+def bluestein_rule(top: int, how: str, slack: float = 0.0):
+    """A rule n -> (M, M1, M2): the least PRIMES[top]-smooth M >= 2n - 1
+    that splits by ``how``; with ``slack``, of the smooth M up to (1 +
+    slack)(2n - 1), the one whose split by ``how`` has the fewest passes
+    (then the least M)."""
+    import bisect
+
+    def lengths(n):
+        nums = smooth(top)
+        i = bisect.bisect_left(nums, 2 * n - 1)
+        best = None
+        while best is None or nums[i] <= (1 + slack) * (2 * n - 1):
+            split = split_of(nums[i], how)
+            if split is not None:
+                key = (passes(*split) if slack else 0, nums[i])
+                if best is None or key < best[0]:
+                    best = (key, (nums[i], *split))
+            i += 1
+        return best[1]
+
+    return lengths
+
+
+# The rules that --bluestein times beside acq_kernel.bluestein_lengths
+# (SOURCE_RULE: the 13-smooth M within 2% above 2n - 1 with the fewest
+# passes): the least 5-, 7-, 13- and 31-smooth M >= 2n - 1, split
+# balanced, the least 7-smooth with the longest columns and with the
+# fewest passes, and the 5- and 7-smooth M within 2% with the fewest
+# passes.
+SOURCE_RULE = "13-smooth within 2%, fewest passes (the source's rule)"
+BLUESTEIN_RULES = {
+    "least 7-smooth, balanced": bluestein_rule(7, "balanced"),
+    "least 5-smooth, balanced": bluestein_rule(5, "balanced"),
+    "least 13-smooth, balanced": bluestein_rule(13, "balanced"),
+    "least 31-smooth, balanced": bluestein_rule(31, "balanced"),
+    "least 7-smooth, long columns": bluestein_rule(7, "long columns"),
+    "least 7-smooth, fewest passes": bluestein_rule(7, "fewest passes"),
+    "5-smooth within 2%, fewest passes": bluestein_rule(
+        5, "fewest passes", 0.02),
+    "7-smooth within 2%, fewest passes": bluestein_rule(
+        7, "fewest passes", 0.02),
+}
+
+
+def bluestein_candidates(n: int) -> dict:
+    """``{(M, M1, M2): [rules]}``: the lengths of the source's rule and of
+    each of BLUESTEIN_RULES at ``n``."""
+    from sydr_tpu_torch.ops import acq_kernel
+
+    out = {acq_kernel.bluestein_lengths(n): [SOURCE_RULE]}
+    for name, rule in BLUESTEIN_RULES.items():
+        out.setdefault(rule(n), []).append(name)
+    return out
+
+
+def timer(fn, reps: int):
+    """How to time ``fn`` (a C entry point's call): ``chip_smoke.device_ms``
+    over ``reps`` calls, or, where one call takes more than 5 ms (up to
+    hundreds of launches a call in chunks of pairs: more than the launch
+    queue holds behind ``device_ms``'s spin), ``chip_smoke.cuda_ms`` over
+    3 calls, whose host share is then nothing."""
+    if chip_smoke.cuda_ms(fn, 1) > 5.0:
+        return lambda f: chip_smoke.cuda_ms(f, 3)
+    return lambda f: chip_smoke.device_ms(f, reps)
+
+
+class bluestein_lengths_as:
+    """Within the block, ``acq_kernel.bluestein_lengths`` gives
+    ``lengths`` (the wrapper builds the entry's arguments at them)."""
+
+    def __init__(self, lengths):
+        self.lengths = lengths
+
+    def __enter__(self):
+        from sydr_tpu_torch.ops import acq_kernel
+
+        self.rule = acq_kernel.bluestein_lengths
+        acq_kernel.bluestein_lengths = lambda n: self.lengths
+
+    def __exit__(self, *exc):
+        from sydr_tpu_torch.ops import acq_kernel
+
+        acq_kernel.bluestein_lengths = self.rule
+
+
+def sweep_inputs(n: int, device):
+    """``chip_smoke.k2_sweep``'s inputs: 1 ch x 11 bins x 2 blocks."""
+    import torch
+
+    g = torch.Generator().manual_seed(chip_smoke.SEED)
+    spec = torch.randn(2, 1, 2, n, dtype=torch.complex64,
+                       generator=g).to(device)
+    code = torch.randn(1, n, dtype=torch.complex64, generator=g).to(device)
+    return spec, code, tuple((b - 5, b % 2) for b in range(11))
+
+
+def kernel_split(fn, calls: int = 3) -> dict:
+    """Device milliseconds a call of ``fn`` spends in each kernel (its
+    name's first word before a template argument), ``torch.profiler``
+    over ``calls`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        if ev.device_time_total > 0:
+            key = ev.key.replace("(anonymous namespace)::", "")
+            key = key.split("(")[0].split("<")[0].split()[-1]
+            split[key] = split.get(key, 0.0) + ev.device_time_total / (
+                1e3 * calls)
+    return split
+
+
+def k2_bluestein(ns, n_ch: int, device) -> None:
+    """The Bluestein entry at the lengths of each of BLUESTEIN_RULES (built
+    with every variant of the tile FFT, a copy of its source under
+    ``_build/``), at 8 ch x 101 bins x 10 blocks (``n_ch``) and 1 ch x 11
+    bins x 2 blocks, each held against the plain version and timed in two
+    turns; per rule and shape, the geometric mean over ``ns`` of its time
+    over the fastest; then the device time of each of the source rule's
+    three kernels in one call (``torch.profiler``)."""
+    import torch
+
     from sydr_tpu_torch.ops import acq_kernel, native
 
-    base = acq_kernel.BLUESTEIN_KERNEL
-    text = (base.csrc_dir / base.source).read_text()
-    line = "constexpr int kMinBlocks = 3;"
-    chip_smoke.check(line in text, "kMinBlocks not found in the source")
-    variants = {}
-    for blocks in BLUESTEIN_MIN_BLOCKS:
-        folder = Path(native.PACKAGE_DIR, "_build", "variants",
-                      f"min_blocks_{blocks}")
-        folder.mkdir(parents=True, exist_ok=True)
-        (folder / base.source).write_text(
-            text.replace(line, f"constexpr int kMinBlocks = {blocks};"))
-        variants[blocks] = native.CudaKernel(base.source, base.symbol,
-                                             base.argtypes, csrc_dir=folder)
-    native.build_all(list(variants.values()))
-    for blocks, kern in variants.items():
-        usage = [ln.strip() for ln in kern.build_log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"kMinBlocks {blocks}: " + "; ".join(usage), flush=True)
+    wide = source_variant(acq_kernel.BLUESTEIN_KERNEL, "bluestein_wide",
+                          {"constexpr int kWidestRadix = ": 31})
+    native.build_all([wide])
+    usage = [ln.strip() for ln in wide.build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    print("Bluestein entry with every variant: " + "; ".join(usage),
+          flush=True)
+    fn = wide.function()
+    shapes = (f"{n_ch} ch x 101 bins x 10", "1 ch x 11 bins x 2")
+    names = [SOURCE_RULE, *BLUESTEIN_RULES]
+    ratios = {(name, shape): [] for name in names for shape in shapes}
     for n in ns:
+        cands = bluestein_candidates(n)
+        rule = acq_kernel.bluestein_lengths(n)
+        for shape, (spec, code, bins) in zip(
+                shapes, (k2_inputs(n, n_ch, device), sweep_inputs(n, device))):
+            ref = acq_kernel.pcps_bins_ref(spec, code, bins)
+            bound = chip_smoke.K2_RTOL * float(ref.abs().max())
+            reps = 5 if len(bins) > 11 else 20
+            times = {lengths: [] for lengths in cands}
+            clock = None
+            for turn in (list(cands), list(cands)[::-1]):
+                for lengths in turn:
+                    with bluestein_lengths_as(lengths):
+                        _, out, cargs = acq_kernel.pcps_bins_launch_args(
+                            spec, code, bins, entry="bluestein")
+                    chip_smoke.check(fn(*cargs) == 0,
+                                     f"M = {lengths}: launch failed")
+                    torch.cuda.synchronize()
+                    err = float((out - ref).abs().max())
+                    chip_smoke.check(err <= bound, f"M = {lengths}: error "
+                                                   f"{err} above {bound}")
+                    clock = clock or timer(lambda: fn(*cargs), reps)
+                    times[lengths].append(clock(lambda: fn(*cargs)))
+                    del out, cargs
+            library = chip_smoke.ifft_library_ms(spec, code, bins, True)
+            fastest = min(sum(t) / 2 for t in times.values())
+            print(f"K2 Bluestein n={n}, {shape}: ifft {library:.4f} ms; "
+                  f"the source's M = {rule[0]} = {rule[1]} x {rule[2]}",
+                  flush=True)
+            for lengths, t in sorted(times.items(), key=lambda kv: sum(kv[1])):
+                m, m1, m2 = lengths
+                for name in cands[lengths]:
+                    ratios[(name, shape)].append(sum(t) / 2 / fastest)
+                print(f"   M = {m} = {m1} x {m2} ({m / (2 * n - 1):.4f} "
+                      f"(2n - 1)), plans {acq_kernel.sub_plan(m1)} "
+                      f"{acq_kernel.sub_plan(m2)}: {t[0]:.4f} / {t[1]:.4f} "
+                      f"ms [{'; '.join(cands[lengths])}]"
+                      + (" <- the source's" if lengths == rule else ""),
+                      flush=True)
         spec, code, bins = k2_inputs(n, n_ch, device)
-        ref = acq_kernel.pcps_bins_ref(spec, code, bins)
-        bound = chip_smoke.K2_RTOL * float(ref.abs().max())
-        _, out, cargs = acq_kernel.pcps_bins_launch_args(
+        kern, _, cargs = acq_kernel.pcps_bins_launch_args(
             spec, code, bins, entry="bluestein")
-        times = {blocks: [] for blocks in variants}
-        for turn in (BLUESTEIN_MIN_BLOCKS, BLUESTEIN_MIN_BLOCKS[::-1]):
-            for blocks in turn:
-                fn = variants[blocks].function()
-                chip_smoke.check(fn(*cargs) == 0, "launch failed")
-                torch.cuda.synchronize()
-                err = float((out - ref).abs().max())
-                chip_smoke.check(err <= bound, f"kMinBlocks {blocks}: "
-                                               f"error {err}")
-                times[blocks].append(chip_smoke.device_ms(
-                    lambda: fn(*cargs), 5))
-        fn = base.function()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                fn(*cargs)
-            torch.cuda.synchronize()
-        names = ("column_forward", "row_filter", "column_inverse")
-        split = {next((k for k in names if k in ev.key), ev.key[:40]):
-                 ev.device_time_total / 3e3
-                 for ev in prof.key_averages() if ev.device_time_total > 0}
-        print(f"K2 Bluestein n={n}, {n_ch} ch x {len(bins)} bins x 10 "
-              f"blocks, device ms by kMinBlocks: "
-              + ", ".join(f"{b}: {t[0]:.4f} / {t[1]:.4f}"
-                          for b, t in times.items())
-              + "; the source's kernels a call: "
-              + ", ".join(f"{k} {v:.4f}" for k, v in split.items()),
+        own = kern.function()
+        split = kernel_split(lambda: own(*cargs))
+        print(f"K2 Bluestein n={n}, {n_ch} ch x 101 bins x 10, the source's "
+              f"kernels a call: " + ", ".join(f"{k} {v:.4f} ms"
+                                              for k, v in split.items()),
               flush=True)
+    for shape in shapes:
+        print(f"K2 Bluestein rules at {shape}, n = {list(ns)}: geometric "
+              f"mean of the time over the fastest's", flush=True)
+        for name in sorted(names, key=lambda k: np.prod(ratios[(k, shape)])):
+            r = ratios[(name, shape)]
+            print(f"   {name}: {np.prod(r) ** (1 / len(r)):.4f} (worst "
+                  f"{max(r):.4f})", flush=True)
 
 
 # (threads, (blocks an SM of the variants with radices up to 10, up to
@@ -312,55 +493,72 @@ TWOSTEP_SHAPES = ((256, (4, 4, 2), 2048, 50 << 20),
                   (256, (4, 4, 2), 4096, 50 << 20),
                   (512, (2, 2, 1), 2048, 50 << 20),
                   (128, (6, 6, 2), 2048, 50 << 20))
-# The source's twiddle of (a)'s last pass, as two factors of the table,
-# and the direct read that --twostep times beside it.
-TWOSTEP_TWIDDLE = ("cmul(__ldg(a.tw + (r & ~1023)), __ldg(a.tw + (r & 1023)))",
-                   "__ldg(a.tw + r)")
+# The twiddle of (a)'s last pass, as two factors of the table
+# (csrc/pcps_tile.cuh's table_twiddle), and the direct read that --twostep
+# times beside it.
+TWOSTEP_TWIDDLE = ("cmul(__ldg(tw + (r & ~1023)), __ldg(tw + (r & 1023)))",
+                   "__ldg(tw + r)")
 # Pairs a chunk tried by --twostep beside the wrapper's own.
 TWOSTEP_CHUNK_PAIRS = (4, 8, 16, 32)
 # Lengths below 65,536 where --twostep forces the entry.
 TWOSTEP_FORCED_N = (16368, 40920)
 
 
+def source_variant(kern, tag, lines, swap=None):
+    """``kern``'s source and the headers beside it with the lines that
+    start with a key of ``lines`` (each once in all the files) given that
+    value (``constexpr int kThreads = 256;`` with ``{"constexpr int
+    kThreads = ": 512}``), and the text ``swap[0]`` (once) replaced by
+    ``swap[1]``, as a kernel built from copies under
+    ``_build/variants/<tag>``."""
+    from pathlib import Path
+
+    from sydr_tpu_torch.ops import native
+
+    files = [kern.source] + sorted(h.name
+                                   for h in kern.csrc_dir.glob("*.cuh"))
+    texts = {name: (kern.csrc_dir / name).read_text() for name in files}
+    found = {head: 0 for head in lines}
+    for name, text in texts.items():
+        out = []
+        for line in text.splitlines(keepends=True):
+            for head, value in lines.items():
+                if line.startswith(head):
+                    line = f"{head}{value};" + line.split(";", 1)[1]
+                    found[head] += 1
+            out.append(line)
+        texts[name] = "".join(out)
+    chip_smoke.check(all(v == 1 for v in found.values()),
+                     f"lines not found once in {kern.source} and its "
+                     f"headers: {found}")
+    if swap is not None:
+        hits = [name for name, text in texts.items() if swap[0] in text]
+        chip_smoke.check(len(hits) == 1 and texts[hits[0]].count(swap[0])
+                         == 1, f"{swap[0]} not in the sources once")
+        texts[hits[0]] = texts[hits[0]].replace(*swap)
+    folder = Path(native.PACKAGE_DIR, "_build", "variants", tag)
+    folder.mkdir(parents=True, exist_ok=True)
+    for name, text in texts.items():
+        (folder / name).write_text(text)
+    return native.CudaKernel(kern.source, kern.symbol, kern.argtypes,
+                             csrc_dir=folder)
+
+
 def twostep_variant(threads, blocks, small_tile, l2_bytes, swap=None):
     """The two-step entry's source with another block size, register caps,
     smaller tile and order rule (and the text ``swap[0]`` replaced by
-    ``swap[1]``), as a kernel built from a copy under
-    ``_build/variants``."""
-    from pathlib import Path
+    ``swap[1]``): :func:`source_variant`."""
+    from sydr_tpu_torch.ops import acq_kernel
 
-    from sydr_tpu_torch.ops import acq_kernel, native
-
-    base = acq_kernel.TWOSTEP_KERNEL
-    text = (base.csrc_dir / base.source).read_text()
     lines = {"constexpr int kThreads = ": threads,
              "constexpr int kMinBlocksSmall = ": blocks[0],
              "constexpr int kMinBlocksMid = ": blocks[1],
              "constexpr int kMinBlocksWide = ": blocks[2],
              "constexpr int kSmallTile = ": small_tile,
              "constexpr long long kL2Bytes = ": f"{l2_bytes}LL"}
-    out = []
-    for line in text.splitlines(keepends=True):
-        for head, value in lines.items():
-            if line.startswith(head):
-                line = f"{head}{value};" + line.split(";", 1)[1]
-        out.append(line)
-    new = "".join(out)
-    if swap is not None:
-        chip_smoke.check(new.count(swap[0]) == 1, f"{swap[0]} not in source")
-        new = new.replace(*swap)
-    chip_smoke.check(all(f"{h}{v};" in new for h, v in lines.items()),
-                     "kThreads / kMinBlocks* / kSmallTile / kL2Bytes not "
-                     "found in the source")
-    folder = Path(native.PACKAGE_DIR, "_build", "variants",
-                  f"twostep_{threads}_{'_'.join(map(str, blocks))}_"
-                  f"{small_tile}_{l2_bytes}{'_swap' if swap else ''}")
-    folder.mkdir(parents=True, exist_ok=True)
-    (folder / base.source).write_text(new)
-    for header in base.csrc_dir.glob("*.cuh"):
-        (folder / header.name).write_text(header.read_text())
-    return native.CudaKernel(base.source, base.symbol, base.argtypes,
-                             csrc_dir=folder)
+    tag = (f"twostep_{threads}_{'_'.join(map(str, blocks))}_{small_tile}_"
+           f"{l2_bytes}{'_swap' if swap else ''}")
+    return source_variant(acq_kernel.TWOSTEP_KERNEL, tag, lines, swap)
 
 
 def plain_ms(spec, code, bins) -> float:
@@ -488,52 +686,102 @@ def k2_twostep(ns, n_ch: int, device) -> None:
               + f", ifft {library:.4f} ms", flush=True)
 
 
-# The production shapes of the lengths that keep a radix entry
-# (chip_smoke.py's phase 3): one block, then a cluster.
+# The production shapes of the lengths that --parent holds against the
+# parent's entries: the radix entries (one block, then a cluster), the
+# two-step entry (the 70 Msps session's n and 245.52 Msps) and the
+# Bluestein entry (BLUESTEIN_N), 8 ch x 101 bins x 10 blocks but the
+# first two.
 PARENT_CASES = ((2500, 32), (10000, 12), (4092, 8), (4070, 8), (16368, 8),
-                (26500, 8), (40920, 8))
+                (26500, 8), (40920, 8), (70000, 8), (245520, 8),
+                *((n, 8) for n in BLUESTEIN_N))
+
+
+def parent_module(parent: str):
+    """The parent tree's ``sydr_tpu_torch/ops/acq_kernel.py`` as a module of
+    its own (its launch arguments; the kernels it names are this tree's,
+    not launched)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(parent) / "sydr_tpu_torch" / "ops" / "acq_kernel.py"
+    spec = importlib.util.spec_from_file_location("parent_acq_kernel", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def k2_against_parent(parent: str, device, cases=PARENT_CASES) -> None:
     """The K2 entries of another tree (``parent``, a checkout) against this
-    tree's on the same inputs at ``cases`` ((n, channels) pairs): the maps
-    bit for bit, and the device times in turns parent, this, this,
-    parent."""
+    tree's on the same inputs at ``cases`` ((n, channels) pairs), on the
+    entry that ``kernel_for`` gives: the radix and two-step entries' maps
+    bit for bit at this tree's arguments; the Bluestein entry at each
+    tree's own arguments (its wrapper's), each map within 1e-4 of the
+    plain version's maximum; the device times in turns parent, this,
+    this, parent."""
     from pathlib import Path
 
     import torch
 
     from sydr_tpu_torch.ops import acq_kernel, native
 
+    old = parent_module(parent)
     theirs = {kern.source: native.CudaKernel(
         kern.source, kern.symbol, kern.argtypes,
         csrc_dir=Path(parent) / "sydr_tpu_torch" / "csrc")
-        for kern in (acq_kernel.KERNEL, acq_kernel.CLUSTER_KERNEL)}
+        for kern in (old.KERNEL, old.CLUSTER_KERNEL, old.TWOSTEP_KERNEL,
+                     old.BLUESTEIN_KERNEL)}
     native.build_all(list(theirs.values()))
     for n, n_ch in cases:
         spec, code, bins = k2_inputs(n, n_ch, device)
-        kernel, out, cargs = acq_kernel.pcps_bins_launch_args(
-            spec, code, bins, entry="radix")
-        fns = {"parent": theirs[kernel.source].function(),
-               "this": kernel.function()}
+        kernel, out, cargs = acq_kernel.pcps_bins_launch_args(spec, code,
+                                                              bins)
+        if kernel is acq_kernel.BLUESTEIN_KERNEL:
+            _, old_out, old_args = old.pcps_bins_launch_args(spec, code,
+                                                             bins)
+        else:
+            old_out, old_args = out, cargs
+        fns = {"parent": (theirs[kernel.source].function(), old_args,
+                          old_out),
+               "this": (kernel.function(), cargs, out)}
+        ref = acq_kernel.pcps_bins_ref(spec, code, bins)
+        bound = chip_smoke.K2_RTOL * float(ref.abs().max())
         maps = {}
-        for name in ("this", "parent", "this"):
-            chip_smoke.check(fns[name](*cargs) == 0, f"{name} launch failed")
+        for name in ("this", "parent", "this", "parent"):
+            fn, args, dst = fns[name]
+            chip_smoke.check(fn(*args) == 0, f"{name} launch failed")
             torch.cuda.synchronize()
             if name in maps:
-                chip_smoke.check(torch.equal(maps[name], out),
-                                 "the entry is not deterministic")
-            maps[name] = out.clone()
+                chip_smoke.check(torch.equal(maps[name], dst),
+                                 f"{name}: the entry is not deterministic")
+            maps[name] = dst.clone()
+        errs = {name: float((m - ref).abs().max()) / float(ref.abs().max())
+                for name, m in maps.items()}
         same = torch.equal(maps["parent"], maps["this"])
         ms = {name: [] for name in fns}
+        fn, args, _ = fns["parent"]
+        clock = timer(lambda: fn(*args), 10)
         for name in ("parent", "this", "this", "parent"):
-            ms[name].append(chip_smoke.device_ms(
-                lambda fn=fns[name]: fn(*cargs), 10))
+            fn, args, _ = fns[name]
+            ms[name].append(clock(lambda fn=fn, args=args: fn(*args)))
+        mean = {name: sum(t) / 2 for name, t in ms.items()}
+        splits = {name: kernel_split(lambda fn=fn, args=args: fn(*args))
+                  for name, (fn, args, _) in fns.items()}
         print(f"K2 {kernel.source} n={n}, {n_ch} ch x 101 bins: maps "
-              f"{'bit-identical' if same else 'DIFFER'}; device ms parent "
-              f"{ms['parent'][0]:.4f} / {ms['parent'][1]:.4f}, this "
-              f"{ms['this'][0]:.4f} / {ms['this'][1]:.4f}", flush=True)
-        chip_smoke.check(same, f"n={n}: the maps differ from the parent's")
+              f"{'bit-identical' if same else 'differ'} (of the maximum: "
+              f"parent {errs['parent']:.2e}, this {errs['this']:.2e}); "
+              f"device ms parent {ms['parent'][0]:.4f} / "
+              f"{ms['parent'][1]:.4f}, this {ms['this'][0]:.4f} / "
+              f"{ms['this'][1]:.4f} (parent / this "
+              f"{mean['parent'] / mean['this']:.3f}); kernels a call: "
+              + "; ".join(f"{name} " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in split.items())
+                  for name, split in splits.items()), flush=True)
+        if kernel is acq_kernel.BLUESTEIN_KERNEL:
+            chip_smoke.check(max(errs.values()) * float(ref.abs().max())
+                             <= bound, f"n={n}: a map above the bound")
+        else:
+            chip_smoke.check(same, f"n={n}: the maps differ from the "
+                                   f"parent's")
 
 
 def k3_variants(device) -> None:
@@ -604,14 +852,14 @@ def main(argv=None) -> int:
                         help="with --k2: only the Bluestein and radix "
                              "entries side by side at each --n")
     parser.add_argument("--bluestein", action="store_true",
-                        help="with --k2: the Bluestein entry's register "
-                             "caps and its kernels' split at each --n")
+                        help="with --k2: the Bluestein entry's convolution "
+                             "lengths and its kernels' split at each --n")
     parser.add_argument("--twostep", action="store_true",
                         help="K2's two-step entry: block shapes, chunks, "
                              "and the entry forced below 65,536")
     parser.add_argument("--parent", metavar="DIR",
-                        help="hold the one-block K2 entry of the checkout "
-                             "DIR against this tree's")
+                        help="hold the K2 entries of the checkout DIR "
+                             "against this tree's")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -635,7 +883,7 @@ def main(argv=None) -> int:
     if opts.twostep:
         k2_twostep(opts.n or [70000, 245520], opts.channels, device)
     if opts.k2 and opts.bluestein:
-        k2_bluestein(opts.n or [9722], opts.channels, device)
+        k2_bluestein(opts.n or BLUESTEIN_N, opts.channels, device)
     elif opts.k2 or both:
         for n in opts.n or [4092]:
             if opts.entries:
