@@ -16,23 +16,27 @@ printing its wall time:
    ``pcps_bins`` (the one-block radix FFT, at n = 4092 through its prime
    radices 31 and 11, and at n = 4070 = 2 * 5 * 11 * 37 through the
    generic pass of radix 37; the cluster entry at n = 16368 and 40920,
-   and at n = 26500 = 2^2 * 5^3 * 53 through a generic pass, with its
-   cluster size and ``cudaOccupancyMaxActiveClusters``; then a sweep over
+   with its cluster size and ``cudaOccupancyMaxActiveClusters``; then a
+   sweep over
    the front-end code periods that need a cluster, 12276 to 65536, on the
    entry and cluster that ``kernel_for`` gives, one over lengths with
    prime factors above 31, 1517 = 37 * 41 to 65498 = 2 * 32749, on the
    radix entry that holds the plan (its generic pass), one over the
-   31-smooth lengths above the clusters that take the two-step entry,
-   66000 to 2^20, with the Bluestein entry's time at the same inputs
-   beside each, and one over the lengths that take the Bluestein entry,
-   9722 = 2 * 4861 to 2^20 - 2 (99375 = 3 * 5^4 * 53 among them; each
-   with its convolution length M, its split and sub-plans), each with
-   ``torch.fft.ifft`` beside it
+   lengths above the clusters that take the two-step entry, the
+   31-smooth ones 66000 to 2^20 and those of the crossover sweep through
+   the tile's generic pass (largest prime factor 37 to 257, 99375 = 3 *
+   5^4 * 53 among them), with the Bluestein entry's time at the same
+   inputs beside each (the two-step entry must be under it), and one
+   over the lengths that take the Bluestein entry, 9722 = 2 * 4861 to
+   2^20 - 2 (each with its convolution length M, its split and
+   sub-plans), each with ``torch.fft.ifft`` beside it
    (and, on the Bluestein entry, the radix entry's time where one holds
    the plan); the two-step entry at 8 ch x 101 bins x 10 blocks at the
-   70 Msps session's n = 70000 (its pairs in chunks of the scratch cap),
-   the Bluestein entry's time beside it, and the Bluestein entry at the
-   same shape at n = 9722; the refusal of a prime n
+   70 and 99.375 Msps sessions' n = 70000 and 99375 (its pairs in chunks
+   of the scratch cap) and at n = 26500 = 2^2 * 5^3 * 53 (where a radix
+   plan would take a cluster of 4), the Bluestein entry's time beside
+   each, and the Bluestein entry at the same shape at n = 9722; the
+   refusal of a prime n
    and of n = 2^20 + 2 before any launch), K3
    ``block_cumsum_streams`` (with its two launches timed apart, the time
    of a kernel that only makes its stores, and a second run that must be
@@ -59,12 +63,14 @@ printing its wall time:
    the narrow-only cruise at 20 ms blocks x 50-block superblocks, quantised
    taps; acquisition, promotion, bit sync, carrier error and the kernels'
    launch counts are checked;
-6. the receiver through its CLI, in process: ``sydr_tpu_torch.main.main``
-   on the demo sky at the bench's input rate (10 Msps, decimate 4,
-   quantised taps, 16 s): a position fix within 10 m of truth (K1 + K2);
+6. the receiver through its CLI: ``sydr_tpu_torch.main.main`` on the
+   demo sky at the bench's input rate (10 Msps, decimate 4, quantised
+   taps, 16 s): a position fix within 10 m of truth (K1 + K2). It runs in
+   a child process, a lane beside phases 7-15, and is checked in phase 16
+   (see there);
 7. the receiver at full width on the prefix form (K3 + K2): 16 s of the
-   demo sky written to an int8 IQ file (by a child process, during phase
-   6) and read back through ``RFFileSource``, 32 channels (6 visible),
+   demo sky written to an int8 IQ file (by a child process, from before
+   phase 2 on) and read back through ``RFFileSource``, 32 channels (6 visible),
    ``use_pallas=True, boundary_mode="prefix"`` in both loop shapes:
    acquisition against the scenario's truth, promotion, TOW, fixes within
    10 m, absent PRNs idle, and no K1 launch;
@@ -80,9 +86,11 @@ printing its wall time:
     no other entry) and find the visible satellites, K1 must run; then
     the same at 70 Msps (n = 70000 = 2^4 * 5^4 * 7, above the clusters'
     65,536 points) through K2's two-step entry alone, K1 at 70000
-    samples a ms, the entry's split and scratch printed; and at 9.722
-    Msps (n = 9722 = 2 * 4861, a prime factor above the radix entries'
-    233) through K2's Bluestein entry alone;
+    samples a ms, the entry's split and scratch printed; at 99.375 Msps
+    (n = 99375 = 3 * 5^4 * 53) through the two-step entry alone and its
+    tile's generic pass (radix 53); and at 9.722 Msps (n = 9722 = 2 *
+    4861, a prime factor above the radix entries' 233) through K2's
+    Bluestein entry alone;
 11. the per-ms scan runtime at full width: phase 5's capture (its first
     2 s) through a 32-channel ``TrackingSession`` with ``runtime="scan"``,
     borre loops, 20 ms blocks: acquisition through K2, bit sync and the
@@ -129,11 +137,16 @@ printing its wall time:
     the production receiver (10 Msps, decimate 4, kaplan pull-in, the
     narrow-only cruise at superblock 25, quantised taps, seed 3) within the
     soak's fix, prompt-ratio and C/N0 bounds (its Doppler drift is printed:
-    the > 50 Hz bound needs 300 s); its scenario is made from the end of
-    phase 3 on by a child process (``soak.scenario_chunks``, 3 workers)
-    while phases 4-15 run; (b) beside the soak, in a child process, one
+    the > 50 Hz bound needs 300 s), its scenario made from before phase 2
+    on by a child process (``soak.scenario_chunks``, 3 workers); (b) one
     kaplan ``track_benchmark`` trial at 45 dB-Hz (retained, BER 0) and one
-    at 35 dB-Hz (printed); (c) ``acq_benchmark``: 32 trials at 30 and 33
+    at 35 dB-Hz (printed). The soak, and the CLI of phase 6 followed by
+    (b), run in two lanes (child processes, :func:`lanes_of`) started
+    after phase 5: host-bound paths that leave the card mostly idle and,
+    one after the other, took most of the run's wall. So the walls that
+    phases 7-15 print are taken beside them; this phase waits for the
+    lanes, checks their results, and then runs (c)-(f) alone; (c)
+    ``acq_benchmark``: 32 trials at 30 and 33
     dB-Hz and 32 signal-absent, 4 Msps, 5 x 10 ms (Pd 1.00 at 33 dB-Hz,
     Pfa 0/32; the 30 dB-Hz row and the grid rate printed); (d)
     ``trace_profile``'s superblock (5 blocks) in both boundary forms with
@@ -143,8 +156,8 @@ printing its wall time:
 
 Each of phases 5-16 sets every kernel's launch count to 0 just before it
 (phase 16: each of its parts) and reads the counts just after (phase 15's
-ranks and phase 16's tracking trials count in their own processes, from
-0). The last three lines are the kernels'
+ranks and the lanes' CLI, soak and tracking trials count in their own
+processes, from 0). The last three lines are the kernels'
 JSON record, the ``nvidia-smi`` line and ``{"ok": true, "device":
 {...}}``. Without a CUDA device the script exits non-zero before printing
 any result. It imports no JAX.
@@ -157,6 +170,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import multiprocessing
@@ -205,6 +219,9 @@ SERIAL_CODE_INDEX_TOL = 3
 # at 68.4 samples a chip at the scenario's largest Doppler; so 2 samples
 # plus 5. (At 2.5-16.368 Msps the sessions keep 2.)
 SESSION_70_CODE_INDEX_TOL = 7
+# The same at 99.375 Msps: 0.066 chip = 6.4 samples at 97.1 samples a chip,
+# so 2 samples plus 7.
+SESSION_99_CODE_INDEX_TOL = 9
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate and the float32 rate outside the tensor cores.
@@ -665,14 +682,21 @@ GENERIC_SWEEP_N = (1517, 3034, 9722, 16370, 53000, 65231, 65498)
 # Bluestein entry before it; 80 and 100 Msps stay on a cluster): 66,
 # 70 (70000 = 2^4 * 5^4 * 7), 120, 122.88, 131.072, 163.68 (radices 31 and
 # 11), 200, 245.52 (245520 = 2^4 * 3^2 * 5 * 11 * 31), 400 and 1000 Msps,
-# and 2^20.
+# and 2^20; then the n of the crossover sweep (the tile's generic pass,
+# largest prime factor 37, 41, 53, 71, 97, 131, 157, 193, 233 and 257 at
+# n ~ 10^5, 99375 = 3 * 5^4 * 53 at 99.375 Msps among them, and 65792 =
+# 2^8 * 257 with its prime in the rows), which took the Bluestein entry
+# before.
 TWOSTEP_SWEEP_N = (66000, 70000, 120000, 122880, 131072, 163680, 200000,
-                   245520, 400000, 1000000, 1048576)
+                   245520, 400000, 1000000, 1048576, 99900, 99630, 99375,
+                   102240, 99328, 100608, 100480, 98816, 100656, 98688,
+                   65792)
 # Lengths that take the Bluestein entry, at the same shape: large prime
 # factors (9722, 16370, 65498), the first n above the clusters (65538 =
-# 2 * 3^2 * 11 * 331), a 99.375 Msps front end (99375 = 3 * 5^4 * 53),
-# 131074 = 2 * 65537 and the largest even n, 2^20 - 2.
-BLUESTEIN_SWEEP_N = (9722, 16370, 65498, 65538, 99375, 131074, 1048574)
+# 2 * 3^2 * 11 * 331), 99300 = 2^2 * 3 * 5^2 * 331 beside 99.375 Msps
+# (331 is above TWOSTEP_MAX_PRIME), 131074 = 2 * 65537 and the largest
+# even n, 2^20 - 2.
+BLUESTEIN_SWEEP_N = (9722, 16370, 65498, 65538, 99300, 131074, 1048574)
 # Code periods that no entry takes: a prime (as the JAX package refuses
 # a prime above 64) and the first even n above the Bluestein entry's 2^20.
 REFUSED_N = (4093, 1048578)
@@ -883,8 +907,7 @@ def kernel_phase(device) -> dict:
                                       ("8 ch n=4070", 4.070e6, 8))})
     k2c = {name: k2_case(name, fs, n_ch, "pcps_bins_cluster", device, rng)
            for name, fs, n_ch in (("8 ch n=16368", 16.368e6, 8),
-                                  ("8 ch n=40920", 40.92e6, 8),
-                                  ("8 ch n=26500", 26.5e6, 8))}
+                                  ("8 ch n=40920", 40.92e6, 8))}
     k2_sweep(device, SWEEP_N)
     k2_sweep(device, GENERIC_SWEEP_N, entry="radix")
     for ns, name in ((TWOSTEP_SWEEP_N, "pcps_bins_twostep"),
@@ -898,6 +921,13 @@ def kernel_phase(device) -> dict:
     # pairs in chunks of the scratch cap), and a large prime factor at the
     # same shape on the Bluestein entry.
     k2t["8 ch n=70000"] = k2_case("8 ch n=70000", 70e6, 8,
+                                  "pcps_bins_twostep", device, rng)
+    # The 99.375 Msps session's shape: the tile's generic pass (radix 53);
+    # and 26500 = 2^2 * 5^3 * 53, whose radix plan would take a cluster of
+    # 4 (its generic pass), on the same pass.
+    k2t["8 ch n=99375"] = k2_case("8 ch n=99375", 99.375e6, 8,
+                                  "pcps_bins_twostep", device, rng)
+    k2t["8 ch n=26500"] = k2_case("8 ch n=26500", 26.5e6, 8,
                                   "pcps_bins_twostep", device, rng)
     k2b["8 ch n=9722"] = k2_case("8 ch n=9722", 9.722e6, 8,
                                  "pcps_bins_bluestein", device, rng)
@@ -1416,9 +1446,10 @@ def read_launches() -> dict:
     return {name: kern.launches for name, kern in kernels().items()}
 
 
-def cli_phase() -> dict:
+def cli_run() -> dict:
     """The receiver through its CLI on the demo sky at the bench's input
-    rate, in process; stdout is captured, echoed and checked."""
+    rate, its stdout captured, and the launches it made (run in a child
+    process beside the soak: :func:`background_lane`)."""
     from sydr_tpu_torch import main as cli
 
     buf = io.StringIO()
@@ -1426,15 +1457,24 @@ def cli_phase() -> dict:
         argv = ["--demo", "--fs", f"{FS_IN:g}", "--decimate", str(DECIMATE),
                 "--quantize", "--ms", str(RX_MS), "--device", "cuda",
                 "--no-dashboard", "--no-report", "--out", out]
-        print(f"cli: sydr_tpu_torch.main.main({argv})", flush=True)
         reset_launches()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(argv)
         launches = read_launches()
-    text = buf.getvalue()
+    return {"argv": argv, "rc": rc, "text": buf.getvalue(),
+            "launches": launches}
+
+
+def cli_phase(out: dict) -> dict:
+    """Phase 6's checks on :func:`cli_run`'s result: stdout echoed, a fix
+    within FIX_BOUND_M, K1 and K2 launched."""
+    text = out["text"]
+    print(f"cli: sydr_tpu_torch.main.main({out['argv']}) in "
+          f"{out['wall_s']:.1f} s beside the soak", flush=True)
     print(text.rstrip(), flush=True)
+    launches = out["launches"]
     print(f"cli launches on the main path: {launches}", flush=True)
-    check(rc == 0, f"the CLI returned {rc}")
+    check(out["rc"] == 0, f"the CLI returned {out['rc']}")
     check("final fix:" in text, "the CLI printed no fix")
     found = re.search(r"error vs reference position: ([0-9.]+) m", text)
     check(found is not None, "the CLI printed no position error")
@@ -1457,7 +1497,7 @@ def demo_scenario():
 
 def write_demo_sky(path: str) -> None:
     """Write RX_MS of the demo sky to ``path`` as int8 IQ (run in a child
-    process while the CLI phase runs: it is host work only)."""
+    process from before the build on: it is host work only)."""
     sys.path.insert(0, REPO)
     t0 = time.perf_counter()
     demo_scenario().write_file(path, RX_MS)
@@ -2043,7 +2083,7 @@ def multi_device_phase(device, capture, session_run, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 15: the measuring tools
+# Phase 16: the measuring tools
 # ---------------------------------------------------------------------------
 
 SOAK_SECONDS = 60       # the soak's shape (tools/soak.py), cut from 300 s
@@ -2065,22 +2105,134 @@ TOOLS_TIMEOUT_S = 900
 def soak_producer(queue, seconds: int, fs: float, workers: int) -> None:
     """Put the soak's scenario at ``fs`` on ``queue`` as ``(re, im)``
     chunks of 1 s, made by ``workers`` processes
-    (``soak.scenario_chunks``: the in-line stream's samples), then None. Runs in a child process from the kernel
-    checks on, while the earlier phases run; SIGTERM ends it and its
+    (``soak.scenario_chunks``: the in-line stream's samples), then None;
+    a fault puts its traceback. Runs in a child process from before the
+    build on, so that the soak reads made chunks; SIGTERM ends it and its
     workers."""
     import signal
+    import traceback
 
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))
     sys.path.insert(0, REPO)
-    from sydr_tpu_torch.tools.soak import scenario_chunks
-
     t0 = time.perf_counter()
-    for chunk in scenario_chunks(seconds, fs, workers=workers):
-        queue.put(chunk)
+    try:
+        from sydr_tpu_torch.tools.soak import scenario_chunks
+
+        for chunk in scenario_chunks(seconds, fs, workers=workers):
+            queue.put(chunk)
+    except Exception:
+        queue.put(traceback.format_exc())
+        return
     queue.put(None)
     print(f"soak producer: {seconds} s of the scenario at {fs / 1e6:g} "
           f"Msps made in {time.perf_counter() - t0:.1f} s by {workers} "
           f"workers", flush=True)
+
+
+def queued_chunks(queue):
+    """The producer's chunks until its None; raises at its fault, or when
+    no chunk comes for 300 s."""
+    while True:
+        item = queue.get(timeout=300)
+        if item is None:
+            return
+        if isinstance(item, str):
+            raise RuntimeError(f"the soak producer failed:\n{item}")
+        yield item
+
+
+def soak_run(soak_queue) -> dict:
+    """(a) the soak, SOAK_SECONDS of the production receiver on the
+    producer's chunks (:func:`soak_producer`)."""
+    from sydr_tpu_torch.tools import soak
+
+    reset_launches()
+    res = soak.run_soak(
+        seconds=SOAK_SECONDS, fs=FS_IN, decimate=DECIMATE, use_pallas=True,
+        superblock=SOAK_SUPERBLOCK, device="cuda",
+        chunks=queued_chunks(soak_queue))
+    return {"soak": res, "launches": read_launches()}
+
+
+def track_run() -> dict:
+    """(b) the tracking benchmark: one kaplan trial at each of TRACK_CN0."""
+    from sydr_tpu_torch.tools import track_benchmark as tb
+
+    reset_launches()
+    rows = [tb.run_trial(cn0, "kaplan", tb.trial_seed(0, cn0, 0),
+                         device="cuda") for cn0 in TRACK_CN0]
+    return {"rows": rows, "launches": read_launches()}
+
+
+def lanes_of(soak_queue) -> tuple:
+    """The paths that run in child processes beside phases 7-15, one lane a
+    process, its jobs in order: each is host-bound and leaves the card
+    mostly idle, and one after the other they took most of the run."""
+    return ((functools.partial(soak_run, soak_queue),), (cli_run, track_run))
+
+
+def job_name(job) -> str:
+    return getattr(job, "func", job).__name__
+
+
+def background_lane(results, jobs) -> None:
+    """Run ``jobs`` in order, in a child process, putting ``(name,
+    result)`` on ``results`` after each, the result with its wall
+    ``wall_s``; a fault puts ``(name, {"error": traceback})`` and ends the
+    lane. The launch counts are this process's, from 0. SIGTERM ends the
+    lane."""
+    import signal
+    import traceback
+
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(0))
+    sys.path.insert(0, REPO)
+    for job in jobs:
+        t0 = time.perf_counter()
+        try:
+            out = job()
+        except (Exception, SystemExit):
+            results.put((job_name(job), {"error": traceback.format_exc()}))
+            return
+        out["wall_s"] = time.perf_counter() - t0
+        results.put((job_name(job), out))
+
+
+def start_lanes(soak_queue):
+    """Start the lanes of :func:`lanes_of`; their results queue, their
+    processes and the names of their jobs."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    lanes = lanes_of(soak_queue)
+    procs = [ctx.Process(target=background_lane, args=(results, jobs),
+                         daemon=True) for jobs in lanes]
+    for proc in procs:
+        proc.start()
+    return results, procs, {job_name(job) for jobs in lanes for job in jobs}
+
+
+def lane_results(results, procs, want) -> dict:
+    """Every lane job's result by name; fails at a job's fault, or when the
+    lanes end or TOOLS_TIMEOUT_S pass without all of them."""
+    import queue as queue_mod
+
+    got = {}
+    deadline = time.perf_counter() + TOOLS_TIMEOUT_S
+    while len(got) < len(want):
+        missing = sorted(want - set(got))
+        try:
+            name, out = results.get(timeout=30)
+        except queue_mod.Empty:
+            check(time.perf_counter() < deadline,
+                  f"no result from {missing} in {TOOLS_TIMEOUT_S} s")
+            check(any(proc.is_alive() for proc in procs),
+                  f"the lanes ended without {missing} (exit codes "
+                  f"{[proc.exitcode for proc in procs]})")
+            continue
+        check("error" not in out, f"{name} failed:\n{out.get('error')}")
+        got[name] = out
+    for proc in procs:
+        proc.join(60)
+    return got
 
 
 def stop_process(proc) -> None:
@@ -2092,53 +2244,16 @@ def stop_process(proc) -> None:
             proc.join()
 
 
-def queued_chunks(queue, producer):
-    """The producer's chunks until its None; fails if it died first."""
-    import queue as queue_mod
-
-    while True:
-        try:
-            item = queue.get(timeout=60)
-        except queue_mod.Empty:
-            check(producer.is_alive(),
-                  f"the soak producer exited ({producer.exitcode})")
-            continue
-        if item is None:
-            return
-        yield item
-
-
-def track_trials(results, device_name: str) -> None:
-    """The tracking benchmark's trials on the card, in a child process
-    that runs beside the soak: one kaplan trial at each of TRACK_CN0, with
-    this process's launch counts (from 0)."""
-    sys.path.insert(0, REPO)
-    import torch
-
-    from sydr_tpu_torch.tools import track_benchmark as tb
-
-    device = torch.device(device_name)
-    t0 = time.perf_counter()
-    rows = [tb.run_trial(cn0, "kaplan", tb.trial_seed(0, cn0, 0),
-                         device=device) for cn0 in TRACK_CN0]
-    results.put({"rows": rows, "launches": read_launches(),
-                 "wall_s": time.perf_counter() - t0})
-
-
-def soak_phase(device, soak_queue, producer) -> dict:
-    """(a) the soak, 60 s of the production receiver, in this process."""
+def soak_phase(out: dict) -> dict:
+    """(a)'s checks on :func:`soak_run`'s result."""
     from sydr_tpu_torch.tools import soak
 
-    reset_launches()
-    res = soak.run_soak(seconds=SOAK_SECONDS, fs=FS_IN, decimate=DECIMATE,
-                        use_pallas=True, superblock=SOAK_SUPERBLOCK,
-                        device=device,
-                        chunks=queued_chunks(soak_queue, producer))
-    launches = read_launches()
+    res, launches = out["soak"], out["launches"]
     print(f"soak: {json.dumps(res)}", flush=True)
     print(f"soak: Doppler drift {res['doppler_drift_hz']} Hz over "
           f"{SOAK_SECONDS} s (not checked: the > 50 Hz bound is for 300 s); "
-          f"launches {launches}", flush=True)
+          f"{out['wall_s']:.1f} s beside phases 7-15; launches {launches}",
+          flush=True)
     check(soak.within_bounds(res, SOAK_SECONDS),
           f"the soak is outside its bounds: {res}")
     check(launches["epoch_correlate"] > 0 and launches["pcps_bins"] > 0,
@@ -2146,15 +2261,8 @@ def soak_phase(device, soak_queue, producer) -> dict:
     return {"launches": launches, "soak": res}
 
 
-def track_phase(results, tracker) -> dict:
-    """(b) the tracking trials' results from their child process."""
-    import queue as queue_mod
-
-    try:
-        out = results.get(timeout=TOOLS_TIMEOUT_S)
-    except queue_mod.Empty:
-        fail(f"the tracking trials gave no result (exit {tracker.exitcode})")
-    tracker.join(60)
+def track_phase(out: dict) -> dict:
+    """(b)'s checks on :func:`track_run`'s result."""
     from sydr_tpu_torch.tools import track_benchmark as tb
 
     for r in out["rows"]:
@@ -2269,24 +2377,15 @@ def acq_profile_phase(device) -> dict:
     return {"launches": launches}
 
 
-def tools_phase(device, soak_queue, producer) -> dict:
-    """Phase 15: the measuring tools (``sydr_tpu_torch.tools``). The soak
-    runs here while a child process runs the tracking trials; the timed
-    tools run after both, alone."""
-    ctx = multiprocessing.get_context("spawn")
-    results = ctx.Queue()
-    tracker = ctx.Process(target=track_trials, args=(results, str(device)),
-                          daemon=True)
-    tracker.start()
-    paths = {}
-    try:
-        paths["tools: soak"] = timed("tools: soak", soak_phase, device,
-                                     soak_queue, producer)
-        paths["tools: track_benchmark"] = timed(
-            "tools: track_benchmark (waited for)", track_phase, results,
-            tracker)
-    finally:
-        stop_process(tracker)
+def tools_phase(device, lanes) -> dict:
+    """Phase 16: the measuring tools (``sydr_tpu_torch.tools``). The soak
+    and the tracking trials ran in the lanes beside phases 7-15 (with the
+    CLI of phase 6); their results are waited for and checked here, and
+    the timed tools run after them, alone."""
+    got = timed("lanes (waited for)", lane_results, *lanes)
+    paths = {"cli": cli_phase(got["cli_run"]),
+             "tools: soak": soak_phase(got["soak_run"]),
+             "tools: track_benchmark": track_phase(got["track_run"])}
     paths["tools: acq_benchmark"] = timed("tools: acq_benchmark", acq_phase,
                                           device)
     paths["tools: trace_profile"] = timed("tools: trace_profile",
@@ -2327,9 +2426,10 @@ RECORD = (
 )
 
 
-def path_phases(device, card, soak_queue, producer) -> dict:
+def path_phases(device, card, sky, writer, soak_queue) -> dict:
     """Phases 4-16; per path, what it returns (its launch counts among
-    them)."""
+    them). ``writer`` is the child process writing the demo sky's IQ file
+    ``sky``; the soak reads its scenario from ``soak_queue``."""
     import torch
 
     timed("parity", parity_phase, device)
@@ -2339,29 +2439,32 @@ def path_phases(device, card, soak_queue, producer) -> dict:
     paths["session"] = timed(
         "session", slice_phase, device, capture,
         sync=torch.cuda.synchronize, card=card)
-    # The prefix phase's IQ file is written by a child process while the
-    # CLI phase runs.
-    with tempfile.TemporaryDirectory() as tmp:
-        sky = os.path.join(tmp, "demo_sky.int8")
-        writer = multiprocessing.get_context("spawn").Process(
-            target=write_demo_sky, args=(sky,), daemon=True)
-        writer.start()
-        try:
-            paths["cli"] = timed("cli", cli_phase)
-            t0 = time.perf_counter()
-            writer.join()
-            print(f"waited {time.perf_counter() - t0:.1f} s for the IQ "
-                  f"file", flush=True)
-            check(writer.exitcode == 0,
-                  f"writing the IQ file failed ({writer.exitcode})")
-            paths["prefix receiver"] = timed(
-                "prefix receiver", prefix_receiver_phase, device, sky)
-            paths["checkpoint"] = timed(
-                "checkpoint", checkpoint_phase, device, sky, card)
-        finally:
-            if writer.is_alive():
-                writer.terminate()
-                writer.join()
+    lanes = start_lanes(soak_queue)
+    try:
+        paths.update(more_phases(device, card, sky, writer, capture, lanes,
+                                 paths["session"]))
+    finally:
+        for proc in lanes[1]:
+            stop_process(proc)
+    return paths
+
+
+def more_phases(device, card, sky, writer, capture, lanes,
+                session_run) -> dict:
+    """Phases 7-16, the lanes running beside phases 7-15."""
+    import torch
+
+    paths = {}
+    t0 = time.perf_counter()
+    writer.join()
+    print(f"waited {time.perf_counter() - t0:.1f} s for the IQ file",
+          flush=True)
+    check(writer.exitcode == 0,
+          f"writing the IQ file failed ({writer.exitcode})")
+    paths["prefix receiver"] = timed(
+        "prefix receiver", prefix_receiver_phase, device, sky)
+    paths["checkpoint"] = timed("checkpoint", checkpoint_phase, device, sky,
+                                card)
     # n = 4092 = 2^2 * 3 * 11 * 31 takes the FFT entry's prime radices;
     # n = 4070 = 2 * 5 * 11 * 37 its generic pass (radix 37).
     for n in (4092, 4070):
@@ -2402,6 +2505,21 @@ def path_phases(device, card, soak_queue, producer) -> dict:
     check(cfg.samples_per_ms == 70000 and cfg.input_decimate == 1,
           "the 70 Msps session did not track at full rate")
     paths["session at 70 Msps"] = res
+    # A 99.375 Msps front end at full rate: n = 99375 = 3 * 5^4 * 53 takes
+    # K2's two-step entry through its tile's generic pass (radix 53).
+    res = timed(
+        "session at 99.375 Msps", slice_phase, device, signal_ms=300,
+        fs_in=99.375e6, decimate=1, n_channels=8, n_visible=4,
+        acq_kernel_name="pcps_bins_twostep", settled=False, card=card,
+        code_index_tol=SESSION_99_CODE_INDEX_TOL)
+    acq_cfg = res["session"].acq_cfg
+    print(f"99.375 Msps: K2 at 8 ch x {n_bins} bins x "
+          f"{acq_cfg.non_coherent} blocks: "
+          f"{twostep_shape(99375, 8 * n_bins, acq_cfg.non_coherent)}",
+          flush=True)
+    check(res["session"].cfg.samples_per_ms == 99375,
+          "the 99.375 Msps session did not track at full rate")
+    paths["session at 99.375 Msps"] = res
     # n = 9722 = 2 * 4861: a prime factor above GENERIC_MAX_PRIME takes
     # K2's Bluestein entry.
     res = timed(
@@ -2433,10 +2551,31 @@ def path_phases(device, card, soak_queue, producer) -> dict:
     paths["direct map"] = timed("direct map", direct_map_phase, device,
                                 capture, card)
     paths["multi-device"] = timed("multi-device", multi_device_phase,
-                                  device, capture, paths["session"], card)
-    del capture
-    paths.update(timed("tools", tools_phase, device, soak_queue, producer))
+                                  device, capture, session_run, card)
+    paths.update(timed("tools", tools_phase, device, lanes))
     return paths
+
+
+def build_and_run(device, card, opts, sky, writer, soak_queue):
+    """Phases 2-16: the kernel phase's cases and the paths' results, or
+    None after phase 3 with ``--kernels``."""
+    from sydr_tpu_torch.ops import correlator_kernel, native
+
+    t0 = time.perf_counter()
+    built = [*kernels().values(), native.EMPTY_LAUNCH,
+             correlator_kernel.STORE_CEILING]
+    native.build_all(built)
+    for kern in built:
+        usage = [ln.strip() for ln in kern.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"built {kern.source} in {kern.build_seconds or 0:.2f} s: "
+              f"{'; '.join(usage) or 'cached'}", flush=True)
+    print(f"phase build: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    cases = timed("kernel checks", kernel_phase, device)
+    if opts.kernels:
+        return None
+    return cases, path_phases(device, card, sky, writer, soak_queue)
 
 
 def main(argv=None) -> int:
@@ -2453,7 +2592,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from sydr_tpu_torch.ops import correlator_kernel, native
+    # Fails here, before any child starts, without the package beside it.
+    import sydr_tpu_torch.ops.native  # noqa: F401
 
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2463,34 +2603,28 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
-    built = [*kernels().values(), native.EMPTY_LAUNCH,
-             correlator_kernel.STORE_CEILING]
-    native.build_all(built)
-    for kern in built:
-        usage = [ln.strip() for ln in kern.build_log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"built {kern.source} in {kern.build_seconds or 0:.2f} s: "
-              f"{'; '.join(usage) or 'cached'}", flush=True)
-    print(f"phase build: {time.perf_counter() - t0:.1f} s", flush=True)
-
-    cases = timed("kernel checks", kernel_phase, device)
-    if opts.kernels:
-        return 0
-
-    # The soak's scenario is made in a child process from here on, while
-    # the other phases run.
+    # The prefix phase's IQ file and the soak's scenario are made by child
+    # processes from here on, while the kernels build and the earlier
+    # phases run.
     ctx = multiprocessing.get_context("spawn")
-    soak_queue = ctx.Queue()
-    producer = ctx.Process(target=soak_producer,
-                           args=(soak_queue, SOAK_SECONDS, FS_IN,
-                                 SOAK_WORKERS))
-    producer.start()
-    try:
-        paths = path_phases(device, card, soak_queue, producer)
-    finally:
-        stop_process(producer)
-
+    with tempfile.TemporaryDirectory() as tmp:
+        sky = os.path.join(tmp, "demo_sky.int8")
+        soak_queue = ctx.Queue()
+        writer = ctx.Process(target=write_demo_sky, args=(sky,), daemon=True)
+        producer = ctx.Process(target=soak_producer,
+                               args=(soak_queue, SOAK_SECONDS, FS_IN,
+                                     SOAK_WORKERS))
+        writer.start()
+        producer.start()
+        try:
+            found = build_and_run(device, card, opts, sky, writer,
+                                  soak_queue)
+        finally:
+            stop_process(producer)
+            stop_process(writer)
+    if found is None:
+        return 0
+    cases, paths = found
     for name, by_case in cases.items():
         for case, res in by_case.items():
             report("summary", f"{name} | {case}", (),

@@ -485,8 +485,10 @@ extern "C" int pcps_bins_bluestein_launch(
   }
   Args args;
   int max1 = 0, max2 = 0;
-  int bad = sub_plan(radices1, n_pass1, m1, &args.plan1, &max1);
-  if (bad == 0) bad = sub_plan(radices2, n_pass2, m2, &args.plan2, &max2);
+  int bad = sub_plan(radices1, n_pass1, m1, false, &args.plan1, &max1);
+  if (bad == 0) {
+    bad = sub_plan(radices2, n_pass2, m2, false, &args.plan2, &max2);
+  }
   if (bad != 0) return bad;
   if (max1 > kWidestRadix || max2 > kWidestRadix) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -123,7 +123,23 @@ __device__ __forceinline__ void column_step(
     }
   };
   const bool first = p == 0, last = p == a.plan1.n_pass - 1;
-  if (first && last) {
+  if constexpr (R > kMaxFixedRadix) {
+    // R stands for every radix above 31: the generic pass's, a.plan1's.
+    const int r = a.plan1.radix[p];
+    if (first && last) {
+      generic_tile_pass<true>(len, count, ns, r, true, in, rts, global,
+                              scratch);
+    } else if (first) {
+      generic_tile_pass<true>(len, count, ns, r, true, in, rts, global,
+                              store);
+    } else if (last) {
+      generic_tile_pass<true>(len, count, ns, r, false, in, rts, shared,
+                              scratch);
+    } else {
+      generic_tile_pass<true>(len, count, ns, r, false, in, rts, shared,
+                              store);
+    }
+  } else if (first && last) {
     pass<R, true>(len, count, ns, rts, global, scratch);
   } else if (first) {
     pass<R, true>(len, count, ns, rts, global, store);
@@ -173,8 +189,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kMaxR>)
     const int r = a.plan1.radix[p];
     const Tile<true> in{p & 1 ? buf0 : buf1, n1, cols};
     const Tile<true> out{p & 1 ? buf1 : buf0, n1, cols};
-    TILE_RADIX_SWITCH(r, (column_step<R>(a, p, ns, in, out, rts, s, kc,
-                                            k, tile * cols, dst)));
+    TILE_PASS_SWITCH(r, (column_step<R>(a, p, ns, in, out, rts, s, kc,
+                                           k, tile * cols, dst)),
+                     (column_step<kAnyRadix>(a, p, ns, in, out, rts, s, kc,
+                                             k, tile * cols, dst)));
     __syncthreads();
     ns *= r;
   }
@@ -193,7 +211,17 @@ __device__ __forceinline__ void row_step(
   };
   const auto shared = [&](int t, int i) { return in.at(t, i); };
   const auto store = [&](int t, int i, float2 v) { out.at(t, i) = v; };
-  if (p == 0) {
+  if constexpr (R > kMaxFixedRadix) {
+    // R stands for every radix above 31: the generic pass's, a.plan2's.
+    const int r = a.plan2.radix[p];
+    if (p == 0) {
+      generic_tile_pass<false>(len, count, ns, r, true, in, rts, global,
+                               store);
+    } else {
+      generic_tile_pass<false>(len, count, ns, r, false, in, rts, shared,
+                               store);
+    }
+  } else if (p == 0) {
     pass<R, false>(len, count, ns, rts, global, store);
   } else {
     pass<R, false>(len, count, ns, rts, shared, store);
@@ -287,18 +315,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<kMaxR>)
       const int r = a.plan2.radix[p];
       const Tile<false> in{p & 1 ? buf0 : buf1, n2, rows};
       const Tile<false> out{p & 1 ? buf1 : buf0, n2, rows};
-      TILE_RADIX_SWITCH(r, (row_step<R>(a, p, ns, in, out, rts, src,
-                                           rows_left)));
+      TILE_PASS_SWITCH(r, (row_step<R>(a, p, ns, in, out, rts, src,
+                                          rows_left)),
+                       (row_step<kAnyRadix>(a, p, ns, in, out, rts, src,
+                                            rows_left)));
       __syncthreads();
       ns *= r;
     }
     const Tile<false> last{n_pass & 1 ? buf1 : buf0, n2, rows};
-    TILE_RADIX_SWITCH(r_last, (row_last<R>(a, last, rts, src, rows_left,
-                                           acc)));
+    TILE_PASS_SWITCH(r_last, (row_last<R>(a, last, rts, src, rows_left,
+                                          acc)), {});
     __syncthreads();   // the next transform's first pass overwrites bufs
   }
   float* sums = reinterpret_cast<float*>(buf0);
-  TILE_RADIX_SWITCH(r_last, (row_sums<R>(a, rows, acc, sums)));
+  TILE_PASS_SWITCH(r_last, (row_sums<R>(a, rows, acc, sums)), {});
   __syncthreads();
   const int pair = a.pair0 + local;
   const int c = pair / a.n_bins;
@@ -345,11 +375,13 @@ int launch_pass(bool column, int variant, const Args& args,
   if (column) {
     return variant == 10 ? launch_column<10>(args, blocks, stream)
          : variant == 13 ? launch_column<13>(args, blocks, stream)
-                         : launch_column<31>(args, blocks, stream);
+         : variant == 31 ? launch_column<31>(args, blocks, stream)
+                         : launch_column<kAnyRadix>(args, blocks, stream);
   }
   return variant == 10 ? launch_row<10>(args, blocks, stream)
        : variant == 13 ? launch_row<13>(args, blocks, stream)
-                       : launch_row<31>(args, blocks, stream);
+       : variant == 31 ? launch_row<31>(args, blocks, stream)
+                       : launch_row<kAnyRadix>(args, blocks, stream);
 }
 
 }  // namespace
@@ -380,8 +412,10 @@ extern "C" int pcps_bins_twostep_launch(
   }
   Args args;
   int max1 = 0, max2 = 0;
-  int bad = sub_plan(radices1, n_pass1, n1, &args.plan1, &max1);
-  if (bad == 0) bad = sub_plan(radices2, n_pass2, n / n1, &args.plan2, &max2);
+  int bad = sub_plan(radices1, n_pass1, n1, false, &args.plan1, &max1);
+  if (bad == 0) {
+    bad = sub_plan(radices2, n_pass2, n / n1, true, &args.plan2, &max2);
+  }
   if (bad != 0) return bad;
   args.spec = static_cast<const float2*>(spec);
   args.code = static_cast<const float2*>(code);
@@ -397,7 +431,8 @@ extern "C" int pcps_bins_twostep_launch(
   args.n_bins = n_bins;
   args.scratch = static_cast<float2*>(scratch);
   args.out = static_cast<float*>(out);
-  args.tile = tile_points(n1, args.n2);
+  args.tile = tile_points(n1, args.n2,
+                          max1 == kAnyRadix || max2 == kAnyRadix);
   args.block_major = 2LL * nc * n * sizeof(float2) > kL2Bytes / 2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int cols = args.tile / n1 < args.n2 ? args.tile / n1 : args.n2;

@@ -21,10 +21,14 @@
 // run (NVIDIA H100 80GB HBM3, 700.00 W).
 //
 // Variants by the largest radix of a sub-plan (each pass chooses its own):
-// radices up to 10, up to 13 and up to 31, each compiled for kThreads
-// threads and its own blocks an SM (the register cap): the unrolled
-// radix-31 butterfly needs some 4 x 31 registers a thread and would cap
-// the other plans' occupancy if they shared its code. On the two-step
+// radices up to 10, up to 13 and up to 31, and kAnyRadix (the radices up
+// to 31, radix 1 and the generic pass, generic_tile_pass, for an odd
+// radix above 31), each compiled for kThreads threads and its own blocks
+// an SM (the register cap): the unrolled radix-31 butterfly needs some
+// 4 x 31 registers a thread and would cap the other plans' occupancy if
+// they shared its code, and the generic branch is kept out of the prime
+// variants (inside them it cost the radix entries' n = 4092 4.7%,
+// pcps_fft.cuh). On the two-step
 // entry at 8 ch x 101 bins x 10 blocks 4 / 4 / 2 blocks of 256 threads ran
 // n = 70000 in 8.83 ms (3 / 3 / 2: 10.09; 512 threads: 12.66; a 4096-point
 // tile: 10.33) and n = 245520 in 51.72 (4 / 4 / 1: 55.26; 512 threads:
@@ -45,6 +49,9 @@ constexpr int kThreads = 256;
 constexpr int kMinBlocksSmall = 4;   // radices up to 10
 constexpr int kMinBlocksMid = 4;     // and 7, 11, 13
 constexpr int kMinBlocksWide = 2;    // and 17 to 31
+constexpr int kMinBlocksAny = 2;     // and 1 and the generic pass
+// The variant of the plans with a generic radix above 31 (or radix 1).
+constexpr int kAnyRadix = 4096;
 constexpr int kTile = 4096;          // the largest tile: a row <= 4096
 // The tile where a row and eight columns fit it (64 bytes a row of the
 // point-major tile).
@@ -59,9 +66,12 @@ __host__ __device__ constexpr int padded(int points) {
   return points + points / 16;
 }
 
-// The tile of a split into columns of length n1 and rows of length n2.
-inline int tile_points(int n1, int n2) {
-  return n2 <= kSmallTile && 8 * n1 <= kSmallTile ? kSmallTile : kTile;
+// The tile of a split into columns of length n1 and rows of length n2;
+// `generic`: a sub-plan takes kAnyRadix, whose generic pass has about
+// tile / 16 work items a pass (one a thread only in the largest tile).
+inline int tile_points(int n1, int n2, bool generic = false) {
+  return !generic && n2 <= kSmallTile && 8 * n1 <= kSmallTile ? kSmallTile
+                                                              : kTile;
 }
 
 // x / d by a multiply-high, exact for x d < 2^32 (here x, d <= 4096).
@@ -79,16 +89,20 @@ struct Div {
 
 template <int kMaxR>
 constexpr int kMinBlocks = kMaxR <= 10 ? kMinBlocksSmall
-                         : kMaxR <= 13 ? kMinBlocksMid : kMinBlocksWide;
+                         : kMaxR <= 13 ? kMinBlocksMid
+                         : kMaxR <= kMaxFixedRadix ? kMinBlocksWide
+                                                   : kMinBlocksAny;
 
 // Butterflies of radix R a thread owns in a pass over the largest tile.
 template <int R>
 constexpr int kItems = (kTile / R + kThreads - 1) / kThreads;
 
 // Accumulators a thread of a magnitude-summing last pass holds: the
-// largest kItems<R> R of the variant's radices (its last pass's outputs).
+// largest kItems<R> R of the variant's radices (its last pass's outputs;
+// radix 1 in kAnyRadix's).
 __host__ __device__ constexpr int acc_points(int max_radix) {
-  constexpr int kRadices[] = {2, 3, 4, 5, 10, 7, 11, 13, 17, 19, 23, 29, 31};
+  constexpr int kRadices[] = {1, 2, 3, 4, 5, 10, 7, 11, 13, 17, 19, 23, 29,
+                              31};
   int most = 0;
   for (int r : kRadices) {
     const int points = (kTile / r + kThreads - 1) / kThreads * r;
@@ -113,6 +127,18 @@ __host__ __device__ constexpr int acc_points(int max_radix) {
     { SYDR_SMALL_SWITCH(r, call) }                                       \
   } else {                                                               \
     SYDR_SMALL_SWITCH(r, call)                                           \
+  }
+
+// Run `call` with R the compile-time value of the runtime radix r, or
+// `generic` for a radix above 31 (kAnyRadix alone: radix 1 and the
+// generic pass; the other variants' code is TILE_RADIX_SWITCH's).
+#define TILE_PASS_SWITCH(r, call, generic)                               \
+  if constexpr (kMaxR > kMaxFixedRadix) {                                \
+    if (r > kMaxFixedRadix) { generic; }                                 \
+    else SYDR_PRIME_CASE(r, 1, call)                                     \
+    { TILE_RADIX_SWITCH(r, call) }                                       \
+  } else {                                                               \
+    TILE_RADIX_SWITCH(r, call)                                           \
   }
 
 // A tile buffer of `count` transforms of length `len`: point-major (kCols:
@@ -180,6 +206,108 @@ __device__ __forceinline__ void pass(int len, int count, int ns,
   }
 }
 
+// One Stockham pass of odd radix R > 31, a runtime value, over the tile's
+// `count` transforms of length `len`: pcps_fft.cuh's generic_pass (its
+// note: the real-symmetric form of prime_butterfly, H = (R - 1) / 2, m =
+// len / R), with the roots rts[] of the tile:
+//   fold: for butterfly j (k = j mod ns) and 1 <= r <= H, the twiddled
+//         x_r = in[j + r m] rts[r k (m / ns)] and x_{R-r} likewise,
+//         stored as s_r = x_r + x_{R-r}, d_r = x_r - x_{R-r} in their
+//         places of the tile buffer `buf` (for a first pass, which reads
+//         global memory through load(t, i), x_0 = in[j] is copied there
+//         too; later passes read `buf` itself and fold in place);
+//   sum:  outputs q and R - q of butterfly j, 0 <= q <= H, are A + i B
+//         and A - i B, A = x_0 + sum_r cos(2 pi q r / R) s_r, B = sum_r
+//         sin(2 pi q r / R) d_r, the root read as rts[(q r mod R) m] (the
+//         index grows by q m < len a term and wraps at len), written to
+//         point (j - k) R + k + q ns through sink(t, i, v). A work item is
+//         butterfly j and kGenericPairs consecutive q.
+// Every index is an exact integer below len. Items run with t fastest in
+// the point-major tile and j fastest in the row-major one (as pass does),
+// the pair group q0 slowest, so a warp reads consecutive points and the
+// same roots. The caller's barrier follows, as after pass.
+template <bool kCols, class Load, class Sink>
+__device__ __forceinline__ void generic_tile_pass(
+    int len, int count, int ns, int R, bool first, const Tile<kCols>& buf,
+    const float2* __restrict__ rts, const Load& load, const Sink& sink) {
+  constexpr int P = kGenericPairs;
+  const int m = len / R;
+  const int h = (R - 1) / 2;
+  const int span = m * count;
+  const Div by(kCols ? count : m);
+  const Div by_span(span);
+  const Div by_ns(ns);
+  const int estep = m / ns;
+  const int r0 = first ? 0 : 1;
+  const int folds = span * (h + 1 - r0);
+  for (int w = threadIdx.x; w < folds; w += kThreads) {
+    const int r = by_span(w);
+    int t, j;
+    item<kCols>(w - r * span, by, count, m, t, j);
+    if (r + r0 == 0) {
+      buf.at(t, j) = load(t, j);
+      continue;
+    }
+    const int q = r + r0;
+    const int ia = j + q * m;
+    const int ib = j + (R - q) * m;
+    float2 x = load(t, ia);
+    float2 y = load(t, ib);
+    if (ns > 1) {
+      const int e = (j - by_ns(j) * ns) * estep;
+      x = cmul(x, rts[q * e]);
+      y = cmul(y, rts[(R - q) * e]);
+    }
+    buf.at(t, ia) = cadd(x, y);
+    buf.at(t, ib) = csub(x, y);
+  }
+  __syncthreads();
+  const int groups = (h + P) / P;   // ceil((H + 1) / P)
+  const int sums = span * groups;
+  for (int w = threadIdx.x; w < sums; w += kThreads) {
+    const int g = by_span(w);
+    int t, j;
+    item<kCols>(w - g * span, by, count, m, t, j);
+    const int q0 = g * P;
+    const int k = j - by_ns(j) * ns;
+    const int o = (j - k) * R + k;
+    const float2 x0 = buf.at(t, j);
+    float2 a[P], b[P];
+    int idx[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      a[p] = x0;
+      b[p] = make_float2(0.0f, 0.0f);
+      idx[p] = 0;
+    }
+#pragma unroll 2
+    for (int r = 1; r <= h; ++r) {
+      const float2 sr = buf.at(t, j + r * m);
+      const float2 dr = buf.at(t, j + (R - r) * m);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        idx[p] += (q0 + p) * m;   // (q0 + p) m <= (H + P - 1) m < len
+        if (idx[p] >= len) idx[p] -= len;
+        const float2 wr = rts[idx[p]];
+        a[p].x += wr.x * sr.x;
+        a[p].y += wr.x * sr.y;
+        b[p].x += wr.y * dr.x;
+        b[p].y += wr.y * dr.y;
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int q = q0 + p;
+      if (q > h) break;
+      sink(t, o + q * ns, make_float2(a[p].x - b[p].y, a[p].y + b[p].x));
+      if (q > 0) {
+        sink(t, o + (R - q) * ns,
+             make_float2(a[p].x + b[p].y, a[p].y - b[p].x));
+      }
+    }
+  }
+}
+
 // rts[x] = tw[x step] = e^{+2 pi i x / len}, x < len (a table of len step
 // points).
 __device__ __forceinline__ void load_roots(float2* rts,
@@ -191,10 +319,13 @@ __device__ __forceinline__ void load_roots(float2* rts,
 }
 
 // Fill plan from a host array of n_pass radices of product len, each from
-// {2, 3, 4, 5, 10} or the odd primes 7 to 31; *variant the kMaxR whose
-// radix switch holds them all: 10, 13 or 31.
-inline int sub_plan(const int* radices, int n_pass, int len, Plan* plan,
-                    int* variant) {
+// {2, 3, 4, 5, 10}, the odd primes 7 to 31, or an odd radix above 31 (a
+// generic pass; never the last of a row plan, `row`, whose last pass sums
+// magnitudes in registers), and radix 1 as the last pass of a row plan
+// (only the magnitude); *variant the kMaxR whose radix switch holds them
+// all: 10, 13, 31 or kAnyRadix.
+inline int sub_plan(const int* radices, int n_pass, int len, bool row,
+                    Plan* plan, int* variant) {
   if (n_pass < 1 || n_pass > kMaxPasses) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -206,11 +337,21 @@ inline int sub_plan(const int* radices, int n_pass, int len, Plan* plan,
   }
   for (int i = 0; i < n_pass; ++i) {
     const int r = radices[i];
+    const bool last = i == n_pass - 1;
     const bool small = (r >= 2 && r <= 5) || r == 10;
     const bool prime = r == 7 || r == 11 || r == 13 || r == 17 || r == 19 ||
                        r == 23 || r == 29 || r == 31;
-    if (!small && !prime) return static_cast<int>(cudaErrorInvalidValue);
-    if (prime) *variant = r > 13 ? 31 : *variant > 13 ? 31 : 13;
+    const bool wide = r > kMaxFixedRadix && r <= kTile && r % 2 == 1 &&
+                      !(row && last);
+    const bool one = r == 1 && row && last && n_pass > 1;
+    if (!small && !prime && !wide && !one) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (wide || one) {
+      *variant = kAnyRadix;
+    } else if (prime && *variant != kAnyRadix) {
+      *variant = r > 13 ? 31 : *variant > 13 ? 31 : 13;
+    }
     product *= r;
   }
   return static_cast<int>(product == len ? cudaSuccess

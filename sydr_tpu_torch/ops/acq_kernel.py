@@ -14,23 +14,25 @@ entries, chosen from the code period ``n`` alone (:func:`kernel_for`):
   2^2 * 3 * 11 * 31, 8184, and 4070 = 2 * 5 * 11 * 37;
 * ``csrc/pcps_bins_cluster.cu`` (:data:`CLUSTER_KERNEL`), the same FFT
   on a thread-block cluster of 2, 4 or 8 blocks that pool their shared
-  memory, for the other ``n`` up to 65,536 and 38 5-smooth ``n`` above
-  it (16368 at 16.368 Msps, 20000, 25000, 26500 = 2^2 * 5^3 * 53, 40920,
-  65536, 80000, 100000);
+  memory, for the other 31-smooth ``n`` up to 65,536 (16368 at 16.368
+  Msps, 20000, 25000, 40920, 65536), 38 5-smooth ``n`` above it (80000,
+  100000) and the ``n`` with a generic pass on a cluster of 2 (8193 to
+  16384 points);
 * ``csrc/pcps_bins_twostep.cu`` (:data:`TWOSTEP_KERNEL`), the FFT of
   length n in two passes through global memory, n = N1 * N2
-  (:func:`balanced_factors`), its sub-FFTs the radix entries'
-  butterflies over tiles in shared memory, for every other ``n`` up to
-  2^20 whose prime factors are at most 31 (66000, 70000 at 70 Msps,
-  122880, 245520 at 245.52 Msps, 2^20);
+  (:func:`twostep_split`), its sub-FFTs the radix entries' butterflies
+  and a generic pass over tiles in shared memory, for every other ``n``
+  up to 2^20 whose prime factors are at most 31 (66000, 70000 at 70
+  Msps, 122880, 245520 at 245.52 Msps, 2^20), the ``n`` with a generic
+  pass that a cluster of 4 or 8 would run (26500 = 2^2 * 5^3 * 53), and
+  the ``n`` above 65,536 whose largest prime factor is at most
+  :data:`TWOSTEP_MAX_PRIME` (99375 = 3 * 5^4 * 53 at 99.375 Msps);
 * ``csrc/pcps_bins_bluestein.cu`` (:data:`BLUESTEIN_KERNEL`), Bluestein's
   chirp convolution at a 13-smooth length M just above 2n - 1
   (:func:`bluestein_lengths`) on the two-step entry's tile FFTs through
   global memory, for every other ``n`` up to 2^20 that is not prime
-  (65538 = 2 * 3^2 * 11 * 331, 99375 = 3 * 5^4 * 53, 131074 = 2 * 65537)
-  and for the ``n`` whose largest prime factor is above
-  :data:`GENERIC_MAX_PRIME`, where the radix entries' generic pass costs
-  p operations a point (9722 = 2 * 4861, 65498 = 2 * 32749).
+  (65538 = 2 * 3^2 * 11 * 331, 131074 = 2 * 65537, 9722 = 2 * 4861,
+  65498 = 2 * 32749).
 
 A prime ``n``, or one above 2^20, raises ``ValueError`` from
 :func:`kernel_for` before anything is launched.
@@ -38,7 +40,8 @@ A prime ``n``, or one above 2^20, raises ``ValueError`` from
 the product, ``abs``, sum), used on CPU tensors; there is no fallback from
 a kernel to it or from one kernel to another.
 :func:`stockham_ifft_ref` walks the radix entries' passes, strides and
-integer twiddle indices in PyTorch, :func:`twostep_ifft_ref` and
+integer twiddle indices in PyTorch (and the tile FFT's sub-plans,
+:func:`sub_plan`), :func:`twostep_ifft_ref` and
 :func:`bluestein_ifft_ref` the other entries' steps, for the tests of that
 arithmetic.
 """
@@ -125,9 +128,17 @@ BLUESTEIN_WINDOW = 50
 # nc transforms a (bin, channel) pair) holds as many pairs as fit in 512
 # MB, and always one (:func:`scratch_chunk_pairs`).
 SCRATCH_BYTES = 512 << 20
-# The largest prime factor that a plan with a generic pass keeps on the
-# radix entries; above it the Bluestein entry (kernel_for).
+# Routing of an n with a prime factor above 31 (kernel_for): the radix
+# entries keep a plan with a generic pass whose largest prime factor is at
+# most GENERIC_MAX_PRIME on one block or a cluster smaller than
+# TWOSTEP_MIN_CLUSTER; the two-step entry takes the larger clusters' n and
+# the n above RADIX_MAX_N (the largest cluster's 65,536 points) whose
+# largest prime factor is at most TWOSTEP_MAX_PRIME; the Bluestein entry
+# the rest.
 GENERIC_MAX_PRIME = 233
+TWOSTEP_MIN_CLUSTER = 4
+RADIX_MAX_N = 1 << 16
+TWOSTEP_MAX_PRIME = 257
 
 
 # The primes up to 1024 (the square root of 2^20): the trial divisors of
@@ -302,15 +313,23 @@ def cluster_size(n: int, plan: tuple[int, ...] | None = None) -> int:
         f"points, at most {points})")
 
 
-def sub_plan(n: int) -> tuple[int, ...]:
-    """Radices of a sub-FFT of the two-step entry: :func:`radix_plan`, or
-    ``(n,)`` for a length that is one of its radices (4, 10, 2, 3, 5, 7 to
-    31). Raises ``ValueError`` for a length with a prime factor above
-    31."""
-    if prime_factors(n)[-1] > PRIME_RADICES[0]:
-        raise ValueError(f"n={n}: a prime factor above "
-                         f"{PRIME_RADICES[0]}, no two-step plan")
-    return (n,) if n in SMALL_RADICES + PRIME_RADICES else radix_plan(n)
+def sub_plan(n: int, row: bool = False) -> tuple[int, ...]:
+    """Radices of a tile FFT of length ``n`` (``csrc/pcps_tile.cuh``: the
+    sub-FFTs of the two-step and Bluestein entries): ``(n,)`` for a length
+    that is one of the radices (4, 10, 2, 3, 5, 7 to 31), else
+    :func:`radix_plan` for a 31-smooth length; for a length with prime
+    factors above 31, those first (largest first, each a generic pass),
+    then the sub-plan of the rest, and, where nothing is left in a
+    ``row`` plan (whose last pass sums magnitudes in registers), a radix-1
+    last pass (only the magnitude): 265 = 5 x 53 is (53, 5), a row of
+    1517 = 37 x 41 (41, 37, 1)."""
+    factors = prime_factors(n)
+    generic = tuple(sorted((p for p in factors if p > PRIME_RADICES[0]),
+                           reverse=True))
+    if not generic:
+        return (n,) if n in SMALL_RADICES + PRIME_RADICES else radix_plan(n)
+    rest = n // math.prod(generic)
+    return generic + (sub_plan(rest) if rest > 1 else (1,) if row else ())
 
 
 def has_radix_plan(n: int) -> bool:
@@ -354,8 +373,8 @@ _COLUMN_LENGTHS = tuple(v for v in _BLUESTEIN_M if 2 <= v <= TWOSTEP_MAX_N1)
 
 
 @functools.lru_cache(maxsize=None)
-def _passes(length: int) -> int:
-    return len(sub_plan(length))
+def _passes(length: int, row: bool = False) -> int:
+    return len(sub_plan(length, row))
 
 
 @functools.lru_cache(maxsize=None)
@@ -562,14 +581,15 @@ def pcps_bins_ref(spectra, code_k, bin_shifts):
 def twostep_ifft_ref(x, n: int):
     """``torch.fft.ifft(x)`` of ``x [..., n]`` complex64 by the two-step
     entry's own steps (``csrc/pcps_bins_twostep.cu``), in PyTorch: the
-    split n = N1 * N2 (:func:`balanced_factors`; input j = N2 j1 + j2),
-    the column transforms of length N1 over j1, the twiddle at its exact
+    split n = N1 * N2 (:func:`twostep_split`; input j = N2 j1 + j2), the
+    column transforms of length N1 over j1, the twiddle at its exact
     integer index ``k1 * j2`` below n, the row transforms of length N2
-    (``torch.fft`` of length N1 and N2 stand for the kernel's tile FFTs),
-    and the output order ``k = k1 + N1 k2``."""
+    (``torch.fft`` of length N1 and N2 stand for the kernel's tile FFTs,
+    whose sub-plans :func:`stockham_ifft_ref` walks), and the output order
+    ``k = k1 + N1 k2``."""
     if x.shape[-1] != n:
         raise ValueError(f"x has {x.shape[-1]} points, expected n={n}")
-    n1, n2 = balanced_factors(n)
+    n1, n2 = twostep_split(n)[:2]
     dev = x.device
     idx = torch.arange(n1, device=dev)[:, None] \
         * torch.arange(n2, device=dev)[None, :]              # [N1, N2] < n
@@ -660,27 +680,45 @@ def radix_kernel_for(n: int):
 
 def kernel_for(n: int):
     """The entry that ``n`` selects and its launch arguments that depend
-    on ``n`` alone: :func:`radix_kernel_for` where its plan fits a block
-    or a cluster of 8 and ``n``'s largest prime factor is at most
-    :data:`GENERIC_MAX_PRIME`; else, for an ``n`` whose prime factors are
-    at most 31, the two-step entry (:func:`twostep_kernel_for`); else the
-    Bluestein entry with ``(M, M1, M2)`` (:func:`bluestein_lengths`). So
-    every 31-smooth n up to 65536 and the 38 5-smooth n above it that a
-    cluster holds keep the radix entries, the 13,533 other 31-smooth n up
-    to 2^20 take the two-step entry, and every other n that is not prime,
-    up to 2^20, has the Bluestein entry.
+    on ``n`` alone, p being n's largest prime factor:
+    :func:`radix_kernel_for` where its plan fits a block or a cluster and
+    p <= 31 (every 31-smooth n up to 65536 and 38 5-smooth n above it),
+    or p <= :data:`GENERIC_MAX_PRIME` on one block or a cluster of 2
+    (:data:`TWOSTEP_MIN_CLUSTER`); else the two-step entry
+    (:func:`twostep_kernel_for`) for the other 31-smooth n up to 2^20, the
+    n with p <= 233 that a radix plan would run on a cluster of 4 or 8,
+    and the n above 65536 with p <= :data:`TWOSTEP_MAX_PRIME` whose split
+    fits the tile; else the Bluestein entry with ``(M, M1, M2)``
+    (:func:`bluestein_lengths`): every other n up to 2^20 that is not
+    prime.
 
-    The threshold is where the Bluestein entry overtakes the radix
-    entries' generic pass: at 8 ch x 101 bins x 10 blocks the radix
-    entry's device time over the Bluestein entry's read 0.42 at p = 37
-    (n = 4070), 0.58-0.67 at 41, 0.43-0.61 at 53, 0.44-0.73 from 73 to
-    157, 0.88 / 0.94 / 0.96 / 0.96 / 0.97 at 181 / 193 / 227 / 229 /
-    233, then 1.21 at 239 (1.43 at n = 478 = 2 x 239), 1.18 at 257, 1.40
-    at 311, 1.71 at 409, 1.38 at 509, 8.65 at 1637 and 12.2 at 4861
-    (``tools/torch_kernel_variants.py --k2 --entries``,
-    NVIDIA H100 80GB HBM3, 700.00 W). One exception to the rule: n =
-    65231 = 37 x 41 x 43, three generic passes, read 1.46 and stays on
-    the radix entry.
+    The limits are where the other entry wins, at 8 ch x 101 bins x 10
+    blocks (and, above 65536, at 1 ch x 11 bins x 2 blocks too; device
+    times, ``tools/torch_kernel_variants.py --k2 --entries``, NVIDIA H100
+    80GB HBM3, 700.00 W). Above 65536, the two-step entry's time over the
+    Bluestein entry's at n ~ 10^5, by p: 0.37 / 0.43 at 37 (99900), 0.38 /
+    0.42 at 41, 0.39 / 0.42 at 53 (99375), 0.42 / 0.43 at 71, 0.54 /
+    0.62 at 97, 0.55 / 0.54 at 131, 0.59 / 0.60 at 157, 0.71 / 0.70 at
+    193, 0.67 / 0.63 at 233, 0.74 / 0.69 at 257 (0.93 / 0.80 at 65792 =
+    64 x 1028, 257 in the rows); 0.97 / 1.14 at 331 and 1.24 / 1.33 at
+    409, both in the rows (99300, 99387). In the columns, at larger n (2
+    ch x 101 x 10 / 1 x 11 x 2), 0.55 / 0.56 at 331, 0.85 / 0.88 at 409,
+    0.93 / 0.87 at 521 and 1.03 / 0.96 at 641 (211840 to 461520): a limit
+    for column splits is not set. Below 65536, the radix entries' time
+    over the two-step entry's: on one block 0.76-1.01 (4070, 7860, 7950,
+    6990: p = 37 to 233), on a cluster of 2 0.76-1.04 with p in the rows
+    (13100, 13032, 13980: 131 to 233) and 1.31-1.40 in the columns
+    (14800, 14550: 37, 97), on a cluster of 4 1.20-1.73 (26500 to 30144,
+    p = 37 to 233), of 8 1.87-2.21 (52400 to 58875, 37 to 233); the
+    Bluestein entry beat the radix entries by 10% or more only at 55920
+    = 2^4 x 3 x 5 x 233 (radix / Bluestein 1.37, C = 8), which the
+    two-step entry takes (0.62 of Bluestein), and lost to the two-step
+    entry from p = 239 on only on a cluster's n (0.79 at 28680, 0.90 at
+    25700; 1.10-1.11 on one block, 7170, 7710), where those n keep
+    Bluestein. So :data:`GENERIC_MAX_PRIME` stays 233: radix / Bluestein
+    read 0.35 at 37 (4070), 0.45-0.58 at 37-53, 0.58-0.80 at 73-97,
+    0.63-0.94 at 131-157, 0.77-1.06 at 181 and 0.80-0.91 at 233 on the
+    one-block and 2-block n.
 
     Raises ``ValueError`` for an ``n`` above 2^20, naming the limit, and
     for a prime (in :func:`balanced_factors`' words above 64)."""
@@ -689,33 +727,81 @@ def kernel_for(n: int):
     factors = prime_factors(n)
     if len(factors) < 2:
         balanced_factors(n)                # a prime above 64 raises
-    if max(factors, default=1) <= GENERIC_MAX_PRIME:
-        plan = radix_plan(n)
-        if fitting_cluster(n, plan) is not None:
+    p = max(factors, default=1)
+    cluster = None
+    if p <= GENERIC_MAX_PRIME:
+        cluster = fitting_cluster(n, radix_plan(n))
+        if cluster is not None and (p <= PRIME_RADICES[0]
+                                    or cluster < TWOSTEP_MIN_CLUSTER):
             return radix_kernel_for(n)
-    if max(factors) <= PRIME_RADICES[0]:
+    if p <= PRIME_RADICES[0]:
         return twostep_kernel_for(n)
+    if p <= TWOSTEP_MAX_PRIME and (cluster is not None or n > RADIX_MAX_N):
+        try:
+            return twostep_kernel_for(n)
+        except ValueError:                 # the split passes the tile
+            pass
     return bluestein_kernel_for(n)
 
 
-def twostep_kernel_for(n: int):
-    """The two-step entry and ``(N1, N2, plan1, plan2)``: the split of
-    :func:`balanced_factors` and each factor's :func:`sub_plan`; the tools
-    and tests launch it at ``n`` that :func:`kernel_for` routes
-    elsewhere. Raises ``ValueError`` for an ``n`` above 2^20 or with a
-    prime factor above 31, or whose split passes the tile (N1 above
-    1024 or N2 above 4096; no such n is 31-smooth up to 2^20)."""
+def twostep_split(n: int) -> tuple[int, int, tuple, tuple]:
+    """``(N1, N2, plan1, plan2)`` of the two-step entry at any ``n`` whose
+    split fits the tile (N1 <= 1024 columns, N1 <= N2 <= 4096 rows), with
+    the column and row sub-plans (:func:`sub_plan`), whatever n's largest
+    prime factor (the tools time it beside the other entries). A
+    31-smooth n takes :func:`balanced_factors`, JAX's split (250 x 280 at
+    70000). An n with a prime factor above 31 takes the split with the
+    fewest generic radices in the rows, then the fewest passes, then the
+    most balanced: the generic pass ran faster in the columns at every n
+    measured at 8 ch x 101 bins x 10 blocks (25.02 ms at 99900 = 111 x
+    900, plan (37, 3), against 29.50 at JAX's 300 x 333, (37, 3, 3) in
+    the rows; 23.29 at 99375 = 265 x 375, (53, 5), against 31.53 at 125
+    x 795; 44.63 at 100656 = 233 x 432 against 73.95 at 144 x 699;
+    ``tools/torch_kernel_variants.py --twostep --layouts``, NVIDIA H100
+    80GB HBM3, 700.00 W). Raises ``ValueError`` for an ``n`` above 2^20,
+    a prime, or one with no split that fits (none is 31-smooth up to 2^20;
+    2,354 with a largest prime factor of 37 to 233)."""
     if n > BLUESTEIN_MAX_N:
         raise ValueError(f"n={n}: no K2 kernel on the card above "
                          f"{BLUESTEIN_MAX_N} points (2^20)")
     n1, n2 = balanced_factors(n)
-    if prime_factors(n)[-1] > PRIME_RADICES[0]:
-        raise ValueError(f"n={n}: a prime factor above "
-                         f"{PRIME_RADICES[0]}, no two-step plan")
+    factors = prime_factors(n)
+    if factors[-1] > PRIME_RADICES[0]:
+        best = None
+        for d in _divisors(factors):
+            e = n // d
+            if 2 <= d <= min(TWOSTEP_MAX_N1, e) and e <= TWOSTEP_MAX_N2:
+                wide = sum(p > PRIME_RADICES[0] for p in prime_factors(e))
+                key = (wide, _passes(d) + _passes(e, True), e - d)
+                if best is None or key < best[0]:
+                    best = (key, d, e)
+        if best is not None:
+            n1, n2 = best[1:]
     if n1 > TWOSTEP_MAX_N1 or n2 > TWOSTEP_MAX_N2:
         raise ValueError(f"n={n} = {n1} x {n2}: the two-step entry takes "
                          f"N1 <= {TWOSTEP_MAX_N1}, N2 <= {TWOSTEP_MAX_N2}")
-    return TWOSTEP_KERNEL, (n1, n2, sub_plan(n1), sub_plan(n2))
+    return n1, n2, sub_plan(n1), sub_plan(n2, row=True)
+
+
+def _divisors(factors) -> list[int]:
+    """Every divisor of the product of ``factors`` (prime, ascending)."""
+    out = [1]
+    for p in sorted(set(factors)):
+        out = [d * p ** k for d in out for k in range(factors.count(p) + 1)]
+    return out
+
+
+def twostep_kernel_for(n: int):
+    """The two-step entry and its :func:`twostep_split`; the tests launch
+    it at ``n`` that :func:`kernel_for` routes elsewhere. Raises
+    ``ValueError`` where :func:`twostep_split` does, and for a prime
+    factor above :data:`TWOSTEP_MAX_PRIME` (where the Bluestein entry is
+    faster)."""
+    split = twostep_split(n)
+    if prime_factors(n)[-1] > TWOSTEP_MAX_PRIME:
+        raise ValueError(f"n={n}: a prime factor above "
+                         f"{TWOSTEP_MAX_PRIME}, no two-step plan")
+    return TWOSTEP_KERNEL, split
 
 
 def bluestein_kernel_for(n: int):
@@ -772,7 +858,8 @@ def pcps_bins_launch_args(spectra, code_k, bin_shifts, entry=None):
     its output (and the global-memory entries' scratch) and return
     ``(kernel, out, args)``: the entry that ``n`` selects
     (:func:`kernel_for`; or, for the tools and tests, ``entry="radix"``:
-    :func:`radix_kernel_for`, ``"twostep"``: :func:`twostep_kernel_for`,
+    :func:`radix_kernel_for`, ``"twostep"``: the two-step entry at
+    :func:`twostep_split`, whatever n's largest prime factor,
     ``"bluestein"``: :func:`bluestein_kernel_for`) and the C arguments of
     its entry point."""
     dev = spectra.device
@@ -786,7 +873,7 @@ def pcps_bins_launch_args(spectra, code_k, bin_shifts, entry=None):
     if any(not 0 <= p < n_ph for _, p in bin_shifts):
         raise ValueError("pcps_bins: phase index out of range")
     kernel, shape = {None: kernel_for, "radix": radix_kernel_for,
-                     "twostep": twostep_kernel_for,
+                     "twostep": lambda n: (TWOSTEP_KERNEL, twostep_split(n)),
                      "bluestein": bluestein_kernel_for}[entry](n)
     shift, phase = _plan_tensors(bin_shifts, dev)
     out = torch.empty((n_ch, len(bin_shifts), n), dtype=torch.float32,

@@ -230,18 +230,25 @@ def test_acquire_matches_jax_at_16368_ksps():
 
 
 # A 26.5 Msps front end: n = 26500 = 2^2 * 5^3 * 53, whose prime factor 53
-# the card's FFT runs as a generic pass, on a cluster of four blocks; the
-# JAX map factors it 125 x 212.
+# the card's FFT runs as a generic pass: on the two-step entry (53 x 500,
+# column plan (53,)), where the radix plan would take a cluster of four
+# blocks (1.5x slower); the JAX map factors it 125 x 212.
 FS_26 = 26.5e6
 N_26 = 26500
 
 
 def test_acquire_matches_jax_at_26500_ksps():
     """The module's capture and bounds at 26.5 Msps, 1 channel, 61 bins,
-    1 x 2 blocks: the port's ``acquire`` against JAX's ``pcps_shift_map``
-    and ``peak_metric``, as at 16.368 Msps."""
+    1 x 2 blocks: the port's ``acquire`` and the map built by the two-step
+    entry's steps (``twostep_bins_ref``, the entry the card takes at this
+    n) against JAX's ``pcps_shift_map`` and ``peak_metric``, as at 16.368
+    Msps."""
     coher, noncoh = 1, 2
     assert mmfft._balanced_factors(N_26) == (125, 212)
+    kernel, shape = acq_kernel.kernel_for(N_26)
+    assert kernel is acq_kernel.TWOSTEP_KERNEL
+    assert shape == (53, 500, (53,), (10, 10, 5))
+    assert acq_kernel.cluster_size(N_26) == 4
     gen = IQGenerator(FS_26, noise=True, seed=5)
     gen.add_satellite(17, doppler_hz=-2360.0, code_phase_chips=77.7,
                       cn0_dbhz=45.0)
@@ -269,6 +276,13 @@ def test_acquire_matches_jax_at_26500_ksps():
     assert abs(float(dop[0]) + 2360.0) <= 100.0
     assert int(c_r[0]) == int(ci[0])
     assert abs(float(m_r[0]) - float(metric[0])) < 0.05
+    spectra = tacq.phase_spectra(
+        torch.from_numpy(iq_re), torch.from_numpy(iq_im), n=N_26,
+        sampling_frequency=FS_26, coherent=coher, non_coherent=noncoh,
+        phases=phases)
+    walk = acq_kernel.twostep_bins_ref(
+        spectra, torch.from_numpy(k).to(torch.complex64), bin_shifts).numpy()
+    assert (np.abs(walk - ref) / np.abs(ref).max()).max() < 5e-3
 
 
 def test_peak_metric_matches_jax(case):
@@ -460,11 +474,11 @@ def is_prime(n):
 
 
 # Non-prime n in each range: (31-smooth, a prime factor above 31 on a
-# radix entry, on the Bluestein entry).
-NON_PRIME_COUNTS = {(64, 8192): (1530, 2974, 2615),
-                    (8193, 16384): (760, 2586, 3974),
-                    (16385, 32768): (1068, 4528, 9176),
-                    (32769, 65536): (1484, 7661, 20593)}
+# radix entry, on the two-step entry, on the Bluestein entry).
+NON_PRIME_COUNTS = {(64, 8192): (1530, 2974, 0, 2615),
+                    (8193, 16384): (760, 2586, 0, 3974),
+                    (16385, 32768): (1068, 0, 4528, 9176),
+                    (32769, 65536): (1484, 0, 7661, 20593)}
 
 
 @pytest.mark.parametrize("lo, hi", sorted(NON_PRIME_COUNTS))
@@ -472,23 +486,35 @@ def test_every_non_prime_n_has_a_radix_entry(lo, hi):
     """Every code period in [64, 65536] that is not prime gets a kernel
     on the card, never a refusal: 4,842 n are 31-smooth and take an FFT
     kernel, one block or a cluster of at most 8 whose blocks fit
-    (:func:`assert_block_fits`); 54,107 have a prime factor above 31,
-    17,749 of them on the radix entries (their largest prime factor at
-    most ``GENERIC_MAX_PRIME``, 233: generic passes) and 36,358 on the
-    Bluestein entry (above it), 58,949 in all. Every prime raises
-    ``ValueError``."""
-    smooth = generic = bluestein = 0
+    (:func:`assert_block_fits`); 54,107 have a prime factor above 31:
+    5,560 on the radix entries (their largest prime factor at most
+    ``GENERIC_MAX_PRIME``, 233, on one block or a cluster of 2: generic
+    passes), 12,189 on the two-step entry (at most 233, where a radix
+    plan would take a cluster of 4 or 8, ``TWOSTEP_MIN_CLUSTER``) and
+    36,358 on the Bluestein entry (above 233), 58,949 in all. Every prime
+    raises ``ValueError``."""
+    smooth = generic = twostep = bluestein = 0
     for n in range(lo, hi + 1):
         if is_prime(n):
             with pytest.raises(ValueError, match="factorisation"):
                 acq_kernel.kernel_for(n)
             continue
         kernel, shape = acq_kernel.kernel_for(n)
+        largest = acq_kernel.prime_factors(n)[-1]
         if kernel is acq_kernel.BLUESTEIN_KERNEL:
-            assert acq_kernel.prime_factors(n)[-1] > \
-                acq_kernel.GENERIC_MAX_PRIME, n
+            assert largest > acq_kernel.GENERIC_MAX_PRIME, n
             assert shape == acq_kernel.bluestein_lengths(n)
             bluestein += 1
+            continue
+        if kernel is acq_kernel.TWOSTEP_KERNEL:
+            assert 31 < largest <= acq_kernel.GENERIC_MAX_PRIME, n
+            plan = acq_kernel.radix_plan(n)
+            assert acq_kernel.fitting_cluster(n, plan) >= \
+                acq_kernel.TWOSTEP_MIN_CLUSTER == 4, n
+            n1, n2, plan1, plan2 = shape
+            assert n1 * n2 == n and shape == acq_kernel.twostep_split(n), n
+            assert int(np.prod(plan1)) == n1 and int(np.prod(plan2)) == n2
+            twostep += 1
             continue
         assert kernel in (acq_kernel.KERNEL, acq_kernel.CLUSTER_KERNEL), n
         cluster = 1 if kernel is acq_kernel.KERNEL else shape[3]
@@ -498,13 +524,15 @@ def test_every_non_prime_n_has_a_radix_entry(lo, hi):
         assert max(plan) <= acq_kernel.GENERIC_MAX_PRIME
         assert_block_fits(n, plan, cluster, shape[2])
         if max(plan) > 31:
+            assert cluster < acq_kernel.TWOSTEP_MIN_CLUSTER, n
             generic += 1
         else:
             smooth += 1
-    assert (smooth, generic, bluestein) == NON_PRIME_COUNTS[(lo, hi)]
+    assert (smooth, generic, twostep, bluestein) == \
+        NON_PRIME_COUNTS[(lo, hi)]
     totals = np.sum(list(NON_PRIME_COUNTS.values()), axis=0)
-    assert tuple(totals) == (4842, 17749, 36358)
-    assert totals[1] + totals[2] == 54107 and totals.sum() == 58949
+    assert tuple(totals) == (4842, 5560, 12189, 36358)
+    assert totals[1:].sum() == 54107 and totals.sum() == 58949
 
 
 @pytest.mark.parametrize("n, cluster", [
@@ -735,9 +763,14 @@ def test_twostep_chunk_pairs_at_the_scratch_cap(pairs, nc, n, chunk):
 
 # Two-step lengths: front ends at 66, 70, 122.88 and 245.52 Msps (66000 =
 # 250 x 264, 70000 = 250 x 280, 122880 = 320 x 384, 245520 = 495 x 496,
-# radices 11 and 31), and 4000 = 50 x 80, below the clusters, forced
-# through the split.
-TWOSTEP_N = (66000, 70000, 122880, 245520, 4000)
+# radices 11 and 31), 4000 = 50 x 80, below the clusters, forced through
+# the split; with a prime factor above 31 (a generic pass in the tile):
+# 99.375 Msps (99375 = 3 * 5^4 * 53 = 265 x 375), 99900 = 2^2 * 3^3 *
+# 5^2 * 37 = 111 x 900, 98688 = 2^7 * 3 * 257 = 257 x 384 (the largest
+# prime factor that the entry takes) and 26500 = 53 x 500 (below 65,536,
+# where a cluster of 4 would run it).
+TWOSTEP_N = (66000, 70000, 122880, 245520, 4000, 99375, 99900, 98688,
+             26500)
 
 
 @pytest.mark.parametrize("n", TWOSTEP_N)
@@ -750,7 +783,7 @@ def test_twostep_ifft_ref_matches_ifft(n):
     rng = np.random.default_rng(n)
     x = torch.tensor(rng.normal(size=(3, n)) + 1j * rng.normal(size=(3, n)),
                      dtype=torch.complex64)
-    n1, n2 = acq_kernel.balanced_factors(n)
+    n1, n2 = acq_kernel.twostep_split(n)[:2]
     assert n1 * n2 == n and n1 <= n2
     assert n1 <= acq_kernel.TWOSTEP_MAX_N1 and n2 <= acq_kernel.TWOSTEP_MAX_N2
     got = acq_kernel.twostep_ifft_ref(x, n)
@@ -764,28 +797,44 @@ def test_twostep_ifft_ref_matches_ifft(n):
     (1 << 20, (1024, 1024, (4,) * 5, (4,) * 5)),
     (16368, (124, 132, (31, 4), (11, 4, 3))),
     (40920, (186, 220, (31, 2, 3), (11, 10, 2))),
-    (4900, (70, 70, (7, 10), (7, 10)))])
+    (4900, (70, 70, (7, 10), (7, 10))),
+    (99375, (265, 375, (53, 5), (3, 5, 5, 5))),
+    (99900, (111, 900, (37, 3), (10, 10, 3, 3))),
+    (100656, (233, 432, (233,), (4, 4, 3, 3, 3))),
+    (65792, (64, 1028, (4, 4, 4), (257, 4))),
+    (26500, (53, 500, (53,), (10, 10, 5))),
+    (74, (2, 37, (2,), (37, 1)))])
 def test_twostep_kernel_for_splits_n(n, split):
-    """The two-step entry's launch shape: JAX's balanced split (250 x 280
-    at 70000, as ``_balanced_factors``) and each factor's sub-plan
-    (:func:`sub_plan`: :func:`radix_plan`, or one pass for a length that
-    is a radix); the entry takes n below 65,536 too when forced (16368,
-    40920: the tools' sweep)."""
+    """The two-step entry's launch shape: for a 31-smooth n JAX's
+    balanced split (250 x 280 at 70000, as ``_balanced_factors``), for an
+    n with a prime factor above 31 the split with the fewest generic
+    radices in the rows, then the fewest passes, then the most balanced
+    (99900 = 111 x 900 where JAX's is 300 x 333 with radix 37 in the rows;
+    65792 = 2^8 x 257 and 74 = 2 x 37, whose prime passes the square root,
+    keep it in the rows, the row plan ending in radix 1 where nothing else
+    is left), and each factor's sub-plan (:func:`sub_plan`:
+    :func:`radix_plan`, one pass for a length that is a radix, the
+    generic radices first); the entry takes n below 65,536 too when
+    forced (16368, 40920: the tools' sweep)."""
     kernel, shape = acq_kernel.twostep_kernel_for(n)
     assert kernel is acq_kernel.TWOSTEP_KERNEL
     assert shape == split
-    assert mmfft._balanced_factors(n) == split[:2]
+    if acq_kernel.prime_factors(n)[-1] <= 31:
+        assert mmfft._balanced_factors(n) == split[:2]
     for length, plan in zip(split[:2], split[2:]):
         assert int(np.prod(plan)) == length
 
 
 @pytest.mark.parametrize("n, why", [
-    (65538, "a prime factor above 31"),          # 2 * 3^2 * 11 * 331
+    (65538, "a prime factor above 257"),         # 2 * 3^2 * 11 * 331
     (1048578, "above 1048576 points"),
-    (2 * 37, "a prime factor above 31")])
+    (2 * 263, "a prime factor above 257")])
 def test_twostep_kernel_for_refuses(n, why):
-    """The two-step entry takes no prime factor above 31 (its sub-FFTs
-    have no generic pass) and nothing above 2^20."""
+    """The two-step entry takes no prime factor above
+    ``TWOSTEP_MAX_PRIME`` (257: above it the Bluestein entry is faster;
+    2 x 37, refused while the tile FFT had no generic pass, now splits as
+    2 x 37) and nothing above 2^20."""
+    assert acq_kernel.TWOSTEP_MAX_PRIME == 257
     with pytest.raises(ValueError, match=why):
         acq_kernel.twostep_kernel_for(n)
 
@@ -807,14 +856,48 @@ def test_twostep_bin_order_groups_phases():
 
 
 def test_sub_plan_single_pass_lengths():
-    """A sub-FFT whose length is a radix runs one pass; other lengths take
-    :func:`radix_plan`."""
+    """A sub-FFT whose length is a radix runs one pass; other 31-smooth
+    lengths take :func:`radix_plan`; a prime factor above 31 (which
+    raised before the tile had a generic pass) runs first, and a row plan
+    that has nothing else ends in radix 1."""
     for r in (2, 3, 4, 5, 10, 7, 11, 13, 17, 19, 23, 29, 31):
         assert acq_kernel.sub_plan(r) == (r,)
+        assert acq_kernel.sub_plan(r, row=True) == (r,)
     assert acq_kernel.sub_plan(250) == (10, 5, 5)
     assert acq_kernel.sub_plan(1024) == (4, 4, 4, 4, 4)
-    with pytest.raises(ValueError, match="prime factor above 31"):
-        acq_kernel.sub_plan(37 * 2)
+    assert acq_kernel.sub_plan(37 * 2) == (37, 2)
+    assert acq_kernel.sub_plan(37) == (37,)
+    assert acq_kernel.sub_plan(37, row=True) == (37, 1)
+
+
+# Sub-lengths of the two-step entry's splits with a generic radix (and
+# one without): 99375's 265 (53, 5) and 375, 100656's 233 (one generic
+# pass), 99900's 111, 119296's row 466 (233, 2), 954368's 932 = 4 x 233,
+# 65792's row 1028 = 4 x 257, 71299's row 1517 = 37 x 41 (two generic
+# passes and radix 1) and 74's row 37.
+TILE_PLANS = ((265, False, (53, 5)), (375, True, (3, 5, 5, 5)),
+              (233, False, (233,)), (111, False, (37, 3)),
+              (466, True, (233, 2)), (932, False, (233, 4)),
+              (1028, True, (257, 4)), (1517, True, (41, 37, 1)),
+              (37, True, (37, 1)))
+
+
+@pytest.mark.parametrize("length, row, plan", TILE_PLANS)
+def test_tile_sub_plan_walk_matches_ifft(length, row, plan):
+    """The tile FFT's passes at the sub-plans with a generic radix
+    (:func:`sub_plan`; the roots of the tile are the table of length L,
+    the generic pass's fused index), walked by ``stockham_ifft_ref``,
+    against torch.fft.ifft (unnormalised) on seeded inputs: within 1e-5 of
+    the largest output."""
+    assert acq_kernel.sub_plan(length, row=row) == plan
+    rng = np.random.default_rng(length)
+    x = torch.tensor(rng.normal(size=(3, length))
+                     + 1j * rng.normal(size=(3, length)),
+                     dtype=torch.complex64)
+    tw = acq_kernel.twiddle_table(length, torch.device("cpu"))
+    got = acq_kernel.stockham_ifft_ref(x, plan, tw)
+    ref = torch.fft.ifft(x, norm="forward")
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
 def test_chirp_index_is_exact_at_large_j():
@@ -895,6 +978,68 @@ def test_acquire_matches_jax_at_70000_ksps():
         assert abs(float(m_w[0]) - float(m_r[0])) < 0.05
 
 
+# A 99.375 Msps front end: n = 99375 = 3 * 5^4 * 53, above the clusters'
+# 65,536 points with a prime factor above 31, whose transform the card runs
+# on the two-step entry (265 x 375, column plan (53, 5): the tile's generic
+# pass); the JAX map factors it 265 x 375 too.
+FS_99 = 99.375e6
+N_99 = 99375
+
+
+def test_acquire_matches_jax_at_99375_ksps():
+    """The module's capture and bounds at 99.375 Msps, 1 channel, 61 bins,
+    1 x 2 blocks: the port's ``acquire`` and the map built by the two-step
+    entry's steps (``twostep_bins_ref``, the entry the card takes at this
+    n) on the same spectra, against JAX's ``pcps_shift_map`` and
+    ``peak_metric``, as at 70 Msps (5e-3 of the map's maximum: the JAX
+    map's matmul DFT; the same Doppler bin and code index)."""
+    coher, noncoh = 1, 2
+    assert mmfft._balanced_factors(N_99) == (265, 375)
+    kernel, shape = acq_kernel.kernel_for(N_99)
+    assert kernel is acq_kernel.TWOSTEP_KERNEL
+    assert shape == (265, 375, (53, 5), (3, 5, 5, 5))
+    gen = IQGenerator(FS_99, noise=True, seed=5)
+    gen.add_satellite(17, doppler_hz=-2360.0, code_phase_chips=77.7,
+                      cn0_dbhz=45.0)
+    iq = gen.generate_ms(coher * noncoh)
+    iq_re, iq_im = np.float32(iq.real)[None], np.float32(iq.imag)[None]
+    k = jacq.code_fft_conj(17, FS_99)[None]
+    bins = jacq.doppler_bins(3000, 100)
+    assert len(bins) == 61
+    phases, bin_shifts = jacq.shift_plan(bins, FS_99, N_99, mode="shift")
+    ref = np.asarray(jacq.pcps_shift_map(
+        jnp.asarray(iq_re), jnp.asarray(iq_im),
+        jnp.asarray(np.float32(k.real)), jnp.asarray(np.float32(k.imag)),
+        mmfft.make_plan(N_99), mmfft.make_plan(N_99, inverse=True),
+        sampling_frequency=FS_99, coherent=coher, non_coherent=noncoh,
+        phases=phases, bin_shifts=bin_shifts))
+    dop, ci, metric, got = tacq.acquire(
+        (torch.from_numpy(iq_re), torch.from_numpy(iq_im)), k, bins,
+        sampling_frequency=FS_99, coherent=coher, non_coherent=noncoh)
+    got = got.numpy()
+    assert got.shape == ref.shape == (1, 61, N_99)
+    assert (np.abs(got - ref) / np.abs(ref).max()).max() < 5e-3
+    spc = round(FS_99 / 1.023e6)
+    d_r, c_r, m_r = jacq.peak_metric(jnp.asarray(ref), jnp.asarray(bins),
+                                     samples_per_chip=spc)
+    assert float(d_r[0]) == float(dop[0])
+    assert abs(float(dop[0]) + 2360.0) <= 100.0
+    assert int(c_r[0]) == int(ci[0])
+    assert abs(float(m_r[0]) - float(metric[0])) < 0.05
+    spectra = tacq.phase_spectra(
+        torch.from_numpy(iq_re), torch.from_numpy(iq_im), n=N_99,
+        sampling_frequency=FS_99, coherent=coher, non_coherent=noncoh,
+        phases=phases)
+    walk = acq_kernel.twostep_bins_ref(
+        spectra, torch.from_numpy(k).to(torch.complex64), bin_shifts).numpy()
+    assert (np.abs(walk - ref) / np.abs(ref).max()).max() < 5e-3
+    d_w, c_w, m_w = tacq.peak_metric(torch.from_numpy(walk),
+                                     torch.from_numpy(bins),
+                                     samples_per_chip=spc)
+    assert float(d_w[0]) == float(d_r[0]) and int(c_w[0]) == int(c_r[0])
+    assert abs(float(m_w[0]) - float(m_r[0])) < 0.05
+
+
 # A 9.722 Msps front end: n = 9722 = 2 * 4861, a prime factor above the
 # radix entries' GENERIC_MAX_PRIME, whose transform the card runs on the
 # Bluestein entry (M = 19500 = 150 x 130); the JAX map factors it
@@ -973,12 +1118,13 @@ def prime_sieve(limit=(1 << 20) + 8):
 # n above 65536 by range (every n in the first two, every 7th n from
 # 262145 in the third): (radix entry, two-step entry, Bluestein entry,
 # primes). The radix entries keep the 38 5-smooth n whose cluster of 8
-# fits (65610 to 115200); every other 31-smooth n has the two-step entry,
-# every other n that is not prime the Bluestein entry: 59,827 + 120,323
-# non-prime n in (65536, 262144].
-ABOVE_COUNTS = {(65537, 131072, 1): (38, 2012, 57777, 5709),
-                (131073, 262144, 1): (0, 2783, 117540, 10749),
-                (262145, 1048576, 7): (0, 825, 101700, 9823)}
+# fits (65610 to 115200); every other 31-smooth n and every n whose
+# largest prime factor is at most TWOSTEP_MAX_PRIME (257) and whose split
+# fits the tile has the two-step entry, every other n that is not prime
+# the Bluestein entry: 59,827 + 120,323 non-prime n in (65536, 262144].
+ABOVE_COUNTS = {(65537, 131072, 1): (38, 15742, 44047, 5709),
+                (131073, 262144, 1): (0, 25694, 94629, 10749),
+                (262145, 1048576, 7): (0, 13006, 89519, 9823)}
 
 
 @pytest.mark.parametrize("lo, hi, step", sorted(ABOVE_COUNTS))
@@ -986,9 +1132,11 @@ def test_every_non_prime_n_above_65536_has_an_entry(lo, hi, step):
     """Every n in (65536, 262144] and every 7th n in (262144, 2^20]
     that is not prime has a K2 entry on the card: a radix entry whose
     block or cluster of 8 fits (:func:`assert_block_fits`), the two-step
-    entry (31-smooth: n = N1 * N2, N1 <= 1024, N2 <= 4096), or the
-    Bluestein entry with M a 13-smooth number from 2n - 1 up to 2% above
-    it and M = M1 * M2, M1 <= 1024, M2 <= 4096. Every prime raises
+    entry (largest prime factor at most ``TWOSTEP_MAX_PRIME``: n = N1 *
+    N2, N1 <= 1024, N2 <= 4096, sub-plans of product N1 and N2), or the
+    Bluestein entry (largest prime factor above it, or no split within
+    the tile) with M a 13-smooth number from 2n - 1 up to 2% above it and
+    M = M1 * M2, M1 <= 1024, M2 <= 4096. Every prime raises
     ``ValueError``, as JAX's ``_balanced_factors`` does."""
     sieve = prime_sieve()
     radix = twostep = bluestein = primes = 0
@@ -1002,17 +1150,23 @@ def test_every_non_prime_n_above_65536_has_an_entry(lo, hi, step):
             primes += 1
             continue
         kernel, shape = acq_kernel.kernel_for(n)
+        largest = acq_kernel.prime_factors(n)[-1]
         if kernel is acq_kernel.BLUESTEIN_KERNEL:
             m, m1, m2 = shape
             need = 2 * n - 1
             assert need <= m <= need + need // 50 and is_13_smooth(m), n
             assert m1 * m2 == m and m1 <= 1024 and m2 <= 4096, n
-            assert acq_kernel.prime_factors(n)[-1] > 31, n
+            if largest <= acq_kernel.TWOSTEP_MAX_PRIME:
+                with pytest.raises(ValueError, match="the two-step entry "
+                                                     "takes N1 <= 1024"):
+                    acq_kernel.twostep_split(n)
             bluestein += 1
             continue
         if kernel is acq_kernel.TWOSTEP_KERNEL:
-            n1, n2 = shape[:2]
+            n1, n2, plan1, plan2 = shape
             assert n1 * n2 == n and n1 <= 1024 and n2 <= 4096, n
+            assert int(np.prod(plan1)) == n1 and int(np.prod(plan2)) == n2
+            assert largest <= acq_kernel.TWOSTEP_MAX_PRIME == 257, n
             twostep += 1
             continue
         assert kernel is acq_kernel.CLUSTER_KERNEL, n

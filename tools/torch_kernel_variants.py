@@ -8,6 +8,7 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
     python3 tools/torch_kernel_variants.py --k2 --entries --n 9722 [...]
     python3 tools/torch_kernel_variants.py --k2 --bluestein --n 9722 [...]
     python3 tools/torch_kernel_variants.py --twostep [--n 70000 245520]
+    python3 tools/torch_kernel_variants.py --twostep --layouts --n 99375
     python3 tools/torch_kernel_variants.py --parent DIR [--n 4070 ...]
 
 * K2 ``pcps_bins`` at n = 4092 (8 channels x 101 bins x 10 blocks), and
@@ -19,11 +20,14 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
   version (1e-4 of the map's maximum), beside the plain version and
   ``torch.fft.ifft`` alone; then the default plan on every cluster size
   whose blocks fit. With ``--entries``, only K2's entries side by side
-  at each ``--n``: the Bluestein entry and the radix entry (where a block
-  or a cluster holds n's plan), on the same inputs, each held against the
-  plain version, beside ``torch.fft.ifft``: the measurement behind
-  ``acq_kernel.GENERIC_MAX_PRIME``. A launch above half a second is
-  timed once, between CUDA events. With ``--bluestein`` (default n:
+  at each ``--n``: the radix entry (where a block or a cluster holds n's
+  plan), the two-step entry (where n's split fits the tile, whatever its
+  largest prime factor) and the Bluestein entry, on the same inputs at
+  8 ch x 101 bins x 10 blocks and 1 x 11 x 2, each held against the
+  plain version, timed in two turns, beside ``torch.fft.ifft``: the
+  measurement behind ``acq_kernel.GENERIC_MAX_PRIME`` and
+  ``TWOSTEP_MAX_PRIME``. A launch above half a second is timed once,
+  between CUDA events. With ``--bluestein`` (default n:
   :data:`BLUESTEIN_N`), the Bluestein entry at the convolution lengths
   of the source's rule and of each of :data:`BLUESTEIN_RULES` (the least
   5-, 7-, 13- and 31-smooth M >= 2n - 1 split balanced, the least
@@ -44,15 +48,24 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
   in the 50 MB L2 between the passes, against the wrapper's one chunk of
   up to 512 MiB; (3) the entry forced at 16368 and 40920, below 65,536,
   beside the cluster entry that ``kernel_for`` gives there and
-  ``torch.fft.ifft`` (a record for a later routing decision).
+  ``torch.fft.ifft`` (a record for a later routing decision). With
+  ``--layouts``, only the entry at each ``--n`` (default 99375) in each
+  of :func:`twostep_layouts` (the wrapper's split and sub-plans, the
+  generic radices at other passes, splits with them all in the rows or
+  all in the columns) and in the wrapper's layout built with the generic
+  variant at :data:`TWOSTEP_ANY_BLOCKS` blocks an SM and with the
+  2048-point tile that a 31-smooth split of the same lengths takes
+  (:data:`TWOSTEP_GENERIC_TILE`), at 8 x 101 x 10 and 1 x 11 x 2, in two
+  turns.
 * ``--parent DIR`` (a checkout of another commit): DIR's K2 entries
   against this tree's on the entry that ``kernel_for`` gives, at the
   production shapes (one block at n = 2500, 10000, 4092, 4070; a cluster
-  at 16368, 26500, 40920; the two-step entry at 70000 and 245520; the
-  Bluestein entry at :data:`BLUESTEIN_N`), or at ``--n`` with
+  at 16368, 26500, 40920; the two-step entry at 70000, 245520 and 2^20;
+  the Bluestein entry at :data:`BLUESTEIN_N`), or at ``--n`` with
   ``--channels``: the radix and two-step maps bit for bit, the Bluestein
-  maps (each tree's own arguments) against the plain version, device
-  times in turns parent, this, this, parent.
+  maps (each tree's own arguments), and those of an n whose entry
+  differs between the trees (each on its own), against the plain
+  version, device times in turns parent, this, this, parent.
 * K3 ``block_cumsum_streams`` at its three shapes (cruise, pull-in, full
   rate): the device time of the totals launch, the prefix launch and both,
   and of the kernel that only makes K3's stores, for several segment
@@ -78,17 +91,17 @@ sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
 
 
-def k2_inputs(n: int, n_ch: int, device):
-    """Seeded spectra [10, n_ch, 10, n], code [n_ch, n] and a 101-bin
-    plan over the 10 phases."""
+def k2_inputs(n: int, n_ch: int, device, n_bins: int = 101, nc: int = 10):
+    """Seeded spectra [10, n_ch, nc, n], code [n_ch, n] and an
+    ``n_bins``-bin plan over the 10 phases."""
     import torch
 
     g = torch.Generator().manual_seed(0)
-    spec = torch.randn(10, n_ch, 10, n, dtype=torch.complex64,
+    spec = torch.randn(10, n_ch, nc, n, dtype=torch.complex64,
                        generator=g).to(device)
     code = torch.randn(n_ch, n, dtype=torch.complex64,
                        generator=g).to(device)
-    bins = tuple((b // 10 - 5, b % 10) for b in range(101))
+    bins = tuple((b // 10 - 5, b % 10) for b in range(n_bins))
     return spec, code, bins
 
 
@@ -194,51 +207,188 @@ def once_ms(fn) -> float:
     return start.elapsed_time(stop)
 
 
+def entry_time(fn) -> float:
+    """Device milliseconds of a launch of ``fn``: once, between CUDA
+    events, above half a second; else ``chip_smoke.device_ms`` over about
+    200 ms of launches (2 to 20)."""
+    once = once_ms(fn)
+    if once > 500:
+        return once
+    return chip_smoke.device_ms(fn, max(2, min(20, int(200 / once))))
+
+
 def k2_entries(n: int, n_ch: int, device) -> None:
-    """The Bluestein entry and the radix entry (where one holds n's plan)
-    on the same inputs, 8 ch x 101 bins x 10 blocks (``n_ch``): device
-    times, each map within 1e-4 of the plain version's maximum, beside
-    ``torch.fft.ifft``; which one ``kernel_for`` takes."""
+    """The radix entry (where a block or a cluster holds n's plan), the
+    two-step entry (where n's split fits the tile) and the Bluestein
+    entry on the same inputs, at ``n_ch`` ch x 101 bins x 10 blocks and 1
+    ch x 11 bins x 2 blocks: device times in two turns, each map within
+    1e-4 of the plain version's maximum, beside ``torch.fft.ifft``, the
+    ratios of the entries, and which one ``kernel_for`` takes."""
     import torch
 
     from sydr_tpu_torch.ops import acq_kernel
 
-    spec, code, bins = k2_inputs(n, n_ch, device)
-    ref = acq_kernel.pcps_bins_ref(spec, code, bins)
-    bound = chip_smoke.K2_RTOL * float(ref.abs().max())
-    library = chip_smoke.ifft_library_ms(spec, code, bins, quiet=True)
-    routed = acq_kernel.kernel_for(n)[0]
-    m, m1, m2 = acq_kernel.bluestein_lengths(n)
-    entries = ["bluestein"]
     plan = acq_kernel.radix_plan(n) if acq_kernel.has_radix_plan(n) \
         else None
+    entries = ["bluestein"]
+    try:
+        split = acq_kernel.twostep_split(n)
+        entries.insert(0, "twostep")
+    except ValueError:
+        split = None
     if plan is not None and acq_kernel.fitting_cluster(n, plan):
         entries.insert(0, "radix")
-    times = {}
-    for name in entries:
-        kernel, out, cargs = acq_kernel.pcps_bins_launch_args(
-            spec, code, bins, entry=name)
-        fn = kernel.function()
-        chip_smoke.check(fn(*cargs) == 0, f"n={n} {name}: launch failed")
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        chip_smoke.check(err <= bound, f"n={n} {name}: error {err} above "
-                                       f"{bound}")
-        once = once_ms(lambda: fn(*cargs))
-        ms = once if once > 500 else chip_smoke.device_ms(
-            lambda: fn(*cargs), max(2, min(10, int(200 / once))))
-        times[name] = ms
-        print(f"   n={n} {name} ({kernel.source}): {ms:.4f} ms "
-              f"(max_abs_err {err / float(ref.abs().max()):.2e} of the "
-              f"maximum)", flush=True)
-    ratio = (f", radix / bluestein {times['radix'] / times['bluestein']:.2f}"
-             if "radix" in times else "")
-    print(f"K2 entries n={n} (largest prime factor "
-          f"{acq_kernel.prime_factors(n)[-1]}, plan {plan}, M = {m} = {m1} x "
-          f"{m2}), {n_ch} ch x {len(bins)} bins x 10 blocks: "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
-          + f", ifft {library:.4f} ms{ratio}; kernel_for takes "
-          f"{routed.source}", flush=True)
+    routed = acq_kernel.kernel_for(n)[0]
+    m, m1, m2 = acq_kernel.bluestein_lengths(n)
+    for shape in ((n_ch, 101, 10), (1, 11, 2)):
+        spec, code, bins = k2_inputs(n, shape[0], device, *shape[1:])
+        ref = acq_kernel.pcps_bins_ref(spec, code, bins)
+        bound = chip_smoke.K2_RTOL * float(ref.abs().max())
+        try:
+            ms = chip_smoke.ifft_library_ms(spec, code, bins, quiet=True)
+            library = f"{ms:.4f}"
+        except torch.OutOfMemoryError:   # its product and output pass 80 GB
+            library = "not measured"
+        torch.cuda.empty_cache()
+        fns = {}
+        for name in entries:
+            kernel, out, cargs = acq_kernel.pcps_bins_launch_args(
+                spec, code, bins, entry=name)
+            fn = kernel.function()
+            chip_smoke.check(fn(*cargs) == 0, f"n={n} {name}: launch failed")
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            chip_smoke.check(err <= bound, f"n={n} {name}: error {err} "
+                                           f"above {bound}")
+            fns[name] = (lambda fn=fn, cargs=cargs: fn(*cargs), err)
+        times = {name: [] for name in entries}
+        for turn in (entries, entries[::-1]):
+            for name in turn:
+                times[name].append(entry_time(fns[name][0]))
+        mean = {k: sum(v) / len(v) for k, v in times.items()}
+        ratios = ", ".join(f"{a} / {b} {mean[a] / mean[b]:.3f}"
+                           for a, b in itertools.combinations(entries, 2))
+        print(f"K2 entries n={n} (largest prime factor "
+              f"{acq_kernel.prime_factors(n)[-1]}, plan {plan}, two-step "
+              f"{split}, M = {m} = {m1} x {m2}), {shape[0]} ch x "
+              f"{shape[1]} bins x {shape[2]} blocks: "
+              + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms (err "
+                          f"{fns[k][1] / float(ref.abs().max()):.2e})"
+                          for k, v in times.items())
+              + f", ifft {library} ms; {ratios}; kernel_for takes "
+              f"{routed.source}", flush=True)
+
+
+def twostep_layouts(n: int) -> list:
+    """``(label, N1, plan1, plan2)`` of the two-step entry at ``n``: the
+    wrapper's (:func:`acq_kernel.twostep_split`); its generic radices at
+    every other position of their sub-plan (a row plan that would end in
+    one ends in radix 1); JAX's balanced split; and the splits N1 x N2
+    within the tile (N1 <= N2) with the fewest passes whose generic
+    radices are all in the rows, or all in the columns, where those
+    differ from the wrapper's."""
+    from sydr_tpu_torch.ops import acq_kernel
+
+    n1, n2, p1, p2 = acq_kernel.twostep_split(n)
+    out = [("default", n1, p1, p2)]
+    seen = {(n1, p1, p2)}
+
+    def add(label, a, q1, q2):
+        if (a, q1, q2) not in seen:
+            seen.add((a, q1, q2))
+            out.append((label, a, q1, q2))
+
+    for side, plan in ((0, p1), (1, p2)):
+        generic = [r for r in plan if r > 31]
+        fixed = [r for r in plan if 1 < r <= 31]
+        for pos in range(len(fixed) + 1):
+            alt = tuple(fixed[:pos] + generic + fixed[pos:])
+            if side and alt[-1] > 31:
+                alt += (1,)
+            add(f"generic at pass {pos}", n1, *((alt, p2) if side == 0
+                                               else (p1, alt)))
+    a, b = acq_kernel.balanced_factors(n)
+    if b <= acq_kernel.TWOSTEP_MAX_N2:
+        add(f"JAX's balanced split, {a} x {b}", a, acq_kernel.sub_plan(a),
+            acq_kernel.sub_plan(b, row=True))
+    best = {}
+    for a in range(2, acq_kernel.TWOSTEP_MAX_N1 + 1):
+        b = n // a
+        if n % a or b < a or b > acq_kernel.TWOSTEP_MAX_N2:
+            continue
+        q1, q2 = acq_kernel.sub_plan(a), acq_kernel.sub_plan(b, row=True)
+        where = ("rows" if max(acq_kernel.prime_factors(a)) <= 31 else
+                 "columns" if max(acq_kernel.prime_factors(b)) <= 31
+                 else None)
+        for label, key in ((where, (len(q1) + len(q2), b)),
+                           (f"{where}, most balanced", (b - a,))):
+            if where and (label not in best or key < best[label][0]):
+                best[label] = (key, a, q1, q2)
+    for where, (_, a, q1, q2) in sorted(best.items()):
+        add(f"generic in the {where}, {a} x {n // a}", a, q1, q2)
+    return out
+
+
+def k2_twostep_layouts(ns, n_ch: int, device) -> None:
+    """The two-step entry at each of :func:`twostep_layouts`, at ``n_ch``
+    ch x 101 bins x 10 blocks and 1 ch x 11 bins x 2 blocks: each map
+    within 1e-4 of the plain version's maximum, device times in two
+    turns."""
+    import torch
+
+    from sydr_tpu_torch.ops import acq_kernel, native
+
+    caps = {f"kAnyRadix at {b} blocks an SM": source_variant(
+        acq_kernel.TWOSTEP_KERNEL, f"twostep_any_{b}",
+        {"constexpr int kMinBlocksAny = ": b}) for b in TWOSTEP_ANY_BLOCKS}
+    caps["the small tile where a smooth split takes it"] = source_variant(
+        acq_kernel.TWOSTEP_KERNEL, "twostep_any_small_tile", {},
+        swap=TWOSTEP_GENERIC_TILE)
+    native.build_all(list(caps.values()))
+    for b, kern in caps.items():
+        usage = [ln.strip() for ln in kern.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"two-step, {b}: " + "; ".join(usage), flush=True)
+    fn = acq_kernel.TWOSTEP_KERNEL.function()
+    INT = acq_kernel._INT
+    for n in ns:
+        layouts = twostep_layouts(n)
+        for shape in ((n_ch, 101, 10), (1, 11, 2)):
+            spec, code, bins = k2_inputs(n, shape[0], device, *shape[1:])
+            ref = acq_kernel.pcps_bins_ref(spec, code, bins)
+            bound = chip_smoke.K2_RTOL * float(ref.abs().max())
+            _, out, cargs = acq_kernel.pcps_bins_launch_args(
+                spec, code, bins, entry="twostep")
+            runs = {}
+            for label, a, q1, q2 in layouts:
+                args = (*cargs[:9], a, (INT * len(q1))(*q1), len(q1),
+                        (INT * len(q2))(*q2), len(q2), *cargs[14:])
+                out.zero_()
+                chip_smoke.check(fn(*args) == 0, f"n={n} {label}: launch "
+                                                 f"failed")
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                chip_smoke.check(err <= bound, f"n={n} {label}: error {err}")
+                runs[label] = lambda args=args: fn(*args)
+            for b, kern in caps.items():
+                f = kern.function()
+                out.zero_()
+                chip_smoke.check(f(*cargs) == 0, f"n={n} {b}: launch failed")
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                chip_smoke.check(err <= bound, f"n={n} {b}: error {err}")
+                runs[b] = lambda f=f: f(*cargs)
+            times = {label: [] for label in runs}
+            for turn in (list(runs), list(runs)[::-1]):
+                for label in turn:
+                    times[label].append(entry_time(runs[label]))
+            shapes = {label: f" ({a} x {n // a}, {q1} {q2})"
+                      for label, a, q1, q2 in layouts}
+            print(f"K2 two-step layouts n={n}, {shape[0]} ch x {shape[1]} "
+                  f"bins x {shape[2]} blocks: " + "; ".join(
+                      f"{label}{shapes.get(label, '')} {t[0]:.4f} / "
+                      f"{t[1]:.4f} ms" for label, t in times.items()),
+                  flush=True)
 
 
 # Code periods of --bluestein (and --parent): the 9.722 Msps session's,
@@ -498,6 +648,11 @@ TWOSTEP_SHAPES = ((256, (4, 4, 2), 2048, 50 << 20),
 # times beside it.
 TWOSTEP_TWIDDLE = ("cmul(__ldg(tw + (r & ~1023)), __ldg(tw + (r & 1023)))",
                    "__ldg(tw + r)")
+# Blocks an SM of the generic variant (kAnyRadix) tried by --layouts
+# beside the source's.
+TWOSTEP_ANY_BLOCKS = (1, 3)
+# The tile rule before kAnyRadix took the largest tile always (--layouts).
+TWOSTEP_GENERIC_TILE = ("max1 == kAnyRadix || max2 == kAnyRadix", "false")
 # Pairs a chunk tried by --twostep beside the wrapper's own.
 TWOSTEP_CHUNK_PAIRS = (4, 8, 16, 32)
 # Lengths below 65,536 where --twostep forces the entry.
@@ -688,12 +843,12 @@ def k2_twostep(ns, n_ch: int, device) -> None:
 
 # The production shapes of the lengths that --parent holds against the
 # parent's entries: the radix entries (one block, then a cluster), the
-# two-step entry (the 70 Msps session's n and 245.52 Msps) and the
+# two-step entry (the 70 Msps session's n, 245.52 Msps and 2^20) and the
 # Bluestein entry (BLUESTEIN_N), 8 ch x 101 bins x 10 blocks but the
-# first two.
+# first two and 2^20 (1 ch).
 PARENT_CASES = ((2500, 32), (10000, 12), (4092, 8), (4070, 8), (16368, 8),
                 (26500, 8), (40920, 8), (70000, 8), (245520, 8),
-                *((n, 8) for n in BLUESTEIN_N))
+                (1 << 20, 1), *((n, 8) for n in BLUESTEIN_N))
 
 
 def parent_module(parent: str):
@@ -715,9 +870,10 @@ def k2_against_parent(parent: str, device, cases=PARENT_CASES) -> None:
     tree's on the same inputs at ``cases`` ((n, channels) pairs), on the
     entry that ``kernel_for`` gives: the radix and two-step entries' maps
     bit for bit at this tree's arguments; the Bluestein entry at each
-    tree's own arguments (its wrapper's), each map within 1e-4 of the
-    plain version's maximum; the device times in turns parent, this,
-    this, parent."""
+    tree's own arguments (its wrapper's), and an ``n`` whose entry
+    differs between the trees on each tree's own entry and arguments,
+    each map within 1e-4 of the plain version's maximum; the device times
+    in turns parent, this, this, parent."""
     from pathlib import Path
 
     import torch
@@ -735,12 +891,14 @@ def k2_against_parent(parent: str, device, cases=PARENT_CASES) -> None:
         spec, code, bins = k2_inputs(n, n_ch, device)
         kernel, out, cargs = acq_kernel.pcps_bins_launch_args(spec, code,
                                                               bins)
-        if kernel is acq_kernel.BLUESTEIN_KERNEL:
+        old_kernel = old.kernel_for(n)[0]
+        moved = old_kernel.source != kernel.source
+        if kernel is acq_kernel.BLUESTEIN_KERNEL or moved:
             _, old_out, old_args = old.pcps_bins_launch_args(spec, code,
                                                              bins)
         else:
             old_out, old_args = out, cargs
-        fns = {"parent": (theirs[kernel.source].function(), old_args,
+        fns = {"parent": (theirs[old_kernel.source].function(), old_args,
                           old_out),
                "this": (kernel.function(), cargs, out)}
         ref = acq_kernel.pcps_bins_ref(spec, code, bins)
@@ -766,7 +924,9 @@ def k2_against_parent(parent: str, device, cases=PARENT_CASES) -> None:
         mean = {name: sum(t) / 2 for name, t in ms.items()}
         splits = {name: kernel_split(lambda fn=fn, args=args: fn(*args))
                   for name, (fn, args, _) in fns.items()}
-        print(f"K2 {kernel.source} n={n}, {n_ch} ch x 101 bins: maps "
+        print(f"K2 {kernel.source} n={n}"
+              + (f" (parent: {old_kernel.source})" if moved else "")
+              + f", {n_ch} ch x 101 bins: maps "
               f"{'bit-identical' if same else 'differ'} (of the maximum: "
               f"parent {errs['parent']:.2e}, this {errs['this']:.2e}); "
               f"device ms parent {ms['parent'][0]:.4f} / "
@@ -776,7 +936,7 @@ def k2_against_parent(parent: str, device, cases=PARENT_CASES) -> None:
               + "; ".join(f"{name} " + ", ".join(
                   f"{k} {v:.4f}" for k, v in split.items())
                   for name, split in splits.items()), flush=True)
-        if kernel is acq_kernel.BLUESTEIN_KERNEL:
+        if kernel is acq_kernel.BLUESTEIN_KERNEL or moved:
             chip_smoke.check(max(errs.values()) * float(ref.abs().max())
                              <= bound, f"n={n}: a map above the bound")
         else:
@@ -857,6 +1017,9 @@ def main(argv=None) -> int:
     parser.add_argument("--twostep", action="store_true",
                         help="K2's two-step entry: block shapes, chunks, "
                              "and the entry forced below 65,536")
+    parser.add_argument("--layouts", action="store_true",
+                        help="with --twostep: only the two-step entry's "
+                             "splits and sub-plan orders at each --n")
     parser.add_argument("--parent", metavar="DIR",
                         help="hold the K2 entries of the checkout DIR "
                              "against this tree's")
@@ -880,7 +1043,9 @@ def main(argv=None) -> int:
         print(f"built {kern.source} in {kern.build_seconds or 0:.2f} s:\n   "
               + "\n   ".join(usage), flush=True)
     both = not (opts.k2 or opts.k3 or opts.parent or opts.twostep)
-    if opts.twostep:
+    if opts.twostep and opts.layouts:
+        k2_twostep_layouts(opts.n or [99375], opts.channels, device)
+    elif opts.twostep:
         k2_twostep(opts.n or [70000, 245520], opts.channels, device)
     if opts.k2 and opts.bluestein:
         k2_bluestein(opts.n or BLUESTEIN_N, opts.channels, device)
