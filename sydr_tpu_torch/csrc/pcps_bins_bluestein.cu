@@ -22,9 +22,11 @@
 // IFFT_M(FFT_M(a) * FFT_M(b)) / M. M is 13-smooth, split M = M1 M2 with
 // M1 <= 1024 and M2 <= 4096 (the lengths of pcps_tile.cuh's tile FFT): of
 // those from 2n - 1 up to 2% above it, the one with the fewest passes
-// (acq_kernel.bluestein_lengths: 19500 = 150 x 130 at n = 9722, plans
-// (10, 3, 5) and (13, 10); the least 7-smooth M, 19600 = 140 x 140 in six
-// passes, ran 17% slower). The filter's transform B = FFT_M(b) / (M n) is
+// (acq_kernel.bluestein_lengths: 19712 = 176 x 112 at n = 9722, plans
+// (11, 16) and (7, 16), since the tile has radix 16; before it, 19500 =
+// 150 x 130, plans (10, 3, 5) and (13, 10), where the least 7-smooth M,
+// 19600 = 140 x 140 in six passes, ran 17% slower). The filter's
+// transform B = FFT_M(b) / (M n) is
 // a constant of n, built in float64 on the host by the wrapper
 // (acq_kernel.bluestein_filter) with the 1/M of the convolution and the
 // 1/n of torch.fft.ifft folded in. |c_k| = 1, so the magnitude needs no
@@ -63,9 +65,9 @@
 // in turn), and (a) runs block j of every pair before j + 1 where a pair's
 // moves (the spectrum rows read, the scratch written: nc (n + M) x 8
 // bytes) pass half the L2. Each launch takes the tile FFT's variant by the
-// largest radix of its sub-plan; a 13-smooth M needs radices up to 10 and
-// 13 (4 blocks of 256 threads an SM each), and the entry is built with
-// those two variants only (kWidestRadix).
+// largest radix of its sub-plan; a 13-smooth M needs radices up to 10, 13
+// and 16 (4 blocks of 256 threads an SM each), and the entry is built with
+// those three variants only (kWidestRadix).
 //
 // Bound on the H100: bytes. A transform moves ~32 M + 8 n bytes through
 // device memory ((a) reads the spectrum row and writes M points, (b)
@@ -89,8 +91,16 @@
 namespace {
 
 // The widest variant of the tile FFT built here (pcps_tile.cuh's kMaxR: 10,
-// 13 or 31); a sub-plan with a wider radix is refused.
-constexpr int kWidestRadix = 13;
+// 13, 16 or 31); a sub-plan with a wider radix is refused.
+constexpr int kWidestRadix = 16;
+// Blocks an SM of the tile's radix-16 variant: 2, at 128 registers a
+// thread, spills nothing where 3 (80 registers) spilled 508 bytes in
+// column_inverse, whose accumulators live beside radix 16's 32 floats:
+// 9722 at 8 ch x 101 bins x 10 blocks ran 4.08 ms at 2, 5.31 at 3 and
+// 5.63 at 4; 16370 6.13 / 8.27 / 8.91; 65498 30.54 / 39.75 / 41.71
+// (NVIDIA H100 80GB HBM3, 700.00 W; tools/torch_kernel_variants.py --k2
+// --bluestein --layouts).
+constexpr int kMinBlocks16 = 2;
 
 struct Args {
   const float2* spec;    // [n_ph, n_ch, nc, n]
@@ -169,7 +179,7 @@ __device__ __forceinline__ void forward_step(
 // a transform's tiles, then the pair's next transform, or (block_major)
 // the same block j of the next pair.
 template <int kMaxR>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<kMaxR>)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<kMaxR, kMinBlocks16>)
     column_forward(Args a) {
   extern __shared__ float4 smem_raw[];
   const int n = a.n, m1 = a.m1, m2 = a.m2;
@@ -259,7 +269,7 @@ __device__ __forceinline__ void filter_step(
 // tr of the chunk, in place (every read in the first pass, every write in
 // the last).
 template <int kMaxR>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<kMaxR>)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<kMaxR, kMinBlocks16>)
     row_filter(Args a) {
   extern __shared__ float4 smem_raw[];
   const int m1 = a.m1, m2 = a.m2;
@@ -370,7 +380,7 @@ __device__ __forceinline__ void column_sums(int len, int count,
 // transforms, in order; the map's outputs j1 M2 + col0 + t < n stored t
 // fastest.
 template <int kMaxR>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<kMaxR>)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<kMaxR, kMinBlocks16>)
     column_inverse(Args a) {
   extern __shared__ float4 smem_raw[];
   const int m1 = a.m1, m2 = a.m2;
@@ -451,7 +461,8 @@ int launch_step(int which, int variant, const Args& args, long long blocks,
   }
   if (variant == 10) return launch_variant<10>(which, args, blocks, stream);
   if (variant == 13) return launch_variant<13>(which, args, blocks, stream);
-  if constexpr (kWidest > 13) {
+  if (variant == 16) return launch_variant<16>(which, args, blocks, stream);
+  if constexpr (kWidest > 16) {
     return launch_variant<31>(which, args, blocks, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -508,7 +519,8 @@ extern "C" int pcps_bins_bluestein_launch(
   args.m1 = m1;
   args.m2 = m2;
   args.n_bins = n_bins;
-  args.tile = tile_points(m1, m2);
+  args.tile = tile_points(m1, m2, has_radix16(args.plan1) ||
+                                      has_radix16(args.plan2));
   args.block_major = 1LL * nc * (n + m) * sizeof(float2) > kL2Bytes / 2;
   args.magic = ~0ull / (2ull * static_cast<unsigned>(n));
   args.scratch = static_cast<float2*>(scratch);

@@ -36,9 +36,11 @@
 //       floats of the map a column of the tile.
 // A tile holds W = tile / N1 columns in (a) and R = tile / N2 rows in (b),
 // tile = 2048 points where N2 <= 2048 and N1 <= 256 (at least 8 columns:
-// 64-byte rows of scratch), else 4096: every n the entry takes splits with
-// N1 <= 1024 (W >= 4) and N2 <= 4096 (R >= 1). W and R need not divide
-// N2 and N1: the last tile's spare lanes load zeros and store nothing.
+// 64-byte rows of scratch) and no sub-plan has a generic or a radix-16
+// pass (pcps_tile.cuh's tile_points), else 4096: every n the entry takes
+// splits with N1 <= 1024 (W >= 4) and N2 <= 4096 (R >= 1). W and R need
+// not divide N2 and N1: the last tile's spare lanes load zeros and store
+// nothing.
 // A chunk's pairs run in channel order and, within a channel, in the
 // order of the wrapper's `order` (the bins sorted by phase), so the bins
 // that share a phase read its spectrum rows from L2 in turn: (a) runs a
@@ -51,8 +53,9 @@
 // 10.46 (NVIDIA H100 80GB HBM3, 700.00 W; one run of
 // tools/torch_kernel_variants.py --twostep).
 //
-// A sub-transform (length L = N1 or N2, plan acq_kernel.sub_plan(L):
-// radix_plan, or one pass for a length that is a radix) is pcps_tile.cuh's
+// A sub-transform (length L = N1 or N2, plan acq_kernel.sub_plan(L): the
+// generic radices, then tile_radix_plan, whose power of two takes radix-16
+// passes, or one pass for a length that is a radix) is pcps_tile.cuh's
 // Stockham FFT over a tile in shared memory (its header: the passes, the
 // buffers, the variants by the largest radix of the sub-plan), point-major
 // in (a) and row-major in (b).
@@ -72,6 +75,16 @@
 #include "pcps_tile.cuh"
 
 namespace {
+
+// Blocks an SM of the tile's radix-16 variant (pcps_tile.cuh): its plans
+// take the 4096-point tile, which holds 3 blocks of shared memory an SM
+// where the sub-transform is up to ~450 points. At 1 ch x 11 bins x 2
+// blocks 3 ran n = 131072 in 0.0728 ms and 122880 in 0.0801 where 2 ran
+// 0.0894 and 0.0957 (4: 0.0778, 0.0845), and 2^20 at 2 ch x 101 x 10 in
+// 46.36 ms against 46.38 (4: 49.52); 80 registers a thread spill 144
+// bytes in the row pass (NVIDIA H100 80GB HBM3, 700.00 W;
+// tools/torch_kernel_variants.py --twostep --layouts).
+constexpr int kMinBlocks16 = 3;
 
 struct Args {
   const float2* spec;    // [n_ph, n_ch, nc, n]
@@ -155,7 +168,7 @@ __device__ __forceinline__ void column_step(
 // a transform's tiles, then the pair's next transform, or (block_major)
 // the same block j of the next pair.
 template <int kMaxR>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<kMaxR>)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<kMaxR, kMinBlocks16>)
     column_pass(Args a) {
   extern __shared__ float4 smem_raw[];
   const int n = a.n, n1 = a.n1, n2 = a.n2;
@@ -287,7 +300,7 @@ __device__ __forceinline__ void row_sums(const Args& a, int count,
 // (b) Block (tile, pair): R = tile / N2 rows from row0 of the pair's nc
 // transforms, in order; the map's R x N2 points stored k1 fastest.
 template <int kMaxR>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<kMaxR>)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<kMaxR, kMinBlocks16>)
     row_pass(Args a) {
   extern __shared__ float4 smem_raw[];
   const int n = a.n, n1 = a.n1, n2 = a.n2;
@@ -375,11 +388,13 @@ int launch_pass(bool column, int variant, const Args& args,
   if (column) {
     return variant == 10 ? launch_column<10>(args, blocks, stream)
          : variant == 13 ? launch_column<13>(args, blocks, stream)
+         : variant == 16 ? launch_column<16>(args, blocks, stream)
          : variant == 31 ? launch_column<31>(args, blocks, stream)
                          : launch_column<kAnyRadix>(args, blocks, stream);
   }
   return variant == 10 ? launch_row<10>(args, blocks, stream)
        : variant == 13 ? launch_row<13>(args, blocks, stream)
+       : variant == 16 ? launch_row<16>(args, blocks, stream)
        : variant == 31 ? launch_row<31>(args, blocks, stream)
                        : launch_row<kAnyRadix>(args, blocks, stream);
 }
@@ -432,7 +447,9 @@ extern "C" int pcps_bins_twostep_launch(
   args.scratch = static_cast<float2*>(scratch);
   args.out = static_cast<float*>(out);
   args.tile = tile_points(n1, args.n2,
-                          max1 == kAnyRadix || max2 == kAnyRadix);
+                          max1 == kAnyRadix || max2 == kAnyRadix ||
+                              has_radix16(args.plan1) ||
+                              has_radix16(args.plan2));
   args.block_major = 2LL * nc * n * sizeof(float2) > kL2Bytes / 2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int cols = args.tile / n1 < args.n2 ? args.tile / n1 : args.n2;

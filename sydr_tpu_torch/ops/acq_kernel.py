@@ -20,8 +20,9 @@ entries, chosen from the code period ``n`` alone (:func:`kernel_for`):
   16384 points);
 * ``csrc/pcps_bins_twostep.cu`` (:data:`TWOSTEP_KERNEL`), the FFT of
   length n in two passes through global memory, n = N1 * N2
-  (:func:`twostep_split`), its sub-FFTs the radix entries' butterflies
-  and a generic pass over tiles in shared memory, for every other ``n``
+  (:func:`twostep_split`), its sub-FFTs the radix entries' butterflies,
+  radix 8 and 16 and a generic pass over tiles in shared memory
+  (:func:`sub_plan`), for every other ``n``
   up to 2^20 whose prime factors are at most 31 (66000, 70000 at 70
   Msps, 122880, 245520 at 245.52 Msps, 2^20), the ``n`` with a generic
   pass that a cluster of 4 or 8 would run (26500 = 2^2 * 5^3 * 53), and
@@ -100,6 +101,10 @@ def balanced_factors(n: int) -> tuple[int, int]:
 PRIME_RADICES = (31, 29, 23, 19, 17, 13, 11, 7)
 # Radices of the kernel variant without prime radices (1024 threads).
 SMALL_RADICES = (2, 3, 4, 5, 10)
+# The radices of the tile FFT (csrc/pcps_tile.cuh), whose butterflies add
+# radix 8 and radix 16 to the radix entries' (their small switch, widened,
+# cost those entries 4%: pcps_fft.cuh).
+TILE_RADICES = SMALL_RADICES + (8, 16) + PRIME_RADICES
 # The H100's shared memory a block (227 KB) and the points a block of each
 # FFT variant holds in the last pass: 1024 threads x 20 points without a
 # prime radix (kAccSmall), 512 x 16 with one (kAccPrime: the registers of a
@@ -119,6 +124,12 @@ BLUESTEIN_MAX_N = 1 << 20
 # rows of N2 (or M2) <= 4096 (at least one).
 TWOSTEP_MAX_N1 = 1 << 10
 TWOSTEP_MAX_N2 = 1 << 12
+# A 31-smooth n's split with fewer passes than JAX's balanced one
+# (twostep_split) takes a radix-8 or radix-16 pass, keeps its rows to the
+# smaller tile's 2048 points and fills at least 9/10 of its tiles
+# (tile_fill).
+TWOSTEP_FEWER_MAX_N2 = 1 << 11
+TWOSTEP_MIN_FILL = 0.9
 # The prime factors of the Bluestein entry's convolution length M
 # (bluestein_lengths): radices of the tile FFT's variants with 4 blocks an
 # SM (none above 13); and its window: M from 2n - 1 up to 1/50 (2%) above.
@@ -313,13 +324,36 @@ def cluster_size(n: int, plan: tuple[int, ...] | None = None) -> int:
         f"points, at most {points})")
 
 
+def tile_radix_plan(n: int) -> tuple[int, ...]:
+    """Radices of a tile FFT of 31-smooth length ``n``, with the power of
+    two left after the tens taken as 16s and then one 8, 4 or 2
+    (``csrc/pcps_tile.cuh``'s radix-8 and radix-16 butterflies): the
+    fewest passes over the tile's radices, since every 3, 5 and prime
+    factor takes a pass of its own and a ten takes a 2 with its 5. The
+    16s come first, then :func:`radix_plan`'s order (the largest prime
+    radix, tens, the 8, 4 or 2, threes, fives and the other primes): a
+    magnitude-summing last pass holds its accumulators beside the
+    butterfly's points, and a radix-16 last pass or a radix 16 after a
+    prime ran 2-7% slower (``tools/torch_kernel_variants.py --layouts``).
+    1024 is (16, 16, 4) where radix 4 alone took five passes, 176 (16,
+    11); 280 keeps (7, 10, 4)."""
+    factors = prime_factors(n)
+    count = {p: factors.count(p) for p in (2, 3, 5) + PRIME_RADICES}
+    primes = [p for p in PRIME_RADICES for _ in range(count[p])]
+    tens = min(count[2], count[5])
+    twos = count[2] - tens
+    rest = [2 ** (twos % 4)] if twos % 4 else []
+    return tuple([16] * (twos // 4) + primes[:1] + [10] * tens + rest
+                 + [3] * count[3] + [5] * (count[5] - tens) + primes[1:])
+
+
 def sub_plan(n: int, row: bool = False) -> tuple[int, ...]:
     """Radices of a tile FFT of length ``n`` (``csrc/pcps_tile.cuh``: the
     sub-FFTs of the two-step and Bluestein entries): ``(n,)`` for a length
-    that is one of the radices (4, 10, 2, 3, 5, 7 to 31), else
-    :func:`radix_plan` for a 31-smooth length; for a length with prime
-    factors above 31, those first (largest first, each a generic pass),
-    then the sub-plan of the rest, and, where nothing is left in a
+    that is one of the tile's radices (4, 10, 2, 3, 5, 8, 16, 7 to 31),
+    else :func:`tile_radix_plan` for a 31-smooth length; for a length with
+    prime factors above 31, those first (largest first, each a generic
+    pass), then the sub-plan of the rest, and, where nothing is left in a
     ``row`` plan (whose last pass sums magnitudes in registers), a radix-1
     last pass (only the magnitude): 265 = 5 x 53 is (53, 5), a row of
     1517 = 37 x 41 (41, 37, 1)."""
@@ -327,7 +361,7 @@ def sub_plan(n: int, row: bool = False) -> tuple[int, ...]:
     generic = tuple(sorted((p for p in factors if p > PRIME_RADICES[0]),
                            reverse=True))
     if not generic:
-        return (n,) if n in SMALL_RADICES + PRIME_RADICES else radix_plan(n)
+        return (n,) if n in TILE_RADICES else tile_radix_plan(n)
     rest = n // math.prod(generic)
     return generic + (sub_plan(rest) if rest > 1 else (1,) if row else ())
 
@@ -383,20 +417,25 @@ def tile_split(m: int) -> tuple[int, int]:
     columns M1 <= :data:`TWOSTEP_MAX_N1`, rows M2 <= :data:`TWOSTEP_MAX_N2`
     (both at least 2), the fewest passes of the two sub-plans
     (:func:`sub_plan`), then the most balanced (the least larger factor),
-    then the longer columns: 19500 = 150 x 130 (plans (10, 3, 5) and (13,
-    10)) ran 4.31 ms at 8 ch x 101 bins x 10 blocks where 130 x 150 ran
-    4.57 (NVIDIA H100 80GB HBM3, 700.00 W; ``tools/torch_kernel_variants.py
-    --k2 --bluestein``). Raises ``ValueError`` where none is (a prime
-    M)."""
+    then the shorter columns: at 8 ch x 101 bins x 10 blocks 2^17 = 256 x
+    512 ran 34.41 ms where 512 x 256 ran 41.71 (n = 65498), 132496 = 208
+    x 637 36.84 where 637 x 208 ran 50.66 (65538) and 2^15 = 128 x 256
+    7.00 where 256 x 128 ran 7.15 (16370): a column pass reads W = tile /
+    M1 columns of the product side by side, so long columns read short
+    runs of global memory (NVIDIA H100 80GB HBM3, 700.00 W;
+    ``tools/torch_kernel_variants.py --k2 --bluestein --layouts``; before
+    the tile had radix 16 the longer columns led at 19500, 150 x 130 4.31
+    ms against 130 x 150 4.57). Raises ``ValueError`` where none is (a
+    prime M)."""
     best = None
     for m1 in _COLUMN_LENGTHS:
         if m % m1 == 0 and 2 <= m // m1 <= TWOSTEP_MAX_N2:
-            key = (_passes(m1) + _passes(m // m1), max(m1, m // m1), -m1)
+            key = (_passes(m1) + _passes(m // m1), max(m1, m // m1), m1)
             best = key if best is None or key < best else best
     if best is None:
         raise ValueError(f"M={m}: no split M1 x M2 with 2 <= M1 <= "
                          f"{TWOSTEP_MAX_N1} and 2 <= M2 <= {TWOSTEP_MAX_N2}")
-    return -best[2], m // -best[2]
+    return best[2], m // best[2]
 
 
 @functools.lru_cache(maxsize=1)
@@ -417,12 +456,17 @@ def bluestein_lengths(n: int) -> tuple[int, int, int]:
     (:data:`BLUESTEIN_PRIMES`) from 2n - 1 up to 2% above it
     (:data:`BLUESTEIN_WINDOW`) that split (:func:`tile_split`), the one
     with the fewest passes, then the least; where none does (35 n below
-    236), the least 13-smooth M >= 2n - 1 that splits. 19500 = 150 x
-    130 at n = 9722 (5 passes), 32955 = 195 x 169 at 16370, 133100 = 121
-    x 1100 at 65498 and 65538, 199927 = 169 x 1183 at 99375, 265837 = 169
-    x 1573 at 131074. M stays below 2^22, the tile's largest split.
+    236), the least 13-smooth M >= 2n - 1 that splits. With the tile's
+    radix-8 and radix-16 passes (:func:`tile_radix_plan`): 19712 = 176 x
+    112 at n = 9722 (4 passes, where 19500 = 150 x 130 took 5), 2^15 =
+    256 x 128 at 16370 (4, where 32955 = 195 x 169 took 5), 2^17 = 512 x
+    256 at 65498 and 132496 = 637 x 208 at 65538 (5, where 133100 = 121 x
+    1100 took 5), 199927 = 169 x 1183 at 99375, 265837 = 169 x 1573 at
+    131074, 2^21 = 1024 x 2048 at 2^20 - 2 (6, where 2,100,000 = 1000 x
+    2100 took 7). M stays below 2^22, the tile's largest split.
 
-    The rule that ran fastest at 8 ch x 101 bins x 10 blocks: over n =
+    The rule that ran fastest at 8 ch x 101 bins x 10 blocks (before the
+    tile had radix 16): over n =
     9722, 16370, 65498, 65538, 99375 and 131074 its time over the fastest
     of nine rules has a geometric mean of 1.0020 (worst 1.012), the least
     7-smooth M split balanced 1.176 (worst 1.427): 4.31 / 8.04 / 40.55 /
@@ -744,13 +788,48 @@ def kernel_for(n: int):
     return bluestein_kernel_for(n)
 
 
+def tile_fill(n1: int, n2: int) -> float:
+    """The share of the tile that the two-step entry's passes fill at the
+    split N1 x N2 (the lesser of the column and the row pass): W = tile //
+    N1 columns and R = tile // N2 rows of the tile that
+    ``csrc/pcps_tile.cuh``'s ``tile_points`` gives (4096 points where a
+    sub-plan has a generic or a radix-16 pass, where N2 > 2048 or 8 N1 >
+    2048, else 2048)."""
+    p1, p2 = sub_plan(n1), sub_plan(n2, row=True)
+    full = (16 in p1 + p2 or max(p1 + p2) > PRIME_RADICES[0]
+            or n2 > TWOSTEP_MAX_N2 // 2 or 8 * n1 > TWOSTEP_MAX_N2 // 2)
+    tile = TWOSTEP_MAX_N2 if full else TWOSTEP_MAX_N2 // 2
+    return min(min(tile // n1, n2) * n1, min(tile // n2, n1) * n2) / tile
+
+
 def twostep_split(n: int) -> tuple[int, int, tuple, tuple]:
     """``(N1, N2, plan1, plan2)`` of the two-step entry at any ``n`` whose
     split fits the tile (N1 <= 1024 columns, N1 <= N2 <= 4096 rows), with
     the column and row sub-plans (:func:`sub_plan`), whatever n's largest
-    prime factor (the tools time it beside the other entries). A
-    31-smooth n takes :func:`balanced_factors`, JAX's split (250 x 280 at
-    70000). An n with a prime factor above 31 takes the split with the
+    prime factor (the tools time it beside the other entries).
+
+    A 31-smooth n takes :func:`balanced_factors`, JAX's split (250 x 280
+    at 70000), unless a split that takes a radix-8 or radix-16 pass, has
+    rows of at most :data:`TWOSTEP_FEWER_MAX_N2` points and fills at
+    least :data:`TWOSTEP_MIN_FILL` of its tiles (:func:`tile_fill`) takes
+    fewer passes: then the most balanced of those with the fewest. Radix
+    16 made such splits common, and each ran faster at both 8 ch x 101
+    bins x 10 blocks (2 ch above 150,000) and 1 ch x 11 bins x 2 blocks:
+    122880 = 256 x 480 15.56 / 0.0721 ms against 320 x 384's 19.29 /
+    0.0813, 262144 = 256 x 1024 35.96 / 0.1483 against 42.00 / 0.1602,
+    524288 = 256 x 2048 19.13 / 0.2910 against 22.48 / 0.2999, 163680 =
+    341 x 480 8.29 / 0.166 against 9.02 / 0.177, 400000 = 500 x 800 16.06
+    / 0.2442 against 18.59 / 0.2593. Where one lost at the small shape it
+    is excluded: 2^20 = 256 x 4096 0.714 against 1024 x 1024's 0.621 (a
+    4096-point row), 70000 = 100 x 700 0.0499 against 0.0423 (its rows
+    fill 68% of the 2048-point tile). The fewer-pass splits without radix
+    8 or 16 existed before them and are not taken: 70000 keeps JAX's
+    split (70 x 1000 ran 8.55 / 0.0428 against 8.82 / 0.0425), 120000
+    takes 250 x 480 (300 x 400 ran 19.95 / 0.0821 against 320 x 375's
+    21.77 / 0.0835) (NVIDIA H100 80GB HBM3, 700.00 W;
+    ``tools/torch_kernel_variants.py --twostep --layouts``).
+
+    An n with a prime factor above 31 takes the split with the
     fewest generic radices in the rows, then the fewest passes, then the
     most balanced: the generic pass ran faster in the columns at every n
     measured at 8 ch x 101 bins x 10 blocks (25.02 ms at 99900 = 111 x
@@ -766,7 +845,17 @@ def twostep_split(n: int) -> tuple[int, int, tuple, tuple]:
                          f"{BLUESTEIN_MAX_N} points (2^20)")
     n1, n2 = balanced_factors(n)
     factors = prime_factors(n)
-    if factors[-1] > PRIME_RADICES[0]:
+    if factors[-1] <= PRIME_RADICES[0] and n2 <= TWOSTEP_MAX_N2:
+        least = _passes(n1) + _passes(n2, True)
+        for d in _divisors(factors):
+            e = n // d
+            if (2 <= d <= min(TWOSTEP_MAX_N1, e) and e <= TWOSTEP_FEWER_MAX_N2
+                    and {8, 16} & {*sub_plan(d), *sub_plan(e, row=True)}
+                    and tile_fill(d, e) >= TWOSTEP_MIN_FILL):
+                key = (_passes(d) + _passes(e, True), e - d)
+                if key < (least, n2 - n1):
+                    least, n1, n2 = key[0], d, e
+    elif factors[-1] > PRIME_RADICES[0]:
         best = None
         for d in _divisors(factors):
             e = n // d

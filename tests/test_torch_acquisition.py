@@ -571,7 +571,7 @@ def test_kernel_for_refuses_n_without_entry(n, why):
         assert kernel is getattr(acq_kernel, why)
         if why == "BLUESTEIN_KERNEL":
             assert shape == acq_kernel.bluestein_lengths(n) \
-                == (133100, 121, 1100)
+                == (132496, 208, 637)
         else:
             assert shape[:2] == acq_kernel.balanced_factors(n) \
                 == {66000: (250, 264), 131072: (256, 512)}[n]
@@ -606,9 +606,16 @@ def test_stockham_ifft_ref_matches_ifft(n):
 # 2 * 5 * 1637, 65498 = 2 * 32749), 1517 = 37 * 41, front ends at 70,
 # 99.375 and 122.88 Msps (70000 = 2^4 * 5^4 * 7, 99375 = 3 * 5^4 * 53,
 # 122880 = 2^13 * 3 * 5), the first n above the clusters (65538 = 2 *
-# 3^2 * 11 * 331) and 131074 = 2 * 65537.
+# 3^2 * 11 * 331), 131074 = 2 * 65537 and the largest even n, 2^20 - 2.
 BLUESTEIN_N = (1517, 9722, 16370, 65498, 70000, 122880, 65538, 99375,
-               131074)
+               131074, 1048574)
+# (M, M1, M2) where the tile's radix-8 and radix-16 passes moved them:
+# fewer passes (9722: 5 -> 4, 16370: 5 -> 4 at M = 2^15, 2^20 - 2: 7 -> 6
+# at M = 2^21) or, at the same five, a smaller M (65498: 131072 where
+# 133100 was, 65538: 132496), split with the shorter columns.
+BLUESTEIN_LENGTHS = {9722: (19712, 112, 176), 16370: (32768, 128, 256),
+                     65498: (131072, 256, 512), 65538: (132496, 208, 637),
+                     1048574: (1 << 21, 1024, 2048)}
 
 
 def is_13_smooth(m):
@@ -625,7 +632,7 @@ def fewest_passes(lo, hi):
     M1 * M2 with 2 <= M1 <= 1024 and 2 <= M2 <= 4096 (M1 13-smooth, as
     every divisor of M is), the passes of the two sub-plans; the fewest
     passes, then the least M, then the least larger factor, then the
-    larger M1 (None where no M in the range splits)."""
+    smaller M1 (None where no M in the range splits)."""
     smooth = smooth_13()
     ms = smooth[np.searchsorted(smooth, lo):np.searchsorted(smooth, hi,
                                                             "right")]
@@ -636,17 +643,19 @@ def fewest_passes(lo, hi):
             if m % m1 == 0 and 2 <= m // m1 <= 4096:
                 m2 = m // m1
                 key = (len(acq_kernel.sub_plan(m1))
-                       + len(acq_kernel.sub_plan(m2)), m, max(m1, m2), -m1)
+                       + len(acq_kernel.sub_plan(m2)), m, max(m1, m2), m1)
                 best = key if best is None or key < best else best
-    return None if best is None else (*best[:2], -best[3], best[1] // -best[3])
+    return None if best is None else (*best[:2], best[3], best[1] // best[3])
 
 
 @pytest.mark.parametrize("n", BLUESTEIN_N)
 def test_bluestein_ifft_ref_matches_ifft(n):
     """The Bluestein entry's steps (chirp index, the length rule: of the
     13-smooth M from 2n - 1 up to 2% above it, the one whose split M = M1 *
-    M2 within the tile FFT's limits has the fewest passes, then the least;
-    the split's twiddle indices, the forward transform in the conjugate,
+    M2 within the tile FFT's limits has the fewest passes, then the least,
+    :data:`BLUESTEIN_LENGTHS` where radix 8 and 16 moved it;
+    the split's twiddle indices (the shorter columns where two splits
+    tie), the forward transform in the conjugate,
     the filter in its [k1, k2] order), walked in PyTorch, against
     torch.fft.ifft on seeded inputs: within 1e-5 of the largest output."""
     rng = np.random.default_rng(n)
@@ -655,6 +664,7 @@ def test_bluestein_ifft_ref_matches_ifft(n):
     m, m1, m2 = acq_kernel.bluestein_lengths(n)
     need = 2 * n - 1
     assert need <= m <= need + need // 50 and is_13_smooth(m)
+    assert BLUESTEIN_LENGTHS.get(n, (m, m1, m2)) == (m, m1, m2)
     if n <= 9722:
         assert fewest_passes(need, need + need // 50)[1:] == (m, m1, m2)
     assert m1 * m2 == m
@@ -692,7 +702,7 @@ def test_bluestein_lengths_rule(lo, hi):
     rows), each a length with a sub-plan; and, on every n below 236 and
     every 1001st n above, by brute force, the M whose split has the
     fewest passes (then the least M), split with the fewest passes (then
-    the most balanced, then the longer columns): over the window, or,
+    the most balanced, then the shorter columns): over the window, or,
     where no M of the window splits (35 n below 236), over the 13-smooth
     M above it up to the first that splits."""
     smooth = smooth_13()
@@ -793,34 +803,48 @@ def test_twostep_ifft_ref_matches_ifft(n):
 
 @pytest.mark.parametrize("n, split", [
     (70000, (250, 280, (10, 5, 5), (7, 10, 4))),
-    (245520, (495, 496, (11, 3, 3, 5), (31, 4, 4))),
-    (1 << 20, (1024, 1024, (4,) * 5, (4,) * 5)),
-    (16368, (124, 132, (31, 4), (11, 4, 3))),
-    (40920, (186, 220, (31, 2, 3), (11, 10, 2))),
+    (245520, (495, 496, (11, 3, 3, 5), (16, 31))),
+    (1 << 20, (1024, 1024, (16, 16, 4), (16, 16, 4))),
+    (16368, (93, 176, (31, 3), (16, 11))),
+    (40920, (165, 248, (11, 3, 5), (31, 8))),
+    (122880, (256, 480, (16, 16), (16, 10, 3))),
+    (524288, (256, 2048, (16, 16), (16, 16, 8))),
     (4900, (70, 70, (7, 10), (7, 10))),
     (99375, (265, 375, (53, 5), (3, 5, 5, 5))),
     (99900, (111, 900, (37, 3), (10, 10, 3, 3))),
-    (100656, (233, 432, (233,), (4, 4, 3, 3, 3))),
-    (65792, (64, 1028, (4, 4, 4), (257, 4))),
+    (100656, (233, 432, (233,), (16, 3, 3, 3))),
+    (65792, (256, 257, (16, 16), (257, 1))),
     (26500, (53, 500, (53,), (10, 10, 5))),
     (74, (2, 37, (2,), (37, 1)))])
 def test_twostep_kernel_for_splits_n(n, split):
     """The two-step entry's launch shape: for a 31-smooth n JAX's
-    balanced split (250 x 280 at 70000, as ``_balanced_factors``), for an
+    balanced split (250 x 280 at 70000, as ``_balanced_factors``) or,
+    where one that takes a radix-8 or radix-16 pass, has rows of at most
+    2048 points and fills 90% of its tiles has fewer passes, the most
+    balanced of those (122880 = 256 x 480, 2^19 = 256 x 2048; 16368 = 93
+    x 176 and 40920 = 165 x 248 when forced), for an
     n with a prime factor above 31 the split with the fewest generic
     radices in the rows, then the fewest passes, then the most balanced
     (99900 = 111 x 900 where JAX's is 300 x 333 with radix 37 in the rows;
     65792 = 2^8 x 257 and 74 = 2 x 37, whose prime passes the square root,
     keep it in the rows, the row plan ending in radix 1 where nothing else
-    is left), and each factor's sub-plan (:func:`sub_plan`:
-    :func:`radix_plan`, one pass for a length that is a radix, the
-    generic radices first); the entry takes n below 65,536 too when
-    forced (16368, 40920: the tools' sweep)."""
+    is left: 65792 = 256 x 257 in four passes, as 64 x 1028 took before
+    the tile had radix 16, and the more balanced), and each factor's
+    sub-plan (:func:`sub_plan`: :func:`tile_radix_plan`, its power of two
+    in 16s, one pass for a length that is a radix, the generic radices
+    first); the entry takes n below 65,536 too when forced (16368, 40920:
+    the tools' sweep)."""
     kernel, shape = acq_kernel.twostep_kernel_for(n)
     assert kernel is acq_kernel.TWOSTEP_KERNEL
     assert shape == split
     if acq_kernel.prime_factors(n)[-1] <= 31:
-        assert mmfft._balanced_factors(n) == split[:2]
+        b1, b2 = mmfft._balanced_factors(n)
+        if split[:2] != (b1, b2):
+            assert {8, 16} & {*split[2], *split[3]}
+            assert len(split[2]) + len(split[3]) < len(
+                acq_kernel.sub_plan(b1)) + len(acq_kernel.sub_plan(b2, True))
+            assert split[1] <= 2048
+            assert acq_kernel.tile_fill(*split[:2]) >= 0.9
     for length, plan in zip(split[:2], split[2:]):
         assert int(np.prod(plan)) == length
 
@@ -856,37 +880,89 @@ def test_twostep_bin_order_groups_phases():
 
 
 def test_sub_plan_single_pass_lengths():
-    """A sub-FFT whose length is a radix runs one pass; other 31-smooth
-    lengths take :func:`radix_plan`; a prime factor above 31 (which
-    raised before the tile had a generic pass) runs first, and a row plan
-    that has nothing else ends in radix 1."""
-    for r in (2, 3, 4, 5, 10, 7, 11, 13, 17, 19, 23, 29, 31):
+    """A sub-FFT whose length is a radix runs one pass (8 and 16 too, the
+    tile's own butterflies); other 31-smooth lengths take
+    :func:`tile_radix_plan` (1024 in three passes, where radix 4 took
+    five); a prime factor above 31 (which raised before the tile had a
+    generic pass) runs first, and a row plan that has nothing else ends in
+    radix 1."""
+    for r in (2, 3, 4, 5, 8, 10, 16, 7, 11, 13, 17, 19, 23, 29, 31):
         assert acq_kernel.sub_plan(r) == (r,)
         assert acq_kernel.sub_plan(r, row=True) == (r,)
     assert acq_kernel.sub_plan(250) == (10, 5, 5)
-    assert acq_kernel.sub_plan(1024) == (4, 4, 4, 4, 4)
+    assert acq_kernel.sub_plan(1024) == (16, 16, 4)
+    assert acq_kernel.radix_plan(1024) == (4, 4, 4, 4, 4)
     assert acq_kernel.sub_plan(37 * 2) == (37, 2)
     assert acq_kernel.sub_plan(37) == (37,)
     assert acq_kernel.sub_plan(37, row=True) == (37, 1)
 
 
+def fewest_tile_passes(limit):
+    """By dynamic programming, ``best[L]``: the fewest passes of a tile FFT
+    of length L over the tile's radices (2, 3, 4, 5, 8, 10, 16, the odd
+    primes 7 to 31) and one generic pass for each prime factor above 31,
+    for every L up to ``limit``."""
+    best = [0, 0] + [None] * (limit - 1)
+    for length in range(2, limit + 1):
+        counts = [best[length // r] for r in acq_kernel.TILE_RADICES
+                  if length % r == 0]
+        p = acq_kernel.prime_factors(length)[-1]
+        if p > acq_kernel.PRIME_RADICES[0]:
+            counts.append(best[length // p])
+        best[length] = 1 + min(counts)
+    return best
+
+
+@pytest.mark.parametrize("row", [False, True])
+def test_sub_plan_census(row):
+    """Every length 2 to 4096 (the tile's largest row) as a column and as
+    a row: :func:`sub_plan` multiplies to the length, takes only the
+    tile's radices (the generic radices, the prime factors above 31,
+    first and largest first; radix 1 only to end a row plan that has
+    nothing else), and has the fewest passes among them (by dynamic
+    programming), plus the radix-1 end."""
+    best = fewest_tile_passes(4096)
+    for length in range(2, 4097):
+        plan = acq_kernel.sub_plan(length, row=row)
+        generic = [p for p in acq_kernel.prime_factors(length)
+                   if p > acq_kernel.PRIME_RADICES[0]]
+        assert int(np.prod(plan)) == length, length
+        assert list(plan[:len(generic)]) == sorted(generic, reverse=True)
+        rest = plan[len(generic):]
+        end = row and math.prod(generic) == length
+        assert rest == ((1,) if end else ()) or (
+            all(r in acq_kernel.TILE_RADICES for r in rest)), length
+        assert len(plan) == best[length] + end, (length, plan)
+
+
 # Sub-lengths of the two-step entry's splits with a generic radix (and
 # one without): 99375's 265 (53, 5) and 375, 100656's 233 (one generic
 # pass), 99900's 111, 119296's row 466 (233, 2), 954368's 932 = 4 x 233,
-# 65792's row 1028 = 4 x 257, 71299's row 1517 = 37 x 41 (two generic
-# passes and radix 1) and 74's row 37.
+# 65792's row 1028 = 4 x 257 before radix 16, 71299's row 1517 = 37 x 41
+# (two generic passes and radix 1) and 74's row 37; then the radix-8 and
+# radix-16 passes: 2^20's 1024 (and the 4096 of its split 256 x 4096),
+# the Bluestein lengths of 2^20 - 2 (row 2048), 65498 (256 x 512) and
+# 9722 (112 x 176), 122880's 320 and 384, 245520's row 496 and 100656's
+# row 432, as columns and as rows.
 TILE_PLANS = ((265, False, (53, 5)), (375, True, (3, 5, 5, 5)),
               (233, False, (233,)), (111, False, (37, 3)),
               (466, True, (233, 2)), (932, False, (233, 4)),
               (1028, True, (257, 4)), (1517, True, (41, 37, 1)),
-              (37, True, (37, 1)))
+              (37, True, (37, 1)),
+              (1024, False, (16, 16, 4)), (1024, True, (16, 16, 4)),
+              (4096, True, (16, 16, 16)), (256, False, (16, 16)),
+              (2048, True, (16, 16, 8)), (512, False, (16, 16, 2)),
+              (384, True, (16, 8, 3)), (320, False, (16, 10, 2)),
+              (176, False, (16, 11)), (112, True, (16, 7)),
+              (496, True, (16, 31)), (432, True, (16, 3, 3, 3)))
 
 
 @pytest.mark.parametrize("length, row, plan", TILE_PLANS)
 def test_tile_sub_plan_walk_matches_ifft(length, row, plan):
-    """The tile FFT's passes at the sub-plans with a generic radix
-    (:func:`sub_plan`; the roots of the tile are the table of length L,
-    the generic pass's fused index), walked by ``stockham_ifft_ref``,
+    """The tile FFT's passes at the sub-plans with a generic radix, or
+    with radix 8 and 16 (:func:`sub_plan`; the roots of the tile are the
+    table of length L, the generic pass's fused index; a radix up to 31
+    through its root matrix), walked by ``stockham_ifft_ref``,
     against torch.fft.ifft (unnormalised) on seeded inputs: within 1e-5 of
     the largest output."""
     assert acq_kernel.sub_plan(length, row=row) == plan
@@ -1042,8 +1118,8 @@ def test_acquire_matches_jax_at_99375_ksps():
 
 # A 9.722 Msps front end: n = 9722 = 2 * 4861, a prime factor above the
 # radix entries' GENERIC_MAX_PRIME, whose transform the card runs on the
-# Bluestein entry (M = 19500 = 150 x 130); the JAX map factors it
-# 2 x 4861.
+# Bluestein entry (M = 19712 = 112 x 176, plans (16, 7) and (16, 11)); the
+# JAX map factors it 2 x 4861.
 FS_97 = 9.722e6
 N_97 = 9722
 
@@ -1060,7 +1136,7 @@ def test_acquire_matches_jax_at_9722_ksps():
     assert mmfft._balanced_factors(N_97) == (2, 4861)
     kernel, shape = acq_kernel.kernel_for(N_97)
     assert kernel is acq_kernel.BLUESTEIN_KERNEL
-    assert shape == (19500, 150, 130)
+    assert shape == (19712, 112, 176)
     gen = IQGenerator(FS_97, noise=True, seed=5)
     gen.add_satellite(17, doppler_hz=-260.0, code_phase_chips=77.7,
                       cn0_dbhz=45.0)
@@ -1196,9 +1272,10 @@ def test_every_smooth_n_above_65536_takes_the_two_step_entry():
     """Every 31-smooth n in (65536, 2^20] (13,571) has an FFT at length n
     on the card: the 38 5-smooth n whose cluster of 8 fits keep the
     cluster entry; the other 13,533 take the two-step entry, whose split
-    is JAX's (N1 * N2 = n, N1 <= N2) with N1 <= 1024 (at least 4 columns
-    of the 4096-point tile) and N2 <= 4096 (at least one row), and whose
-    sub-plans multiply to N1 and N2."""
+    (JAX's, or one with fewer passes through radix 8 or 16: N1 * N2 = n,
+    N1 <= N2) has N1 <= 1024 (at least 4 columns of the 4096-point tile)
+    and N2 <= 4096 (at least one row), and whose sub-plans multiply to N1
+    and N2."""
     ns = smooth_31_above(65536, 1 << 20)
     assert len(ns) == 13571
     cluster = twostep = 0

@@ -255,15 +255,17 @@ def test_pcps_bins_generic_pass_matches_plain(n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [9722, 65498, 65538, 99300, 131074])
+@pytest.mark.parametrize("n", [9722, 65498, 65538, 99300, 131074, 16370])
 def test_pcps_bins_bluestein_matches_plain(n):
     """The Bluestein entry at a large prime factor (9722 = 2 * 4861,
     65498 = 2 * 32749; above the clusters: 65538 = 2 * 3^2 * 11 * 331,
     99300 = 2^2 * 3 * 5^2 * 331 near 99.375 Msps, whose 99375 = 3 * 5^4 *
-    53 now takes the two-step entry, and 131074 = 2 * 65537), 1 channel x
-    11 bins x 2 blocks: the wrapper launches it, and only it, once; a
-    second run is bit-identical (the nc blocks are summed in order, no
-    atomics)."""
+    53 now takes the two-step entry, and 131074 = 2 * 65537), and at
+    16370 = 2 * 5 * 1637, M = 2^15 = 256 x 128 (plans (16, 16) and (16,
+    8): the tile's radix-16 variant; 9722's M = 176 x 112 mixes radix 16
+    with 11 and 7), 1 channel x 11 bins x 2 blocks: the wrapper launches
+    it, and only it, once; a second run is bit-identical (the nc blocks
+    are summed in order, no atomics)."""
     spec, code, plan = _k2_inputs(n, 1, _cuda(), n_bins=11, nc=2)
     assert acq_kernel.kernel_for(n)[0] is acq_kernel.BLUESTEIN_KERNEL
     before = _k2_launches()
@@ -301,18 +303,20 @@ def test_pcps_bins_bluestein_chunks_the_pairs():
 @pytest.mark.parametrize("n, n_ch, n_bins, nc", [
     (70000, 8, 101, 10), (122880, 1, 11, 2), (245520, 1, 11, 2),
     (1 << 20, 1, 3, 2), (99375, 8, 101, 10), (98688, 1, 11, 2),
-    (65792, 1, 11, 2)])
+    (65792, 1, 11, 2), (131072, 1, 11, 2)])
 def test_pcps_bins_twostep_matches_plain(n, n_ch, n_bins, nc):
     """The two-step entry at the 70 Msps session's shape (n = 70000 = 250
     x 280, 8 ch x 101 bins x 10 blocks, its pairs in 9 chunks), at 122.88
-    and 245.52 Msps (radices 11 and 31), at 2^20 = 1024 x 1024, and
+    and 245.52 Msps (radices 11 and 31; 122880 = 320 x 384, plans (16,
+    10, 2) and (16, 8, 3); 245520's row (16, 31)), at 2^20 = 1024 x 1024
+    and 2^17 = 256 x 512 (radix-16 passes alone, and one of 4 or 2), and
     through the tile's generic pass: 99.375 Msps at the session's shape
     (99375 = 265 x 375, column plan (53, 5)) and the largest prime factor
     that the entry takes, 257: 98688 = 257 x 384 (column plan (257,), one
-    generic pass from the product to the scratch) and 65792 = 64 x 1028
-    (row plan (257, 4)): the wrapper launches it, and only it, once; a
-    second run is bit-identical (the nc blocks are summed in order, no
-    atomics)."""
+    generic pass from the product to the scratch, rows (16, 8, 3)) and
+    65792 = 256 x 257 (row plan (257, 1)): the wrapper launches it, and
+    only it, once; a second run is bit-identical (the nc blocks are summed
+    in order, no atomics)."""
     spec, code, plan = _k2_inputs(n, n_ch, _cuda(), n_bins=n_bins, nc=nc)
     assert acq_kernel.kernel_for(n)[0] is acq_kernel.TWOSTEP_KERNEL
     before = _k2_launches()
@@ -329,7 +333,8 @@ def test_pcps_bins_twostep_matches_plain(n, n_ch, n_bins, nc):
 @pytest.mark.parametrize("n", [4000, 16368, 4070, 13100])
 def test_pcps_bins_twostep_forced_and_chunked(n):
     """The two-step entry forced below the clusters (``entry="twostep"``:
-    4000 = 50 x 80 in one tile each way, 16368 = 124 x 132; with a
+    4000 = 50 x 80 in one tile each way, 16368 = 93 x 176, rows (16,
+    11); with a
     generic radix, 4070 = 37 x 110, column plan (37,), and 13100 = 10 x
     1310, row plan (131, 10), whose radix plans the one-block and 2-block
     entries keep) with its pairs in chunks of 2 (the scratch cap

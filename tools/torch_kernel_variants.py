@@ -9,6 +9,7 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
     python3 tools/torch_kernel_variants.py --k2 --bluestein --n 9722 [...]
     python3 tools/torch_kernel_variants.py --twostep [--n 70000 245520]
     python3 tools/torch_kernel_variants.py --twostep --layouts --n 99375
+    python3 tools/torch_kernel_variants.py --k2 --bluestein --layouts --n 9722
     python3 tools/torch_kernel_variants.py --parent DIR [--n 4070 ...]
 
 * K2 ``pcps_bins`` at n = 4092 (8 channels x 101 bins x 10 blocks), and
@@ -37,7 +38,11 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
   each rule's geometric mean over the n of its time over the fastest:
   the measurement behind ``acq_kernel.bluestein_lengths``; then the
   split of the source rule's device time over its three kernels
-  (``torch.profiler``).
+  (``torch.profiler``). With ``--bluestein --layouts``, the Bluestein
+  entry at the source rule's M with its sub-plans in other orders (the
+  radix-16 passes moved), its split swapped, and built with the tile's
+  radix-16 variant at :data:`TILE_16_BLOCKS` blocks an SM, at both
+  shapes, in two turns.
 * ``--twostep``: K2's two-step entry at 8 ch x 101 bins x 10 blocks at
   each ``--n`` (default 70000 and 245520): (1) the entry built with each
   of :data:`TWOSTEP_SHAPES` (threads a block, and blocks an SM for each
@@ -51,21 +56,26 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
   ``torch.fft.ifft`` (a record for a later routing decision). With
   ``--layouts``, only the entry at each ``--n`` (default 99375) in each
   of :func:`twostep_layouts` (the wrapper's split and sub-plans, the
-  generic radices at other passes, splits with them all in the rows or
-  all in the columns) and in the wrapper's layout built with the generic
-  variant at :data:`TWOSTEP_ANY_BLOCKS` blocks an SM and with the
-  2048-point tile that a 31-smooth split of the same lengths takes
-  (:data:`TWOSTEP_GENERIC_TILE`), at 8 x 101 x 10 and 1 x 11 x 2, in two
+  generic radices or the radix-16 passes at other positions, splits with
+  the generic radices all in the rows or all in the columns, or, for a
+  31-smooth n, with the fewest passes) and in the wrapper's layout built
+  with the generic variant at :data:`TWOSTEP_ANY_BLOCKS` blocks an SM and
+  with the 2048-point tile that a 31-smooth split of the same lengths
+  takes (:data:`TWOSTEP_GENERIC_TILE`), where a sub-plan has a generic
+  radix, and with the radix-16 variant at :data:`TILE_16_BLOCKS` blocks
+  an SM, where one has radix 16, at 8 x 101 x 10 and 1 x 11 x 2, in two
   turns.
 * ``--parent DIR`` (a checkout of another commit): DIR's K2 entries
-  against this tree's on the entry that ``kernel_for`` gives, at the
-  production shapes (one block at n = 2500, 10000, 4092, 4070; a cluster
-  at 16368, 26500, 40920; the two-step entry at 70000, 245520 and 2^20;
-  the Bluestein entry at :data:`BLUESTEIN_N`), or at ``--n`` with
-  ``--channels``: the radix and two-step maps bit for bit, the Bluestein
-  maps (each tree's own arguments), and those of an n whose entry
-  differs between the trees (each on its own), against the plain
-  version, device times in turns parent, this, this, parent.
+  against this tree's on the entry that ``kernel_for`` gives, at
+  :data:`PARENT_CASES` (one block at n = 2500, 10000, 4092, 4070; a
+  cluster at 16368, 40920; the two-step entry at 26500, 70000, 99375,
+  245520 and 2^20; the Bluestein entry at :data:`BLUESTEIN_N`; then the
+  sweeps' 1 x 11 x 2 at the lengths whose tile plans radix 8 and 16
+  changed and at some they left), or at ``--n`` with ``--channels``: the
+  maps bit for bit where both trees launch the same entry, split or
+  lengths and sub-plans, else each tree at its own arguments against the
+  plain version; each tree's plans, its build's registers and spills,
+  and the device times in turns parent, this, this, parent.
 * K3 ``block_cumsum_streams`` at its three shapes (cruise, pull-in, full
   rate): the device time of the totals launch, the prefix launch and both,
   and of the kernel that only makes K3's stores, for several segment
@@ -279,14 +289,34 @@ def k2_entries(n: int, n_ch: int, device) -> None:
               f"{routed.source}", flush=True)
 
 
+def plan_orders(plan, row: bool) -> list:
+    """Other orders of the tile sub-plan ``plan`` that the entries take:
+    its generic radices (above 31), or its radix-16 passes, moved together
+    to each other position among the rest (a row plan that would end in a
+    generic radix ends in radix 1)."""
+    out = []
+    for moved in (lambda r: r > 31, lambda r: r == 16):
+        block = [r for r in plan if moved(r)]
+        rest = [r for r in plan if not moved(r) and r != 1]
+        for pos in range(len(rest) + 1) if block else ():
+            alt = tuple(rest[:pos] + block + rest[pos:])
+            if row and alt[-1] > 31:
+                alt += (1,)
+            if alt != tuple(plan) and alt not in out:
+                out.append(alt)
+    return out
+
+
 def twostep_layouts(n: int) -> list:
     """``(label, N1, plan1, plan2)`` of the two-step entry at ``n``: the
-    wrapper's (:func:`acq_kernel.twostep_split`); its generic radices at
-    every other position of their sub-plan (a row plan that would end in
-    one ends in radix 1); JAX's balanced split; and the splits N1 x N2
-    within the tile (N1 <= N2) with the fewest passes whose generic
-    radices are all in the rows, or all in the columns, where those
-    differ from the wrapper's."""
+    wrapper's (:func:`acq_kernel.twostep_split`); its sub-plans in the
+    other orders of :func:`plan_orders` (the generic radices, or the
+    radix-16 passes, at other positions); JAX's balanced split; and the
+    splits N1 x N2 within the tile (N1 <= N2) with the fewest passes whose
+    generic radices are all in the rows, or all in the columns, or, for a
+    31-smooth n, with the fewest passes (2^20 = 256 x 4096 in five where
+    JAX's 1024 x 1024 takes six), where those differ from the
+    wrapper's."""
     from sydr_tpu_torch.ops import acq_kernel
 
     n1, n2, p1, p2 = acq_kernel.twostep_split(n)
@@ -298,34 +328,36 @@ def twostep_layouts(n: int) -> list:
             seen.add((a, q1, q2))
             out.append((label, a, q1, q2))
 
-    for side, plan in ((0, p1), (1, p2)):
-        generic = [r for r in plan if r > 31]
-        fixed = [r for r in plan if 1 < r <= 31]
-        for pos in range(len(fixed) + 1):
-            alt = tuple(fixed[:pos] + generic + fixed[pos:])
-            if side and alt[-1] > 31:
-                alt += (1,)
-            add(f"generic at pass {pos}", n1, *((alt, p2) if side == 0
-                                               else (p1, alt)))
+    for alt in plan_orders(p1, False):
+        add(f"columns in order {alt}", n1, alt, p2)
+    for alt in plan_orders(p2, True):
+        add(f"rows in order {alt}", n1, p1, alt)
     a, b = acq_kernel.balanced_factors(n)
     if b <= acq_kernel.TWOSTEP_MAX_N2:
         add(f"JAX's balanced split, {a} x {b}", a, acq_kernel.sub_plan(a),
             acq_kernel.sub_plan(b, row=True))
     best = {}
+    smooth = acq_kernel.prime_factors(n)[-1] <= 31
     for a in range(2, acq_kernel.TWOSTEP_MAX_N1 + 1):
         b = n // a
         if n % a or b < a or b > acq_kernel.TWOSTEP_MAX_N2:
             continue
         q1, q2 = acq_kernel.sub_plan(a), acq_kernel.sub_plan(b, row=True)
-        where = ("rows" if max(acq_kernel.prime_factors(a)) <= 31 else
-                 "columns" if max(acq_kernel.prime_factors(b)) <= 31
-                 else None)
-        for label, key in ((where, (len(q1) + len(q2), b)),
-                           (f"{where}, most balanced", (b - a,))):
+        where = ("the fewest passes" if smooth else
+                 "generic in the rows"
+                 if max(acq_kernel.prime_factors(a)) <= 31 else
+                 "generic in the columns"
+                 if max(acq_kernel.prime_factors(b)) <= 31 else None)
+        keys = [(where, (len(q1) + len(q2), b)),
+                (f"{where}, most balanced", (b - a,))]
+        if smooth and b <= 2048:
+            keys.append((f"{where}, rows up to 2048",
+                         (len(q1) + len(q2), b)))
+        for label, key in keys:
             if where and (label not in best or key < best[label][0]):
                 best[label] = (key, a, q1, q2)
     for where, (_, a, q1, q2) in sorted(best.items()):
-        add(f"generic in the {where}, {a} x {n // a}", a, q1, q2)
+        add(f"{where}, {a} x {n // a}", a, q1, q2)
     return out
 
 
@@ -338,14 +370,15 @@ def k2_twostep_layouts(ns, n_ch: int, device) -> None:
 
     from sydr_tpu_torch.ops import acq_kernel, native
 
-    caps = {f"kAnyRadix at {b} blocks an SM": source_variant(
+    generic_caps = {f"kAnyRadix at {b} blocks an SM": source_variant(
         acq_kernel.TWOSTEP_KERNEL, f"twostep_any_{b}",
         {"constexpr int kMinBlocksAny = ": b}) for b in TWOSTEP_ANY_BLOCKS}
-    caps["the small tile where a smooth split takes it"] = source_variant(
-        acq_kernel.TWOSTEP_KERNEL, "twostep_any_small_tile", {},
-        swap=TWOSTEP_GENERIC_TILE)
-    native.build_all(list(caps.values()))
-    for b, kern in caps.items():
+    generic_caps["the small tile where a smooth split takes it"] = \
+        source_variant(acq_kernel.TWOSTEP_KERNEL, "twostep_any_small_tile",
+                       {}, swap=TWOSTEP_GENERIC_TILE)
+    caps16 = radix16_caps(acq_kernel.TWOSTEP_KERNEL, "twostep")
+    native.build_all([*generic_caps.values(), *caps16.values()])
+    for b, kern in {**generic_caps, **caps16}.items():
         usage = [ln.strip() for ln in kern.build_log.splitlines()
                  if "registers" in ln or "spill" in ln]
         print(f"two-step, {b}: " + "; ".join(usage), flush=True)
@@ -353,6 +386,9 @@ def k2_twostep_layouts(ns, n_ch: int, device) -> None:
     INT = acq_kernel._INT
     for n in ns:
         layouts = twostep_layouts(n)
+        split = acq_kernel.twostep_split(n)
+        caps = {**(generic_caps if max(split[2] + split[3]) > 31 else {}),
+                **(caps16 if 16 in split[2] + split[3] else {})}
         for shape in ((n_ch, 101, 10), (1, 11, 2)):
             spec, code, bins = k2_inputs(n, shape[0], device, *shape[1:])
             ref = acq_kernel.pcps_bins_ref(spec, code, bins)
@@ -631,6 +667,82 @@ def k2_bluestein(ns, n_ch: int, device) -> None:
                   f"{max(r):.4f})", flush=True)
 
 
+def k2_bluestein_layouts(ns, n_ch: int, device) -> None:
+    """The Bluestein entry at the convolution length of the source's rule
+    (``acq_kernel.bluestein_lengths``) with its sub-plans in the other
+    orders of :func:`plan_orders` (the radix-16 passes at other
+    positions), its split swapped (M2 x M1, where M2 fits the columns),
+    and built with the tile's radix-16 variant at other blocks an SM
+    (:func:`radix16_caps`), at ``n_ch`` ch x 101 bins x 10 blocks and 1 ch
+    x 11 bins x 2 blocks: each map within 1e-4 of the plain version's
+    maximum, device times in two turns."""
+    import torch
+
+    from sydr_tpu_torch.ops import acq_kernel, native
+
+    caps = radix16_caps(acq_kernel.BLUESTEIN_KERNEL, "bluestein")
+    native.build_all(list(caps.values()))
+    for b, kern in caps.items():
+        usage = [ln.strip() for ln in kern.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"Bluestein, {b}: " + "; ".join(usage), flush=True)
+    fn = acq_kernel.BLUESTEIN_KERNEL.function()
+    INT = acq_kernel._INT
+    for n in ns:
+        m, m1, m2 = acq_kernel.bluestein_lengths(n)
+        p1, p2 = acq_kernel.sub_plan(m1), acq_kernel.sub_plan(m2)
+        layouts = [("default", (m, m1, m2), p1, p2)]
+        layouts += [(f"columns in order {alt}", (m, m1, m2), alt, p2)
+                    for alt in plan_orders(p1, False)]
+        layouts += [(f"rows in order {alt}", (m, m1, m2), p1, alt)
+                    for alt in plan_orders(p2, False)]
+        if m2 != m1 and m2 <= acq_kernel.TWOSTEP_MAX_N1:
+            layouts.append((f"split swapped, {m2} x {m1}", (m, m2, m1),
+                            acq_kernel.sub_plan(m2), acq_kernel.sub_plan(m1)))
+        for shape in ((n_ch, 101, 10), (1, 11, 2)):
+            spec, code, bins = k2_inputs(n, shape[0], device, *shape[1:])
+            ref = acq_kernel.pcps_bins_ref(spec, code, bins)
+            bound = chip_smoke.K2_RTOL * float(ref.abs().max())
+            runs, keep = {}, []
+            for label, lengths, q1, q2 in layouts:
+                with bluestein_lengths_as(lengths):
+                    _, out, cargs = acq_kernel.pcps_bins_launch_args(
+                        spec, code, bins, entry="bluestein")
+                args = (*cargs[:13], (INT * len(q1))(*q1), len(q1),
+                        (INT * len(q2))(*q2), len(q2), *cargs[17:])
+                chip_smoke.check(fn(*args) == 0, f"n={n} {label}: launch "
+                                                 f"failed")
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                chip_smoke.check(err <= bound, f"n={n} {label}: error {err}")
+                runs[label] = (fn, args)
+                keep.append(out)
+            for b, kern in caps.items():
+                f, args = kern.function(), runs["default"][1]
+                keep[0].zero_()
+                chip_smoke.check(f(*args) == 0, f"n={n} {b}: launch failed")
+                torch.cuda.synchronize()
+                err = float((keep[0] - ref).abs().max())
+                chip_smoke.check(err <= bound, f"n={n} {b}: error {err}")
+                runs[b] = (f, args)
+            f, args = runs["default"]
+            clock = timer(lambda: f(*args), 5 if len(bins) > 11 else 20)
+            times = {label: [] for label in runs}
+            for turn in (list(runs), list(runs)[::-1]):
+                for label in turn:
+                    f, args = runs[label]
+                    times[label].append(clock(lambda f=f, args=args:
+                                              f(*args)))
+            shapes = {label: f" ({lengths[1]} x {lengths[2]}, {q1} {q2})"
+                      for label, lengths, q1, q2 in layouts}
+            print(f"K2 Bluestein layouts n={n}, M = {m}, {shape[0]} ch x "
+                  f"{shape[1]} bins x {shape[2]} blocks: " + "; ".join(
+                      f"{label}{shapes.get(label, '')} {t[0]:.4f} / "
+                      f"{t[1]:.4f} ms" for label, t in times.items()),
+                  flush=True)
+            del keep, runs
+
+
 # (threads, (blocks an SM of the variants with radices up to 10, up to
 # 13, up to 31), the smaller tile's points, the L2 bytes of the order
 # rule) of csrc/pcps_bins_twostep.cu tried by --twostep (a small tile of
@@ -651,6 +763,10 @@ TWOSTEP_TWIDDLE = ("cmul(__ldg(tw + (r & ~1023)), __ldg(tw + (r & 1023)))",
 # Blocks an SM of the generic variant (kAnyRadix) tried by --layouts
 # beside the source's.
 TWOSTEP_ANY_BLOCKS = (1, 3)
+# Blocks an SM of the tile's radix-16 variant (kMinBlocks16: at most
+# 65536 / (256 x blocks) registers a thread) tried by --layouts beside
+# the source's, on the two-step and Bluestein entries.
+TILE_16_BLOCKS = (2, 3, 4)
 # The tile rule before kAnyRadix took the largest tile always (--layouts).
 TWOSTEP_GENERIC_TILE = ("max1 == kAnyRadix || max2 == kAnyRadix", "false")
 # Pairs a chunk tried by --twostep beside the wrapper's own.
@@ -697,6 +813,21 @@ def source_variant(kern, tag, lines, swap=None):
         (folder / name).write_text(text)
     return native.CudaKernel(kern.source, kern.symbol, kern.argtypes,
                              csrc_dir=folder)
+
+
+def radix16_caps(kern, tag) -> dict:
+    """``kern`` (the two-step or Bluestein entry) built with its tile's
+    radix-16 variant at each of :data:`TILE_16_BLOCKS` blocks an SM other
+    than the source's (:func:`source_variant`), by label."""
+    import re
+
+    from sydr_tpu_torch.ops import native
+
+    text = (native.CSRC_DIR / kern.source).read_text()
+    own = int(re.search(r"constexpr int kMinBlocks16 = (\d+);", text)[1])
+    return {f"radix-16 variant at {b} blocks an SM": source_variant(
+        kern, f"{tag}_16_{b}", {"constexpr int kMinBlocks16 = ": b})
+        for b in TILE_16_BLOCKS if b != own}
 
 
 def twostep_variant(threads, blocks, small_tile, l2_bytes, swap=None):
@@ -842,13 +973,41 @@ def k2_twostep(ns, n_ch: int, device) -> None:
 
 
 # The production shapes of the lengths that --parent holds against the
-# parent's entries: the radix entries (one block, then a cluster), the
-# two-step entry (the 70 Msps session's n, 245.52 Msps and 2^20) and the
-# Bluestein entry (BLUESTEIN_N), 8 ch x 101 bins x 10 blocks but the
-# first two and 2^20 (1 ch).
-PARENT_CASES = ((2500, 32), (10000, 12), (4092, 8), (4070, 8), (16368, 8),
-                (26500, 8), (40920, 8), (70000, 8), (245520, 8),
-                (1 << 20, 1), *((n, 8) for n in BLUESTEIN_N))
+# parent's entries, (n, channels, bins, blocks): the radix entries (one
+# block, then a cluster), the two-step entry (the 70 and 99.375 Msps
+# sessions' n, 120, 245.52 Msps and 2^20) and the Bluestein entry
+# (BLUESTEIN_N) at 101 bins x 10 blocks, 8 ch but the first two and 2^20
+# (1 ch); then the sweeps' shape, 1 ch x 11 bins x 2 blocks, at the
+# lengths whose tile plans or split radix 8 and 16 change (2^20, 2^19,
+# 2^18, 2^17, 122880, 120000, 400000, 245520, 66000, 65792; the
+# Bluestein lengths of 16370, 65498 and 2^20 - 2) and at 70000, 99375
+# and 26500.
+PARENT_CASES = ((2500, 32, 101, 10), (10000, 12, 101, 10),
+                (4092, 8, 101, 10), (4070, 8, 101, 10),
+                (16368, 8, 101, 10), (26500, 8, 101, 10),
+                (40920, 8, 101, 10), (70000, 8, 101, 10),
+                (99375, 8, 101, 10), (120000, 8, 101, 10),
+                (245520, 8, 101, 10),
+                (1 << 20, 1, 101, 10),
+                *((n, 8, 101, 10) for n in BLUESTEIN_N if n != 99375),
+                *((n, 1, 11, 2) for n in (
+                    1 << 20, 1 << 19, 1 << 18, 131072, 122880, 120000,
+                    400000, 245520, 66000, 65792, 16370, 65498, 1048574,
+                    70000, 99375, 26500)))
+
+
+def launch_shape(module, n: int) -> tuple:
+    """What ``module`` (an ``acq_kernel``) launches at ``n``: the entry's
+    source and its plan (radix entries), split and sub-plans (two-step)
+    or lengths and sub-plans (Bluestein); equal shapes launch the same
+    arithmetic."""
+    kernel, shape = module.kernel_for(n)
+    if kernel is module.BLUESTEIN_KERNEL:
+        return (kernel.source, *shape, module.sub_plan(shape[1]),
+                module.sub_plan(shape[2]))
+    if kernel is module.TWOSTEP_KERNEL:
+        return (kernel.source, *shape)
+    return (kernel.source, module.radix_plan(n), module.cluster_size(n))
 
 
 def parent_module(parent: str):
@@ -867,13 +1026,13 @@ def parent_module(parent: str):
 
 def k2_against_parent(parent: str, device, cases=PARENT_CASES) -> None:
     """The K2 entries of another tree (``parent``, a checkout) against this
-    tree's on the same inputs at ``cases`` ((n, channels) pairs), on the
-    entry that ``kernel_for`` gives: the radix and two-step entries' maps
-    bit for bit at this tree's arguments; the Bluestein entry at each
-    tree's own arguments (its wrapper's), and an ``n`` whose entry
-    differs between the trees on each tree's own entry and arguments,
-    each map within 1e-4 of the plain version's maximum; the device times
-    in turns parent, this, this, parent."""
+    tree's on the same inputs at ``cases`` ((n, channels, bins, blocks)),
+    on the entry that ``kernel_for`` gives: where both trees launch the
+    same shape (:func:`launch_shape`), the maps bit for bit at this tree's
+    arguments; where the entry, its split, lengths or sub-plans differ
+    (the parent's radix-4 plans), each tree at its own arguments (its
+    wrapper's), each map within 1e-4 of the plain version's maximum; the
+    device times in turns parent, this, this, parent."""
     from pathlib import Path
 
     import torch
@@ -887,13 +1046,22 @@ def k2_against_parent(parent: str, device, cases=PARENT_CASES) -> None:
         for kern in (old.KERNEL, old.CLUSTER_KERNEL, old.TWOSTEP_KERNEL,
                      old.BLUESTEIN_KERNEL)}
     native.build_all(list(theirs.values()))
-    for n, n_ch in cases:
-        spec, code, bins = k2_inputs(n, n_ch, device)
+    for kern in theirs.values():
+        usage = [ln.strip() for ln in kern.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"parent's {kern.source} built in "
+              f"{kern.build_seconds or 0:.2f} s:\n   " + "\n   ".join(usage),
+              flush=True)
+    for n, n_ch, n_bins, nc in cases:
+        spec, code, bins = k2_inputs(n, n_ch, device, n_bins, nc)
         kernel, out, cargs = acq_kernel.pcps_bins_launch_args(spec, code,
                                                               bins)
         old_kernel = old.kernel_for(n)[0]
         moved = old_kernel.source != kernel.source
-        if kernel is acq_kernel.BLUESTEIN_KERNEL or moved:
+        shapes = {"parent": launch_shape(old, n),
+                  "this": launch_shape(acq_kernel, n)}
+        changed = shapes["parent"] != shapes["this"]
+        if changed:
             _, old_out, old_args = old.pcps_bins_launch_args(spec, code,
                                                              bins)
         else:
@@ -924,9 +1092,12 @@ def k2_against_parent(parent: str, device, cases=PARENT_CASES) -> None:
         mean = {name: sum(t) / 2 for name, t in ms.items()}
         splits = {name: kernel_split(lambda fn=fn, args=args: fn(*args))
                   for name, (fn, args, _) in fns.items()}
+        plans = (f"; parent {shapes['parent'][1:]}, this "
+                 f"{shapes['this'][1:]}" if changed else
+                 f"; both {shapes['this'][1:]}")
         print(f"K2 {kernel.source} n={n}"
               + (f" (parent: {old_kernel.source})" if moved else "")
-              + f", {n_ch} ch x 101 bins: maps "
+              + f", {n_ch} ch x {n_bins} bins x {nc} blocks{plans}: maps "
               f"{'bit-identical' if same else 'differ'} (of the maximum: "
               f"parent {errs['parent']:.2e}, this {errs['this']:.2e}); "
               f"device ms parent {ms['parent'][0]:.4f} / "
@@ -936,7 +1107,7 @@ def k2_against_parent(parent: str, device, cases=PARENT_CASES) -> None:
               + "; ".join(f"{name} " + ", ".join(
                   f"{k} {v:.4f}" for k, v in split.items())
                   for name, split in splits.items()), flush=True)
-        if kernel is acq_kernel.BLUESTEIN_KERNEL or moved:
+        if changed:
             chip_smoke.check(max(errs.values()) * float(ref.abs().max())
                              <= bound, f"n={n}: a map above the bound")
         else:
@@ -1019,7 +1190,9 @@ def main(argv=None) -> int:
                              "and the entry forced below 65,536")
     parser.add_argument("--layouts", action="store_true",
                         help="with --twostep: only the two-step entry's "
-                             "splits and sub-plan orders at each --n")
+                             "splits and sub-plan orders at each --n; with "
+                             "--k2 --bluestein: the Bluestein entry's "
+                             "sub-plan orders and split at each --n")
     parser.add_argument("--parent", metavar="DIR",
                         help="hold the K2 entries of the checkout DIR "
                              "against this tree's")
@@ -1047,7 +1220,9 @@ def main(argv=None) -> int:
         k2_twostep_layouts(opts.n or [99375], opts.channels, device)
     elif opts.twostep:
         k2_twostep(opts.n or [70000, 245520], opts.channels, device)
-    if opts.k2 and opts.bluestein:
+    if opts.k2 and opts.bluestein and opts.layouts:
+        k2_bluestein_layouts(opts.n or BLUESTEIN_N, opts.channels, device)
+    elif opts.k2 and opts.bluestein:
         k2_bluestein(opts.n or BLUESTEIN_N, opts.channels, device)
     elif opts.k2 or both:
         for n in opts.n or [4092]:
@@ -1057,7 +1232,7 @@ def main(argv=None) -> int:
                 k2_variants(n, opts.channels, device)
     if opts.parent:
         k2_against_parent(opts.parent, device, PARENT_CASES if opts.n is None
-                          else [(n, opts.channels) for n in opts.n])
+                          else [(n, opts.channels, 101, 10) for n in opts.n])
     if opts.k3 or both:
         k3_variants(device)
     return 0
