@@ -62,7 +62,16 @@ printing its wall time:
    absent PRNs), decimate 4, kaplan pull-in at 5 ms blocks, promotion to
    the narrow-only cruise at 20 ms blocks x 50-block superblocks, quantised
    taps; acquisition, promotion, bit sync, carrier error and the kernels'
-   launch counts are checked;
+   launch counts are checked. It runs twice, its device step eager
+   (``graph=False``) and then as the session's default, one captured CUDA
+   graph per configuration replayed on every later step
+   (``receiver/step_graph.py``): every output and the final state bit for
+   bit, the same launch counts, K1 inside the replayed cruise graph, each
+   graph's capture and instantiation seconds and node count; then steady
+   cruise superblocks in turns (eager, graphed, graphed, eager) with both
+   real-time factors, and the step alone (the replay between CUDA events,
+   the eager step between fences). Every later session, receiver and CLI
+   run graphs by default, and their launch counts count replays;
 6. the receiver through its CLI: ``sydr_tpu_torch.main.main`` on the
    demo sky at the bench's input rate (10 Msps, decimate 4, quantised
    taps, 16 s): a position fix within 10 m of truth (K1 + K2). It runs in
@@ -73,7 +82,7 @@ printing its wall time:
    phase 2 on) and read back through ``RFFileSource``, 32 channels (6 visible),
    ``use_pallas=True, boundary_mode="prefix"`` in both loop shapes:
    acquisition against the scenario's truth, promotion, TOW, fixes within
-   10 m, absent PRNs idle, and no K1 launch;
+   10 m, absent PRNs idle, no K1 launch, and K3 inside a replayed graph;
 8. a session at 4.092 Msps (n = 4092 = 2^2 * 3 * 11 * 31): 8 channels,
    300 ms; acquisition must go through K2's FFT entry (radices 31, 4, 3,
    11) and find the visible satellites;
@@ -1019,7 +1028,7 @@ def slice_phase(device, capture=None, signal_ms=SIGNAL_MS, fs_in=FS_IN,
                 superblock=CRUISE_SUPERBLOCK, sync=None, card="",
                 acq_kernel_name="pcps_bins", settled=True, runtime="batch",
                 acq_cfg=None, cn0_dbhz=CN0_DBHZ, code_index_tol=2,
-                decimate=DECIMATE) -> dict:
+                decimate=DECIMATE, graph=None) -> dict:
     """Drive the port's TrackingSession; check and return what it did.
 
     ``capture``: ``(sats, re, im)`` of :func:`make_scenario`, made here
@@ -1029,7 +1038,9 @@ def slice_phase(device, capture=None, signal_ms=SIGNAL_MS, fs_in=FS_IN,
     sync and the 5 Hz carrier bound to be required (and promotion, in the
     batch runtime); a short run checks acquisition and finite outputs
     only. ``runtime``: ``"batch"`` (kaplan pull-in, promotion to cruise;
-    K1 must launch) or ``"scan"`` (borre at 20 ms blocks; no K1)."""
+    K1 must launch) or ``"scan"`` (borre at 20 ms blocks; no K1).
+    ``graph``: the session's ``graph=`` (None: its default, a captured CUDA
+    graph of the step on the card)."""
     from sydr_tpu_torch.channels.state import FLAG_BIT_SYNC, MODE_TRACKING
     from sydr_tpu_torch.receiver.session import TrackingSession
 
@@ -1041,7 +1052,8 @@ def slice_phase(device, capture=None, signal_ms=SIGNAL_MS, fs_in=FS_IN,
     sig_im = sig_im[:len(sig_re)]
     pull_in, cruise = session_configs(fs_in, superblock, runtime, decimate)
     session = TrackingSession(pull_in, list(range(1, n_channels + 1)),
-                              acq_cfg, cruise=cruise, device=device)
+                              acq_cfg, cruise=cruise, device=device,
+                              graph=graph)
     sync = sync or (lambda: None)
     in_per_ms = round(fs_in * 1e-3)
 
@@ -1115,7 +1127,9 @@ def slice_phase(device, capture=None, signal_ms=SIGNAL_MS, fs_in=FS_IN,
     rtf = cruise_signal_s / cruise_wall_s if cruise_wall_s else float("nan")
     print(f"{'cruise' if cruise is not None else 'scan-runtime tracking'} "
           f"real-time factor {rtf:.4f} ({cruise_signal_s:.2f} s of "
-          f"signal in {cruise_wall_s:.3f} s) on {card}", flush=True)
+          f"signal in {cruise_wall_s:.3f} s; step "
+          f"{'graphed' if session.graph is not None else 'eager'}) on "
+          f"{card}", flush=True)
     print(f"launches on the main path: {launches}", flush=True)
 
     check(ok, "a visible satellite failed acquisition, bit sync or the "
@@ -1136,6 +1150,152 @@ def slice_phase(device, capture=None, signal_ms=SIGNAL_MS, fs_in=FS_IN,
           "non-finite tracking output")
     return {"launches": launches, "rtf": rtf, "promoted_at": promoted_at,
             "session": session, "outputs": outs, "call_walls": call_walls}
+
+
+# Calls of the steady-state comparison after the paired sessions: eager,
+# graphed, graphed, eager, ... on the same cruise superblock of input.
+STEADY_TURNS = 2
+
+
+def graph_stats(session) -> list:
+    """One line per captured graph of ``session``: its shape, what its
+    capture cost, its nodes and the kernel launches a replay makes."""
+    lines = []
+    for (cfg, n_in, dtype), entry in session.graph.graphs.items():
+        kern = {k.source.removesuffix(".cu"): n
+                for k, n in entry.launches.items()}
+        lines.append(
+            f"{cfg.block_ms} ms x {cfg.superblock} ({n_in} {dtype} inputs): "
+            f"capture {entry.capture_s:.3f} s, instantiate "
+            f"{entry.instantiate_s:.3f} s, nodes "
+            f"{entry.nodes if entry.nodes is not None else 'not measured'}, "
+            f"kernel launches a replay {kern}, replays {entry.replays}")
+    return lines
+
+
+def session_pair_phase(device, capture, card) -> dict:
+    """Phase 5: the Session cell twice, its step eager (``graph=False``)
+    and then captured (the default): every output of every call and the
+    final state bit for bit, the graphs' capture, instantiation and node
+    counts, K1 inside the cruise graph; then steady cruise superblocks in
+    turns (eager, graphed, graphed, eager, ...) on the same input, their
+    walls and real-time factors, and the step alone (the graph's replay
+    between CUDA events; the eager step between fences). Returns the
+    graphed run's :func:`slice_phase` result."""
+    import torch
+
+    from sydr_tpu_torch.channels.state import pack_state
+    from sydr_tpu_torch.ops import correlator_kernel as ck
+
+    sync = torch.cuda.synchronize
+    eager = slice_phase(device, capture, sync=sync, card=card, graph=False)
+    graphed = slice_phase(device, capture, sync=sync, card=card)
+    es, gs = eager["session"], graphed["session"]
+    check(gs.graph is not None and es.graph is None,
+          "the default session did not graph its step, or graph=False did")
+    diff = [(i, k) for i, (a, b) in enumerate(zip(eager["outputs"],
+                                                   graphed["outputs"]))
+            for k in a if not np.array_equal(a[k], b[k])]
+    same_state = all(torch.equal(a, b) for a, b in zip(
+        pack_state(es.state), pack_state(gs.state))) and torch.equal(
+            es._ring_re, gs._ring_re)
+    print(f"session pair: {len(graphed['outputs'])} calls; every output "
+          f"bit-identical: {not diff}; final state and ring "
+          f"bit-identical: {same_state}; launches eager "
+          f"{eager['launches']} graphed {graphed['launches']}", flush=True)
+    for line in graph_stats(gs):
+        print(f"session graph: {line} on {card}", flush=True)
+    check(len(eager["outputs"]) == len(graphed["outputs"]) and not diff,
+          f"the graphed session differs from the eager one at (call, key) "
+          f"{diff[:5]}")
+    check(same_state, "the graphed session's final state differs")
+    check(eager["launches"] == graphed["launches"],
+          "the graphed session's launch counts differ from the eager one's")
+    cruise_key = next(k for k in gs.graph.graphs if k[0] is gs.cruise_cfg)
+    entry = gs.graph.graphs[cruise_key]
+    check(entry.launches.get(ck.KERNEL, 0) == CRUISE_SUPERBLOCK
+          and entry.replays > 0,
+          f"K1 did not launch inside the replayed cruise graph: "
+          f"{graph_stats(gs)}")
+
+    # Steady state: both sessions are in cruise; the same superblock of
+    # input to each, in turns.
+    n_in = gs.block_input_samples
+    check(gs.promoted and es.promoted and es.block_input_samples == n_in,
+          "the paired sessions are not both in cruise")
+    _, sig_re, sig_im = capture
+    walls = {"eager": [], "graphed": []}
+    same = True
+    for turn in range(2 * STEADY_TURNS):
+        order = ("eager", "graphed") if turn % 2 == 0 else \
+            ("graphed", "eager")
+        got = {}
+        for name in order:
+            session = es if name == "eager" else gs
+            sync()
+            t0 = time.perf_counter()
+            got[name] = session.process_block(sig_re[:n_in], sig_im[:n_in])
+            sync()
+            walls[name].append(time.perf_counter() - t0)
+        same &= all(np.array_equal(got["eager"][k], got["graphed"][k])
+                    for k in got["eager"])
+    signal_s = n_in / FS_IN
+    rtf = {name: signal_s / float(np.median(w)) for name, w in walls.items()}
+
+    # The step alone: the cruise graph's replay on its static inputs, and
+    # the eager step on the same inputs.
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    replay_ms = []
+    for _ in range(3):
+        start.record()
+        entry.replay()
+        end.record()
+        sync()
+        replay_ms.append(start.elapsed_time(end))
+    inner, _ = gs._packed_runs[gs.cruise_cfg]
+    sync()
+    t0 = time.perf_counter()
+    inner(*entry.inputs)
+    sync()
+    eager_step_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"session pair, steady cruise ({STEADY_TURNS * 2} superblocks "
+          f"a form, {signal_s:g} s each, in turns): eager calls "
+          f"{[round(w, 4) for w in walls['eager']]} s, RTF "
+          f"{rtf['eager']:.4f}; graphed calls "
+          f"{[round(w, 4) for w in walls['graphed']]} s, RTF "
+          f"{rtf['graphed']:.4f}; graphed / eager "
+          f"{rtf['graphed'] / rtf['eager']:.2f}x; outputs bit-identical: "
+          f"{same}; the step alone: replay "
+          f"{[round(x, 3) for x in replay_ms]} ms (CUDA events), eager "
+          f"{eager_step_ms:.1f} ms (fenced wall); on {card}", flush=True)
+    check(same, "the steady graphed superblocks differ from the eager ones")
+    host_split(gs, sig_re[:n_in], sig_im[:n_in], card)
+    graphed.update(steady_rtf=rtf, replay_ms=replay_ms,
+                   eager_step_ms=eager_step_ms)
+    return graphed
+
+
+def host_split(session, block_re, block_im, card) -> None:
+    """One more graphed cruise call under ``cProfile``: where its host time
+    goes. The replay is asynchronous, so the host waits for it in the
+    output copy (``Tensor.to``); the rest is the host's own work."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(session.process_block, block_re, block_im)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof)
+    rows = sorted(((v[3], f"{k[2]} ({os.path.basename(k[0])}:{k[1]})")
+                   for k, v in stats.stats.items()), reverse=True)
+    top = "; ".join(f"{name} {1e3 * cum:.1f}" for cum, name in rows[1:13])
+    print(f"host split of one graphed cruise call ({1e3 * wall:.1f} ms "
+          f"under cProfile), cumulative ms: {top}; on {card}", flush=True)
 
 
 def scan_block_profile(session, card) -> None:
@@ -1594,6 +1754,14 @@ def prefix_receiver_phase(device, sky_path) -> dict:
           f"K3 or K2 never launched on the prefix path: {launches}")
     check(launches["epoch_correlate"] == 0,
           f"K1 launched on the prefix path: {launches}")
+    from sydr_tpu_torch.ops import correlator_kernel as ck
+
+    for line in graph_stats(rx.session):
+        print(f"prefix receiver graph: {line}", flush=True)
+    check(any(entry.launches.get(ck.CUMSUM_KERNEL, 0) > 0
+              and entry.replays > 0
+              for entry in rx.session.graph.graphs.values()),
+          "K3 did not launch inside a replayed graph of the prefix path")
     return {"launches": launches, "fix_errors_m": errors, "wall_s": wall}
 
 
@@ -2437,8 +2605,7 @@ def path_phases(device, card, sky, writer, soak_queue) -> dict:
     rng = np.random.default_rng(SEED)
     capture = make_scenario(rng, SIGNAL_MS, FS_IN, N_CHANNELS, N_VISIBLE)
     paths["session"] = timed(
-        "session", slice_phase, device, capture,
-        sync=torch.cuda.synchronize, card=card)
+        "session", session_pair_phase, device, capture, card)
     lanes = start_lanes(soak_queue)
     try:
         paths.update(more_phases(device, card, sky, writer, capture, lanes,

@@ -121,11 +121,15 @@ def pack_state(st: ChannelState) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def unpack_state(f: torch.Tensor, i: torch.Tensor) -> ChannelState:
-    """Inverse of :func:`pack_state` (each leaf a contiguous copy)."""
-    leaves = {n: f[:, k].contiguous() for k, n in enumerate(F32_FIELDS)}
-    leaves.update({n: i[:, k].contiguous()
+    """Inverse of :func:`pack_state`, each leaf a contiguous copy (never a
+    view of ``f`` or ``i``, which a graph's next replay overwrites)."""
+    def copy(x):
+        return x.clone(memory_format=torch.contiguous_format)
+
+    leaves = {n: copy(f[:, k]) for k, n in enumerate(F32_FIELDS)}
+    leaves.update({n: copy(i[:, k])
                    for k, n in enumerate(I32_SCALAR_FIELDS)})
-    leaves["edge_hist"] = i[:, len(I32_SCALAR_FIELDS):].contiguous()
+    leaves["edge_hist"] = copy(i[:, len(I32_SCALAR_FIELDS):])
     return ChannelState(**leaves)
 
 

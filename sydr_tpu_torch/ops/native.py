@@ -8,7 +8,11 @@ headers and the flags, so an edited source or header is rebuilt).
 :func:`build_all` compiles several kernels at once, one ``nvcc`` each.
 The C entry point returns ``cudaGetLastError()`` after its launch;
 :meth:`CudaKernel.launch` raises when that is not ``cudaSuccess`` and
-counts each launch it makes.
+counts each launch it makes. A launch made while the current stream is
+capturing a CUDA graph runs only when the graph is replayed: it counts
+in ``captured`` instead, and :func:`count_replay` adds a graph's captured
+launches (:func:`captured_counts` before and after its capture) to
+``launches`` at each replay.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import os
 import shutil
 import subprocess
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -29,6 +34,9 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# Every kernel object made, so that a graph's captured launches can be
+# read across all of them.
+_KERNELS: "weakref.WeakSet[CudaKernel]" = weakref.WeakSet()
 
 
 def find_nvcc() -> str:
@@ -45,9 +53,11 @@ def find_nvcc() -> str:
 
 class CudaKernel:
     """One ``csrc/<source>`` kernel: its build, its C entry point and its
-    launch counter (``launches``, incremented once per successful launch).
-    ``csrc_dir`` builds the source of another tree instead (into that
-    tree's ``_build/``), as a tool that compares two versions does.
+    launch counters: ``launches``, incremented once per successful launch
+    (a launch into a CUDA graph once per replay of the graph), and
+    ``captured``, the launches recorded into graphs while they were
+    captured. ``csrc_dir`` builds the source of another tree instead (into
+    that tree's ``_build/``), as a tool that compares two versions does.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list,
@@ -57,10 +67,12 @@ class CudaKernel:
         self.argtypes = argtypes
         self.csrc_dir = Path(csrc_dir)
         self.launches = 0
+        self.captured = 0
         self.build_seconds: float | None = None
         self.build_log = ""
         self._lib = None
         self._fn = None
+        _KERNELS.add(self)
 
     def library_path(self) -> Path:
         src = self.csrc_dir / self.source
@@ -117,12 +129,42 @@ class CudaKernel:
         return self._lib.sydr_cuda_error_string(err).decode()
 
     def launch(self, *args) -> None:
-        """Call the entry point; raise on a CUDA error, else count it."""
+        """Call the entry point; raise on a CUDA error, else count it (in
+        ``captured`` while the current stream captures a graph)."""
         err = self.function()(*args)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err}: "
                                f"{self.error_string(err)}")
-        self.launches += 1
+        if stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
+
+
+def stream_capturing() -> bool:
+    """Whether PyTorch's current CUDA stream is capturing a graph."""
+    import torch
+
+    return torch.cuda.is_current_stream_capturing()
+
+
+def captured_counts() -> dict:
+    """``{kernel: captured launches}`` of every kernel made so far."""
+    return {kern: kern.captured for kern in _KERNELS}
+
+
+def graph_launches(before: dict, after: dict) -> dict:
+    """The launches a graph holds, per kernel with any: ``after`` minus
+    ``before``, two :func:`captured_counts` around its capture."""
+    return {kern: n - before.get(kern, 0) for kern, n in after.items()
+            if n != before.get(kern, 0)}
+
+
+def count_replay(graph_counts: dict) -> None:
+    """Count one replay of a graph that holds ``graph_counts``
+    (:func:`graph_launches`)."""
+    for kern, n in graph_counts.items():
+        kern.launches += n
 
 
 # An empty kernel (one thread, no work): the per-launch floor that the

@@ -9,6 +9,14 @@ runtime (``TrackingConfig.runtime``: the batched runtime or the per-ms
 scan runtime), and promotes from the pull-in loop shape to the cruise
 shape (:class:`CruisePolicy`).
 
+The device step (dequantise the window, roll the acquisition ring, run
+the block or superblock, pack the outputs) is a pure function of tensors,
+built per configuration by :meth:`TrackingSession._make_packed_run`, the
+JAX session's jitted step. On a CUDA device the session captures it as
+one CUDA graph per configuration and input and replays it
+(``receiver.step_graph.StepGraph``; ``graph=``); on the CPU, and under a
+mesh, it runs eagerly.
+
 Sample accounting: the session counts the samples fed
 (``total_samples``); each channel's read position is
 ``total_samples - unread``. Tracking starts at the last code boundary
@@ -27,6 +35,7 @@ packed outputs are gathered over ``ch`` in one float32 and one int32
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 
 import numpy as np
@@ -53,6 +62,7 @@ from sydr_tpu_torch.constants import (
 from sydr_tpu_torch.ops import acquisition as acq
 from sydr_tpu_torch.parallel import distributed
 from sydr_tpu_torch.parallel import mesh as pmesh
+from sydr_tpu_torch.receiver.step_graph import StepGraph
 
 logger = logging.getLogger(__name__)
 
@@ -114,6 +124,7 @@ class TrackingSession:
         *,
         device,
         mesh=None,
+        graph: bool | None = None,
     ):
         """``cruise``: optional throughput-optimal TrackingConfig to promote
         to once every channel is stable (:class:`CruisePolicy`); ``cfg`` is
@@ -123,6 +134,10 @@ class TrackingSession:
         ``mesh``: optional ``parallel.mesh.make_mesh`` mesh; tracking then
         runs channel-sharded over its ``ch`` axis, and the channel count
         must divide over ``mesh.shape['ch']`` (pad ``prns`` with 0).
+        ``graph``: replay the device step as a captured CUDA graph (True),
+        run it eagerly (False), or the default (None): graphed on a CUDA
+        device without a mesh, else eager. True on the CPU, or with a mesh
+        (whose collectives are not captured), raises.
         """
         for c in (cfg, cruise):
             if c is not None and c.runtime != "batch" and c.superblock != 1:
@@ -137,6 +152,14 @@ class TrackingSession:
             raise ValueError("cruise and pull-in configs must share rate, "
                              "decimation, IF and tail length")
         self.device = torch.device(device)
+        if graph is None:
+            graph = self.device.type == "cuda" and mesh is None
+        if graph and mesh is not None:
+            raise ValueError("the mesh step runs eagerly: graph=True needs "
+                             "a session without a mesh")
+        # StepGraph refuses a device other than CUDA.
+        self.graph = StepGraph(self.device) if graph else None
+        self._packed_runs: dict = {}
         self.cfg = cfg
         self._pullin_cfg = cfg
         self.prns = list(prns)
@@ -429,9 +452,10 @@ class TrackingSession:
         self._tail_im = window_im[-tail:]
         self._update_hist(block_re, block_im)
         self._maybe_acquire()
-        # Two bulk copies instead of one per output key.
-        host_f = packed_f.cpu().numpy()
-        host_i = packed_i.cpu().numpy()
+        # Two bulk copies instead of one per output key (copies on the CPU
+        # too: a graph's packed outputs are its static tensors).
+        host_f = packed_f.to("cpu", copy=True).numpy()
+        host_i = packed_i.to("cpu", copy=True).numpy()
         out = {k: host_f[..., j] for j, k in enumerate(keys_f)}
         for j, k in enumerate(keys_i):
             col = host_i[..., j]
@@ -440,81 +464,104 @@ class TrackingSession:
         return out
 
     def _step(self, up_re, up_im, inv_scale):
-        """One device step: dequantise the window, append its fresh samples
-        to the acquisition ring, run the block (or superblock) and pack the
-        outputs into one float32 and one int32 tensor.
-
-        Returns (packed_f, packed_i, float keys, int keys); the key tuples
-        are sorted, so the packing order is fixed.
-        """
+        """One device step of the current configuration: the packed run's
+        ``inner`` (:meth:`_make_packed_run`) on the packed state, eagerly
+        or through the session's graph. Sets the state and the ring (copies
+        the next replay cannot overwrite) and returns (packed_f, packed_i,
+        float keys, int keys); the packed outputs of a replay are the
+        graph's, valid until its next replay."""
         cfg = self.cfg
-        wre = up_re.to(torch.float32) * float(inv_scale)
-        wim = up_im.to(torch.float32) * float(inv_scale)
+        if cfg not in self._packed_runs:
+            self._packed_runs[cfg] = self._make_packed_run(cfg)
+        inner, keys = self._packed_runs[cfg]
+        state_f, state_i = pack_state(self.state)
+        args = (state_f, state_i, up_re, up_im,
+                torch.full((), float(inv_scale), dtype=torch.float32,
+                           device=self.device),
+                self._ring_re, self._ring_im)
+        if self.graph is None:
+            outs = inner(*args)
+        else:
+            outs = self.graph.run((cfg, up_re.shape[0], up_re.dtype), inner,
+                                  args)
+        state_f, state_i, packed_f, packed_i, ring_re, ring_im = outs
+        self.state = unpack_state(state_f, state_i)
+        self._ring_re = ring_re.clone()
+        self._ring_im = ring_im.clone()
+        return packed_f, packed_i, keys["f"], keys["i"]
+
+    def _make_packed_run(self, cfg):
+        """The device step of ``cfg`` as a pure function of tensors, the
+        JAX session's ``inner``: ``inner(state_f, state_i, up_re, up_im,
+        inv_scale, ring_re, ring_im) -> (state_f, state_i, packed_f,
+        packed_i, ring_re, ring_im)`` with the state packed
+        (``channels.state.pack_state``), ``inv_scale`` a 0-dim float32
+        tensor, the outputs ``[T, n_ch]`` packed into ``[T, n_ch, k]``
+        float32 and int32 tensors. Dequantise the window, append its fresh
+        samples to the acquisition ring, run the block (or superblock) and
+        pack. Returns ``(inner, keys)``; ``keys["f"]``/``keys["i"]`` are the
+        sorted output names of each packed tensor, set by ``inner``'s first
+        run (as the JAX function sets them while tracing)."""
+        # ``inner`` holds no reference to the session: a graph captured from
+        # it is freed with the session, not at a later garbage collection.
+        bits3x, codes = self.bits3x, self.codes
         hist_n = self._ring_re.shape[0]
         tail_n = cfg.tail_ms * cfg.samples_per_ms
+        keys: dict[str, tuple] = {}
+        pack_outputs = self._pack_outputs
+        sharded_step = None
+        if self.mesh is not None:
+            sharded_step = functools.partial(
+                _sharded_step,
+                pmesh.make_sharded_batch_step(
+                    cfg, self.mesh,
+                    k_blocks=cfg.superblock if cfg.runtime == "batch" else 1),
+                self.mesh, self._rows, self.n_channels,
+                (bits3x if cfg.runtime == "batch" else codes)[self._rows])
 
         def roll_ring(ring, fresh):
             if fresh.shape[0] >= hist_n:
                 return fresh[fresh.shape[0] - hist_n:]
             return torch.cat([ring[fresh.shape[0]:], fresh])
 
-        self._ring_re = roll_ring(self._ring_re, wre[tail_n:])
-        self._ring_im = roll_ring(self._ring_im, wim[tail_n:])
-        if self.mesh is not None:
-            return self._sharded_step(wre, wim)
-        if cfg.runtime != "batch":
-            self.state, outputs = runtime.run_block(
-                cfg, self.codes, self.state, wre, wim)
-        elif cfg.superblock > 1:
-            self.state, outputs = batch_runtime.run_superblock(
-                cfg, cfg.superblock, self.bits3x, self.state, wre, wim)
-        else:
-            self.state, outputs = batch_runtime.run_block_batched(
-                cfg, self.bits3x, self.state, wre, wim)
-        return self._pack_outputs(outputs)
+        def inner(state_f, state_i, up_re, up_im, inv_scale, ring_re,
+                  ring_im):
+            wre = up_re.to(torch.float32) * inv_scale
+            wim = up_im.to(torch.float32) * inv_scale
+            ring_re = roll_ring(ring_re, wre[tail_n:])
+            ring_im = roll_ring(ring_im, wim[tail_n:])
+            if sharded_step is not None:
+                state_f, state_i, packed_f, packed_i = sharded_step(
+                    keys, state_f, state_i, wre, wim)
+                return state_f, state_i, packed_f, packed_i, ring_re, ring_im
+            state = unpack_state(state_f, state_i)
+            if cfg.runtime != "batch":
+                state, outputs = runtime.run_block(
+                    cfg, codes, state, wre, wim)
+            elif cfg.superblock > 1:
+                state, outputs = batch_runtime.run_superblock(
+                    cfg, cfg.superblock, bits3x, state, wre, wim)
+            else:
+                state, outputs = batch_runtime.run_block_batched(
+                    cfg, bits3x, state, wre, wim)
+            packed_f, packed_i = pack_outputs(outputs, keys)
+            state_f, state_i = pack_state(state)
+            return state_f, state_i, packed_f, packed_i, ring_re, ring_im
+
+        return inner, keys
 
     @staticmethod
-    def _pack_outputs(outputs):
+    def _pack_outputs(outputs, keys):
         """Outputs ``[T, n_ch]`` packed into ``[T, n_ch, k]`` float32 and
-        int32 tensors, with their sorted key tuples."""
-        keys_f = tuple(sorted(
+        int32 tensors; their sorted key tuples go into ``keys``."""
+        keys["f"] = tuple(sorted(
             k for k, v in outputs.items() if v.dtype == torch.float32))
-        keys_i = tuple(sorted(
+        keys["i"] = tuple(sorted(
             k for k, v in outputs.items() if v.dtype != torch.float32))
-        packed_f = torch.stack([outputs[k] for k in keys_f], dim=-1)
+        packed_f = torch.stack([outputs[k] for k in keys["f"]], dim=-1)
         packed_i = torch.stack(
-            [outputs[k].to(torch.int32) for k in keys_i], dim=-1)
-        return packed_f, packed_i, keys_f, keys_i
-
-    def _sharded_step(self, wre, wim):
-        """The block (or superblock) on this rank's channel rows; the new
-        state and the outputs of every rank are gathered over ``ch``: one
-        row-major float32 and one int32 tensor each way, state columns
-        first, then the outputs ``[T, rows, k]`` as ``T * k`` columns."""
-        cfg, rows = self.cfg, self._rows
-        tables = (self.bits3x if cfg.runtime == "batch" else self.codes)[rows]
-        local = ChannelState(**{
-            n: getattr(self.state, n)[rows] for n in FIELDS})
-        step = pmesh.make_sharded_batch_step(
-            cfg, self.mesh,
-            k_blocks=cfg.superblock if cfg.runtime == "batch" else 1)
-        local, outputs = step(tables, local, wre, wim)
-        out_f, out_i, keys_f, keys_i = self._pack_outputs(outputs)
-        st_f, st_i = pack_state(local)
-        n_t, n_rows = out_f.shape[:2]
-
-        def gather(state_cols, out):
-            cols = out.permute(1, 0, 2).reshape(n_rows, -1)
-            both = distributed.gather_axis(
-                self.mesh, "ch", torch.cat([state_cols, cols], dim=1))
-            n_st = state_cols.shape[1]
-            return both[:, :n_st], both[:, n_st:].reshape(
-                self.n_channels, n_t, -1).permute(1, 0, 2)
-
-        st_f, packed_f = gather(st_f, out_f)
-        st_i, packed_i = gather(st_i, out_i)
-        self.state = unpack_state(st_f, st_i)
-        return packed_f, packed_i, keys_f, keys_i
+            [outputs[k].to(torch.int32) for k in keys["i"]], dim=-1)
+        return packed_f, packed_i
 
     # ------------------------------------------------------------------
     def or_flags(self, i: int, mask: int) -> None:
@@ -556,3 +603,29 @@ class TrackingSession:
         logger.info(
             "demoted %s -> %s/%dms/sb%d (channel reacquisition)", old,
             self.cfg.profile, self.cfg.block_ms, self.cfg.superblock)
+
+
+def _sharded_step(step, mesh, rows, n_channels, tables, keys, state_f,
+                  state_i, wre, wim):
+    """The block (or superblock) on this rank's channel ``rows`` (with their
+    ``tables``); the new state and the outputs of every rank are gathered
+    over ``ch``: one row-major float32 and one int32 tensor each way, state
+    columns first, then the outputs ``[T, rows, k]`` as ``T * k`` columns.
+    Returns the packed state and outputs of every channel."""
+    local, outputs = step(
+        tables, unpack_state(state_f[rows], state_i[rows]), wre, wim)
+    out_f, out_i = TrackingSession._pack_outputs(outputs, keys)
+    st_f, st_i = pack_state(local)
+    n_t, n_rows = out_f.shape[:2]
+
+    def gather(state_cols, out):
+        cols = out.permute(1, 0, 2).reshape(n_rows, -1)
+        both = distributed.gather_axis(
+            mesh, "ch", torch.cat([state_cols, cols], dim=1))
+        n_st = state_cols.shape[1]
+        return both[:, :n_st], both[:, n_st:].reshape(
+            n_channels, n_t, -1).permute(1, 0, 2)
+
+    st_f, packed_f = gather(st_f, out_f)
+    st_i, packed_i = gather(st_i, out_i)
+    return st_f, st_i, packed_f, packed_i

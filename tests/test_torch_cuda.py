@@ -18,6 +18,11 @@ order than ``torch.cumsum``: the raw prefix within ``4 * sqrt(n_win) *
 2^-24`` of its largest magnitude (a random walk of float32 roundings over
 n_win additions, four sigma), and the per-epoch correlators picked from it
 within K1's bound.
+
+The session's step as a captured CUDA graph (``receiver/step_graph.py``)
+is held to the eager step bit for bit: every output, the final state and
+the kernels' launch counts, in the K1, prefix (K3) and scan forms, across
+a promotion and a ``reset_channel``; a capture that fails raises.
 """
 
 import dataclasses
@@ -485,3 +490,207 @@ def test_sharded_step_on_nccl_world_of_one():
     assert torch.equal(gathered, out_u["i_prompt"])
     for f in dataclasses.fields(st_u):
         assert torch.equal(getattr(st_s, f.name), getattr(st_u, f.name))
+
+
+# The session's step as a captured CUDA graph (receiver/step_graph.py)
+# against the eager step: tests/test_torch_session.py's stream (8 Msps
+# decimated to 2 Msps, the satellites at 46 dB-Hz) over 8 channels, the
+# pull-in at 5 ms blocks and the narrow-only cruise at 20 ms x 5 blocks,
+# then a reset of channel 1 (a demotion) and three more calls; the scan
+# runtime at 20 ms blocks. A graph replays the same kernels in the same
+# order, so outputs and state are held bit for bit.
+GRAPH_FS_IN, GRAPH_DEC, GRAPH_MS = 8e6, 4, 1500
+GRAPH_PRNS = [5, 12, 20, 3, 7, 9, 14, 30]       # 5 and 12 in the signal
+
+
+def _graph_configs(form):
+    fs = GRAPH_FS_IN / GRAPH_DEC
+    common = dict(sampling_frequency=fs, input_decimate=GRAPH_DEC,
+                  window_size=round(fs * 1e-3) + 256, quantize_spacing=True)
+    if form == "scan":
+        return TrackingConfig(runtime="scan", profile="borre", block_ms=20,
+                              **common), None
+    extra = (dict(use_pallas=True, boundary_mode="prefix")
+             if form == "prefix" else {})
+    pull_in = TrackingConfig(runtime="batch", profile="kaplan", block_ms=5,
+                             **common, **extra)
+    return pull_in, dataclasses.replace(
+        pull_in, kaplan_narrow_only=True, block_ms=20, superblock=5)
+
+
+def _kernel_counts():
+    return {"k1": ck.KERNEL.launches, "k3": ck.CUMSUM_KERNEL.launches,
+            "k2": acq_kernel.KERNEL.launches}
+
+
+def _graph_session_run(form, graph, dev):
+    """One session over the stream: every call's outputs, the final packed
+    state, the kernels' launches, the calls at which it promoted and was
+    reset, and the session."""
+    from sydr_tpu_torch.channels.state import pack_state
+    from sydr_tpu_torch.receiver.session import TrackingSession
+    from sydr_tpu_torch.signal.synthetic import IQGenerator
+
+    bits = np.random.default_rng(11).integers(0, 2, 200)
+    gen = IQGenerator(GRAPH_FS_IN, noise=True, seed=11)
+    for prn, dop, cp in ((5, 1200.0, 321.4), (12, -2600.0, 811.9)):
+        gen.add_satellite(prn, doppler_hz=dop, code_phase_chips=cp,
+                          cn0_dbhz=46.0, nav_bits=bits)
+    pull_in, cruise = _graph_configs(form)
+    session = TrackingSession(pull_in, GRAPH_PRNS, cruise=cruise,
+                              device=dev, graph=graph)
+    per_ms = round(GRAPH_FS_IN * 1e-3)
+    before = _kernel_counts()
+    outs, fed, promoted_at, reset_at = [], 0, None, None
+
+    def call():
+        iq = gen.generate_ms(session.block_input_samples // per_ms)
+        outs.append(session.process_block(np.float32(iq.real),
+                                          np.float32(iq.imag)))
+
+    while fed < GRAPH_MS:
+        fed += session.block_input_samples // per_ms
+        call()
+        if promoted_at is None and session.promoted:
+            promoted_at = len(outs)
+    session.reset_channel(1)
+    reset_at = len(outs)
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in _kernel_counts().items()}
+    state = [t.cpu() for t in pack_state(session.state)]
+    return dict(outs=outs, state=state, launches=launches,
+                promoted_at=promoted_at, reset_at=reset_at, session=session)
+
+
+@pytest.fixture(scope="module", params=["k1", "prefix", "scan"])
+def graph_runs(request):
+    dev = _cuda()
+    form = request.param
+    return form, {graph: _graph_session_run(form, graph, dev)
+                  for graph in (False, True)}
+
+
+@pytest.mark.cuda
+def test_graphed_session_equals_eager_bit_for_bit(graph_runs):
+    form, runs = graph_runs
+    eager, graphed = runs[False], runs[True]
+    assert graphed["session"].graph is not None
+    assert eager["session"].graph is None
+    assert len(graphed["outs"]) == len(eager["outs"])
+    for i, (a, b) in enumerate(zip(eager["outs"], graphed["outs"])):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(b[k], a[k], err_msg=f"{i} {k}")
+    for a, b in zip(eager["state"], graphed["state"]):
+        assert torch.equal(a, b)
+    assert torch.equal(eager["session"]._ring_re.cpu(),
+                       graphed["session"]._ring_re.cpu())
+
+
+@pytest.mark.cuda
+def test_graphed_session_promotes_resets_and_replays(graph_runs):
+    form, runs = graph_runs
+    graphed = runs[True]
+    assert graphed["promoted_at"] == runs[False]["promoted_at"]
+    assert graphed["reset_at"] is not None
+    graphs = graphed["session"].graph.graphs
+    if form == "scan":
+        assert len(graphs) == 1
+    else:
+        assert graphed["promoted_at"] is not None
+        # pull-in and cruise; the demotion replays the pull-in graph
+        assert len(graphs) == 2
+        assert not graphed["session"].promoted
+    assert all(entry.replays > 0 for entry in graphs.values())
+
+
+@pytest.mark.cuda
+def test_graphed_session_launch_counts_equal_eager(graph_runs):
+    """The first call of a configuration runs eagerly and captures; each
+    replay counts the launches its graph holds: the same counts as the
+    eager run over the same blocks."""
+    form, runs = graph_runs
+    assert runs[True]["launches"] == runs[False]["launches"]
+    want = {"k1": form == "k1", "k3": form == "prefix", "k2": True}
+    assert {k: n > 0 for k, n in runs[True]["launches"].items()} == want
+    held = {}
+    for entry in runs[True]["session"].graph.graphs.values():
+        for kern, n in entry.launches.items():
+            held[kern] = held.get(kern, 0) + n
+    assert acq_kernel.KERNEL not in held
+    if form != "scan":
+        corr = ck.KERNEL if form == "k1" else ck.CUMSUM_KERNEL
+        assert held.get(corr, 0) > 0
+
+
+@pytest.mark.cuda
+def test_graphed_session_default_on_cuda():
+    from sydr_tpu_torch.receiver.session import TrackingSession
+
+    dev = _cuda()
+    pull_in, cruise = _graph_configs("k1")
+    assert TrackingSession(pull_in, GRAPH_PRNS, cruise=cruise,
+                           device=dev).graph is not None
+    assert TrackingSession(pull_in, GRAPH_PRNS, cruise=cruise, device=dev,
+                           graph=False).graph is None
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises():
+    """A step that reads a CUDA tensor on the host cannot be captured: the
+    runner raises, after the warm-up ran it eagerly once, and does not
+    keep a graph for it."""
+    from sydr_tpu_torch.receiver.step_graph import StepGraph
+
+    dev = _cuda()
+    runner = StepGraph(dev)
+
+    def step(x):
+        return (x * float(x.sum().item()),)
+
+    x = torch.ones(8, device=dev)
+    with pytest.raises(RuntimeError):
+        runner.run("host read", step, (x,))
+    assert "host read" not in runner.graphs
+    torch.cuda.synchronize()
+    assert float((x + 1).sum()) == 16.0
+
+
+@pytest.mark.cuda
+def test_capture_survives_a_collected_graph():
+    """A graph that becomes cyclic garbage while another step is captured
+    is not collected inside that capture (its destructor's CUDA call would
+    invalidate the capture): the runner holds the collector off."""
+    import gc
+
+    from sydr_tpu_torch.receiver.step_graph import StepGraph
+
+    dev = _cuda()
+    x = torch.ones(256, device=dev)
+    doomed = StepGraph(dev)
+    doomed.run("old", lambda t: (t + 1.0,), (x,))
+    doomed.run("old", lambda t: (t + 1.0,), (x,))
+    holder = [doomed]
+    del doomed
+
+    def step(t):
+        if holder and torch.cuda.is_current_stream_capturing():
+            cycle = [holder.pop()]       # garbage, made mid-capture
+            cycle.append(cycle)
+            del cycle
+        for _ in range(200):             # allocations that would collect
+            t = t * 1.0001 + [0.0][0]
+        return (t,)
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        runner = StepGraph(dev)
+        first = runner.run("new", step, (x,))[0].clone()
+        again = runner.run("new", step, (x,))[0]
+    finally:
+        gc.set_threshold(*threshold)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
