@@ -40,7 +40,13 @@ printing its wall time:
    and of n = 2^20 + 2 before any launch), K3
    ``block_cumsum_streams`` (with its two launches timed apart, the time
    of a kernel that only makes its stores, and a second run that must be
-   bit-identical). Each case prints four times and a bound:
+   bit-identical), and pass C's kernel ``pass_c`` (``ops/loop_kernel.py``,
+   the JAX package's fused ``lax.scan``; it replaces no TPU kernel) on a
+   mid-track block of 32 channels (``tests/_pass_c_inputs.py``) at the
+   cruise shape (narrow-only kaplan, 20 epochs) and the pull-in shape
+   (kaplan, 5 epochs), every output and the new state bit for bit the
+   plain version's, its device time beside the empty launch's. Each case
+   prints four times and a bound:
    ``ms``, the device time of the launch alone (:func:`device_ms`: the C
    entry point called in a tight loop from arguments prepared once, the
    launches queued behind a spinning kernel so that the CUDA events around
@@ -66,8 +72,9 @@ printing its wall time:
    (``graph=False``) and then as the session's default, one captured CUDA
    graph per configuration replayed on every later step
    (``receiver/step_graph.py``): every output and the final state bit for
-   bit, the same launch counts, K1 inside the replayed cruise graph, each
-   graph's capture and instantiation seconds and node count; then steady
+   bit, the same launch counts, K1 and pass C's kernel inside the replayed
+   cruise graph (one launch of each a block), each graph's capture and
+   instantiation seconds and node count; then steady
    cruise superblocks in turns (eager, graphed, graphed, eager) with both
    real-time factors, and the step alone (the replay between CUDA events,
    the eager step between fences). Every later session, receiver and CLI
@@ -252,6 +259,16 @@ STREAM_TAP_FLOPS = 8
 # magnitude (a random walk of float32 roundings, four sigma); the epoch
 # correlators picked from it within K1's bound.
 K1_ATOL, K1_RTOL = 1e-2, 1e-4
+# Pass C's kernel: operations counted per channel and epoch for its bound
+# (the loop update, rails, derotation, bit sync and accumulators, ~150
+# arithmetic and compare operations, and two or three accurate atanf, sinf
+# and cosf at ~40 each).
+PASS_C_EPOCH_OPS = 300
+# Pass C's cases: (name, block_ms, TrackingConfig fields).
+PASS_C_CASES = (
+    ("cruise 32 ch x 20 epochs, narrow-only kaplan", 20,
+     dict(profile="kaplan", kaplan_narrow_only=True)),
+    ("pull-in 32 ch x 5 epochs, kaplan", 5, dict(profile="kaplan")))
 K2_RTOL = 1e-4
 K3_PREFIX_SIGMAS = 4.0
 CORR_KEYS = ("i_early", "q_early", "i_prompt", "q_prompt", "i_late",
@@ -583,6 +600,88 @@ def k3_case(name, fs, block_ms, profile, device, rng):
     return res
 
 
+def pass_c_inputs(block_ms, extra, device):
+    """The mid-track block of ``tests/_pass_c_inputs.py`` at 32 channels
+    (bit-sync declarations and bit completions inside it, inactive
+    channels, every clamp acting): ``(cfg, state, geo, corr)``."""
+    import torch
+
+    from sydr_tpu_torch.channels import batch_runtime as br
+    from sydr_tpu_torch.channels.runtime import TrackingConfig
+    from sydr_tpu_torch.channels.state import state_from_numpy
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from _pass_c_inputs import mid_track
+
+    cfg = TrackingConfig(sampling_frequency=FS_IN / DECIMATE,
+                         block_ms=block_ms, tail_ms=4,
+                         window_size=round(FS_IN / DECIMATE * 1e-3) + 256,
+                         runtime="batch", quantize_spacing=True, **extra)
+    leaves, corr = mid_track(cfg, N_CHANNELS, SEED % 1000)
+    st = state_from_numpy(leaves, device)
+    return cfg, st, br._pass_a(cfg, st), torch.tensor(corr, device=device)
+
+
+def pass_c_case(name, block_ms, extra, device, empty_ms):
+    """Kernel vs plain pass C (``batch_runtime._pass_c``) on the card:
+    every output and the new state bit for bit."""
+    import torch
+
+    from sydr_tpu_torch.channels import batch_runtime as br
+    from sydr_tpu_torch.channels.state import FIELDS
+    from sydr_tpu_torch.ops import loop_kernel as lk
+    from sydr_tpu_torch.ops import native
+
+    cfg, st, geo, corr = pass_c_inputs(block_ms, extra, device)
+    before = read_launches()
+    got_st, got = lk.pass_c(cfg, st, geo, corr)
+    launched = {k: v - before[k] for k, v in read_launches().items()
+                if v != before[k]}
+    check(launched == {"pass_c": 1},
+          f"pass C {name}: the wrapper launched {launched}")
+    ref_st, ref = br._pass_c(cfg, st, geo, corr)
+    torch.cuda.synchronize()
+    pairs = [(k, got[k], ref[k]) for k in ref] + [
+        (f"state {f}", getattr(got_st, f), getattr(ref_st, f))
+        for f in FIELDS]
+    differ, err = {}, 0.0
+    for key, a, b in pairs:
+        if a.dtype == torch.float32:
+            err = max(err, float((a - b).abs().max()))
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            differ[key] = int((a.long() - b.long()).abs().max())
+    bufs, cargs = lk.pass_c_launch_args(cfg, st, geo, corr)
+    fn = lk.PASS_C_KERNEL.function()
+    stream = native.stream_of(corr)
+    inputs = [getattr(st, f) for f in FIELDS] + [corr] + [
+        geo[k] for k in ("active", "required", "unread_after", "rem_code",
+                         "rem_code_end", "rem_carrier_end", "delta",
+                         "unread_end")]
+    n_bytes = tensor_bytes(*inputs, *bufs.values())
+    res = {"max_abs_err": err,
+           "ms": device_ms(lambda: fn(*cargs, stream), 200),
+           "call_ms": cuda_ms(lambda: lk.pass_c(cfg, st, geo, corr), 50),
+           "plain_ms": cuda_ms(lambda: br._pass_c(cfg, st, geo, corr), 5),
+           "library_ms": None,
+           **roofline(n_bytes, float(block_ms * N_CHANNELS
+                                     * PASS_C_EPOCH_OPS))}
+    report("pass C", name, got["i_prompt"].shape,
+           f"max_abs_err {err:.3e}, every output and the state "
+           f"bit-identical: {not differ}"
+           + (f" (differing, max ulp or count: {differ})" if differ else "")
+           + f"; {int(got['bit_ready'].sum())} bit completions, "
+           f"{int((got_st.flags & 2).ne(st.flags & 2).sum())} declarations; "
+           f"bound {res['bound_ms']:.3e} ms ({n_bytes} bytes), the empty "
+           f"launch {empty_ms:.5f} ms", res)
+    check(all(bool(torch.isfinite(got[k]).all()) for k in got
+              if got[k].dtype == torch.float32),
+          f"pass C {name}: non-finite output")
+    check(not differ, f"pass C {name}: the kernel differs from the plain "
+                      f"version in {differ}")
+    return res
+
+
 def ifft_library_ms(spectra, code_k, bin_shifts, quiet=False) -> float:
     """``torch.fft.ifft`` alone over the pre-made product ``[n_bins, n_ch,
     nc, n]`` complex64: the part of K2 that one PyTorch call computes
@@ -898,7 +997,7 @@ def kernel_phase(device) -> dict:
     from sydr_tpu_torch.ops import acq_kernel
 
     rng = np.random.default_rng(SEED)
-    empty_launch_ms()
+    empty_ms = empty_launch_ms()
     k1 = {name: k1_case(name, fs, bm, prof, quant, device, rng)
           for name, fs, bm, prof, quant in (
               ("cruise 2.5 Msps 20 ms 6 streams", 2.5e6, 20, "narrow", True),
@@ -946,9 +1045,12 @@ def kernel_phase(device) -> dict:
               ("cruise 2.5 Msps 20 ms 6 streams", 2.5e6, 20, "narrow"),
               ("pull-in 2.5 Msps 5 ms 10 streams", 2.5e6, 5, "kaplan"),
               ("full-rate 10 Msps 20 ms 6 streams", 10e6, 20, "narrow"))}
+    pc = {name: pass_c_case(name, bm, extra, device, empty_ms)
+          for name, bm, extra in PASS_C_CASES}
     return {"epoch_correlate": k1, "pcps_bins": k2,
             "pcps_bins_cluster": k2c, "pcps_bins_twostep": k2t,
-            "pcps_bins_bluestein": k2b, "block_cumsum_streams": k3}
+            "pcps_bins_bluestein": k2b, "block_cumsum_streams": k3,
+            "pass_c": pc}
 
 
 # ---------------------------------------------------------------------------
@@ -1138,9 +1240,11 @@ def slice_phase(device, capture=None, signal_ms=SIGNAL_MS, fs_in=FS_IN,
           "the session never promoted to cruise")
     check(all(m != MODE_TRACKING for m in absent_modes.values()),
           "an absent PRN is tracking")
-    # K1 in the batch runtime, the named K2 entry, and nothing else.
+    # K1 and pass C in the batch runtime, the named K2 entry, and nothing
+    # else.
     expected = {name: name == acq_kernel_name
-                or (name == "epoch_correlate" and runtime == "batch")
+                or (name in ("epoch_correlate", "pass_c")
+                    and runtime == "batch")
                 for name in launches}
     check(all((launches[name] > 0) == hit for name, hit in expected.items()),
           f"the session's path launched {launches}: expected exactly "
@@ -1186,6 +1290,7 @@ def session_pair_phase(device, capture, card) -> dict:
 
     from sydr_tpu_torch.channels.state import pack_state
     from sydr_tpu_torch.ops import correlator_kernel as ck
+    from sydr_tpu_torch.ops import loop_kernel as lk
 
     sync = torch.cuda.synchronize
     eager = slice_phase(device, capture, sync=sync, card=card, graph=False)
@@ -1217,6 +1322,9 @@ def session_pair_phase(device, capture, card) -> dict:
           and entry.replays > 0,
           f"K1 did not launch inside the replayed cruise graph: "
           f"{graph_stats(gs)}")
+    check(entry.launches.get(lk.PASS_C_KERNEL, 0) == CRUISE_SUPERBLOCK,
+          f"pass C's kernel did not launch once a block inside the "
+          f"replayed cruise graph: {graph_stats(gs)}")
 
     # Steady state: both sessions are in cruise; the same superblock of
     # input to each, in turns.
@@ -1266,7 +1374,8 @@ def session_pair_phase(device, capture, card) -> dict:
           f"{rtf['graphed']:.4f}; graphed / eager "
           f"{rtf['graphed'] / rtf['eager']:.2f}x; outputs bit-identical: "
           f"{same}; the step alone: replay "
-          f"{[round(x, 3) for x in replay_ms]} ms (CUDA events), eager "
+          f"{[round(x, 3) for x in replay_ms]} ms (CUDA events) of "
+          f"{entry.nodes} nodes, eager "
           f"{eager_step_ms:.1f} ms (fenced wall); on {card}", flush=True)
     check(same, "the steady graphed superblocks differ from the eager ones")
     host_split(gs, sig_re[:n_in], sig_im[:n_in], card)
@@ -1589,12 +1698,14 @@ def kernels():
     """Every CUDA kernel of the port, by name."""
     from sydr_tpu_torch.ops import acq_kernel
     from sydr_tpu_torch.ops import correlator_kernel as ck
+    from sydr_tpu_torch.ops import loop_kernel
 
     return {"epoch_correlate": ck.KERNEL, "pcps_bins": acq_kernel.KERNEL,
             "pcps_bins_cluster": acq_kernel.CLUSTER_KERNEL,
             "pcps_bins_twostep": acq_kernel.TWOSTEP_KERNEL,
             "pcps_bins_bluestein": acq_kernel.BLUESTEIN_KERNEL,
-            "block_cumsum_streams": ck.CUMSUM_KERNEL}
+            "block_cumsum_streams": ck.CUMSUM_KERNEL,
+            "pass_c": loop_kernel.PASS_C_KERNEL}
 
 
 def reset_launches() -> None:
@@ -2137,10 +2248,12 @@ def mesh_ranks_phase(device, capture, mesh_run, card) -> dict:
     for r, (_, info) in enumerate(ranks):
         n = info["launches"]
         check(n["epoch_correlate"] > 0 and n["block_cumsum_streams"] > 0
+              and n["pass_c"] > 0
               and n["pcps_bins"] == 0 and n["pcps_bins_cluster"] == 0
               and n["pcps_bins_twostep"] == 0
               and n["pcps_bins_bluestein"] == 0,
-              f"rank {r} launched {n}: expected K1 and K3, and no K2")
+              f"rank {r} launched {n}: expected K1, K3 and pass C, and no "
+              f"K2")
     launches = {name: sum(info["launches"][name] for _, info in ranks)
                 for name in ranks[0][1]["launches"]}
     return {"launches": launches, "sp_cases": sp_shard_cases(data, device)}
@@ -2591,6 +2704,9 @@ RECORD = (
     ("block_cumsum_streams", "block_cumsum_streams.cu",
      "sydr_tpu/ops/correlator_kernel.py:282",
      "cruise 2.5 Msps 20 ms 6 streams", "prefix receiver"),
+    # No TPU kernel: the XLA-fused lax.scan of the JAX pass C.
+    ("pass_c", "pass_c.cu", "sydr_tpu/channels/batch_runtime.py:1205",
+     PASS_C_CASES[0][0], "cli"),
 )
 
 

@@ -14,9 +14,13 @@ a block splits into:
       kernel K1 (``ops.correlator_kernel.epoch_correlate``); in the prefix
       boundary form (:func:`prefix_form`) from the per-sample prefix of
       CUDA kernel K3 (``ops.correlator_kernel.block_cumsum_streams``).
-  Pass C ([n_ch] wide, one Python iteration per epoch): discriminators,
-      loop filters with virtual-NCO compensation, bit-edge histogram sync,
-      C/N0 and lock indicators; corrections take effect at the next block.
+  Pass C: discriminators, loop filters with virtual-NCO compensation,
+      bit-edge histogram sync, C/N0 and lock indicators, epoch by epoch;
+      corrections take effect at the next block. On the card one launch
+      of a CUDA kernel a block (``ops.loop_kernel.pass_c``, the JAX
+      package's fused ``lax.scan``); :func:`_pass_c` is its plain version
+      (``[n_ch]``-wide ops, one Python iteration per epoch), which runs on
+      CPU tensors.
 
 The JAX package's packed-word machinery (``_build_words``,
 ``_kernel_word_table``, ``make_wordpack``, ``_rowsum_boundary_prefix``)
@@ -55,6 +59,7 @@ from sydr_tpu_torch.constants import (
     GPS_L1CA_CODE_LENGTH,
 )
 from sydr_tpu_torch.ops import correlator_kernel as ck
+from sydr_tpu_torch.ops import loop_kernel
 from sydr_tpu_torch.ops.correlator_kernel import fma32
 from sydr_tpu_torch.ops import profiles as prof
 from sydr_tpu_torch.ops import tracking as trk
@@ -369,6 +374,7 @@ def _pass_b(cfg: TrackingConfig, bits3x, st: ChannelState, geo,
 def _pass_c(cfg: TrackingConfig, st: ChannelState, geo, corr):
     """Replay the block's epochs through the loops; one Python iteration
     per epoch (the JAX ``lax.scan``), ``[n_ch]``-wide tensor ops inside.
+    The plain version of ``ops.loop_kernel.pass_c``'s CUDA kernel.
 
     Returns (new_state, outputs) with outputs a dict of ``[block_ms, n_ch]``
     tensors.
@@ -553,8 +559,8 @@ def _pass_c(cfg: TrackingConfig, st: ChannelState, geo, corr):
 
 def run_block_batched(cfg: TrackingConfig, bits3x, state: ChannelState,
                       window_re, window_im, *, grid_ch=None):
-    """One block: pass A, pass B (K1, or K3 in the prefix form), pass C,
-    then the anchor slew.
+    """One block: pass A, pass B (K1, or K3 in the prefix form), pass C
+    (``ops.loop_kernel.pass_c``), then the anchor slew.
 
     ``bits3x`` is the ``tiled_code_bits`` table (``[n_ch, 4160]`` f32 on
     the state's device); ``window_re/im`` hold ``tail_ms + block_ms``
@@ -565,7 +571,7 @@ def run_block_batched(cfg: TrackingConfig, bits3x, state: ChannelState,
     """
     geo = _pass_a(cfg, state)
     corr = _pass_b(cfg, bits3x, state, geo, window_re, window_im, grid_ch)
-    new_state, outputs = _pass_c(cfg, state, geo, corr)
+    new_state, outputs = loop_kernel.pass_c(cfg, state, geo, corr)
     return runtime_mod._slew_anchor(cfg, new_state), outputs
 
 

@@ -77,9 +77,11 @@ def _timed(fn, device):
 def _kernels():
     from sydr_tpu_torch.ops import acq_kernel
     from sydr_tpu_torch.ops import correlator_kernel as ck
+    from sydr_tpu_torch.ops import loop_kernel
 
     return {"epoch_correlate": ck.KERNEL,
             "block_cumsum_streams": ck.CUMSUM_KERNEL,
+            "pass_c": loop_kernel.PASS_C_KERNEL,
             "pcps_bins": acq_kernel.KERNEL,
             "pcps_bins_cluster": acq_kernel.CLUSTER_KERNEL,
             "pcps_bins_twostep": acq_kernel.TWOSTEP_KERNEL,

@@ -43,6 +43,7 @@ from sydr_tpu_torch.channels import batch_runtime as br
 from sydr_tpu_torch.channels.runtime import TrackingConfig, _slew_anchor
 from sydr_tpu_torch.channels.state import ChannelState
 from sydr_tpu_torch.ops import correlator_kernel as ck
+from sydr_tpu_torch.ops import loop_kernel
 from sydr_tpu_torch.parallel import distributed
 from sydr_tpu_torch.parallel.distributed import Mesh
 
@@ -115,7 +116,7 @@ def run_block_batched_timesharded(cfg: TrackingConfig, mesh: Mesh, bits3x,
     geo = br._pass_a(cfg, state)
     corr = pass_b_timesharded(cfg, mesh, bits3x, state, geo, window_re,
                               window_im)
-    new_state, outputs = br._pass_c(cfg, state, geo, corr)
+    new_state, outputs = loop_kernel.pass_c(cfg, state, geo, corr)
     return _slew_anchor(cfg, new_state), outputs
 
 

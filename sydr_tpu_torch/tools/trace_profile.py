@@ -10,10 +10,15 @@ boundary form (``rowsum``: pass B on K1; ``prefix``: on K3):
   * kernel launches per superblock and the device's busy share (device
     time over the unprofiled wall of the same superblock);
   * the pass A / B / C split: one superblock's blocks run pass by pass
-    (``batch_runtime._pass_a``, ``_pass_b``, ``_pass_c`` with the anchor
-    slew), each pass under a ``record_function`` range whose kernels'
-    device time the profiler sums, and, unprofiled, each pass's wall
-    between device fences.
+    (``batch_runtime._pass_a``, ``_pass_b``, and pass C,
+    ``ops.loop_kernel.pass_c``, with the anchor slew), each pass under a
+    ``record_function`` range whose kernels' device time the profiler
+    sums, and, unprofiled, each pass's wall between device fences. A
+    block's pass-C range holds one launch of the pass-C kernel and the
+    anchor slew's few ops (on the CPU: the plain version). The profiler
+    ties the PyTorch ops' kernels to the range they ran in, but not the
+    kernels the package launches through ``ctypes`` (K1 or K3 in pass B,
+    pass C's): their device time is the ``unattributed`` row.
 
 Usage: python -m sydr_tpu_torch.tools.trace_profile [prefix] [rowsum]
            [--channels 32] [--fs 10e6] [--decimate 4] [--superblock 50]
@@ -134,6 +139,7 @@ def pass_split(cfg, bits3x, state, window_re, window_im, device):
 
     from sydr_tpu_torch.channels import batch_runtime as br
     from sydr_tpu_torch.channels import runtime
+    from sydr_tpu_torch.ops import loop_kernel
     from sydr_tpu_torch.tools import sync
 
     sb = cfg.block_ms * cfg.samples_per_ms
@@ -147,7 +153,7 @@ def pass_split(cfg, bits3x, state, window_re, window_im, device):
             corr = on_pass("pass B", lambda: br._pass_b(
                 cfg, bits3x, st, geo, wre, wim))
             st = on_pass("pass C", lambda: runtime._slew_anchor(
-                cfg, br._pass_c(cfg, st, geo, corr)[0]))
+                cfg, loop_kernel.pass_c(cfg, st, geo, corr)[0]))
 
     walls = dict.fromkeys(PASSES, 0.0)
 

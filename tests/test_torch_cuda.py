@@ -492,6 +492,193 @@ def test_sharded_step_on_nccl_world_of_one():
         assert torch.equal(getattr(st_s, f.name), getattr(st_u, f.name))
 
 
+# Pass C's kernel (ops/loop_kernel.py, csrc/pass_c.cu) against its plain
+# version on the card, ``batch_runtime._pass_c``, on tests/_pass_c_inputs.py's
+# mid-track blocks at 32 channels: the Session cell's cruise (narrow-only
+# kaplan, 20 epochs) and pull-in (kaplan, 5 epochs) shapes and every other
+# branch (profile, DLF order, FLL discriminator, C/N0 estimator, rails, pass
+# A's form). The kernel rounds each operation as the plain version's op
+# does: outputs and state are held bit for bit.
+PASS_C_CASES = [
+    ("cruise", 20, dict(profile="kaplan", kaplan_narrow_only=True)),
+    ("pull-in", 5, dict(profile="kaplan")),
+    ("borre-nwpr", 20, dict(profile="borre")),
+    ("borre-beaulieu-norails", 20,
+     dict(profile="borre", cn0_estimator="beaulieu", freq_rail_hz=0.0,
+          max_block_freq_step=0.0, code_rail_hz=0.0)),
+    ("kaplan-o3-atan2-beaulieu", 5,
+     dict(profile="kaplan", dlf_order=3, fll_discriminator="atan2",
+          cn0_estimator="beaulieu")),
+    ("kaplan-o2-atan2-norails", 20,
+     dict(profile="kaplan", fll_discriminator="atan2", freq_rail_hz=0.0,
+          max_block_freq_step=0.0, code_rail_hz=0.0)),
+    ("narrow-o3-atan2-beaulieu", 20,
+     dict(profile="kaplan", kaplan_narrow_only=True, dlf_order=3,
+          fll_discriminator="atan2", cn0_estimator="beaulieu")),
+    ("narrow-o3-atan-norails", 20,
+     dict(profile="kaplan", kaplan_narrow_only=True, dlf_order=3,
+          freq_rail_hz=0.0, max_block_freq_step=0.0, code_rail_hz=0.0)),
+    ("kaplan-scan-pass-a", 5, dict(profile="kaplan", pass_a="scan")),
+]
+
+
+def _pass_c_args(block_ms, extra, dev, seed=3):
+    from _pass_c_inputs import mid_track
+
+    from sydr_tpu_torch.channels.state import state_from_numpy
+
+    cfg = TrackingConfig(sampling_frequency=2.5e6, block_ms=block_ms,
+                         tail_ms=4, window_size=2756, runtime="batch",
+                         quantize_spacing=True, **extra)
+    leaves, corr = mid_track(cfg, N_CH, seed)
+    st = state_from_numpy(leaves, dev)
+    return cfg, st, br._pass_a(cfg, st), torch.tensor(corr, device=dev)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _assert_pass_c_equal(got, ref, what=""):
+    """Two ``(state, outputs)`` bit for bit; a failure names every key
+    that differs and by how many ulp at most."""
+    (got_st, got_out), (ref_st, ref_out) = got, ref
+    assert list(got_out) == list(ref_out)
+    pairs = [(k, got_out[k], ref_out[k]) for k in ref_out] + [
+        (f"state {f.name}", getattr(got_st, f.name), getattr(ref_st, f.name))
+        for f in dataclasses.fields(ref_st)]
+    diff = {}
+    for key, a, b in pairs:
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        if not torch.equal(_bits(a), _bits(b)):
+            ulp = (_bits(a).long() - _bits(b).long()).abs().max()
+            diff[key] = int(ulp)
+    assert not diff, f"{what}: keys that differ (max ulp or count): {diff}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, block_ms, extra", PASS_C_CASES,
+                         ids=[c[0] for c in PASS_C_CASES])
+def test_pass_c_kernel_matches_plain(name, block_ms, extra):
+    from sydr_tpu_torch.ops import loop_kernel as lk
+
+    cfg, st, geo, corr = _pass_c_args(block_ms, extra, _cuda())
+    before = lk.PASS_C_KERNEL.launches
+    got = lk.pass_c(cfg, st, geo, corr)
+    assert lk.PASS_C_KERNEL.launches == before + 1
+    ref = br._pass_c(cfg, st, geo, corr)
+    torch.cuda.synchronize()
+    _assert_pass_c_equal(got, ref, name)
+    assert got[1]["bit_ready"].any() or block_ms < 20
+
+
+@pytest.mark.cuda
+def test_pass_c_channel_slice_is_bit_identical():
+    """The kernel on the last 16 of 32 channels gives those channels of
+    the 32-channel launch bit for bit (no step crosses channels)."""
+    from sydr_tpu_torch.channels.state import ChannelState
+    from sydr_tpu_torch.ops import loop_kernel as lk
+
+    cfg, st, geo, corr = _pass_c_args(20, PASS_C_CASES[0][2], _cuda())
+    rows = slice(16, 32)
+    full_st, full = lk.pass_c(cfg, st, geo, corr)
+    part_st = ChannelState(**{f.name: getattr(st, f.name)[rows]
+                              for f in dataclasses.fields(st)})
+    part_geo = {k: v[..., rows].contiguous() for k, v in geo.items()}
+    got_st, got = lk.pass_c(cfg, part_st, part_geo,
+                            corr[:, rows].contiguous())
+    torch.cuda.synchronize()
+    _assert_pass_c_equal(
+        (got_st, got),
+        (ChannelState(**{f.name: getattr(full_st, f.name)[rows]
+                         for f in dataclasses.fields(full_st)}),
+         {k: v[:, rows] for k, v in full.items()}), "16 of 32 channels")
+
+
+@pytest.mark.cuda
+def test_pass_c_kernel_in_a_graph_equals_eager():
+    """The launch captured into a CUDA graph and replayed gives the eager
+    launch's results bit for bit, and counts as captured."""
+    from sydr_tpu_torch.ops import loop_kernel as lk
+
+    cfg, st, geo, corr = _pass_c_args(20, PASS_C_CASES[0][2], _cuda())
+    eager = lk.pass_c(cfg, st, geo, corr)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        lk.pass_c(cfg, st, geo, corr)          # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    captured = lk.PASS_C_KERNEL.captured
+    with torch.cuda.graph(graph):
+        static = lk.pass_c(cfg, st, geo, corr)
+    assert lk.PASS_C_KERNEL.captured == captured + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_pass_c_equal(static, eager, "graph replay")
+
+
+@pytest.mark.cuda
+def test_pass_c_rejects_bad_input():
+    from sydr_tpu_torch.ops import loop_kernel as lk
+    from sydr_tpu_torch.ops import native
+
+    dev = _cuda()
+    cfg, st, geo, corr = _pass_c_args(5, PASS_C_CASES[0][2], dev)
+    with pytest.raises(ValueError, match="ms_counter"):
+        lk.pass_c(cfg, dataclasses.replace(st, ms_counter=st.ms_counter
+                                           .cpu()), geo, corr)
+    with pytest.raises(ValueError, match="rem_code_end"):
+        lk.pass_c(cfg, st, {**geo, "rem_code_end": geo["rem_code_end"]
+                            .double()}, corr)
+    # The C entry point refuses what the kernel cannot read, and launches
+    # nothing.
+    _, args = lk.pass_c_launch_args(cfg, st, geo, corr)
+    bad = list(args)
+    bad[4] = 4                                   # fewer than 6 streams
+    fn = lk.PASS_C_KERNEL.function()
+    assert fn(*bad, native.stream_of(corr)) != 0
+
+
+@pytest.mark.cuda
+def test_run_block_batched_launches_pass_c_once_a_block():
+    """``run_superblock`` on the card runs pass C as one kernel launch a
+    block, and its block equals pass A, B and the plain pass C with the
+    anchor slew, bit for bit."""
+    from sydr_tpu_torch.channels.runtime import _slew_anchor
+    from sydr_tpu_torch.ops import loop_kernel as lk
+
+    dev = _cuda()
+    cfg = TrackingConfig(sampling_frequency=2.5e6, block_ms=20, tail_ms=4,
+                         window_size=2756, runtime="batch",
+                         profile="kaplan", kaplan_narrow_only=True,
+                         quantize_spacing=True)
+    rng = np.random.default_rng(5)
+    st = dataclasses.replace(
+        init_state(N_CH, dev),
+        mode=torch.full((N_CH,), MODE_TRACKING, dtype=torch.int32,
+                        device=dev),
+        carrier_freq=torch.tensor(rng.uniform(-4000, 4000, N_CH),
+                                  dtype=torch.float32, device=dev),
+        unread=torch.full((N_CH,), cfg.samples_per_ms + 300,
+                          dtype=torch.int32, device=dev))
+    n_in = (cfg.tail_ms + 3 * cfg.block_ms) * cfg.samples_per_ms
+    sre, sim = (torch.tensor(rng.normal(0, 2, n_in), dtype=torch.float32,
+                             device=dev) for _ in range(2))
+    bits = torch.tensor(br.tiled_code_bits(list(range(1, N_CH + 1))),
+                        device=dev)
+    before = lk.PASS_C_KERNEL.launches
+    br.run_superblock(cfg, 3, bits, st, sre, sim)
+    assert lk.PASS_C_KERNEL.launches == before + 3
+    win = cfg.window_samples
+    geo = br._pass_a(cfg, st)
+    corr = br._pass_b(cfg, bits, st, geo, sre[:win], sim[:win])
+    new_st, out = br._pass_c(cfg, st, geo, corr)
+    _assert_pass_c_equal(
+        br.run_block_batched(cfg, bits, st, sre[:win], sim[:win]),
+        (_slew_anchor(cfg, new_st), out), "run_block_batched")
+
+
 # The session's step as a captured CUDA graph (receiver/step_graph.py)
 # against the eager step: tests/test_torch_session.py's stream (8 Msps
 # decimated to 2 Msps, the satellites at 46 dB-Hz) over 8 channels, the
@@ -519,8 +706,11 @@ def _graph_configs(form):
 
 
 def _kernel_counts():
+    from sydr_tpu_torch.ops import loop_kernel as lk
+
     return {"k1": ck.KERNEL.launches, "k3": ck.CUMSUM_KERNEL.launches,
-            "k2": acq_kernel.KERNEL.launches}
+            "k2": acq_kernel.KERNEL.launches,
+            "pass_c": lk.PASS_C_KERNEL.launches}
 
 
 def _graph_session_run(form, graph, dev):
@@ -613,7 +803,8 @@ def test_graphed_session_launch_counts_equal_eager(graph_runs):
     eager run over the same blocks."""
     form, runs = graph_runs
     assert runs[True]["launches"] == runs[False]["launches"]
-    want = {"k1": form == "k1", "k3": form == "prefix", "k2": True}
+    want = {"k1": form == "k1", "k3": form == "prefix", "k2": True,
+            "pass_c": form != "scan"}
     assert {k: n > 0 for k, n in runs[True]["launches"].items()} == want
     held = {}
     for entry in runs[True]["session"].graph.graphs.values():
@@ -621,8 +812,11 @@ def test_graphed_session_launch_counts_equal_eager(graph_runs):
             held[kern] = held.get(kern, 0) + n
     assert acq_kernel.KERNEL not in held
     if form != "scan":
+        from sydr_tpu_torch.ops import loop_kernel as lk
+
         corr = ck.KERNEL if form == "k1" else ck.CUMSUM_KERNEL
         assert held.get(corr, 0) > 0
+        assert held.get(lk.PASS_C_KERNEL, 0) == held[corr]
 
 
 @pytest.mark.cuda
