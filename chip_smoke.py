@@ -45,7 +45,13 @@ printing its wall time:
    mid-track block of 32 channels (``tests/_pass_c_inputs.py``) at the
    cruise shape (narrow-only kaplan, 20 epochs) and the pull-in shape
    (kaplan, 5 epochs), every output and the new state bit for bit the
-   plain version's, its device time beside the empty launch's. Each case
+   plain version's, its device time beside the empty launch's and its
+   latency bound, and at 1, 2, 4 and 8 warps (channels) a CTA in turns;
+   then the same on the shapes where the kernel tiles epochs and spreads
+   channels (2, 45 and 64 epochs; 1, 13, 33 and 64 channels; inactive
+   stretches, one across two 32-epoch tiles; no epoch active; a
+   declaration that moves the bit edge: ``tests/_pass_c_inputs.py``'s
+   ``SHAPE_CASES``, each reaching the branches it claims). Each case
    prints four times and a bound:
    ``ms``, the device time of the launch alone (:func:`device_ms`: the C
    entry point called in a tight loop from arguments prepared once, the
@@ -264,11 +270,20 @@ K1_ATOL, K1_RTOL = 1e-2, 1e-4
 # arithmetic and compare operations, and two or three accurate atanf, sinf
 # and cosf at ~40 each).
 PASS_C_EPOCH_OPS = 300
-# Pass C's cases: (name, block_ms, TrackingConfig fields).
+# Its latency bound: the epochs' carried chain, one after the other, each
+# PASS_C_CHAIN_OPS dependent operations (filter_step's longest path from
+# one epoch's virtual phase to the next: rintf, the compensation, the loop
+# filter, the NCO, both carrier clamps, the activity select and the phase
+# step; 20 for narrow-only kaplan, 21 for kaplan with its pull-in select,
+# PERF.md section 6) at PASS_C_OP_CYCLES cycles each (Hopper's FADD and
+# FMUL latency) at the card's largest SM clock, plus the empty launch.
+PASS_C_OP_CYCLES = 4
+# Pass C's cases: (name, block_ms, TrackingConfig fields, chain ops).
 PASS_C_CASES = (
     ("cruise 32 ch x 20 epochs, narrow-only kaplan", 20,
-     dict(profile="kaplan", kaplan_narrow_only=True)),
-    ("pull-in 32 ch x 5 epochs, kaplan", 5, dict(profile="kaplan")))
+     dict(profile="kaplan", kaplan_narrow_only=True), 20),
+    ("pull-in 32 ch x 5 epochs, kaplan", 5, dict(profile="kaplan"), 21))
+PASS_C_WARP_SWEEP = (1, 2, 4, 8, 8, 4, 2, 1)
 K2_RTOL = 1e-4
 K3_PREFIX_SIGMAS = 4.0
 CORR_KEYS = ("i_early", "q_early", "i_prompt", "q_prompt", "i_late",
@@ -600,6 +615,15 @@ def k3_case(name, fs, block_ms, profile, device, rng):
     return res
 
 
+def pass_c_module():
+    """``tests/_pass_c_inputs.py``, the pass C blocks shared with the
+    tests."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import _pass_c_inputs
+
+    return _pass_c_inputs
+
+
 def pass_c_inputs(block_ms, extra, device):
     """The mid-track block of ``tests/_pass_c_inputs.py`` at 32 channels
     (bit-sync declarations and bit completions inside it, inactive
@@ -610,21 +634,45 @@ def pass_c_inputs(block_ms, extra, device):
     from sydr_tpu_torch.channels.runtime import TrackingConfig
     from sydr_tpu_torch.channels.state import state_from_numpy
 
-    sys.path.insert(0, os.path.join(REPO, "tests"))
-    from _pass_c_inputs import mid_track
-
     cfg = TrackingConfig(sampling_frequency=FS_IN / DECIMATE,
                          block_ms=block_ms, tail_ms=4,
                          window_size=round(FS_IN / DECIMATE * 1e-3) + 256,
                          runtime="batch", quantize_spacing=True, **extra)
-    leaves, corr = mid_track(cfg, N_CHANNELS, SEED % 1000)
+    leaves, corr = pass_c_module().mid_track(cfg, N_CHANNELS, SEED % 1000)
     st = state_from_numpy(leaves, device)
     return cfg, st, br._pass_a(cfg, st), torch.tensor(corr, device=device)
 
 
-def pass_c_case(name, block_ms, extra, device, empty_ms):
+_SM_CLOCK_HZ: list[float] = []
+
+
+def sm_clock_hz() -> float:
+    """The card's largest SM clock (``nvidia-smi clocks.max.sm``)."""
+    if not _SM_CLOCK_HZ:
+        proc = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                               "--format=csv,noheader,nounits"],
+                              capture_output=True, text=True)
+        check(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr}")
+        _SM_CLOCK_HZ.append(1e6 * float(proc.stdout.split()[0]))
+    return _SM_CLOCK_HZ[0]
+
+
+def pass_c_latency_ms(block_ms, chain_ops, empty_ms) -> float:
+    """Pass C's latency bound: the carried chain of ``block_ms`` epochs
+    of ``chain_ops`` dependent operations each (PASS_C_OP_CYCLES cycles an
+    operation at the largest SM clock), plus the empty launch."""
+    return (1e3 * block_ms * chain_ops * PASS_C_OP_CYCLES / sm_clock_hz()
+            + empty_ms)
+
+
+def pass_c_case(name, block_ms, extra, device, empty_ms, chain_ops=None,
+                inputs=None, claims=()):
     """Kernel vs plain pass C (``batch_runtime._pass_c``) on the card:
-    every output and the new state bit for bit."""
+    every output and the new state bit for bit. ``inputs``: ``(cfg,
+    state, geo, corr)`` (default: :func:`pass_c_inputs`); ``chain_ops``:
+    with it, the latency bound and the device time at every warps-a-CTA
+    width of PASS_C_WARP_SWEEP in turns; ``claims``: the branches the
+    kernel's run must reach (``_pass_c_inputs.CLAIMS``)."""
     import torch
 
     from sydr_tpu_torch.channels import batch_runtime as br
@@ -632,7 +680,8 @@ def pass_c_case(name, block_ms, extra, device, empty_ms):
     from sydr_tpu_torch.ops import loop_kernel as lk
     from sydr_tpu_torch.ops import native
 
-    cfg, st, geo, corr = pass_c_inputs(block_ms, extra, device)
+    cfg, st, geo, corr = inputs or pass_c_inputs(block_ms, extra, device)
+    n_ch = corr.shape[1]
     before = read_launches()
     got_st, got = lk.pass_c(cfg, st, geo, corr)
     launched = {k: v - before[k] for k, v in read_launches().items()
@@ -664,21 +713,42 @@ def pass_c_case(name, block_ms, extra, device, empty_ms):
            "call_ms": cuda_ms(lambda: lk.pass_c(cfg, st, geo, corr), 50),
            "plain_ms": cuda_ms(lambda: br._pass_c(cfg, st, geo, corr), 5),
            "library_ms": None,
-           **roofline(n_bytes, float(block_ms * N_CHANNELS
-                                     * PASS_C_EPOCH_OPS))}
+           **roofline(n_bytes, float(block_ms * n_ch * PASS_C_EPOCH_OPS))}
+    warps = lk.PASS_C_WARPS
+    latency = ""
+    if chain_ops is not None:
+        res["latency_ms"] = pass_c_latency_ms(block_ms, chain_ops, empty_ms)
+        latency = (f"; latency bound {res['latency_ms']:.5f} ms ({chain_ops}"
+                   f" chain ops x {PASS_C_OP_CYCLES} cycles x {block_ms} "
+                   f"epochs at {sm_clock_hz() / 1e9:.3f} GHz + the empty "
+                   f"launch)")
     report("pass C", name, got["i_prompt"].shape,
            f"max_abs_err {err:.3e}, every output and the state "
            f"bit-identical: {not differ}"
            + (f" (differing, max ulp or count: {differ})" if differ else "")
            + f"; {int(got['bit_ready'].sum())} bit completions, "
            f"{int((got_st.flags & 2).ne(st.flags & 2).sum())} declarations; "
-           f"bound {res['bound_ms']:.3e} ms ({n_bytes} bytes), the empty "
-           f"launch {empty_ms:.5f} ms", res)
+           f"{warps} warps a CTA, {lk.slab_bytes(warps, corr.shape[2])} "
+           f"bytes of shared memory a CTA; bound {res['bound_ms']:.3e} ms "
+           f"({n_bytes} bytes){latency}, the empty launch {empty_ms:.5f} ms",
+           res)
+    if chain_ops is not None:
+        sweep = {}
+        for w in PASS_C_WARP_SWEEP:
+            _, wargs = lk.pass_c_launch_args(cfg, st, geo, corr, warps=w)
+            sweep.setdefault(w, []).append(
+                device_ms(lambda: fn(*wargs, stream), 200))
+        print(f"pass C {name}: device ms by warps a CTA, in turns "
+              f"{PASS_C_WARP_SWEEP}: " + ", ".join(
+                  f"{w}: " + " / ".join(f"{ms:.5f}" for ms in v)
+                  for w, v in sorted(sweep.items())), flush=True)
     check(all(bool(torch.isfinite(got[k]).all()) for k in got
               if got[k].dtype == torch.float32),
           f"pass C {name}: non-finite output")
     check(not differ, f"pass C {name}: the kernel differs from the plain "
                       f"version in {differ}")
+    missed = set(claims) - pass_c_module().reached(st, got_st, got)
+    check(not missed, f"pass C {name}: the block did not reach {missed}")
     return res
 
 
@@ -1045,8 +1115,14 @@ def kernel_phase(device) -> dict:
               ("cruise 2.5 Msps 20 ms 6 streams", 2.5e6, 20, "narrow"),
               ("pull-in 2.5 Msps 5 ms 10 streams", 2.5e6, 5, "kaplan"),
               ("full-rate 10 Msps 20 ms 6 streams", 10e6, 20, "narrow"))}
-    pc = {name: pass_c_case(name, bm, extra, device, empty_ms)
-          for name, bm, extra in PASS_C_CASES}
+    pc = {name: pass_c_case(name, bm, extra, device, empty_ms, chain)
+          for name, bm, extra, chain in PASS_C_CASES}
+    mod = pass_c_module()
+    for name, bm, n_ch, kind, extra, claims in mod.SHAPE_CASES:
+        inputs = mod.shaped_block(bm, n_ch, kind, extra, device,
+                                  fs=FS_IN / DECIMATE)
+        pass_c_case(f"{name} ({n_ch} ch x {bm} epochs, {kind})", bm, extra,
+                    device, empty_ms, inputs=inputs, claims=claims)
     return {"epoch_correlate": k1, "pcps_bins": k2,
             "pcps_bins_cluster": k2c, "pcps_bins_twostep": k2t,
             "pcps_bins_bluestein": k2b, "block_cumsum_streams": k3,

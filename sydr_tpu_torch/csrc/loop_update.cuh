@@ -5,6 +5,14 @@
 // channels/runtime.py::_bit_sync_declare. Shared by the kernels that replay
 // a block's epochs (csrc/pass_c.cu).
 //
+// The update is two functions: discriminate, what one epoch's correlators
+// and the previous active epoch's prompt give without the loops' carry
+// (the discriminators' raw values, the lock indicators' inputs), and
+// filter_step, the carried part (the compensation subtractions, the loop
+// filters, the NCO, the lock low-passes, the state machine). loop_update is
+// their composition. A kernel may run discriminate for many epochs at once
+// and only filter_step in series.
+//
 // Every operation rounds as the plain version's PyTorch op does on the
 // card, one op at a time: products and sums through __fmul_rn / __fadd_rn /
 // __fsub_rn (never contracted into a fused multiply-add), divisions of two
@@ -165,28 +173,21 @@ __device__ __forceinline__ float borre_loop_filter(float value, float memory,
 
 // --- Lock indicators and C/N0 ----------------------------------------------
 
-__device__ __forceinline__ float pll_lock_indicator(float ip, float qp,
-                                                    float previous,
-                                                    float alpha,
-                                                    float one_minus) {
+// The lock indicators' raw values; each indicator is
+// low_pass(value, previous, alpha, one_minus).
+__device__ __forceinline__ float pll_lock_value(float ip, float qp) {
   const float nbd = sub(sqr(ip), sqr(qp));
   const float nbp = add(sqr(ip), sqr(qp));
-  return low_pass(nbp > 0.0f ? quot(nbd, nbp) : 0.0f, previous, alpha,
-                  one_minus);
+  return nbp > 0.0f ? quot(nbd, nbp) : 0.0f;
 }
 
-__device__ __forceinline__ float fll_lock_indicator(float ip, float qp,
-                                                    float ip_prev,
-                                                    float qp_prev,
-                                                    float previous,
-                                                    float alpha,
-                                                    float one_minus) {
+__device__ __forceinline__ float fll_lock_value(float ip, float qp,
+                                                float ip_prev,
+                                                float qp_prev) {
   const float dot = sub(mul(ip, ip_prev), mul(qp, qp_prev));
   const float cross_sign = sign(add(mul(ip, ip_prev), mul(qp, qp_prev)));
   const float power = add(sqr(ip), sqr(qp));
-  const float value =
-      power > 0.0f ? fabsf(quot(mul(dot, cross_sign), power)) : 0.0f;
-  return low_pass(value, previous, alpha, one_minus);
+  return power > 0.0f ? fabsf(quot(mul(dot, cross_sign), power)) : 0.0f;
 }
 
 __device__ __forceinline__ float beaulieu_ratio_term(float ip, float qp,
@@ -240,56 +241,113 @@ struct LoopOut {
   int lock_state;
 };
 
-// One channel's update from its correlators `corr` (i, q per spacing, as
-// the plain version's columns), gated by `active` where the plain version
-// gates. Zero compensation gives the uncompensated update bit for bit
-// (x - 0 is x), as the scan runtime's loop_update(comp=None) computes it.
-__device__ __forceinline__ LoopOut loop_update(const LoopConsts& k,
-                                               const float* corr,
+// One epoch's carry-free values: the correlator pairs, the discriminators'
+// raw values and the lock low-passes' input terms (value * alpha). The
+// kaplan profile picks its early/late pair by lock state, so both pairs
+// and both NNEML values are here (the narrow pair in ie..ql and dll).
+struct Disc {
+  float ie, qe, ip, qp, il, ql;
+  float ie_w, qe_w, il_w, ql_w;
+  float dll, dll_w;        // dll_nneml of the (narrow) pair and the wide pair
+  float costas;            // pll_costas
+  float fll;               // the FLL discriminator (kaplan), 0 otherwise
+  float pll_lock_in;       // mul(pll_lock_value, alpha)
+  float fll_lock_in;       // mul(fll_lock_value, alpha)
+};
+
+// The carry-free part of loop_update for the profile `profile` (k.profile;
+// a kernel may pass it as a compile-time constant): correlators `corr` and
+// the prompt of the previous active epoch (st.i_prompt_prev).
+__device__ __forceinline__ Disc discriminate(const LoopConsts& k, int profile,
+                                             const float* corr,
+                                             float ip_prev, float qp_prev) {
+  Disc d;
+  if (profile != kProfileKaplan) {
+    d.ie = corr[0];
+    d.qe = corr[1];
+    d.ip = corr[2];
+    d.qp = corr[3];
+    d.il = corr[4];
+    d.ql = corr[5];
+    d.ie_w = d.ie;
+    d.qe_w = d.qe;
+    d.il_w = d.il;
+    d.ql_w = d.ql;
+  } else {
+    d.ie = corr[2];
+    d.qe = corr[3];
+    d.ip = corr[4];
+    d.qp = corr[5];
+    d.il = corr[6];
+    d.ql = corr[7];
+    d.ie_w = corr[0];
+    d.qe_w = corr[1];
+    d.il_w = corr[8];
+    d.ql_w = corr[9];
+  }
+  d.dll = dll_nneml(d.ie, d.qe, d.il, d.ql);
+  d.dll_w = profile == kProfileKaplan
+                ? dll_nneml(d.ie_w, d.qe_w, d.il_w, d.ql_w)
+                : d.dll;
+  d.costas = pll_costas(k, d.ip, d.qp);
+  if (profile != kProfileBorre) {
+    d.fll = k.fll_atan2 ? fll_atan2(k, d.ip, d.qp, ip_prev, qp_prev)
+                        : fll_atan(k, d.ip, d.qp, ip_prev, qp_prev);
+  } else {
+    d.fll = 0.0f;
+  }
+  d.pll_lock_in = mul(pll_lock_value(d.ip, d.qp), k.alpha);
+  d.fll_lock_in = mul(fll_lock_value(d.ip, d.qp, ip_prev, qp_prev), k.alpha);
+  return d;
+}
+
+// A lock indicator's low-pass from its input term (Disc::*_lock_in).
+__device__ __forceinline__ float lock_low_pass(float term, float previous,
+                                               float one_minus) {
+  return add(mul(previous, one_minus), term);
+}
+
+// The carried part of loop_update: from discriminate's values `d` and the
+// state `s` (its prompt is not read: d holds what it gave), gated by
+// `active` where the plain version gates. `profile` and `order` are
+// k.profile and k.dlf_order (a kernel may pass compile-time constants).
+__device__ __forceinline__ LoopOut filter_step(const LoopConsts& k,
+                                               int profile, int order,
+                                               const Disc& d,
                                                const LoopIn& s, bool active) {
   LoopOut o;
-  const bool kaplan = k.profile != kProfileBorre;
-  const bool narrow_only = k.profile == kProfileKaplanNarrowOnly;
-  if (k.profile != kProfileKaplan) {
-    o.i_early = corr[0];
-    o.q_early = corr[1];
-    o.i_prompt = corr[2];
-    o.q_prompt = corr[3];
-    o.i_late = corr[4];
-    o.q_late = corr[5];
-  } else {
-    const bool narrow = s.lock_state == kLockNarrow;
-    o.i_early = narrow ? corr[2] : corr[0];
-    o.q_early = narrow ? corr[3] : corr[1];
-    o.i_prompt = corr[4];
-    o.q_prompt = corr[5];
-    o.i_late = narrow ? corr[6] : corr[8];
-    o.q_late = narrow ? corr[7] : corr[9];
-  }
-  const float ip = o.i_prompt, qp = o.q_prompt;
+  const bool kaplan = profile != kProfileBorre;
+  const bool narrow_only = profile == kProfileKaplanNarrowOnly;
+  const bool wide_pair =
+      profile == kProfileKaplan && s.lock_state != kLockNarrow;
+  o.i_early = wide_pair ? d.ie_w : d.ie;
+  o.q_early = wide_pair ? d.qe_w : d.qe;
+  o.i_prompt = d.ip;
+  o.q_prompt = d.qp;
+  o.i_late = wide_pair ? d.il_w : d.il;
+  o.q_late = wide_pair ? d.ql_w : d.ql;
 
   // DLL (shared): NNEML + Borre PI filter.
-  o.code_err = sub(dll_nneml(o.i_early, o.q_early, o.i_late, o.q_late),
-                   s.comp_code);
+  o.code_err = sub(wide_pair ? d.dll_w : d.dll, s.comp_code);
   o.nco_code = borre_loop_filter(o.code_err, s.dll_memory, k.dll_k1,
                                  k.dll_k2);
 
   if (kaplan) {
     const bool pull_in = !narrow_only && s.lock_state == kLockPullIn;
     const bool converged = s.code_counter > 1;
-    const float fll =
-        k.fll_atan2 ? fll_atan2(k, ip, qp, s.i_prompt_prev, s.q_prompt_prev)
-                    : fll_atan(k, ip, qp, s.i_prompt_prev, s.q_prompt_prev);
-    o.freq_err = converged ? sub(fll, s.comp_freq) : 0.0f;
-    o.phase_err = pull_in ? 0.0f : sub(pll_costas(k, ip, qp), s.comp_phase);
+    o.freq_err = converged ? sub(d.fll, s.comp_freq) : 0.0f;
+    o.phase_err = pull_in ? 0.0f : sub(d.costas, s.comp_phase);
     // The bandwidths by lock state (the narrow-only shape has the narrow
-    // ones in every entry), divided by their DLF scales on the host.
-    const int sel = s.lock_state == kLockNarrow ? 2
-                    : s.lock_state == kLockWide ? 1 : 0;
-    const float w0f = k.w0f[sel], w0p = k.w0p[sel];
+    // ones in every entry, and takes entry 2), divided by their DLF scales
+    // on the host; selected, not indexed (a run-time index into the
+    // constants puts them in local memory).
+    const bool narrow = narrow_only || s.lock_state == kLockNarrow;
+    const bool wide = s.lock_state == kLockWide;
+    const float w0f = narrow ? k.w0f[2] : wide ? k.w0f[1] : k.w0f[0];
+    const float w0p = narrow ? k.w0p[2] : wide ? k.w0p[1] : k.w0p[0];
     const float pe = o.phase_err, fe = o.freq_err;
     float vel, acc = s.fll_acc;
-    if (k.dlf_order == 3) {
+    if (order == 3) {
       const float w0p2 = mul(w0p, w0p);
       const float acc_update =
           mul(add(mul(pe, mul(w0p2, w0p)), mul(fe, mul(w0f, w0f))), k.t_int);
@@ -305,13 +363,12 @@ __device__ __forceinline__ LoopOut loop_update(const LoopConsts& k,
     }
     o.fll_vel = active ? vel : s.fll_vel;
     o.fll_acc = acc;
-    o.fll_lock = active ? fll_lock_indicator(ip, qp, s.i_prompt_prev,
-                                             s.q_prompt_prev, s.fll_lock,
-                                             k.alpha, k.one_minus_alpha)
+    o.fll_lock = active ? lock_low_pass(d.fll_lock_in, s.fll_lock,
+                                        k.one_minus_alpha)
                         : s.fll_lock;
     o.pll_lock = (active && !pull_in)
-                     ? pll_lock_indicator(ip, qp, s.pll_lock, k.alpha,
-                                          k.one_minus_alpha)
+                     ? lock_low_pass(d.pll_lock_in, s.pll_lock,
+                                     k.one_minus_alpha)
                      : s.pll_lock;
     if (narrow_only) {
       o.lock_state = active ? kLockNarrow : s.lock_state;
@@ -332,26 +389,51 @@ __device__ __forceinline__ LoopOut loop_update(const LoopConsts& k,
       o.lock_state = active ? nxt : s.lock_state;
     }
   } else {
-    o.phase_err = sub(pll_costas(k, ip, qp), s.comp_phase);
+    o.phase_err = sub(d.costas, s.comp_phase);
     o.freq_err = 0.0f;
     o.nco_carrier = borre_loop_filter(o.phase_err, s.pll_memory, k.pll_k1,
                                       k.pll_k2);
     o.fll_vel = s.fll_vel;
     o.fll_acc = s.fll_acc;
-    o.pll_lock = active ? pll_lock_indicator(ip, qp, s.pll_lock, k.alpha,
-                                             k.one_minus_alpha)
+    o.pll_lock = active ? lock_low_pass(d.pll_lock_in, s.pll_lock,
+                                        k.one_minus_alpha)
                         : s.pll_lock;
-    o.fll_lock = active ? fll_lock_indicator(ip, qp, s.i_prompt_prev,
-                                             s.q_prompt_prev, s.fll_lock,
-                                             k.alpha, k.one_minus_alpha)
+    o.fll_lock = active ? lock_low_pass(d.fll_lock_in, s.fll_lock,
+                                        k.one_minus_alpha)
                         : s.fll_lock;
     o.lock_state = active ? kLockNarrow : s.lock_state;
   }
   return o;
 }
 
+// One channel's update from its correlators `corr` (i, q per spacing, as
+// the plain version's columns), gated by `active` where the plain version
+// gates. Zero compensation gives the uncompensated update bit for bit
+// (x - 0 is x), as the scan runtime's loop_update(comp=None) computes it.
+__device__ __forceinline__ LoopOut loop_update(const LoopConsts& k,
+                                               const float* corr,
+                                               const LoopIn& s, bool active) {
+  return filter_step(
+      k, k.profile, k.dlf_order,
+      discriminate(k, k.profile, corr, s.i_prompt_prev, s.q_prompt_prev), s,
+      active);
+}
+
 // The bit-edge declaration rule (channels/runtime.py::_bit_sync_declare)
-// on a histogram in registers; `argmax` gets its first maximal bin.
+// from a histogram's largest bin `mode` and its sum `total`.
+__device__ __forceinline__ bool bit_sync_rule(const LoopConsts& k, int mode,
+                                              int total) {
+  const bool unanimous = k.bit_sync_unanimous > 0 && mode == total &&
+                         total >= k.bit_sync_unanimous;
+  const bool dominant =
+      total >= k.bit_sync_flips &&
+      static_cast<float>(mode) >=
+          mul(static_cast<float>(total), k.dominance);
+  return unanimous || dominant;
+}
+
+// The rule on a histogram in registers; `argmax` gets its first maximal
+// bin.
 __device__ __forceinline__ bool bit_sync_declare(const LoopConsts& k,
                                                  const int (&hist)[kHistBins],
                                                  int& argmax) {
@@ -365,13 +447,7 @@ __device__ __forceinline__ bool bit_sync_declare(const LoopConsts& k,
       argmax = b;
     }
   }
-  const bool unanimous = k.bit_sync_unanimous > 0 && mode == total &&
-                         total >= k.bit_sync_unanimous;
-  const bool dominant =
-      total >= k.bit_sync_flips &&
-      static_cast<float>(mode) >=
-          mul(static_cast<float>(total), k.dominance);
-  return unanimous || dominant;
+  return bit_sync_rule(k, mode, total);
 }
 
 }  // namespace sydr

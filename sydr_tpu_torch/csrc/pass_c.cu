@@ -19,19 +19,52 @@
 // op does on the card (loop_update.cuh), so the two agree bit for bit
 // wherever the card's math functions do.
 //
-// Bound on the H100: latency. A channel's epochs are a serial chain of
-// scalar arithmetic (the carry of one epoch is the input of the next), some
-// 20 epochs of a few hundred dependent operations with accurate atanf,
-// sinf and cosf in them; the bytes (the correlators in, ~25 words a channel
-// and epoch out) and the operations are microseconds below what one launch
-// costs. Design: one thread per channel, so channels never wait for each
-// other and a channel shard computes what the full launch computes; the
-// whole carry (the JAX scan's 28 fields) and the 20-bin edge histogram in
-// registers (the histogram's loops unrolled, so it is never indexed at run
-// time); one warp a block, as many blocks as the channels need (one at 32
-// channels). Launched on the caller's stream without a synchronisation, so
-// it is captured into the session's step graph like K1 and K3.
+// Bound on the H100: latency. The bytes (the correlators in, ~25 words a
+// channel and epoch out) and the operations are microseconds below what one
+// launch costs; what cannot be shortened is the chain of dependent
+// operations that carries one epoch into the next. Most of an epoch's work
+// does not depend on that carry: the discriminators' raw values (NNEML,
+// the Costas atanf, the FLL against the previous active epoch's prompt),
+// the lock indicators' inputs, the Beaulieu terms and the epoch counters
+// follow from the block's inputs alone. So the design keeps only the
+// carried work in series:
+//   - a warp a channel, lane e taking epoch e of a tile of 32 (a block of
+//     more than 32 epochs runs tile after tile, the carry in registers);
+//     a few warps a CTA, so that a session's channels spread over SMs and no
+//     step crosses channels (a channel shard computes what the full launch
+//     computes);
+//   - the CTA's inputs of a tile (correlators, required, unread, the next
+//     epoch's code phase, activity) staged in shared memory by cp.async
+//     before any arithmetic;
+//   - phase A, lane = epoch: discriminate (loop_update.cuh), the previous
+//     active epoch's prompt by __ballot_sync and __shfl_sync, the code and
+//     ms counters as prefix counts (__popc);
+//   - phase B, in series: filter_step, the rails, the carrier step bound and
+//     the virtual NCO, epoch by epoch, every lane computing the same carry
+//     (the next epoch's inputs fetched by __shfl_sync one epoch ahead); lane
+//     e keeps epoch e's values;
+//   - phase C, lane = epoch: the derotation (sinf, cosf) and the bit-edge
+//     flip candidates;
+//   - phase D, in series: the histogram (bin b in lane b, its sum, maximum
+//     and first maximal bin by warp reductions, taken again only when a
+//     flip changed it), the declaration and the accumulators, in the plain
+//     version's order of additions, the epochs at the bit edge a ballot
+//     mask (taken again when a declaration moves the edge); then C/N0 at
+//     the tile's bit completions, one after the other (powf and log10f off
+//     the epoch loop);
+//   - each lane puts its epoch's outputs in shared memory, and the CTA
+//     stores them a row at a time, its channels side by side (each output
+//     row is [epoch][channel] in device memory: a lane's own epoch is 32
+//     lines away from its neighbour's);
+// and the loops' configuration (profile, DLF order) is compiled in, the
+// rails that are off taken as infinite bounds, so that the serial loop has
+// no branches.
+// Launched on the caller's stream without a synchronisation, so it is
+// captured into the session's step graph like K1 and K3.
 
+#include <cuda_pipeline.h>
+
+#include <climits>
 #include <cstddef>
 
 #include "loop_update.cuh"
@@ -128,232 +161,554 @@ namespace {
 
 using namespace sydr;
 
-constexpr int kThreads = 32;
+constexpr int kTile = 32;            // epochs a tile: a warp's lanes
+constexpr int kMaxWarps = 8;         // warps (channels) a CTA
 constexpr int kMinStreams = 6;
+constexpr unsigned kFull = 0xffffffffu;
+// The slab's output rows: OutF's, then OutI's from kRowI, then OutB's from
+// kRowB.
+constexpr int kRowI = kNumOutF;
+constexpr int kRowB = kRowI + kNumOutI;
+constexpr int kOutRows = kRowB + kNumOutB;
 
-__global__ void __launch_bounds__(kThreads)
+// A CTA's shared memory for one tile, for `warps` channels and `streams`
+// correlator streams, each [epoch][channel](stream): the inputs, and the
+// outputs (32-bit words, [row][epoch][channel]) on their way out.
+struct Slab {
+  float* corr;         // [kTile][warps][streams]
+  float* rem_next;     // [kTile][warps]: rem_code of the next epoch
+  int* required;       // [kTile][warps]
+  int* unread;         // [kTile][warps]
+  int* out;            // [kOutRows][kTile][warps]
+  bool* active;        // [kTile][warps]
+};
+
+__host__ __device__ constexpr size_t slab_bytes(int warps, int streams) {
+  return static_cast<size_t>(kTile) * warps *
+         (4 * streams + 13 + 4 * kOutRows);
+}
+
+__device__ __forceinline__ Slab slab_of(unsigned char* base, int warps,
+                                        int streams) {
+  Slab s;
+  const int cells = kTile * warps;
+  s.corr = reinterpret_cast<float*>(base);
+  s.rem_next = s.corr + cells * streams;
+  s.required = reinterpret_cast<int*>(s.rem_next + cells);
+  s.unread = s.required + cells;
+  s.out = s.unread + cells;
+  s.active = reinterpret_cast<bool*>(s.out + kOutRows * cells);
+  return s;
+}
+
+// The CTA's inputs of epochs [e0, e0 + m) for its `live` channels from c0,
+// copied into the slab by every thread; the caller waits and synchronises.
+__device__ __forceinline__ void stage_tile(const PassCArgs& p, const Slab& s,
+                                           int warps, int live, int c0,
+                                           int e0, int m, int n_ch,
+                                           int n_epochs, int streams,
+                                           int active_stride) {
+  const int run = live * streams;    // an epoch's words of the CTA's channels
+  for (int i = threadIdx.x; i < m * run; i += blockDim.x) {
+    const int e = i / run, j = i - e * run;
+    __pipeline_memcpy_async(
+        s.corr + e * warps * streams + j,
+        p.corr + (static_cast<size_t>(e0 + e) * n_ch + c0) * streams + j, 4);
+  }
+  for (int i = threadIdx.x; i < m * live; i += blockDim.x) {
+    const int e = i / live, w = i - e * live;
+    const size_t at = static_cast<size_t>(e0 + e) * n_ch + c0 + w;
+    const int cell = e * warps + w;
+    __pipeline_memcpy_async(s.required + cell, p.required + at, 4);
+    __pipeline_memcpy_async(s.unread + cell, p.unread_after + at, 4);
+    __pipeline_memcpy_async(
+        s.rem_next + cell,
+        e0 + e + 1 < n_epochs ? p.rem_code + at + n_ch
+                              : p.rem_code_end + c0 + w,
+        4);
+    s.active[cell] =
+        p.active[static_cast<size_t>(e0 + e) * active_stride + c0 + w];
+  }
+  __pipeline_commit();
+}
+
+// One channel's carry from epoch to epoch (and tile to tile): the same
+// value in every lane of its warp, but `hist`, bin `lane` of the bit-edge
+// histogram (lanes from kHistBins on hold 0).
+struct Carry {
+  float carrier, code_off, phi_virt, chip_virt;
+  float dll_mem, pll_mem, fll_mem, fll_vel, fll_acc, pll_lock, fll_lock;
+  float ip_prev, qp_prev, ipc_prev;
+  float ip_sum, qp_sum, ip_sq, qp_sq, ratio_sum, cn0;
+  int lock_state, flags, code_counter, ms_counter, bit_edge, accum_count;
+  int hist;
+};
+
+// What lane e keeps of epoch e from the serial phases.
+struct Rec {
+  int lock_pre;        // the lock state before the epoch
+  float pll_pre;       // the PLL lock indicator before the epoch
+  float comp_phase;
+  float code_err, phase_err, freq_err, nco_code, nco_carrier, carrier;
+  float pll_lock, fll_lock;
+  int lock_state;
+  float cn0;
+  float bit_ip_sum, bit_qp_sum, bit_ip_sq, bit_qp_sq, bit_ratio_sum;
+  int flags;
+  bool bit_ready;
+};
+
+template <typename T>
+__device__ __forceinline__ void keep(bool mine, T& dst, T value) {
+  dst = mine ? value : dst;
+}
+
+// torch.clamp(torch.clamp(v, lo0, hi0), lo1, hi1) (one clamp: lo1 = -inf,
+// hi1 = inf), its bounds' NaN cases settled once: for a v that is not NaN
+// the first NaN bound in that order, if there is one, else the four
+// fminf/fmaxf; v itself if v is NaN. Infinite bounds leave v as it is, so
+// a rail that is off is one. No branch in an epoch loop of them.
+struct Clamp2 {
+  float lo0, hi0, lo1, hi1;
+  float nan_bound;
+  bool has_nan;
+
+  __device__ __forceinline__ Clamp2(float l0, float h0, float l1, float h1)
+      : lo0(l0), hi0(h0), lo1(l1), hi1(h1) {
+    has_nan = isnan(l0) || isnan(h0) || isnan(l1) || isnan(h1);
+    nan_bound = isnan(l0) ? l0 : isnan(h0) ? h0 : isnan(l1) ? l1 : h1;
+  }
+
+  __device__ __forceinline__ float operator()(float v) const {
+    const float r = fminf(fmaxf(fminf(fmaxf(v, lo0), hi0), lo1), hi1);
+    const float b = has_nan ? nan_bound : r;
+    return isnan(v) ? v : b;
+  }
+};
+
+// One channel's clamps (infinite bounds where a rail is off) and code
+// rate: the same in every epoch.
+struct Bounds {
+  Clamp2 carrier;      // the carrier rail, then the block's step bound
+  Clamp2 code;         // the code-rate rail
+  float code_freq;     // GPS_L1CA_CODE_FREQ + geo["delta"]
+};
+
+// One tile of one channel's epochs [e0, e0 + m), run by its warp; its
+// outputs go to the slab's `out`.
+template <int kProf, int kOrder>
+__device__ __forceinline__ void run_tile(
+    const LoopConsts& k, const Slab& s, Carry& cr, int warps, int w,
+    int lane, int m, int streams, float frozen_carrier,
+    float frozen_code_off, const Bounds& b) {
+  // Phase A, lane = epoch: the carry-free values.
+  const bool valid = lane < m;
+  const int el = valid ? lane : 0;
+  const float* corr = s.corr + (el * warps + w) * streams;
+  const bool act = valid && s.active[el * warps + w];
+  const unsigned amask = __ballot_sync(kFull, act);
+  const unsigned before = amask & ((1u << lane) - 1u);
+  const unsigned through = amask & (lane == 31 ? kFull : (2u << lane) - 1u);
+  const int src = before ? 31 - __clz(before) : lane;   // last active < e
+  const float ip = kProf == kProfileKaplan ? corr[4] : corr[2];
+  const float qp = kProf == kProfileKaplan ? corr[5] : corr[3];
+  float ip_prev = __shfl_sync(kFull, ip, src);
+  float qp_prev = __shfl_sync(kFull, qp, src);
+  if (!before) {
+    ip_prev = cr.ip_prev;
+    qp_prev = cr.qp_prev;
+  }
+  const Disc d = discriminate(k, kProf, corr, ip_prev, qp_prev);
+  const int cc = cr.code_counter + __popc(before);   // before the epoch
+  const int n_through = __popc(through);
+  const int ms = n_through ? mod_i(cr.ms_counter + n_through, 20)
+                           : cr.ms_counter;          // after the epoch
+
+  // Phase B, in series: the loop filters and the virtual NCO. Every lane
+  // runs the same carry; epoch e + 1's inputs are fetched during epoch e.
+  Rec rec = {};
+  {
+    float nx_dll = __shfl_sync(kFull, d.dll, 0);
+    float nx_dll_w = __shfl_sync(kFull, d.dll_w, 0);
+    float nx_costas = __shfl_sync(kFull, d.costas, 0);
+    float nx_fll = __shfl_sync(kFull, d.fll, 0);
+    float nx_pin = __shfl_sync(kFull, d.pll_lock_in, 0);
+    float nx_fin = __shfl_sync(kFull, d.fll_lock_in, 0);
+    int nx_cc = __shfl_sync(kFull, cc, 0);
+#pragma unroll 2
+    for (int e = 0; e < m; ++e) {
+      Disc de = d;
+      de.dll = nx_dll;
+      de.dll_w = nx_dll_w;
+      de.costas = nx_costas;
+      de.fll = nx_fll;
+      de.pll_lock_in = nx_pin;
+      de.fll_lock_in = nx_fin;
+      const int cc_e = nx_cc;
+      const int nxt = (e + 1) & 31;
+      nx_dll = __shfl_sync(kFull, d.dll, nxt);
+      nx_dll_w = __shfl_sync(kFull, d.dll_w, nxt);
+      nx_costas = __shfl_sync(kFull, d.costas, nxt);
+      nx_fll = __shfl_sync(kFull, d.fll, nxt);
+      nx_pin = __shfl_sync(kFull, d.pll_lock_in, nxt);
+      nx_fin = __shfl_sync(kFull, d.fll_lock_in, nxt);
+      nx_cc = __shfl_sync(kFull, cc, nxt);
+      const bool active = (amask >> e) & 1u;
+      const bool mine = lane == e;
+
+      // Virtual-NCO compensation: the within-block NCO is frozen, so the
+      // raw discriminators measure the full error; subtract what the
+      // already applied corrections would have removed.
+      LoopIn in;
+      in.dll_memory = cr.dll_mem;
+      in.pll_memory = cr.pll_mem;
+      in.fll_vel = cr.fll_vel;
+      in.fll_acc = cr.fll_acc;
+      in.i_prompt_prev = 0.0f;     // discriminate's: not read here
+      in.q_prompt_prev = 0.0f;
+      in.pll_lock = cr.pll_lock;
+      in.fll_lock = cr.fll_lock;
+      in.lock_state = cr.lock_state;
+      in.code_counter = cc_e;
+      in.comp_freq = sub(cr.carrier, frozen_carrier);
+      in.comp_phase = sub(cr.phi_virt, rintf(cr.phi_virt));
+      in.comp_code = cr.chip_virt;
+      keep(mine, rec.lock_pre, cr.lock_state);
+      keep(mine, rec.pll_pre, cr.pll_lock);
+      keep(mine, rec.comp_phase, in.comp_phase);
+      const LoopOut lu = filter_step(k, kProf, kOrder, de, in, active);
+
+      const float new_carrier = b.carrier(add(cr.carrier, lu.nco_carrier));
+      const float new_code_off = b.code(sub(cr.code_off, lu.nco_code));
+      const float carrier_out = active ? new_carrier : cr.carrier;
+      const float code_off_out = active ? new_code_off : cr.code_off;
+      keep(mine, rec.code_err, lu.code_err);
+      keep(mine, rec.phase_err, lu.phase_err);
+      keep(mine, rec.freq_err, lu.freq_err);
+      keep(mine, rec.nco_code, lu.nco_code);
+      keep(mine, rec.nco_carrier, lu.nco_carrier);
+      keep(mine, rec.carrier, carrier_out);
+      keep(mine, rec.pll_lock, lu.pll_lock);
+      keep(mine, rec.fll_lock, lu.fll_lock);
+      keep(mine, rec.lock_state, lu.lock_state);
+      if (active) {
+        cr.phi_virt = add(cr.phi_virt,
+                          mul(sub(carrier_out, frozen_carrier), k.t_int));
+        cr.chip_virt = add(cr.chip_virt,
+                           mul(sub(code_off_out, frozen_code_off), k.t_int));
+        cr.dll_mem = lu.code_err;
+        cr.pll_mem = lu.phase_err;
+        cr.fll_mem = lu.freq_err;
+      }
+      cr.carrier = carrier_out;
+      cr.code_off = code_off_out;
+      cr.fll_vel = lu.fll_vel;
+      cr.fll_acc = lu.fll_acc;
+      cr.lock_state = lu.lock_state;
+      cr.pll_lock = lu.pll_lock;
+      cr.fll_lock = lu.fll_lock;
+    }
+  }
+
+  // Phase C, lane = epoch: prompts derotated by the virtual phase, so every
+  // epoch of a bit sums in one frame; the bit-edge flip candidates.
+  const float theta = mul(rec.comp_phase, k.two_pi);
+  const float cth = cosf(theta), sth = sinf(theta);
+  const float ip_c = add(mul(d.ip, cth), mul(d.qp, sth));
+  const float qp_c = sub(mul(d.qp, cth), mul(d.ip, sth));
+  float ipc_prev = __shfl_sync(kFull, ip_c, src);
+  if (!before) ipc_prev = cr.ipc_prev;
+  const bool flip = act && cc > k.min_convergence_ms &&
+                    rec.pll_pre > 0.5f &&
+                    sydr::sign(ipc_prev) != sydr::sign(ip_c);
+  const unsigned fmask = __ballot_sync(kFull, flip);
+  const float sq_i = sqr(d.ip), sq_q = sqr(d.qp);
+  const float ratio = beaulieu_ratio_term(d.ip, d.qp, ip_prev, qp_prev);
+  // The epochs at the bit edge `edge` (the phase in the bit,
+  // (ms - edge) mod 20, is 0), a bit each: the tile's edge until a
+  // declaration moves it.
+  int edge = cr.bit_edge;
+  unsigned emask = __ballot_sync(kFull, valid && mod_i(ms - edge, 20) == 0);
+
+  // Phase D, in series: bit-edge sync, accumulators, C/N0.
+  {
+    bool rule_known = false, rule_declare = false;
+    int rule_argmax = 0;
+    for (int e = 0; e < m; ++e) {
+      const float ipc_e = __shfl_sync(kFull, ip_c, e);
+      const float qpc_e = __shfl_sync(kFull, qp_c, e);
+      const float sqi_e = __shfl_sync(kFull, sq_i, e);
+      const float sqq_e = __shfl_sync(kFull, sq_q, e);
+      const float ratio_e = __shfl_sync(kFull, ratio, e);
+      const bool active = (amask >> e) & 1u;
+      const bool mine = lane == e;
+
+      const bool had_sync = (cr.flags & kFlagBitSync) != 0;
+      bool declare = false;
+      if (!had_sync) {
+        // The rule reads the histogram alone: take it again only after a
+        // flip changed the histogram.
+        if ((fmask >> e) & 1u) {
+          cr.hist += lane == __shfl_sync(kFull, ms, e) ? 1 : 0;
+          rule_known = false;
+        }
+        if (!rule_known) {
+          const bool bin = lane < kHistBins;
+          const int total = __reduce_add_sync(kFull, bin ? cr.hist : 0);
+          const int mode =
+              __reduce_max_sync(kFull, bin ? cr.hist : INT_MIN);
+          rule_argmax =
+              __ffs(__ballot_sync(kFull, bin && cr.hist == mode)) - 1;
+          rule_declare = bit_sync_rule(k, mode, total);
+          rule_known = true;
+        }
+        declare = rule_declare;
+        if (declare && rule_argmax != edge) {
+          edge = rule_argmax;
+          emask = __ballot_sync(kFull, valid && mod_i(ms - edge, 20) == 0);
+        }
+      }
+      // emask holds new_edge's epochs.
+      const int new_edge = declare ? rule_argmax : cr.bit_edge;
+      const bool bit_sync = had_sync || declare;
+      const bool at_edge = active && bit_sync && ((emask >> e) & 1u);
+      const bool bit_complete = at_edge && cr.accum_count >= 20;
+      const bool accum_reset = at_edge || declare;
+      const bool acc = active && bit_sync;
+      keep(mine, rec.bit_ip_sum, cr.ip_sum);
+      keep(mine, rec.bit_qp_sum, cr.qp_sum);
+      keep(mine, rec.bit_ip_sq, cr.ip_sq);
+      keep(mine, rec.bit_qp_sq, cr.qp_sq);
+      keep(mine, rec.bit_ratio_sum, cr.ratio_sum);
+      keep(mine, rec.bit_ready, bit_complete);
+      const bool keep_sums = !accum_reset;
+      const int new_accum =
+          (keep_sums ? cr.accum_count : 0) + (acc ? 1 : 0);
+      const float n_ip = add(keep_sums ? cr.ip_sum : 0.0f, acc ? ipc_e : 0.0f);
+      const float n_qp = add(keep_sums ? cr.qp_sum : 0.0f, acc ? qpc_e : 0.0f);
+      const float n_ip2 = add(keep_sums ? cr.ip_sq : 0.0f, acc ? sqi_e : 0.0f);
+      const float n_qp2 = add(keep_sums ? cr.qp_sq : 0.0f, acc ? sqq_e : 0.0f);
+      const float n_ratio =
+          add(keep_sums ? cr.ratio_sum : 0.0f, acc ? ratio_e : 0.0f);
+      const int new_flags =
+          active ? (cr.flags | kFlagCodeLock | (bit_sync ? kFlagBitSync : 0))
+                 : cr.flags;
+      keep(mine, rec.flags, new_flags);
+      cr.flags = new_flags;
+      cr.bit_edge = new_edge;
+      cr.accum_count = new_accum;
+      cr.ip_sum = n_ip;
+      cr.qp_sum = n_qp;
+      cr.ip_sq = n_ip2;
+      cr.qp_sq = n_qp2;
+      cr.ratio_sum = n_ratio;
+    }
+  }
+
+  // C/N0 at the tile's bit completions, in order: each estimate from the
+  // sums before its epoch and the estimate before it; an epoch's output is
+  // the estimate of the last completion up to it.
+  rec.cn0 = cr.cn0;
+  for (unsigned done = __ballot_sync(kFull, rec.bit_ready); done;
+       done &= done - 1u) {
+    const int e = __ffs(done) - 1;
+    cr.cn0 = cn0_estimate(k, __shfl_sync(kFull, rec.bit_ip_sum, e),
+                          __shfl_sync(kFull, rec.bit_qp_sum, e),
+                          __shfl_sync(kFull, rec.bit_ip_sq, e),
+                          __shfl_sync(kFull, rec.bit_qp_sq, e),
+                          __shfl_sync(kFull, rec.bit_ratio_sum, e), cr.cn0);
+    if (lane >= e) rec.cn0 = cr.cn0;
+  }
+
+  // Each lane puts its epoch's outputs in the slab (the CTA stores them).
+  if (valid) {
+    const int cells = kTile * warps;
+    int* o = s.out + lane * warps + w;
+    const bool wide = kProf == kProfileKaplan && rec.lock_pre != kLockNarrow;
+    auto put = [&](int row, float v) { o[row * cells] = __float_as_int(v); };
+    put(kOutIEarly, wide ? d.ie_w : d.ie);
+    put(kOutQEarly, wide ? d.qe_w : d.qe);
+    put(kOutIPrompt, d.ip);
+    put(kOutQPrompt, d.qp);
+    put(kOutILate, wide ? d.il_w : d.il);
+    put(kOutQLate, wide ? d.ql_w : d.ql);
+    put(kOutDllError, rec.code_err);
+    put(kOutPllError, rec.phase_err);
+    put(kOutFllError, rec.freq_err);
+    put(kOutNcoCode, rec.nco_code);
+    put(kOutNcoCarrier, rec.nco_carrier);
+    put(kOutCarrierFreq, rec.carrier);
+    put(kOutCodeFreq, b.code_freq);
+    put(kOutCn0, rec.cn0);
+    put(kOutPllLock, rec.pll_lock);
+    put(kOutFllLock, rec.fll_lock);
+    put(kOutBitIpSum, rec.bit_ip_sum);
+    o[(kRowI + kOutLockState) * cells] = rec.lock_state;
+    o[(kRowI + kOutFlags) * cells] = rec.flags;
+    o[(kRowB + kOutActive) * cells] = act;
+    o[(kRowB + kOutBitReady) * cells] = rec.bit_ready;
+  }
+
+  // The carry of the counters and previous prompts into the next tile.
+  cr.code_counter += __popc(amask);
+  if (amask) {
+    const int last = 31 - __clz(amask);
+    cr.ms_counter = mod_i(cr.ms_counter + __popc(amask), 20);
+    cr.ip_prev = __shfl_sync(kFull, ip, last);
+    cr.qp_prev = __shfl_sync(kFull, qp, last);
+    cr.ipc_prev = __shfl_sync(kFull, ip_c, last);
+  }
+}
+
+// The CTA's outputs of epochs [e0, e0 + m) from the slab, a row at a time:
+// thread t takes channel t % warps of epoch t / warps (warps a power of
+// two), so that a warp's stores are runs of the CTA's channels.
+__device__ __forceinline__ void store_tile(const PassCArgs& p, const Slab& s,
+                                           int warps, int live, int c0,
+                                           int e0, int m, int n_ch,
+                                           int n_epochs) {
+  const int w = threadIdx.x & (warps - 1);
+  const int e = threadIdx.x / warps;
+  if (w >= live || e >= m) return;
+  const int cells = kTile * warps, cell = e * warps + w;
+  const size_t plane = static_cast<size_t>(n_epochs) * n_ch;
+  const size_t at = static_cast<size_t>(e0 + e) * n_ch + c0 + w;
+  const int* o = s.out + cell;
+  int* of = reinterpret_cast<int*>(p.out_f) + at;
+#pragma unroll
+  for (int r = 0; r < kNumOutF; ++r) {
+    if (r != kOutRemCode) of[r * plane] = o[r * cells];
+  }
+  of[kOutRemCode * plane] = __float_as_int(s.rem_next[cell]);
+  int* oi = p.out_i + at;
+  oi[kOutLockState * plane] = o[(kRowI + kOutLockState) * cells];
+  oi[kOutFlags * plane] = o[(kRowI + kOutFlags) * cells];
+  oi[kOutUnread * plane] = s.unread[cell];
+  oi[kOutRequired * plane] = s.required[cell];
+  bool* ob = p.out_b + at;
+  ob[kOutActive * plane] = o[(kRowB + kOutActive) * cells];
+  ob[kOutBitReady * plane] = o[(kRowB + kOutBitReady) * cells];
+}
+
+template <int kProf, int kOrder>
+__global__ void __launch_bounds__(kMaxWarps * 32)
     pass_c_kernel(const LoopConsts k, const PassCArgs p, int n_ch,
                   int n_epochs, int n_streams, int active_stride) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= n_ch) return;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int c0 = blockIdx.x * warps;
+  const int live = min(warps, n_ch - c0);   // the CTA's channels
+  const int c = c0 + w;
+  const Slab s = slab_of(smem, warps, n_streams);
 
-  const float frozen_carrier = p.state_f[kCarrierFreq][c];
-  const float frozen_code_off = p.state_f[kCodeFreqOffset][c];
-  const float anchor = p.state_f[kFreqAnchor][c];
-  float carrier = frozen_carrier, code_off = frozen_code_off;
-  float dll_mem = p.state_f[kDllMemory][c];
-  float pll_mem = p.state_f[kPllMemory][c];
-  float fll_mem = p.state_f[kFllMemory][c];
-  float fll_vel = p.state_f[kFllVel][c];
-  float fll_acc = p.state_f[kFllAcc][c];
-  float ip_prev = p.state_f[kIPromptPrev][c];
-  float qp_prev = p.state_f[kQPromptPrev][c];
-  float ip_sum = p.state_f[kIpSum][c];
-  float qp_sum = p.state_f[kQpSum][c];
-  float ratio_sum = p.state_f[kCn0RatioSum][c];
-  float ip_sq = p.state_f[kIpSqSum][c];
-  float qp_sq = p.state_f[kQpSqSum][c];
-  float cn0 = p.state_f[kCn0][c];
-  float pll_lock = p.state_f[kPllLock][c];
-  float fll_lock = p.state_f[kFllLock][c];
-  int flags = p.state_i[kFlags][c];
-  int code_counter = p.state_i[kCodeCounter][c];
-  int ms_counter = p.state_i[kMsCounter][c];
-  int bit_edge = p.state_i[kBitEdge][c];
-  int accum_count = p.state_i[kAccumCount][c];
-  int lock_state = p.state_i[kLockState][c];
-  int hist[kHistBins];
-#pragma unroll
-  for (int b = 0; b < kHistBins; ++b) hist[b] = p.edge_hist[c * kHistBins + b];
-  float phi_virt = 0.0f, chip_virt = 0.0f;
-  float ipc_prev = ip_prev;
-  // GPS_L1CA_CODE_FREQ + geo["delta"]: the same in every epoch.
-  const float code_freq = add(p.delta[c], k.code_freq);
-  const size_t plane = static_cast<size_t>(n_epochs) * n_ch;
-
-  for (int e = 0; e < n_epochs; ++e) {
-    const size_t at = static_cast<size_t>(e) * n_ch + c;
-    const bool active = p.active[static_cast<size_t>(e) * active_stride + c];
-
-    // Virtual-NCO compensation: the within-block NCO is frozen, so the raw
-    // discriminators measure the full error; subtract what the already
-    // applied corrections would have removed.
-    sydr::LoopIn in;
-    in.dll_memory = dll_mem;
-    in.pll_memory = pll_mem;
-    in.fll_vel = fll_vel;
-    in.fll_acc = fll_acc;
-    in.i_prompt_prev = ip_prev;
-    in.q_prompt_prev = qp_prev;
-    in.pll_lock = pll_lock;
-    in.fll_lock = fll_lock;
-    in.lock_state = lock_state;
-    in.code_counter = code_counter;
-    in.comp_freq = sub(carrier, frozen_carrier);
-    in.comp_phase = sub(phi_virt, rintf(phi_virt));
-    in.comp_code = chip_virt;
-    const sydr::LoopOut lu =
-        sydr::loop_update(k, p.corr + at * n_streams, in, active);
-    const float ip = lu.i_prompt, qp = lu.q_prompt;
-
-    float new_carrier = add(carrier, lu.nco_carrier);
-    if (k.freq_rail_on) {
-      new_carrier = sydr::clamp(new_carrier, sub(anchor, k.freq_rail),
-                                add(anchor, k.freq_rail));
-    }
-    if (k.block_step_on) {
-      new_carrier =
-          sydr::clamp(new_carrier, sub(frozen_carrier, k.block_step),
-                      add(frozen_carrier, k.block_step));
-    }
-    float new_code_off = sub(code_off, lu.nco_code);
-    if (k.code_rail_on) {
-      new_code_off = sydr::clamp(new_code_off, -k.code_rail, k.code_rail);
-    }
-
-    // Prompts derotated by the virtual phase, so every epoch of a bit sums
-    // in one frame.
-    const float theta = mul(in.comp_phase, k.two_pi);
-    const float cth = cosf(theta), sth = sinf(theta);
-    const float ip_c = add(mul(ip, cth), mul(qp, sth));
-    const float qp_c = sub(mul(qp, cth), mul(ip, sth));
-
-    // Bit-edge histogram sync.
-    const bool had_sync = (flags & sydr::kFlagBitSync) != 0;
-    const int new_ms = active ? sydr::mod_i(ms_counter + 1, 20) : ms_counter;
-    const bool sign_flip = sydr::sign(ipc_prev) != sydr::sign(ip_c);
-    const bool counting = active && !had_sync &&
-                          code_counter > k.min_convergence_ms &&
-                          pll_lock > 0.5f;
-    const bool flip_now = counting && sign_flip;
-#pragma unroll
-    for (int b = 0; b < kHistBins; ++b) hist[b] += (flip_now && b == new_ms);
-    int argmax;
-    const bool declare = !had_sync && sydr::bit_sync_declare(k, hist, argmax);
-    const int new_edge = declare ? argmax : bit_edge;
-    const bool bit_sync = had_sync || declare;
-    const int phase_in_bit = sydr::mod_i(new_ms - new_edge, 20);
-    const bool at_edge = active && bit_sync && phase_in_bit == 0;
-    const bool bit_complete = at_edge && accum_count >= 20;
-    const float bit_ip_sum = ip_sum;
-    const bool accum_reset = at_edge || declare;
-    const bool acc = active && bit_sync;
-    const int new_accum = (accum_reset ? 0 : accum_count) + (acc ? 1 : 0);
-    const float n_ip = add(accum_reset ? 0.0f : ip_sum, acc ? ip_c : 0.0f);
-    const float n_qp = add(accum_reset ? 0.0f : qp_sum, acc ? qp_c : 0.0f);
-    const float n_ip2 =
-        add(accum_reset ? 0.0f : ip_sq, acc ? sydr::sqr(ip) : 0.0f);
-    const float n_qp2 =
-        add(accum_reset ? 0.0f : qp_sq, acc ? sydr::sqr(qp) : 0.0f);
-    const float n_ratio = add(
-        accum_reset ? 0.0f : ratio_sum,
-        acc ? sydr::beaulieu_ratio_term(ip, qp, ip_prev, qp_prev) : 0.0f);
-    const float new_cn0 =
-        bit_complete ? sydr::cn0_estimate(k, ip_sum, qp_sum, ip_sq, qp_sq,
-                                          ratio_sum, cn0)
-                     : cn0;
-    const int new_flags =
-        active ? (flags | sydr::kFlagCodeLock |
-                  (bit_sync ? sydr::kFlagBitSync : 0))
-               : flags;
-    const float carrier_out = active ? new_carrier : carrier;
-    const float code_off_out = active ? new_code_off : code_off;
-
-    float* of = p.out_f + at;
-    of[kOutIEarly * plane] = lu.i_early;
-    of[kOutQEarly * plane] = lu.q_early;
-    of[kOutIPrompt * plane] = ip;
-    of[kOutQPrompt * plane] = qp;
-    of[kOutILate * plane] = lu.i_late;
-    of[kOutQLate * plane] = lu.q_late;
-    of[kOutDllError * plane] = lu.code_err;
-    of[kOutPllError * plane] = lu.phase_err;
-    of[kOutFllError * plane] = lu.freq_err;
-    of[kOutNcoCode * plane] = lu.nco_code;
-    of[kOutNcoCarrier * plane] = lu.nco_carrier;
-    of[kOutCarrierFreq * plane] = carrier_out;
-    of[kOutCodeFreq * plane] = code_freq;
-    of[kOutCn0 * plane] = new_cn0;
-    of[kOutPllLock * plane] = lu.pll_lock;
-    of[kOutFllLock * plane] = lu.fll_lock;
-    of[kOutRemCode * plane] =
-        e + 1 < n_epochs ? p.rem_code[at + n_ch] : p.rem_code_end[c];
-    of[kOutBitIpSum * plane] = bit_ip_sum;
-    int* oi = p.out_i + at;
-    oi[kOutLockState * plane] = lu.lock_state;
-    oi[kOutFlags * plane] = new_flags;
-    oi[kOutUnread * plane] = p.unread_after[at];
-    oi[kOutRequired * plane] = p.required[at];
-    bool* ob = p.out_b + at;
-    ob[kOutActive * plane] = active;
-    ob[kOutBitReady * plane] = bit_complete;
-
-    if (active) {
-      phi_virt = add(phi_virt, mul(sub(carrier_out, frozen_carrier), k.t_int));
-      chip_virt =
-          add(chip_virt, mul(sub(code_off_out, frozen_code_off), k.t_int));
-      dll_mem = lu.code_err;
-      pll_mem = lu.phase_err;
-      fll_mem = lu.freq_err;
-      ip_prev = ip;
-      qp_prev = qp;
-      code_counter += 1;
-      ipc_prev = ip_c;
-    }
-    carrier = carrier_out;
-    code_off = code_off_out;
-    fll_vel = lu.fll_vel;
-    fll_acc = lu.fll_acc;
-    lock_state = lu.lock_state;
-    flags = new_flags;
-    ms_counter = new_ms;
-    bit_edge = new_edge;
-    accum_count = new_accum;
-    ip_sum = n_ip;
-    qp_sum = n_qp;
-    ip_sq = n_ip2;
-    qp_sq = n_qp2;
-    ratio_sum = n_ratio;
-    cn0 = new_cn0;
-    pll_lock = lu.pll_lock;
-    fll_lock = lu.fll_lock;
+  // The state, read before the first tile's copies land.
+  Carry cr = {};
+  float frozen_carrier = 0.0f, frozen_code_off = 0.0f, anchor = 0.0f;
+  float delta = 0.0f;
+  if (w < live) {
+    frozen_carrier = p.state_f[kCarrierFreq][c];
+    frozen_code_off = p.state_f[kCodeFreqOffset][c];
+    anchor = p.state_f[kFreqAnchor][c];
+    delta = p.delta[c];
+    cr.carrier = frozen_carrier;
+    cr.code_off = frozen_code_off;
+    cr.dll_mem = p.state_f[kDllMemory][c];
+    cr.pll_mem = p.state_f[kPllMemory][c];
+    cr.fll_mem = p.state_f[kFllMemory][c];
+    cr.fll_vel = p.state_f[kFllVel][c];
+    cr.fll_acc = p.state_f[kFllAcc][c];
+    cr.ip_prev = p.state_f[kIPromptPrev][c];
+    cr.qp_prev = p.state_f[kQPromptPrev][c];
+    cr.ipc_prev = cr.ip_prev;
+    cr.ip_sum = p.state_f[kIpSum][c];
+    cr.qp_sum = p.state_f[kQpSum][c];
+    cr.ratio_sum = p.state_f[kCn0RatioSum][c];
+    cr.ip_sq = p.state_f[kIpSqSum][c];
+    cr.qp_sq = p.state_f[kQpSqSum][c];
+    cr.cn0 = p.state_f[kCn0][c];
+    cr.pll_lock = p.state_f[kPllLock][c];
+    cr.fll_lock = p.state_f[kFllLock][c];
+    cr.flags = p.state_i[kFlags][c];
+    cr.code_counter = p.state_i[kCodeCounter][c];
+    cr.ms_counter = p.state_i[kMsCounter][c];
+    cr.bit_edge = p.state_i[kBitEdge][c];
+    cr.accum_count = p.state_i[kAccumCount][c];
+    cr.lock_state = p.state_i[kLockState][c];
+    cr.hist = lane < kHistBins ? p.edge_hist[c * kHistBins + lane] : 0;
   }
+  const float inf = __int_as_float(0x7f800000);
+  const Bounds b = {
+      Clamp2(k.freq_rail_on ? sub(anchor, k.freq_rail) : -inf,
+             k.freq_rail_on ? add(anchor, k.freq_rail) : inf,
+             k.block_step_on ? sub(frozen_carrier, k.block_step) : -inf,
+             k.block_step_on ? add(frozen_carrier, k.block_step) : inf),
+      Clamp2(k.code_rail_on ? -k.code_rail : -inf,
+             k.code_rail_on ? k.code_rail : inf, -inf, inf),
+      add(delta, k.code_freq)};
+
+  for (int e0 = 0; e0 < n_epochs; e0 += kTile) {
+    const int m = min(kTile, n_epochs - e0);
+    if (e0 > 0) __syncthreads();      // the last tile's slab is stored
+    stage_tile(p, s, warps, live, c0, e0, m, n_ch, n_epochs, n_streams,
+               active_stride);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (w < live) {
+      run_tile<kProf, kOrder>(k, s, cr, warps, w, lane, m, n_streams,
+                              frozen_carrier, frozen_code_off, b);
+    }
+    __syncthreads();
+    store_tile(p, s, warps, live, c0, e0, m, n_ch, n_epochs);
+  }
+  if (w >= live) return;
 
   // End-of-block phase catch-up: realise the virtual-NCO phase the
   // within-block corrections assumed.
+  if (lane < kHistBins) p.new_hist[c * kHistBins + lane] = cr.hist;
+  if (lane != 0) return;
   float* nf = p.new_f + c;
-  nf[kCarrierFreq * n_ch] = carrier;
+  nf[kCarrierFreq * n_ch] = cr.carrier;
   nf[kFreqAnchor * n_ch] = anchor;
-  nf[kCodeFreqOffset * n_ch] = code_off;
+  nf[kCodeFreqOffset * n_ch] = cr.code_off;
   nf[kRemCarrier * n_ch] = sydr::mod_f(
-      sub(p.rem_carrier_end[c], mul(phi_virt, k.two_pi)), k.two_pi);
-  nf[kRemCode * n_ch] = add(p.rem_code_end[c], chip_virt);
-  nf[kDllMemory * n_ch] = dll_mem;
-  nf[kPllMemory * n_ch] = pll_mem;
-  nf[kFllMemory * n_ch] = fll_mem;
-  nf[kFllVel * n_ch] = fll_vel;
-  nf[kFllAcc * n_ch] = fll_acc;
-  nf[kIPromptPrev * n_ch] = ip_prev;
-  nf[kQPromptPrev * n_ch] = qp_prev;
-  nf[kIpSum * n_ch] = ip_sum;
-  nf[kQpSum * n_ch] = qp_sum;
-  nf[kCn0RatioSum * n_ch] = ratio_sum;
-  nf[kIpSqSum * n_ch] = ip_sq;
-  nf[kQpSqSum * n_ch] = qp_sq;
-  nf[kCn0 * n_ch] = cn0;
-  nf[kPllLock * n_ch] = pll_lock;
-  nf[kFllLock * n_ch] = fll_lock;
+      sub(p.rem_carrier_end[c], mul(cr.phi_virt, k.two_pi)), k.two_pi);
+  nf[kRemCode * n_ch] = add(p.rem_code_end[c], cr.chip_virt);
+  nf[kDllMemory * n_ch] = cr.dll_mem;
+  nf[kPllMemory * n_ch] = cr.pll_mem;
+  nf[kFllMemory * n_ch] = cr.fll_mem;
+  nf[kFllVel * n_ch] = cr.fll_vel;
+  nf[kFllAcc * n_ch] = cr.fll_acc;
+  nf[kIPromptPrev * n_ch] = cr.ip_prev;
+  nf[kQPromptPrev * n_ch] = cr.qp_prev;
+  nf[kIpSum * n_ch] = cr.ip_sum;
+  nf[kQpSum * n_ch] = cr.qp_sum;
+  nf[kCn0RatioSum * n_ch] = cr.ratio_sum;
+  nf[kIpSqSum * n_ch] = cr.ip_sq;
+  nf[kQpSqSum * n_ch] = cr.qp_sq;
+  nf[kCn0 * n_ch] = cr.cn0;
+  nf[kPllLock * n_ch] = cr.pll_lock;
+  nf[kFllLock * n_ch] = cr.fll_lock;
   int* ni = p.new_i + c;
   ni[kMode * n_ch] = p.state_i[kMode][c];
-  ni[kFlags * n_ch] = flags;
+  ni[kFlags * n_ch] = cr.flags;
   ni[kUnread * n_ch] = p.unread_end[c];
-  ni[kCodeCounter * n_ch] = code_counter;
-  ni[kMsCounter * n_ch] = ms_counter;
-  ni[kBitEdge * n_ch] = bit_edge;
-  ni[kAccumCount * n_ch] = accum_count;
-  ni[kLockState * n_ch] = lock_state;
-#pragma unroll
-  for (int b = 0; b < kHistBins; ++b) p.new_hist[c * kHistBins + b] = hist[b];
+  ni[kCodeCounter * n_ch] = cr.code_counter;
+  ni[kMsCounter * n_ch] = cr.ms_counter;
+  ni[kBitEdge * n_ch] = cr.bit_edge;
+  ni[kAccumCount * n_ch] = cr.accum_count;
+  ni[kLockState * n_ch] = cr.lock_state;
+}
+
+template <int kProf, int kOrder>
+cudaError_t launch(const LoopConsts& k, const PassCArgs& p, int n_ch,
+                   int n_epochs, int n_streams, int active_stride, int warps,
+                   cudaStream_t stream) {
+  const int blocks = (n_ch + warps - 1) / warps;
+  const size_t smem = slab_bytes(warps, n_streams);
+  pass_c_kernel<kProf, kOrder><<<blocks, warps * 32, smem, stream>>>(
+      k, p, n_ch, n_epochs, n_streams, active_stride);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -364,18 +719,45 @@ extern "C" const char* sydr_cuda_error_string(int err) {
 
 // One block's pass C: `consts` and `args` are host structs, copied into the
 // launch's parameters. `active_stride` is the row stride of `active` in
-// elements (0 for a row broadcast over the epochs, n_ch when contiguous).
+// elements (0 for a row broadcast over the epochs, n_ch when contiguous);
+// `warps` the channels (warps) a CTA: 1, 2, 4 or 8.
 extern "C" int pass_c_launch(const sydr::LoopConsts* consts,
                              const sydr::PassCArgs* args,
                              int n_ch, int n_epochs, int n_streams,
-                             int active_stride, void* stream) {
+                             int active_stride, int warps, void* stream) {
   if (consts == nullptr || args == nullptr || n_ch < 1 || n_epochs < 1 ||
-      n_streams < kMinStreams || active_stride < 0 ||
-      (consts->profile == sydr::kProfileKaplan && n_streams < 10)) {
+      n_streams < kMinStreams || active_stride < 0 || warps < 1 ||
+      warps > kMaxWarps || (warps & (warps - 1)) != 0 ||
+      (consts->profile == sydr::kProfileKaplan && n_streams < 10) ||
+      consts->profile < sydr::kProfileBorre ||
+      consts->profile > sydr::kProfileKaplanNarrowOnly ||
+      (consts->dlf_order != 2 && consts->dlf_order != 3)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (n_ch + kThreads - 1) / kThreads;
-  pass_c_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      *consts, *args, n_ch, n_epochs, n_streams, active_stride);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool third = consts->dlf_order == 3;
+  cudaError_t err;
+  switch (consts->profile) {
+    case sydr::kProfileBorre:      // no DLF
+      err = launch<sydr::kProfileBorre, 2>(*consts, *args, n_ch, n_epochs,
+                                           n_streams, active_stride, warps,
+                                           s);
+      break;
+    case sydr::kProfileKaplan:
+      err = third ? launch<sydr::kProfileKaplan, 3>(
+                        *consts, *args, n_ch, n_epochs, n_streams,
+                        active_stride, warps, s)
+                  : launch<sydr::kProfileKaplan, 2>(
+                        *consts, *args, n_ch, n_epochs, n_streams,
+                        active_stride, warps, s);
+      break;
+    default:
+      err = third ? launch<sydr::kProfileKaplanNarrowOnly, 3>(
+                        *consts, *args, n_ch, n_epochs, n_streams,
+                        active_stride, warps, s)
+                  : launch<sydr::kProfileKaplanNarrowOnly, 2>(
+                        *consts, *args, n_ch, n_epochs, n_streams,
+                        active_stride, warps, s);
+  }
+  return static_cast<int>(err);
 }

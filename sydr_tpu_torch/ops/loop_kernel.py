@@ -5,9 +5,10 @@
 the outputs, a dict of ``[block_ms, n_ch]`` tensors with the same keys,
 dtypes and shapes. On CPU tensors it is that plain version (a Python loop
 over the block's epochs, ~280 ``[n_ch]``-wide ops each). On CUDA tensors
-it launches ``csrc/pass_c.cu`` once: one thread per channel replays the
-block's epochs with the whole carry in registers, the counterpart of the
-JAX package's fused ``lax.scan`` (``sydr_tpu/channels/batch_runtime.py``
+it launches ``csrc/pass_c.cu`` once: a warp a channel, its lanes computing
+the epochs' carry-free values side by side and the loop filters' carry in
+series (:data:`PASS_C_WARPS` channels a CTA), the counterpart of the JAX
+package's fused ``lax.scan`` (``sydr_tpu/channels/batch_runtime.py``
 ``_pass_c``). It replaces no Pallas kernel. There is no fallback from one
 to the other.
 
@@ -102,8 +103,22 @@ class PassCArgs(ctypes.Structure):
 
 PASS_C_KERNEL = native.CudaKernel(
     "pass_c.cu", "pass_c_launch",
-    [ctypes.POINTER(LoopConsts), ctypes.POINTER(PassCArgs)] + [_INT] * 4
+    [ctypes.POINTER(LoopConsts), ctypes.POINTER(PassCArgs)] + [_INT] * 5
     + [_VP])
+# Channels (warps) a CTA of the kernel: a power of two up to
+# csrc/pass_c.cu's kMaxWarps, and the width launched.
+PASS_C_MAX_WARPS = 8
+PASS_C_WARPS = 4
+TILE_EPOCHS = 32
+
+
+def slab_bytes(warps: int, n_streams: int) -> int:
+    """Shared memory of a CTA of ``warps`` channels (csrc/pass_c.cu's
+    ``slab_bytes``), for a tile: the correlators, next code phases,
+    required and unread counts (4 bytes each), activity (1 byte) and the
+    outputs (a 4-byte word each of every row)."""
+    rows = len(OUT_F32) + len(OUT_I32) + len(OUT_BOOL)
+    return TILE_EPOCHS * warps * (4 * n_streams + 13 + 4 * rows)
 
 
 def f32(x) -> float:
@@ -198,18 +213,22 @@ def active_stride(active) -> int:
                      f"row expanded over the epochs)")
 
 
-def pass_c_launch_args(cfg, st: ChannelState, geo, corr):
+def pass_c_launch_args(cfg, st: ChannelState, geo, corr,
+                       warps: int = PASS_C_WARPS):
     """Check the arguments of :func:`pass_c` (on ``corr``'s device),
     allocate its outputs and return ``(bufs, args)``: ``bufs`` the output
     tensors (:func:`unpack`), ``args`` the C arguments of
     :data:`PASS_C_KERNEL`'s entry point but its stream (the constants
     and pointer structures, then ``n_ch, n_epochs, n_streams,
-    active_stride``)."""
+    active_stride, warps``)."""
     dev = corr.device
     if corr.dim() != 3:
         raise ValueError(f"corr: shape {tuple(corr.shape)}, expected "
                          f"[block_ms, n_ch, n_streams]")
     n_epochs, n_ch, n_streams = corr.shape
+    if not (1 <= warps <= PASS_C_MAX_WARPS and warps & (warps - 1) == 0):
+        raise ValueError(f"warps: {warps}, the kernel takes a power of two "
+                         f"up to {PASS_C_MAX_WARPS}")
     want = 10 if profile_code(cfg) == PROFILES["kaplan"] else 6
     if n_streams < want:
         raise ValueError(f"corr: {n_streams} streams, the {cfg.profile} "
@@ -259,7 +278,7 @@ def pass_c_launch_args(cfg, st: ChannelState, geo, corr):
             "rem_carrier_end", "delta", "unread_end")},
         **{k: native.ptr(t) for k, t in bufs.items()})
     return bufs, (ctypes.byref(loop_consts(cfg)), ctypes.byref(ptrs),
-                  n_ch, n_epochs, n_streams, stride)
+                  n_ch, n_epochs, n_streams, stride, warps)
 
 
 def unpack(bufs):

@@ -17,8 +17,10 @@ boundary form (``rowsum``: pass B on K1; ``prefix``: on K3):
     block's pass-C range holds one launch of the pass-C kernel and the
     anchor slew's few ops (on the CPU: the plain version). The profiler
     ties the PyTorch ops' kernels to the range they ran in, but not the
-    kernels the package launches through ``ctypes`` (K1 or K3 in pass B,
-    pass C's): their device time is the ``unattributed`` row.
+    kernels the package launches through ``ctypes`` (no op launches them):
+    those are tied to their pass by name (:data:`CTYPES_KERNELS`: K1 or K3
+    to pass B, pass C's kernel to pass C). What is still tied to no pass
+    is the ``unattributed`` row.
 
 Usage: python -m sydr_tpu_torch.tools.trace_profile [prefix] [rowsum]
            [--channels 32] [--fs 10e6] [--decimate 4] [--superblock 50]
@@ -32,10 +34,17 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
 
 PASSES = ("pass A", "pass B", "pass C")
+# The kernels the package launches through ctypes (csrc/*.cu, each in an
+# anonymous namespace), by the pass that launches them.
+CTYPES_KERNELS = {"epoch_correlate_kernel": "pass B",
+                  "totals_kernel": "pass B", "prefix_kernel": "pass B",
+                  "pass_c_kernel": "pass C"}
+_CTYPES_NAME = re.compile(r"\(anonymous namespace\)::(\w+)[<(]")
 
 
 def superblock_setup(device, *, n_channels=32, fs=10e6, decimate=4,
@@ -104,6 +113,39 @@ def kernel_rows(events):
             and e.key not in PASSES]
 
 
+def ctypes_pass(name: str):
+    """The pass that launches the package's ``ctypes`` kernel ``name`` (a
+    device symbol as the profiler names it), else None."""
+    m = _CTYPES_NAME.search(name)
+    return CTYPES_KERNELS.get(m.group(1)) if m else None
+
+
+def split_device_ms(events) -> dict:
+    """``{pass: device ms}`` and ``"unattributed"`` from the profiler's
+    ``events`` of a pass-by-pass run: each pass's ranges (the device time
+    of the kernels the profiler ties to an op inside them), plus, by name,
+    the ``ctypes`` kernels of a name it ties to no op; the rest of the
+    kernels' time is unattributed."""
+    import torch
+
+    cpu = torch.autograd.DeviceType.CPU
+    split = dict.fromkeys(PASSES, 0.0)
+    tied = set()          # the kernels' names the profiler tied to an op
+    for evt in events:
+        if evt.device_type == cpu:
+            tied.update(k.name for k in evt.kernels)
+            if evt.key in split:
+                split[evt.key] += _device_us(evt, self_only=False) / 1e3
+    kernels = kernel_rows(events)
+    for evt in kernels:
+        name = ctypes_pass(evt.key)
+        if name and evt.key not in tied:
+            split[name] += _device_us(evt) / 1e3
+    total = sum(_device_us(e) for e in kernels) / 1e3
+    split["unattributed"] = total - sum(split.values())
+    return split
+
+
 def profile_ops(fn, device):
     """Run ``fn()`` under ``torch.profiler``; returns ``(ops, launches,
     device_ms)``: ``[(name, device ms, count)]`` by device time (host time
@@ -134,7 +176,7 @@ def pass_split(cfg, bits3x, state, window_re, window_im, device):
     around each pass (unprofiled), and the device time of the kernels
     launched inside each pass's ``record_function`` range (None on the
     CPU). On the card an ``"unattributed"`` row holds the kernel time the
-    profiler tied to no range."""
+    profiler tied to no range, nor :func:`split_device_ms` by name."""
     import torch
 
     from sydr_tpu_torch.channels import batch_runtime as br
@@ -176,20 +218,11 @@ def pass_split(cfg, bits3x, state, window_re, window_im, device):
         with torch.profiler.profile(activities=_activities(device)) as prof:
             blocks(state, ranged)
             sync(device)
-        # Each pass's host range, summed over the blocks: the device time
-        # of the kernels it and the ops inside it launched.
-        events = prof.events()
+        device = split_device_ms(prof.events())
         for name in PASSES:
-            split[name]["device_ms"] = 0.0
-        for evt in events:
-            if evt.device_type == torch.autograd.DeviceType.CPU \
-                    and evt.key in split:
-                split[evt.key]["device_ms"] += \
-                    _device_us(evt, self_only=False) / 1e3
-        # The kernels' time that the profiler tied to no pass's range.
-        total = sum(_device_us(e) for e in kernel_rows(events)) / 1e3
-        split["unattributed"] = {"wall_ms": None, "device_ms": total - sum(
-            split[name]["device_ms"] or 0.0 for name in PASSES)}
+            split[name]["device_ms"] = device[name]
+        split["unattributed"] = {"wall_ms": None,
+                                 "device_ms": device["unattributed"]}
     return split
 
 

@@ -12,6 +12,13 @@ rail and the loops pushing into it, a carrier velocity past the block's
 step bound and code-rate offsets at the code rail, so that each clamp
 acts; lock states across the kaplan state machine; and two channels that
 have not converged (code counter 0 and 1).
+
+:func:`shaped_block` puts that block on the shapes pass C's kernel tiles
+and spreads over CTAs (:data:`SHAPE_CASES`: 1 to 64 channels, 2 to 64
+epochs) and on other activity than pass A gives: stretches of inactive
+epochs between active ones (one across the boundary of two 32-epoch
+tiles), or none active at all. Each case names the branches it is built to
+reach (:data:`CLAIMS`); the CPU tests hold the plain version to them.
 """
 
 from __future__ import annotations
@@ -135,3 +142,107 @@ def mid_track(cfg, n_ch: int, seed: int):
             corr[e, :, 2 * t] = g * p_i + noise[:, 2 * t]
             corr[e, :, 2 * t + 1] = g * p_q + noise[:, 2 * t + 1]
     return leaves, corr
+
+
+NARROW = dict(profile="kaplan", kaplan_narrow_only=True)
+KAPLAN = dict(profile="kaplan")
+# What a shaped case is built to reach: a bit-sync declaration inside the
+# block; a bit completion; a channel inactive between active epochs; a
+# block of more than 32 epochs with a bit completion after epoch 32 and an
+# inactive stretch across epochs 31 and 32; no epoch active; a declaration
+# of another bit edge than the state's.
+CLAIMS = ("declare", "bit", "gap", "tiles", "idle", "moved-edge")
+# (id, block_ms, n_ch, activity, TrackingConfig fields, claims): activity
+# "pass-a" (pass A's own), "gaps" or "idle" (:func:`activity`), or
+# "moved-edge" (pass A's, and the unsynced channels' bit edge in the state
+# 7 ms from the one their histograms point at).
+SHAPE_CASES = [
+    ("block-2", 2, 32, "pass-a", NARROW, ("declare", "bit")),
+    ("block-45", 45, 32, "gaps", NARROW, ("declare", "bit", "gap", "tiles")),
+    ("block-64", 64, 32, "gaps", KAPLAN, ("declare", "bit", "gap", "tiles")),
+    ("channels-1", 20, 1, "pass-a", NARROW, ("bit",)),
+    ("channels-13", 20, 13, "pass-a", NARROW, ("declare", "bit")),
+    ("channels-33", 5, 33, "pass-a", KAPLAN, ("declare", "bit")),
+    ("channels-64", 20, 64, "pass-a", NARROW, ("declare", "bit")),
+    ("gaps", 20, 32, "gaps", NARROW, ("declare", "bit", "gap")),
+    ("idle", 20, 32, "idle", NARROW, ("idle",)),
+    ("moved-edge", 20, 32, "moved-edge", NARROW,
+     ("declare", "bit", "moved-edge")),
+]
+
+
+def activity(kind: str, active):
+    """``[block_ms, n_ch]`` bool, contiguous: pass A's ``active`` for
+    ``"pass-a"``; for ``"gaps"`` the same with stretches cut out of every
+    third channel (from channel 1: epochs 4 + c % 5 to 9 + c % 7, and past
+    32 epochs also 30 to 33 on channels 2 and 5); all False for
+    ``"idle"``."""
+    out = np.array(np.asarray(active), dtype=bool, order="C")   # a copy
+    n_ep, n_ch = out.shape
+    if kind == "moved-edge":
+        kind = "pass-a"
+    if kind == "idle":
+        out[:] = False
+    elif kind == "gaps":
+        for c in range(1, n_ch, 3):
+            out[4 + c % 5:9 + c % 7, c] = False
+        if n_ep > 33:
+            out[30:34, [2, 5]] = False
+    elif kind != "pass-a":
+        raise ValueError(f"activity {kind!r}")
+    return out
+
+
+def shaped_block(block_ms, n_ch, kind, extra, device, seed=3,
+                 fs=2.5e6):
+    """``(cfg, state, geo, corr)`` on ``device``: :func:`mid_track`'s block
+    at ``block_ms`` epochs and ``n_ch`` channels (below 12 channels, the
+    first ``n_ch`` of 32), ``geo`` from the port's pass A with ``active``
+    from :func:`activity`."""
+    import torch
+
+    from sydr_tpu_torch.channels.batch_runtime import _pass_a
+    from sydr_tpu_torch.channels.runtime import TrackingConfig
+    from sydr_tpu_torch.channels.state import state_from_numpy
+
+    cfg = TrackingConfig(sampling_frequency=fs, block_ms=block_ms,
+                         tail_ms=4, window_size=round(fs * 1e-3) + 256,
+                         runtime="batch", quantize_spacing=True, **extra)
+    leaves, corr = mid_track(cfg, max(n_ch, 12), seed)
+    leaves = {k: v[:n_ch] for k, v in leaves.items()}
+    if kind == "moved-edge":
+        unsynced = (leaves["flags"] & FLAG_BIT_SYNC) == 0
+        leaves["bit_edge"][unsynced] = (leaves["bit_edge"][unsynced] + 7) % 20
+    st = state_from_numpy(leaves, device)
+    geo = dict(_pass_a(cfg, st))
+    geo["active"] = torch.tensor(activity(kind, geo["active"].cpu()),
+                                 device=device)
+    return cfg, st, geo, torch.tensor(corr[:, :n_ch].copy(), device=device)
+
+
+def reached(state, new_state, out) -> set:
+    """The :data:`CLAIMS` that a pass C run (its state before and after,
+    its outputs, on any device) reached."""
+    active = out["active"].cpu().numpy()
+    bits = out["bit_ready"].cpu().numpy()
+    flags = out["flags"].cpu().numpy()
+    sync0 = (state.flags.cpu().numpy() & FLAG_BIT_SYNC) != 0
+    got = set()
+    if ((flags & FLAG_BIT_SYNC) != 0)[:, ~sync0].any():
+        got.add("declare")
+    if bits.any():
+        got.add("bit")
+    seen = np.maximum.accumulate(active, axis=0)
+    later = np.maximum.accumulate(active[::-1], axis=0)[::-1]
+    if (seen & later & ~active).any():
+        got.add("gap")
+    if (len(active) > 33 and bits[32:].any()
+            and (active[29] & ~active[31] & ~active[32]
+                 & active[34]).any()):
+        got.add("tiles")
+    if not active.any():
+        got.add("idle")
+    edge0, edge1 = state.bit_edge.cpu().numpy(), new_state.bit_edge.cpu().numpy()
+    if ((edge0 != edge1) & ~sync0).any():
+        got.add("moved-edge")
+    return got

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from _pass_c_inputs import SHAPE_CASES
 from sydr_tpu_torch.channels import batch_runtime as br
 from sydr_tpu_torch.channels.runtime import TrackingConfig
 from sydr_tpu_torch.channels.state import MODE_TRACKING, init_state
@@ -573,6 +574,47 @@ def test_pass_c_kernel_matches_plain(name, block_ms, extra):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", SHAPE_CASES, ids=[c[0] for c in SHAPE_CASES])
+def test_pass_c_kernel_matches_plain_on_shapes(case):
+    """The kernel = the plain version bit for bit where it tiles the
+    epochs (2, 45 and 64: a partial tile, tiles after the first) and
+    spreads channels over CTAs (1, 13, 33, 64: partial CTAs), and on
+    activity pass A does not give (inactive stretches between active
+    epochs, one across two tiles; no epoch active); each case reaches the
+    branches it claims (tests/_pass_c_inputs.py)."""
+    from _pass_c_inputs import reached, shaped_block
+
+    from sydr_tpu_torch.ops import loop_kernel as lk
+
+    name, block_ms, n_ch, kind, extra, claims = case
+    cfg, st, geo, corr = shaped_block(block_ms, n_ch, kind, extra, _cuda())
+    got = lk.pass_c(cfg, st, geo, corr)
+    ref = br._pass_c(cfg, st, geo, corr)
+    torch.cuda.synchronize()
+    _assert_pass_c_equal(got, ref, name)
+    assert set(claims) <= reached(st, *got), (name, reached(st, *got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+def test_pass_c_kernel_any_warps_per_cta(warps):
+    """Every CTA width the entry point takes gives the plain version's
+    results, at 33 channels (the last CTA partial at 2, 4 and 8) over two
+    tiles with inactive stretches."""
+    from _pass_c_inputs import NARROW, shaped_block
+
+    from sydr_tpu_torch.ops import loop_kernel as lk
+    from sydr_tpu_torch.ops import native
+
+    cfg, st, geo, corr = shaped_block(45, 33, "gaps", NARROW, _cuda())
+    bufs, args = lk.pass_c_launch_args(cfg, st, geo, corr, warps=warps)
+    assert lk.PASS_C_KERNEL.function()(*args, native.stream_of(corr)) == 0
+    ref = br._pass_c(cfg, st, geo, corr)
+    torch.cuda.synchronize()
+    _assert_pass_c_equal(lk.unpack(bufs), ref, f"{warps} warps a CTA")
+
+
+@pytest.mark.cuda
 def test_pass_c_channel_slice_is_bit_identical():
     """The kernel on the last 16 of 32 channels gives those channels of
     the 32-channel launch bit for bit (no step crosses channels)."""
@@ -634,10 +676,12 @@ def test_pass_c_rejects_bad_input():
     # The C entry point refuses what the kernel cannot read, and launches
     # nothing.
     _, args = lk.pass_c_launch_args(cfg, st, geo, corr)
-    bad = list(args)
-    bad[4] = 4                                   # fewer than 6 streams
     fn = lk.PASS_C_KERNEL.function()
-    assert fn(*bad, native.stream_of(corr)) != 0
+    for at, value in ((4, 4),                    # fewer than 6 streams
+                      (6, 0), (6, 3), (6, 16)):  # warps a CTA: 1, 2, 4, 8
+        bad = list(args)
+        bad[at] = value
+        assert fn(*bad, native.stream_of(corr)) != 0
 
 
 @pytest.mark.cuda

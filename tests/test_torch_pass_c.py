@@ -39,7 +39,15 @@ import numpy as np
 import pytest
 import torch
 
-from _pass_c_inputs import mid_track, n_streams
+from _pass_c_inputs import (
+    CLAIMS,
+    SHAPE_CASES,
+    activity,
+    mid_track,
+    n_streams,
+    reached,
+    shaped_block,
+)
 from sydr_tpu.channels import batch_runtime as jbr
 from sydr_tpu.channels.runtime import TrackingConfig as JaxConfig
 from sydr_tpu.channels.state import ChannelState as JaxState
@@ -282,6 +290,14 @@ def test_structures_match_the_sources():
         "kNumStateF"]
     assert _c_enum(cu, "StateI") == [_camel(n) for n in I32_SCALAR_FIELDS] \
         + ["kNumStateI"]
+    assert re.search(r"constexpr int kMaxWarps = (\d+);", cu).group(1) \
+        == str(lk.PASS_C_MAX_WARPS)
+    assert 1 <= lk.PASS_C_WARPS <= lk.PASS_C_MAX_WARPS
+    assert re.search(r"constexpr int kTile = (\d+);", cu).group(1) \
+        == str(lk.TILE_EPOCHS)
+    assert "kTile) * warps *\n         (4 * streams + 13 + 4 * kOutRows)" in cu
+    assert "kOutRows = kRowB + kNumOutB;" in cu
+    assert lk.slab_bytes(4, 6) == 32 * 4 * (4 * 6 + 13 + 4 * 24)
     for enum, keys, end in (("OutF", lk.OUT_F32, "kNumOutF"),
                             ("OutI", lk.OUT_I32, "kNumOutI"),
                             ("OutB", lk.OUT_BOOL, "kNumOutB")):
@@ -324,6 +340,8 @@ def test_launch_args_round_trip(name, block_ms, extra):
     assert consts is lk.loop_consts(cfg)
     assert args[2:5] == (N_CH, block_ms, n_streams(cfg))
     assert args[5] == (0 if cfg.pass_a == "closed" else N_CH)
+    assert args[6] == lk.PASS_C_WARPS
+    assert lk.pass_c_launch_args(cfg, st, geo, corr, warps=1)[1][6] == 1
     assert not geo["active"].is_contiguous() or cfg.pass_a == "scan"
     assert list(ptrs.state_f) == [getattr(st, n).data_ptr()
                                   for n in F32_FIELDS]
@@ -378,6 +396,59 @@ def test_launch_args_reject_bad_input():
     kaplan = dataclasses.replace(cfg, kaplan_narrow_only=False)
     with pytest.raises(ValueError, match="streams"):
         lk.pass_c_launch_args(kaplan, st, geo, corr)
+    for warps in (0, 3, lk.PASS_C_MAX_WARPS + 1):
+        with pytest.raises(ValueError, match="warps"):
+            lk.pass_c_launch_args(cfg, st, geo, corr, warps=warps)
+
+
+@pytest.mark.parametrize("case", SHAPE_CASES, ids=[c[0] for c in SHAPE_CASES])
+def test_shaped_blocks_reach_their_branches(case):
+    """The plain version on each shape and activity the kernel's ``cuda``
+    tests hold it to (tests/_pass_c_inputs.py) reaches every branch the
+    case claims, so that no card test passes for want of its branch: a
+    declaration inside the block, a bit completion, an inactive stretch
+    between active epochs, a bit completion past the first 32-epoch tile
+    with a stretch across the tiles' boundary, no epoch active, a
+    declaration of another bit edge than the state's. The
+    outputs keep the block's shape and the activity given."""
+    name, block_ms, n_ch, kind, extra, claims = case
+    assert set(claims) <= set(CLAIMS)
+    cfg, st, geo, corr = shaped_block(block_ms, n_ch, kind, extra, CPU)
+    assert geo["active"].is_contiguous() and corr.shape[:2] == (
+        block_ms, n_ch)
+    new_st, out = tbr._pass_c(cfg, st, geo, corr)
+    assert set(claims) <= reached(st, new_st, out), name
+    assert torch.equal(out["active"], geo["active"])
+    assert out["i_prompt"].shape == (block_ms, n_ch)
+    # Inactive epochs move no counter: no epoch active leaves them.
+    n_active = geo["active"].sum(0).to(torch.int32)
+    assert torch.equal(new_st.code_counter, st.code_counter + n_active)
+    if "idle" in claims:
+        for key in ("ms_counter", "flags", "accum_count", "edge_hist"):
+            assert torch.equal(getattr(new_st, key), getattr(st, key)), key
+
+
+def test_activity_patterns():
+    """``"gaps"`` cuts stretches out of every third channel and, past 33
+    epochs, epochs 30-33 of channels 2 and 5 (across the 32-epoch tiles);
+    ``"idle"`` clears every epoch; pass A's own activity passes through."""
+    base = torch.ones((1, 8), dtype=torch.bool).expand(45, 8)
+    gaps = activity("gaps", base)
+    assert base.all() and activity("gaps", base.contiguous()).sum() \
+        == gaps.sum()
+    assert gaps.flags["C_CONTIGUOUS"] and gaps.shape == (45, 8)
+    assert not gaps[5:10, 1].any() and gaps[:5, 1].all()
+    assert gaps[10:, 1].all()
+    assert not gaps[8:13, 4].any() and gaps[13:, 4].all()
+    assert not gaps[30:34, 2].any() and gaps[:30, 2].all()
+    assert gaps[34:, 2].all()
+    assert gaps[:, 0].all() and gaps[:, 3].all()
+    assert activity("gaps", base[:20])[:, 2].all()
+    assert activity("pass-a", base).all()
+    assert activity("moved-edge", base).all()
+    assert not activity("idle", base).any()
+    with pytest.raises(ValueError, match="activity"):
+        activity("some", base)
 
 
 def test_pass_c_on_cpu_is_the_plain_version():

@@ -44,6 +44,54 @@ def test_tool_exits_2_without_cuda(name, capsys, monkeypatch):
     assert captured.out == ""
 
 
+def test_trace_profile_ties_ctypes_kernels_to_their_pass():
+    """On a synthetic list of profiler events: each pass's range keeps
+    the device time the profiler tied to it; the package's ``ctypes``
+    kernels (K1, K3's two, pass C's) of a name it tied to no op count for
+    their pass by name; a kernel of a name tied to an op is not counted
+    again; any other kernel tied to no op is unattributed."""
+    from types import SimpleNamespace as Evt
+
+    from sydr_tpu_torch.tools import trace_profile as tp
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+    def host(key, device_us, tied=()):
+        return Evt(key=key, device_type=cpu, device_time_total=device_us,
+                   self_device_time_total=0.0, is_user_annotation=False,
+                   kernels=[Evt(name=n) for n in tied])
+
+    def kernel(key, us):
+        return Evt(key=key, device_type=cuda, self_device_time_total=us,
+                   is_user_annotation=False, kernels=[])
+
+    ns = "(anonymous namespace)::"
+    tied_c = f"{ns}pass_c_kernel<1>(sydr::LoopConsts, int)"
+    events = [
+        host("pass A", 100.0),
+        host("aten::add", 100.0, ["void at::native::add_kernel(...)"]),
+        host("pass B", 60.0, ["void at::native::cat_kernel(...)"]),
+        host("pass C", 12.0, [tied_c, "void at::native::slew_kernel(...)"]),
+        host("cudaLaunchKernel", 0.0),
+        kernel("void at::native::add_kernel(...)", 100.0),
+        kernel("void at::native::cat_kernel(...)", 60.0),
+        kernel(f"{ns}epoch_correlate_kernel(float const*, int)", 14.0),
+        kernel(f"{ns}totals_kernel(float const*)", 3.0),
+        kernel(f"{ns}prefix_kernel(float const*)", 2.0),
+        kernel(f"{ns}pass_c_kernel<2>(sydr::LoopConsts, int)", 8.0),
+        kernel(tied_c, 5.0),
+        kernel("void at::native::slew_kernel(...)", 7.0),
+        kernel("void some_unlinked_kernel()", 1.5),
+    ]
+    split = tp.split_device_ms(events)
+    assert split["pass A"] == pytest.approx(0.1)
+    assert split["pass B"] == pytest.approx((60.0 + 14.0 + 3.0 + 2.0) / 1e3)
+    assert split["pass C"] == pytest.approx((12.0 + 8.0) / 1e3)
+    assert split["unattributed"] == pytest.approx(1.5 / 1e3)
+    assert tp.ctypes_pass(f"void {ns}pass_c_kernel<0>(int)") == "pass C"
+    assert tp.ctypes_pass("void at::native::prefix_kernel(int)") is None
+
+
 def test_trace_profile_prints_pass_split_for_both_forms(capsys):
     rc, lines = _main("trace_profile", [
         "--cpu", "--channels", "4", "--fs", "4.096e6", "--decimate", "4",

@@ -11,6 +11,7 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
     python3 tools/torch_kernel_variants.py --twostep --layouts --n 99375
     python3 tools/torch_kernel_variants.py --k2 --bluestein --layouts --n 9722
     python3 tools/torch_kernel_variants.py --parent DIR [--n 4070 ...]
+    python3 tools/torch_kernel_variants.py --pass-c [--parent DIR]
 
 * K2 ``pcps_bins`` at n = 4092 (8 channels x 101 bins x 10 blocks), and
   with ``--n`` at any other length that is not prime: the device time of
@@ -80,6 +81,17 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
   rate): the device time of the totals launch, the prefix launch and both,
   and of the kernel that only makes K3's stores, for several segment
   lengths (``seg_chunks = 1`` is one 1024-sample chunk a block).
+
+* ``--pass-c``: pass C's kernel at the cruise and pull-in shapes and at
+  64 epochs, built as the source is and with parts taken out by text
+  substitution (:data:`PASS_C_CUTS`: the serial phase B or D, both, phase
+  D's histogram reductions, the discriminators, the derotation's sinf and
+  cosf, the output stores), each timed in two turns: where a block's
+  device time goes (a cut kernel's results are not checked: they are
+  wrong by construction). With ``--parent DIR``, only DIR's pass C
+  kernel (its entry point without the warps argument) against this
+  tree's at the cruise and pull-in shapes, in turns parent, this, this,
+  parent, their outputs and states held equal bit for bit.
 
 Device times are ``chip_smoke.device_ms`` (launches queued behind a
 spinning kernel, between CUDA events). Needs a CUDA device; imports no JAX.
@@ -780,8 +792,8 @@ def source_variant(kern, tag, lines, swap=None):
     start with a key of ``lines`` (each once in all the files) given that
     value (``constexpr int kThreads = 256;`` with ``{"constexpr int
     kThreads = ": 512}``), and the text ``swap[0]`` (once) replaced by
-    ``swap[1]``, as a kernel built from copies under
-    ``_build/variants/<tag>``."""
+    ``swap[1]`` (``swap`` may also be a list of such pairs), as a kernel
+    built from copies under ``_build/variants/<tag>``."""
     from pathlib import Path
 
     from sydr_tpu_torch.ops import native
@@ -802,11 +814,13 @@ def source_variant(kern, tag, lines, swap=None):
     chip_smoke.check(all(v == 1 for v in found.values()),
                      f"lines not found once in {kern.source} and its "
                      f"headers: {found}")
-    if swap is not None:
-        hits = [name for name, text in texts.items() if swap[0] in text]
-        chip_smoke.check(len(hits) == 1 and texts[hits[0]].count(swap[0])
-                         == 1, f"{swap[0]} not in the sources once")
-        texts[hits[0]] = texts[hits[0]].replace(*swap)
+    swaps = [] if swap is None else (
+        swap if isinstance(swap, list) else [swap])
+    for old, new in swaps:
+        hits = [name for name, text in texts.items() if old in text]
+        chip_smoke.check(len(hits) == 1 and texts[hits[0]].count(old)
+                         == 1, f"{old} not in the sources once")
+        texts[hits[0]] = texts[hits[0]].replace(old, new)
     folder = Path(native.PACKAGE_DIR, "_build", "variants", tag)
     folder.mkdir(parents=True, exist_ok=True)
     for name, text in texts.items():
@@ -1169,6 +1183,93 @@ def k3_variants(device) -> None:
                   f"(max_abs_err {err:.3e})", flush=True)
 
 
+# Pass C's epoch loop with parts taken out: (label, [(text, replacement)]).
+_PHASE_B = ("for (int e = 0; e < m; ++e) {\n      Disc de = d;",
+            "for (int e = 0; e < 0; ++e) {\n      Disc de = d;")
+_PHASE_D = ("for (int e = 0; e < m; ++e) {\n      const float ipc_e",
+            "for (int e = 0; e < 0; ++e) {\n      const float ipc_e")
+PASS_C_CUTS = (
+    ("no phase B", [_PHASE_B]),
+    ("no phase D", [_PHASE_D]),
+    ("no phase B or D", [_PHASE_B, _PHASE_D]),
+    ("no histogram reductions", [("      if (!had_sync) {\n",
+                                  "      if (false) {\n")]),
+    ("no discriminate", [(
+        "  const Disc d = discriminate(k, kProf, corr, ip_prev, qp_prev);",
+        "  Disc d = {};\n  d.ip = ip;\n  d.qp = qp;")]),
+    ("no sinf or cosf", [("  const float cth = cosf(theta), sth = sinf(theta);",
+                          "  const float cth = theta, sth = theta;")]),
+    ("no output stores", [("  if (w >= live || e >= m) return;",
+                           "  if (w >= 0) return;")]),
+)
+
+
+def pass_c_variants(device) -> None:
+    """``--pass-c`` (module note)."""
+    from sydr_tpu_torch.ops import loop_kernel as lk
+    from sydr_tpu_torch.ops import native
+
+    kerns = {"source": lk.PASS_C_KERNEL}
+    for k, (label, swaps) in enumerate(PASS_C_CUTS):
+        kerns[label] = source_variant(lk.PASS_C_KERNEL, f"pass_c_cut{k}",
+                                      {}, swaps)
+    native.build_all(list(kerns.values()))
+    mod = chip_smoke.pass_c_module()
+    cases = [(name, chip_smoke.pass_c_inputs(bm, extra, device))
+             for name, bm, extra, _ in chip_smoke.PASS_C_CASES]
+    cases.append(("64 epochs, narrow-only kaplan", mod.shaped_block(
+        64, 32, "pass-a", mod.NARROW, device)))
+    for name, (cfg, st, geo, corr) in cases:
+        _, args = lk.pass_c_launch_args(cfg, st, geo, corr)
+        stream = native.stream_of(corr)
+        times = {label: [] for label in kerns}
+        for turn in range(2):
+            for label in (kerns if turn == 0 else reversed(list(kerns))):
+                fn = kerns[label].function()
+                times[label].append(chip_smoke.device_ms(
+                    lambda: fn(*args, stream), 200))
+        print(f"pass C {name}: device ms in two turns: " + "; ".join(
+            f"{label} " + " / ".join(f"{ms:.5f}" for ms in v)
+            for label, v in times.items()), flush=True)
+
+
+def pass_c_against_parent(parent: str, device) -> None:
+    """``--pass-c --parent DIR`` (module note)."""
+    from pathlib import Path
+
+    import torch
+
+    from sydr_tpu_torch.ops import loop_kernel as lk
+    from sydr_tpu_torch.ops import native
+
+    theirs = native.CudaKernel(
+        "pass_c.cu", "pass_c_launch", lk.PASS_C_KERNEL.argtypes[:-2]
+        + lk.PASS_C_KERNEL.argtypes[-1:],
+        csrc_dir=Path(parent, "sydr_tpu_torch", "csrc"))
+    native.build_all([theirs, lk.PASS_C_KERNEL])
+    for name, bm, extra, _ in chip_smoke.PASS_C_CASES:
+        cfg, st, geo, corr = chip_smoke.pass_c_inputs(bm, extra, device)
+        stream = native.stream_of(corr)
+        bufs, args = lk.pass_c_launch_args(cfg, st, geo, corr)
+        pbufs, pargs = lk.pass_c_launch_args(cfg, st, geo, corr)
+        runs = {"parent": lambda: theirs.function()(*pargs[:-1], stream),
+                "this": lambda: lk.PASS_C_KERNEL.function()(*args, stream)}
+        for run in runs.values():
+            chip_smoke.check(run() == 0, f"pass C {name}: a launch failed")
+        torch.cuda.synchronize()
+        same = all(torch.equal(bufs[k].view(torch.int8),
+                               pbufs[k].view(torch.int8)) for k in bufs)
+        times = {"parent": [], "this": []}
+        for label in ("parent", "this", "this", "parent"):
+            times[label].append(chip_smoke.device_ms(runs[label], 200))
+        print(f"pass C {name}: parent -> this, device ms in turns "
+              f"(parent, this, this, parent): parent "
+              + " / ".join(f"{ms:.5f}" for ms in times["parent"])
+              + "; this " + " / ".join(f"{ms:.5f}" for ms in times["this"])
+              + f"; outputs and state bit-identical: {same}", flush=True)
+        chip_smoke.check(same, f"pass C {name}: the trees' kernels differ")
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -1193,6 +1294,9 @@ def main(argv=None) -> int:
                              "splits and sub-plan orders at each --n; with "
                              "--k2 --bluestein: the Bluestein entry's "
                              "sub-plan orders and split at each --n")
+    parser.add_argument("--pass-c", action="store_true",
+                        help="pass C's kernel with parts of its epoch "
+                             "loop cut out")
     parser.add_argument("--parent", metavar="DIR",
                         help="hold the K2 entries of the checkout DIR "
                              "against this tree's")
@@ -1205,6 +1309,12 @@ def main(argv=None) -> int:
 
     print(f"card: {chip_smoke.card_line()}", flush=True)
     device = torch.device("cuda")
+    if opts.pass_c and opts.parent:
+        pass_c_against_parent(opts.parent, device)
+        return 0
+    if opts.pass_c:
+        pass_c_variants(device)
+        return 0
     built = [acq_kernel.KERNEL, acq_kernel.CLUSTER_KERNEL,
              acq_kernel.TWOSTEP_KERNEL, acq_kernel.BLUESTEIN_KERNEL,
              ck.CUMSUM_KERNEL, ck.STORE_CEILING]
