@@ -51,7 +51,17 @@ printing its wall time:
    channels (2, 45 and 64 epochs; 1, 13, 33 and 64 channels; inactive
    stretches, one across two 32-epoch tiles; no epoch active; a
    declaration that moves the bit edge: ``tests/_pass_c_inputs.py``'s
-   ``SHAPE_CASES``, each reaching the branches it claims). Each case
+   ``SHAPE_CASES``, each reaching the branches it claims); and the scan
+   runtime's kernel ``scan_block`` (``ops/scan_kernel.py``, the JAX
+   package's jitted ``lax.scan`` in ``run_block``; it replaces no TPU
+   kernel) on a mid-track block of 32 channels x 20 epochs
+   (``tests/_scan_inputs.py``: a declaration and a bit completion inside
+   it, acquiring channels, a late first epoch) at the scan session's shape
+   (2.5 Msps, window 2756, borre) and at 10 Msps with kaplan's 5 taps,
+   against its plain version under the scan runtime's bounds (integers
+   equal, correlators by the tie rule, code phase within 1e-5 chips,
+   carrier within 0.05 Hz), a second launch bit-identical, with its
+   latency bound beside the bytes and operations bound. Each case
    prints four times and a bound:
    ``ms``, the device time of the launch alone (:func:`device_ms`: the C
    entry point called in a tight loop from arguments prepared once, the
@@ -116,9 +126,11 @@ printing its wall time:
 11. the per-ms scan runtime at full width: phase 5's capture (its first
     2 s) through a 32-channel ``TrackingSession`` with ``runtime="scan"``,
     borre loops, 20 ms blocks: acquisition through K2, bit sync and the
-    5 Hz carrier bound on the visible channels, no K1 or K3 launch; its
-    real-time factor is printed, and ``torch.profiler`` over one more block
-    counts its kernel launches per epoch and the device's busy share;
+    5 Hz carrier bound on the visible channels, one launch of the scan
+    kernel a block and no K1, K3 or pass C launch; its real-time factor is
+    printed, ``torch.profiler`` over one more block must see the one scan
+    kernel on the device, and the step's graph prints its nodes and its
+    replay's time a block;
 12. a serial-search session: 8 channels at 2.5 Msps, 4 visible at
     50 dB-Hz (one code period is all a serial search integrates),
     ``AcquisitionConfig(method="serial")`` on 250 Hz bins, 300 ms: the
@@ -138,8 +150,8 @@ printing its wall time:
     the carrier within 1 Hz (the kernels sum in one fixed order, so the
     phase also prints whether the two runs were bit-identical). Then the
     CLI in process with ``--runtime scan --checkpoint-every``, which must
-    leave a ``.ckpt.npz`` that a receiver of the demo's configuration
-    loads;
+    launch the scan kernel once a block and leave a ``.ckpt.npz`` that a
+    receiver of the demo's configuration loads;
 15. the multi-device layer (``sydr_tpu_torch.parallel``): (a) a one-rank
     NCCL process group, ``TrackingSession(mesh=make_mesh(1, 1))`` on the
     first 2 s of phase 5's capture, every output of every call bit for bit
@@ -284,6 +296,30 @@ PASS_C_CASES = (
      dict(profile="kaplan", kaplan_narrow_only=True), 20),
     ("pull-in 32 ch x 5 epochs, kaplan", 5, dict(profile="kaplan"), 21))
 PASS_C_WARP_SWEEP = (1, 2, 4, 8, 8, 4, 2, 1)
+# The scan runtime's kernel: operations counted for its bound, per sample
+# and channel of an epoch (the carrier phase's 2, accurate cosf and sinf at
+# ~15 each, the mix's 6) and per spacing of a sample (the chip index in
+# double: 2 and 2 conversions, ceil, clamp; the two products and sums), and
+# per channel and epoch the loop update and bookkeeping (pass C's count).
+SCAN_SAMPLE_OPS = 38
+SCAN_SPACING_OPS = 10
+# Its latency bound: each epoch's carried chain, one after the other, at
+# PASS_C_OP_CYCLES cycles an operation: SCAN_CHAIN_OPS dependent
+# operations from an epoch's start to the next (one sample's phase, cosf,
+# mix and product, 25; the loop update from the correlators to the carrier
+# and code rate, with the Costas atanf and NNEML's square roots and
+# divisions, ~35; the next start's code rate, division and ceil, ~10),
+# plus the reduction's depth: a thread's samples added in series, 5
+# shuffle levels (2 each) and the warps' partials in series.
+SCAN_CHAIN_OPS = 70
+# The scan kernel's cases: (name, TrackingConfig fields), 32 channels x
+# 20 epochs: the scan session's shape, and a full-rate front end with
+# kaplan's 5 taps.
+SCAN_CASES = (
+    ("scan session 32 ch x 20 epochs, 2.5 Msps, borre",
+     dict(sampling_frequency=2.5e6, profile="borre", quantize_spacing=True)),
+    ("full rate 32 ch x 20 epochs, 10 Msps, kaplan 5 taps",
+     dict(sampling_frequency=10e6, profile="kaplan")))
 K2_RTOL = 1e-4
 K3_PREFIX_SIGMAS = 4.0
 CORR_KEYS = ("i_early", "q_early", "i_prompt", "q_prompt", "i_late",
@@ -752,6 +788,114 @@ def pass_c_case(name, block_ms, extra, device, empty_ms, chain_ops=None,
     return res
 
 
+def scan_module():
+    """``tests/_scan_inputs.py``, the scan blocks shared with the tests."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import _scan_inputs
+
+    return _scan_inputs
+
+
+def scan_inputs(extra, device):
+    """The mid-track scan block of ``tests/_scan_inputs.py`` at 32 channels
+    and 20 epochs (a bit-sync declaration and a bit completion inside it,
+    acquiring channels, a late first epoch, the rails acting): ``(cfg,
+    codes, state, window_re, window_im)``."""
+    mod = scan_module()
+    cfg = mod.scan_config(**extra)
+    return (cfg, *mod.scan_block_tensors(cfg, N_CHANNELS, SEED % 1000,
+                                         device))
+
+
+def scan_latency_ms(cfg, n_valid, empty_ms) -> float:
+    """The scan kernel's latency bound: each epoch's carried chain of
+    SCAN_CHAIN_OPS operations plus its reduction's depth (the most samples
+    a thread sums, 5 shuffle levels of 2, the warps in series), at
+    PASS_C_OP_CYCLES cycles an operation at the largest SM clock, plus the
+    empty launch. ``n_valid``: the samples each epoch sums, the most over
+    the channels ``[block_ms]``."""
+    from sydr_tpu_torch.ops.scan_kernel import SCAN_THREADS
+
+    depth = sum(SCAN_CHAIN_OPS + -(-int(n) // SCAN_THREADS) + 10
+                + SCAN_THREADS // 32 - 1 for n in n_valid)
+    return 1e3 * depth * PASS_C_OP_CYCLES / sm_clock_hz() + empty_ms
+
+
+def scan_case(name, extra, device, empty_ms):
+    """Kernel vs plain scan block (``runtime._run_block_plain``) on the
+    card under the scan runtime's bounds; a second launch bit-identical to
+    the first; the branches of ``tests/_scan_inputs.py`` reached."""
+    import torch
+
+    from sydr_tpu_torch.channels import runtime as rt
+    from sydr_tpu_torch.channels.state import FIELDS
+    from sydr_tpu_torch.ops import native
+    from sydr_tpu_torch.ops import profiles as prof
+    from sydr_tpu_torch.ops import scan_kernel as sk
+
+    cfg, codes, st, wre, wim = scan_inputs(extra, device)
+    n_ch = codes.shape[0]
+    before = read_launches()
+    got_st, got = rt.run_block(cfg, codes, st, wre, wim)
+    launched = {k: v - before[k] for k, v in read_launches().items()
+                if v != before[k]}
+    check(launched == {"scan_block": 1},
+          f"scan {name}: run_block launched {launched}")
+    again_st, again = sk.scan_block(cfg, codes, st, wre, wim)
+    ref_st, ref = rt._run_block_plain(cfg, codes, st, wre, wim)
+    torch.cuda.synchronize()
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    repeat = all(torch.equal(bits(got[k]), bits(again[k])) for k in got) \
+        and all(torch.equal(bits(getattr(got_st, f)),
+                            bits(getattr(again_st, f))) for f in FIELDS)
+    peak = max(float(wre.abs().max()), float(wim.abs().max()))
+    faults, errors = scan_module().bound_faults((got_st, got),
+                                                (ref_st, ref), peak)
+    missed = {"declare", "bit", "idle", "late"} - scan_module().reached(
+        st, got_st, got)
+
+    bufs, cargs = sk.scan_launch_args(cfg, codes, st, wre, wim)
+    fn = sk.SCAN_KERNEL.function()
+    stream = native.stream_of(wre)
+    n_valid = got["required"].clamp(0, cfg.window_size)
+    n_bytes = tensor_bytes(*[getattr(st, f) for f in FIELDS], codes, wre,
+                           wim, *bufs.values())
+    n_sp = len(prof.spacings_for(cfg))
+    flops = float(n_valid.sum()) * (SCAN_SAMPLE_OPS
+                                    + SCAN_SPACING_OPS * n_sp) \
+        + cfg.block_ms * n_ch * PASS_C_EPOCH_OPS
+    res = {"max_abs_err": errors.get("correlators", float("nan")),
+           "ms": device_ms(lambda: fn(*cargs, stream), 20),
+           "call_ms": cuda_ms(lambda: sk.scan_block(cfg, codes, st, wre, wim),
+                              20),
+           "plain_ms": cuda_ms(
+               lambda: rt._run_block_plain(cfg, codes, st, wre, wim), 3),
+           "library_ms": None, **roofline(n_bytes, flops),
+           "latency_ms": scan_latency_ms(
+               cfg, n_valid.max(dim=1).values.tolist(), empty_ms)}
+    report("scan", name, got["i_prompt"].shape,
+           f"within the scan runtime's bounds: {not faults}; max abs err "
+           f"{ {k: float(f'{v:.2e}') for k, v in errors.items()} }; second "
+           f"launch bit-identical: {repeat}; "
+           f"{int(got['bit_ready'].sum())} bit completions, "
+           f"{int((got_st.flags & 2).ne(st.flags & 2).sum())} declarations; "
+           f"{sk.SCAN_THREADS} threads a CTA, a CTA a channel; bound "
+           f"{res['bound_ms']:.3e} ms ({n_bytes} bytes, {flops:.3e} ops); "
+           f"latency bound {res['latency_ms']:.5f} ms ({SCAN_CHAIN_OPS} "
+           f"chain ops + the reduction's depth an epoch x {cfg.block_ms} "
+           f"epochs x {PASS_C_OP_CYCLES} cycles at "
+           f"{sm_clock_hz() / 1e9:.3f} GHz + the empty launch), the empty "
+           f"launch {empty_ms:.5f} ms", res)
+    check(not faults, f"scan {name}: the kernel differs from the plain "
+                      f"version beyond its bounds: {faults}")
+    check(repeat, f"scan {name}: a second launch differs from the first")
+    check(not missed, f"scan {name}: the block did not reach {missed}")
+    return res
+
+
 def ifft_library_ms(spectra, code_k, bin_shifts, quiet=False) -> float:
     """``torch.fft.ifft`` alone over the pre-made product ``[n_bins, n_ch,
     nc, n]`` complex64: the part of K2 that one PyTorch call computes
@@ -1123,10 +1267,12 @@ def kernel_phase(device) -> dict:
                                   fs=FS_IN / DECIMATE)
         pass_c_case(f"{name} ({n_ch} ch x {bm} epochs, {kind})", bm, extra,
                     device, empty_ms, inputs=inputs, claims=claims)
+    scan = {name: scan_case(name, extra, device, empty_ms)
+            for name, extra in SCAN_CASES}
     return {"epoch_correlate": k1, "pcps_bins": k2,
             "pcps_bins_cluster": k2c, "pcps_bins_twostep": k2t,
             "pcps_bins_bluestein": k2b, "block_cumsum_streams": k3,
-            "pass_c": pc}
+            "pass_c": pc, "scan_block": scan}
 
 
 # ---------------------------------------------------------------------------
@@ -1316,15 +1462,19 @@ def slice_phase(device, capture=None, signal_ms=SIGNAL_MS, fs_in=FS_IN,
           "the session never promoted to cruise")
     check(all(m != MODE_TRACKING for m in absent_modes.values()),
           "an absent PRN is tracking")
-    # K1 and pass C in the batch runtime, the named K2 entry, and nothing
-    # else.
+    # K1 and pass C in the batch runtime, the scan kernel in the scan
+    # runtime, the named K2 entry, and nothing else.
     expected = {name: name == acq_kernel_name
                 or (name in ("epoch_correlate", "pass_c")
                     and runtime == "batch")
+                or (name == "scan_block" and runtime == "scan")
                 for name in launches}
     check(all((launches[name] > 0) == hit for name, hit in expected.items()),
           f"the session's path launched {launches}: expected exactly "
           f"{[name for name, hit in expected.items() if hit]}")
+    check(runtime != "scan" or launches["scan_block"] == calls,
+          f"the scan runtime launched its kernel {launches['scan_block']} "
+          f"times in {calls} blocks, not once a block")
     check(all(np.isfinite(merged[k]).all() for k in
               ("i_prompt", "q_prompt", "carrier_freq")),
           "non-finite tracking output")
@@ -1485,15 +1635,20 @@ def host_split(session, block_re, block_im, card) -> None:
 
 def scan_block_profile(session, card) -> None:
     """``torch.profiler`` over one block of the scan runtime on the
-    session's state: kernel launches per epoch and the device's busy
-    share (the state is not advanced: ``run_block`` returns a new one)."""
+    session's state: exactly one kernel, the scan kernel, launched and run
+    on the card, and its device time (the state is not advanced:
+    ``run_block`` returns a new one); then the session's graph of the
+    step: its nodes, the launches a replay makes and the replay's time a
+    block between CUDA events."""
     import torch
 
     from sydr_tpu_torch.channels import runtime
+    from sydr_tpu_torch.ops import scan_kernel as sk
     from sydr_tpu_torch.tools import trace_profile
 
     cfg = session.cfg
     window = torch.randn(cfg.window_samples, device=session.device)
+
     def run():
         runtime.run_block(cfg, session.codes, session.state, window, window)
 
@@ -1501,27 +1656,54 @@ def scan_block_profile(session, card) -> None:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    before = sk.SCAN_KERNEL.launches
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
         run()
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
+    launched = sk.SCAN_KERNEL.launches - before
     events = prof.key_averages()
-    n_launch = sum(e.count for e in events if "LaunchKernel" in e.key)
-    device_us = sum(e.self_device_time_total
-                    for e in trace_profile.kernel_rows(events))
+    rows = trace_profile.kernel_rows(events)
+    on_device = {e.key: e.count for e in rows}
+    n_scan = sum(n for key, n in on_device.items()
+                 if "scan_block_kernel" in key)
+    device_us = sum(e.self_device_time_total for e in rows)
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     print(f"scan runtime, one {cfg.block_ms} ms block of "
-          f"{session.n_channels} channels: {n_launch / cfg.block_ms:.1f} "
-          f"kernel launches per epoch, {plain_ms:.2f} ms wall "
+          f"{session.n_channels} channels: {launched} launch of the scan "
+          f"kernel; on the device {on_device}; {plain_ms:.3f} ms wall "
           f"({wall_ms:.2f} ms under the profiler), device time "
-          f"{device_us / 1e3:.3f} ms "
+          f"{device_us / 1e3:.4f} ms "
           f"({100.0 * device_us / 1e3 / plain_ms:.1f}% of the unprofiled "
           f"wall) on {card}", flush=True)
-    check(n_launch > 0, "the profiler saw no kernel launch")
+    check(launched == 1 and n_scan == 1,
+          f"a scan block ran {on_device} on the device ({launched} "
+          f"launches of the scan kernel), not one scan kernel")
+
+    check(session.graph is not None and len(session.graph.graphs) == 1,
+          "the scan session did not graph its step")
+    entry = next(iter(session.graph.graphs.values()))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    replay_ms = []
+    for _ in range(5):
+        start.record()
+        entry.replay()
+        end.record()
+        torch.cuda.synchronize()
+        replay_ms.append(start.elapsed_time(end))
+    held = {k.source.removesuffix(".cu"): n
+            for k, n in entry.launches.items()}
+    print(f"scan graph: {entry.nodes} nodes, kernel launches a replay "
+          f"{held}, capture {entry.capture_s:.3f} s + instantiation "
+          f"{entry.instantiate_s:.3f} s, replay "
+          f"{[round(x, 4) for x in replay_ms]} ms a {cfg.block_ms} ms block "
+          f"(CUDA events) on {card}", flush=True)
+    check(entry.launches == {sk.SCAN_KERNEL: 1},
+          f"the scan graph holds {held}, not one scan kernel a block")
 
 
 def serial_search_times(session, card) -> None:
@@ -1746,10 +1928,17 @@ def checkpoint_phase(device, sky_path, card) -> dict:
                 "--no-dashboard", "--no-report", "--out", tmp]
         print(f"cli: sydr_tpu_torch.main.main({argv})", flush=True)
         buf = io.StringIO()
+        scan_before = read_launches()["scan_block"]
         with contextlib.redirect_stdout(buf):
             rc = cli.main(argv)
+        scan_launches = read_launches()["scan_block"] - scan_before
         print(buf.getvalue().rstrip(), flush=True)
+        print(f"cli --runtime scan: {scan_launches} launches of the scan "
+              f"kernel in 400 ms of 20 ms blocks", flush=True)
         check(rc == 0, f"the CLI returned {rc}")
+        check(scan_launches == 400 // 20,
+              f"the CLI's scan runtime launched its kernel {scan_launches} "
+              f"times in 20 blocks")
         ckpt = os.path.join(tmp, "demo.ckpt.npz")
         check(os.path.exists(ckpt), "the CLI left no checkpoint")
         run_cfg, _ = cli._build_demo(argparse.Namespace(
@@ -1774,14 +1963,15 @@ def kernels():
     """Every CUDA kernel of the port, by name."""
     from sydr_tpu_torch.ops import acq_kernel
     from sydr_tpu_torch.ops import correlator_kernel as ck
-    from sydr_tpu_torch.ops import loop_kernel
+    from sydr_tpu_torch.ops import loop_kernel, scan_kernel
 
     return {"epoch_correlate": ck.KERNEL, "pcps_bins": acq_kernel.KERNEL,
             "pcps_bins_cluster": acq_kernel.CLUSTER_KERNEL,
             "pcps_bins_twostep": acq_kernel.TWOSTEP_KERNEL,
             "pcps_bins_bluestein": acq_kernel.BLUESTEIN_KERNEL,
             "block_cumsum_streams": ck.CUMSUM_KERNEL,
-            "pass_c": loop_kernel.PASS_C_KERNEL}
+            "pass_c": loop_kernel.PASS_C_KERNEL,
+            "scan_block": scan_kernel.SCAN_KERNEL}
 
 
 def reset_launches() -> None:
@@ -2783,6 +2973,9 @@ RECORD = (
     # No TPU kernel: the XLA-fused lax.scan of the JAX pass C.
     ("pass_c", "pass_c.cu", "sydr_tpu/channels/batch_runtime.py:1205",
      PASS_C_CASES[0][0], "cli"),
+    # No TPU kernel: the jitted lax.scan of the JAX run_block.
+    ("scan_block", "scan_block.cu", "sydr_tpu/channels/runtime.py:468",
+     SCAN_CASES[0][0], "scan session"),
 )
 
 

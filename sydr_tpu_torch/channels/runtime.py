@@ -9,12 +9,14 @@ epochs over a block of samples resident on the device: each epoch reads
 every channel's window at its own offset, correlates E/P/L
 (``ops.tracking.epl_correlate``), and updates the loops at once, so the
 NCO feedback has the reference's per-ms cadence (the batched runtime,
-``channels.batch_runtime``, applies it once per block). The JAX
-``lax.scan`` over epochs is a Python loop here, and its channel ``vmap``
-the leading axis of ``[n_ch, ...]`` tensors. The sliding window is
-``tail_ms + block_ms`` milliseconds of IQ; the tail carries the previous
-block's last ``tail_ms`` ms for channels whose read cursor lags the write
-head.
+``channels.batch_runtime``, applies it once per block). On CUDA tensors
+the JAX ``lax.scan`` over epochs is one launch of a hand-written kernel
+(``ops.scan_kernel``, ``csrc/scan_block.cu``); its plain version,
+:func:`_run_block_plain`, which CPU tensors take, is a Python loop over
+epochs with the channel ``vmap`` the leading axis of ``[n_ch, ...]``
+tensors. The sliding window is ``tail_ms + block_ms`` milliseconds of IQ;
+the tail carries the previous block's last ``tail_ms`` ms for channels
+whose read cursor lags the write head.
 
 :class:`TrackingConfig` keeps every
 field and default of the JAX configuration so existing configs load
@@ -48,6 +50,7 @@ from sydr_tpu_torch.constants import (
     GPS_L1CA_CODE_LENGTH,
 )
 from sydr_tpu_torch.ops import profiles as prof
+from sydr_tpu_torch.ops import scan_kernel
 from sydr_tpu_torch.ops import tracking as trk
 from sydr_tpu_torch.ops.correlator_kernel import fma32
 
@@ -180,7 +183,8 @@ def _epoch(cfg: TrackingConfig, codes, window_re, window_im,
            st: ChannelState, epoch_idx: int):
     """One 1-ms lockstep epoch across all channels.
 
-    ``window_re/im`` are the block's window padded by :func:`run_block`;
+    ``window_re/im`` are the block's window padded by
+    :func:`_run_block_plain`;
     returns (new_state, outputs ``[n_ch]`` per key).
     """
     spms = cfg.samples_per_ms
@@ -207,7 +211,7 @@ def _epoch(cfg: TrackingConfig, codes, window_re, window_im,
     active = (st.mode == MODE_TRACKING) & (unread >= required)
 
     # Per-channel fixed-size window reads at their own offsets, one gather.
-    # The window is padded (run_block) so no read overruns: clamping the
+    # The window is padded (_run_block_plain) so no read overruns: clamping the
     # start instead would misalign the last epoch of every block for
     # channels whose leftover unread is below window_size - samples_per_ms.
     read_ptr = torch.clamp(avail - unread, min=0)
@@ -344,7 +348,17 @@ def _epoch(cfg: TrackingConfig, codes, window_re, window_im,
 
 def run_block(cfg: TrackingConfig, codes, state: ChannelState,
               window_re, window_im):
-    """Process one block of IQ through all channels, epoch by epoch.
+    """Process one block of IQ through all channels, epoch by epoch:
+    :func:`_run_block_plain` on CPU tensors, one launch of
+    ``csrc/scan_block.cu`` on CUDA tensors (``ops.scan_kernel.scan_block``;
+    the same arguments and results).
+    """
+    return scan_kernel.scan_block(cfg, codes, state, window_re, window_im)
+
+
+def _run_block_plain(cfg: TrackingConfig, codes, state: ChannelState,
+                     window_re, window_im):
+    """:func:`run_block` in plain PyTorch ops, a Python loop over epochs.
 
     Args:
         cfg: TrackingConfig.

@@ -52,8 +52,8 @@ _INT = ctypes.c_int
 _F32 = ctypes.c_float
 
 PROFILES = {"borre": 0, "kaplan": 1, "kaplan_narrow_only": 2}
-# The outputs' rows in the kernel's buffers (csrc/pass_c.cu's OutF, OutI
-# and OutB), and every key in the plain version's order.
+# The outputs' rows in the kernels' buffers (csrc/channel_layout.cuh's
+# OutF, OutI and OutB), and every key in the plain version's order.
 OUT_F32 = ("i_early", "q_early", "i_prompt", "q_prompt", "i_late",
            "q_late", "dll_error", "pll_error", "fll_error", "nco_code",
            "nco_carrier", "carrier_freq", "code_freq", "cn0", "pll_lock",

@@ -19,10 +19,17 @@ order than ``torch.cumsum``: the raw prefix within ``4 * sqrt(n_win) *
 n_win additions, four sigma), and the per-epoch correlators picked from it
 within K1's bound.
 
+Pass C's kernel is held to its plain version bit for bit. The scan
+runtime's kernel (``csrc/scan_block.cu``) sums each correlator in its own
+order: it is held to its plain version by the scan runtime's bounds
+(``_scan_inputs.bound_faults``), and to itself bit for bit across runs,
+channel slices, a graph replay and the mesh's scan step.
+
 The session's step as a captured CUDA graph (``receiver/step_graph.py``)
 is held to the eager step bit for bit: every output, the final state and
 the kernels' launch counts, in the K1, prefix (K3) and scan forms, across
-a promotion and a ``reset_channel``; a capture that fails raises.
+a promotion and a ``reset_channel``; a capture that fails raises. The
+scan form's graph holds one kernel launch a block.
 """
 
 import dataclasses
@@ -723,6 +730,190 @@ def test_run_block_batched_launches_pass_c_once_a_block():
         (_slew_anchor(cfg, new_st), out), "run_block_batched")
 
 
+# The scan runtime's kernel (ops/scan_kernel.py, csrc/scan_block.cu) against
+# its plain version on the card, ``runtime._run_block_plain``, on
+# tests/_scan_inputs.py's mid-track blocks at 32 channels (a declaration
+# and a bit completion inside the block, acquiring channels, a late first
+# epoch, the rails acting): the scan session's shape (borre, 2.5 Msps,
+# 20 epochs) and every specialisation and option of the kernel. The
+# kernel sums each correlator in its own fixed order, so it is held to the
+# plain version by the scan runtime's bounds (``_scan_inputs.bound_faults``:
+# integers equal, correlators by the tie rule, code phase within 1e-5
+# chips, carrier within 0.05 Hz, every other float within 1e-3 of its
+# key's largest magnitude).
+SCAN_CASES = [
+    ("session-borre", dict(profile="borre")),
+    ("borre-quantised", dict(profile="borre", quantize_spacing=True)),
+    ("borre-norails-noaiding",
+     dict(profile="borre", carrier_aiding=False, freq_rail_hz=0.0,
+          code_rail_hz=0.0, anchor_slew_hz_per_s=0.0)),
+    ("borre-5-spacings",
+     dict(profile="borre", spacings=(-0.5, -0.25, 0.0, 0.25, 0.5))),
+    ("kaplan-o2", dict(profile="kaplan", quantize_spacing=True)),
+    ("kaplan-o3-atan2-beaulieu",
+     dict(profile="kaplan", dlf_order=3, fll_discriminator="atan2",
+          cn0_estimator="beaulieu")),
+    ("narrow-o2", dict(profile="kaplan", kaplan_narrow_only=True)),
+    ("narrow-o3-atan2-beaulieu-norails",
+     dict(profile="kaplan", kaplan_narrow_only=True, dlf_order=3,
+          fll_discriminator="atan2", cn0_estimator="beaulieu",
+          freq_rail_hz=0.0, code_rail_hz=0.0)),
+    ("full-rate-kaplan", dict(profile="kaplan", sampling_frequency=10e6)),
+]
+
+
+def _scan_args(extra, dev, n_ch=N_CH, seed=7):
+    from _scan_inputs import scan_block_tensors, scan_config
+
+    cfg = scan_config(**extra)
+    return (cfg, *scan_block_tensors(cfg, n_ch, seed, dev))
+
+
+def _assert_scan_close(got, ref, peak, what=""):
+    """The kernel's ``(state, outputs)`` against the plain version's under
+    the scan runtime's bounds (``_scan_inputs.bound_faults``)."""
+    from _scan_inputs import bound_faults
+
+    faults, _ = bound_faults(got, ref, peak)
+    assert not faults, (what, faults)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, extra", SCAN_CASES,
+                         ids=[c[0] for c in SCAN_CASES])
+def test_scan_kernel_matches_plain(name, extra):
+    from _scan_inputs import reached
+
+    from sydr_tpu_torch.channels import runtime as rt
+    from sydr_tpu_torch.ops import scan_kernel as sk
+
+    cfg, codes, st, wre, wim = _scan_args(extra, _cuda())
+    before = sk.SCAN_KERNEL.launches
+    got = rt.run_block(cfg, codes, st, wre, wim)
+    assert sk.SCAN_KERNEL.launches == before + 1
+    ref = rt._run_block_plain(cfg, codes, st, wre, wim)
+    torch.cuda.synchronize()
+    peak = max(float(wre.abs().max()), float(wim.abs().max()))
+    _assert_scan_close(got, ref, peak, name)
+    assert {"declare", "bit", "idle", "late"} <= reached(st, *got), (
+        name, reached(st, *got))
+
+
+@pytest.mark.cuda
+def test_scan_kernel_channel_slices_and_repeats_are_bit_identical():
+    """The kernel on the last 16 (and on one) of 32 channels gives those
+    channels of the 32-channel launch bit for bit (no step crosses
+    channels), and a second launch repeats the first bit for bit."""
+    from sydr_tpu_torch.channels.state import ChannelState
+    from sydr_tpu_torch.ops import scan_kernel as sk
+
+    cfg, codes, st, wre, wim = _scan_args(SCAN_CASES[0][1], _cuda())
+    full = sk.scan_block(cfg, codes, st, wre, wim)
+    _assert_pass_c_equal(sk.scan_block(cfg, codes, st, wre, wim), full,
+                         "a second launch")
+    for rows in (slice(16, 32), slice(5, 6)):
+        part_st = ChannelState(**{f.name: getattr(st, f.name)[rows]
+                                  .contiguous()
+                                  for f in dataclasses.fields(st)})
+        got = sk.scan_block(cfg, codes[rows].contiguous(), part_st, wre, wim)
+        torch.cuda.synchronize()
+        _assert_pass_c_equal(
+            got,
+            (ChannelState(**{f.name: getattr(full[0], f.name)[rows]
+                             for f in dataclasses.fields(full[0])}),
+             {k: v[:, rows] for k, v in full[1].items()}),
+            f"channels {rows}")
+
+
+@pytest.mark.cuda
+def test_scan_kernel_in_a_graph_equals_eager():
+    """The launch captured into a CUDA graph and replayed gives the eager
+    launch's results bit for bit, and counts as captured."""
+    from sydr_tpu_torch.ops import scan_kernel as sk
+
+    cfg, codes, st, wre, wim = _scan_args(SCAN_CASES[0][1], _cuda())
+    eager = sk.scan_block(cfg, codes, st, wre, wim)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sk.scan_block(cfg, codes, st, wre, wim)     # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    captured = sk.SCAN_KERNEL.captured
+    with torch.cuda.graph(graph):
+        static = sk.scan_block(cfg, codes, st, wre, wim)
+    assert sk.SCAN_KERNEL.captured == captured + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_pass_c_equal(static, eager, "graph replay")
+
+
+@pytest.mark.cuda
+def test_scan_kernel_rejects_bad_input():
+    """The wrapper refuses a tensor on another device; the C entry point
+    refuses what the kernel cannot take and launches nothing."""
+    import ctypes
+
+    from sydr_tpu_torch.ops import native
+    from sydr_tpu_torch.ops import scan_kernel as sk
+
+    cfg, codes, st, wre, wim = _scan_args(SCAN_CASES[0][1], _cuda(), n_ch=4)
+    with pytest.raises(ValueError, match="ms_counter"):
+        sk.scan_block(cfg, codes, dataclasses.replace(
+            st, ms_counter=st.ms_counter.cpu()), wre, wim)
+    with pytest.raises(ValueError, match="codes"):
+        sk.scan_block(cfg, codes.cpu(), st, wre, wim)
+    _, args = sk.scan_launch_args(cfg, codes, st, wre, wim)
+    fn = sk.SCAN_KERNEL.function()
+    stream = native.stream_of(wre)
+    before = sk.SCAN_KERNEL.launches
+    for at, value in ((3, 0), (4, 0), (5, -1)):     # n_ch, epochs, window
+        bad = list(args)
+        bad[at] = value
+        assert fn(*bad, stream) != 0
+    for field, value in (("n_spacings", 2), ("n_spacings", 6),
+                         ("window_size", 0), ("samples_per_ms", 0)):
+        consts = sk.ScanConsts.from_buffer_copy(args[1]._obj)
+        setattr(consts, field, value)
+        assert fn(args[0], ctypes.byref(consts), *args[2:], stream) != 0, \
+            field
+    assert sk.SCAN_KERNEL.launches == before
+
+
+@pytest.mark.cuda
+def test_sharded_scan_step_on_nccl_world_of_one():
+    """The mesh's scan step (``make_sharded_batch_step`` and
+    ``make_sharded_run_block`` with ``runtime="scan"``) on a (1, 1) mesh of
+    a one-rank NCCL process group: one kernel launch each, and the
+    unsharded block's state and outputs bit for bit."""
+    import socket
+
+    from sydr_tpu_torch.channels import runtime as rt
+    from sydr_tpu_torch.ops import scan_kernel as sk
+    from sydr_tpu_torch.parallel import distributed, mesh as pmesh
+
+    cfg, codes, st, wre, wim = _scan_args(SCAN_CASES[0][1], _cuda())
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    distributed.initialize("nccl", rank=0, world_size=1,
+                           init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        mesh = pmesh.make_mesh(1, 1)
+        before = sk.SCAN_KERNEL.launches
+        steps = [pmesh.make_sharded_batch_step(cfg, mesh)(
+                     codes, st, wre, wim),
+                 pmesh.make_sharded_run_block(cfg, mesh)(
+                     codes, st, wre, wim)]
+        assert sk.SCAN_KERNEL.launches == before + 2
+    finally:
+        distributed.shutdown()
+    ref = rt.run_block(cfg, codes, st, wre, wim)
+    torch.cuda.synchronize()
+    for got in steps:
+        _assert_pass_c_equal(got, ref, "the mesh's scan step")
+
+
 # The session's step as a captured CUDA graph (receiver/step_graph.py)
 # against the eager step: tests/test_torch_session.py's stream (8 Msps
 # decimated to 2 Msps, the satellites at 46 dB-Hz) over 8 channels, the
@@ -751,10 +942,12 @@ def _graph_configs(form):
 
 def _kernel_counts():
     from sydr_tpu_torch.ops import loop_kernel as lk
+    from sydr_tpu_torch.ops import scan_kernel as sk
 
     return {"k1": ck.KERNEL.launches, "k3": ck.CUMSUM_KERNEL.launches,
             "k2": acq_kernel.KERNEL.launches,
-            "pass_c": lk.PASS_C_KERNEL.launches}
+            "pass_c": lk.PASS_C_KERNEL.launches,
+            "scan": sk.SCAN_KERNEL.launches}
 
 
 def _graph_session_run(form, graph, dev):
@@ -795,7 +988,8 @@ def _graph_session_run(form, graph, dev):
     launches = {k: v - before[k] for k, v in _kernel_counts().items()}
     state = [t.cpu() for t in pack_state(session.state)]
     return dict(outs=outs, state=state, launches=launches,
-                promoted_at=promoted_at, reset_at=reset_at, session=session)
+                promoted_at=promoted_at, reset_at=reset_at, session=session,
+                calls=len(outs))
 
 
 @pytest.fixture(scope="module", params=["k1", "prefix", "scan"])
@@ -848,14 +1042,21 @@ def test_graphed_session_launch_counts_equal_eager(graph_runs):
     form, runs = graph_runs
     assert runs[True]["launches"] == runs[False]["launches"]
     want = {"k1": form == "k1", "k3": form == "prefix", "k2": True,
-            "pass_c": form != "scan"}
+            "pass_c": form != "scan", "scan": form == "scan"}
     assert {k: n > 0 for k, n in runs[True]["launches"].items()} == want
     held = {}
     for entry in runs[True]["session"].graph.graphs.values():
         for kern, n in entry.launches.items():
             held[kern] = held.get(kern, 0) + n
     assert acq_kernel.KERNEL not in held
-    if form != "scan":
+    if form == "scan":
+        from sydr_tpu_torch.ops import scan_kernel as sk
+
+        # One kernel launch a 20 ms block, eager or replayed: the graph
+        # holds that launch and no other kernel of the package.
+        assert held == {sk.SCAN_KERNEL: 1}
+        assert runs[True]["launches"]["scan"] == runs[True]["calls"]
+    else:
         from sydr_tpu_torch.ops import loop_kernel as lk
 
         corr = ck.KERNEL if form == "k1" else ck.CUMSUM_KERNEL

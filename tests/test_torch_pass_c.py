@@ -269,6 +269,8 @@ def test_structures_match_the_sources():
     their types and counts, and the kernel's enums follow the state's
     field order and the output layout."""
     cuh, cu = _c_source("loop_update.cuh"), _c_source("pass_c.cu")
+    layout = _c_source("channel_layout.cuh")
+    assert '#include "channel_layout.cuh"' in cu
     consts = re.findall(r"^\s*(int|float)\s+(\w+)(?:\[(\d+)\])?;",
                         _c_block(cuh, "struct LoopConsts"), re.M)
     want = [(n, (ctypes.c_int if ty == "int" else ctypes.c_float)
@@ -286,9 +288,10 @@ def test_structures_match_the_sources():
               "kNumStateI": len(I32_SCALAR_FIELDS)}
     assert [(n, counts.get(c, 1)) for n, c in ptrs] == [
         (n, getattr(t, "_length_", 1)) for n, t in lk.PassCArgs._fields_]
-    assert _c_enum(cu, "StateF") == [_camel(n) for n in F32_FIELDS] + [
+    assert _c_enum(layout, "StateF") == [_camel(n) for n in F32_FIELDS] + [
         "kNumStateF"]
-    assert _c_enum(cu, "StateI") == [_camel(n) for n in I32_SCALAR_FIELDS] \
+    assert _c_enum(layout, "StateI") == [_camel(n)
+                                         for n in I32_SCALAR_FIELDS] \
         + ["kNumStateI"]
     assert re.search(r"constexpr int kMaxWarps = (\d+);", cu).group(1) \
         == str(lk.PASS_C_MAX_WARPS)
@@ -301,8 +304,8 @@ def test_structures_match_the_sources():
     for enum, keys, end in (("OutF", lk.OUT_F32, "kNumOutF"),
                             ("OutI", lk.OUT_I32, "kNumOutI"),
                             ("OutB", lk.OUT_BOOL, "kNumOutB")):
-        assert _c_enum(cu, enum) == [_camel("out_" + k) for k in keys] + [
-            end]
+        assert _c_enum(layout, enum) == [_camel("out_" + k)
+                                         for k in keys] + [end]
     assert sorted(lk.OUTPUT_KEYS) == sorted(
         lk.OUT_F32 + lk.OUT_I32 + lk.OUT_BOOL)
 

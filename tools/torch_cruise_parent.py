@@ -1,20 +1,33 @@
 #!/usr/bin/env python3
-"""The Session cell's steady cruise on this tree and another, in turns.
+"""The Session cell's steady cruise, or the scan session, on this tree and
+another, in turns.
 
 Usage, from the root of a checkout, on a machine with a CUDA card:
 
     python3 tools/torch_cruise_parent.py --parent DIR [--turns 2]
+        [--form cruise|scan]
 
 ``DIR`` is another tree of the repository (a ``git archive`` of another
 commit, unpacked under the git-ignored ``_archive/``). Each run is a child
-process that imports its tree's ``chip_smoke.py`` and runs that tree's
-phase 5 (``session_pair_phase``: the 32-channel session on the same 3 s
-capture, eager then graphed, bits, steady cruise superblocks in turns, the
-cruise graph's replay between CUDA events, its nodes and its capture and
-instantiation seconds), in the order parent, this, this, parent
-(``--turns`` pairs). Every child prints its phase's lines; the last line
-is one JSON object with each run's numbers, the card's name and power
-limit beside them.
+process that imports its tree's ``chip_smoke.py``, in the order parent,
+this, this, parent (``--turns`` pairs):
+
+- ``--form cruise`` (the default) runs that tree's phase 5
+  (``session_pair_phase``: the 32-channel session on the same 3 s
+  capture, eager then graphed, bits, steady cruise superblocks in turns,
+  the cruise graph's replay between CUDA events, its nodes and its capture
+  and instantiation seconds);
+- ``--form scan`` runs that tree's phase 11 session (``slice_phase`` with
+  ``runtime="scan"``: 32 channels, borre, 20 ms blocks, on the first 2 s
+  of the same capture) twice, its step eager (``graph=False``) and then
+  graphed, each with its real-time factor over the tracking calls; then
+  steady blocks of the same input in turns (eager, graphed, graphed,
+  eager, ...), both real-time factors, and the scan graph's replay
+  between CUDA events, its nodes and its capture and instantiation
+  seconds.
+
+Every child prints its phase's lines; the last line is one JSON object
+with each run's numbers, the card's name and power limit beside them.
 """
 
 from __future__ import annotations
@@ -50,15 +63,67 @@ print(json.dumps({{
 """
 
 
-def run_tree(name: str, tree: str) -> dict:
+# The child of ``--form scan``: one tree's scan session, eager and
+# graphed, then steady blocks in turns; its numbers as the last line.
+CHILD_SCAN = r"""
+import json, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, {tree!r})
+import chip_smoke as cs
+device = torch.device("cuda")
+sync = torch.cuda.synchronize
+card = cs.card_line()
+capture = cs.make_scenario(np.random.default_rng(cs.SEED), cs.SIGNAL_MS,
+                           cs.FS_IN, cs.N_CHANNELS, cs.N_VISIBLE)
+runs = {{name: cs.slice_phase(device, capture, signal_ms=cs.SCAN_SIGNAL_MS,
+                              runtime="scan", sync=sync, card=card,
+                              graph=graph)
+        for name, graph in (("eager", False), ("graphed", None))}}
+sessions = {{name: res["session"] for name, res in runs.items()}}
+gs = sessions["graphed"]
+n_in = gs.block_input_samples
+_, sig_re, sig_im = capture
+walls = {{"eager": [], "graphed": []}}
+for turn in range(8):
+    order = ("eager", "graphed") if turn % 2 == 0 else ("graphed", "eager")
+    for name in order:
+        sync()
+        t0 = time.perf_counter()
+        sessions[name].process_block(sig_re[:n_in], sig_im[:n_in])
+        sync()
+        walls[name].append(time.perf_counter() - t0)
+signal_s = n_in / cs.FS_IN
+entry = next(iter(gs.graph.graphs.values()))
+start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+replay_ms = []
+for _ in range(5):
+    start.record()
+    entry.replay()
+    end.record()
+    sync()
+    replay_ms.append(start.elapsed_time(end))
+print(json.dumps({{
+    "rtf_graphed": signal_s / float(np.median(walls["graphed"])),
+    "rtf_eager": signal_s / float(np.median(walls["eager"])),
+    "session_rtf_graphed": runs["graphed"]["rtf"],
+    "session_rtf_eager": runs["eager"]["rtf"],
+    "replay_ms": replay_ms, "nodes": entry.nodes,
+    "capture_s": entry.capture_s, "instantiate_s": entry.instantiate_s,
+    "launches_a_replay": {{k.source: n for k, n in entry.launches.items()}},
+    "card": card}}))
+"""
+
+
+def run_tree(name: str, tree: str, child: str = CHILD) -> dict:
     """One child process on ``tree``; its numbers."""
-    proc = subprocess.run([sys.executable, "-c", CHILD.format(tree=tree)],
+    proc = subprocess.run([sys.executable, "-c", child.format(tree=tree)],
                           cwd=tree, capture_output=True, text=True)
     for line in proc.stdout.splitlines()[:-1]:
         print(f"[{name}] {line}", flush=True)
     if proc.returncode != 0:
         print(proc.stderr[-4000:], file=sys.stderr)
-        raise SystemExit(f"{name}: phase 5 failed (rc {proc.returncode})")
+        raise SystemExit(f"{name}: its phase failed (rc {proc.returncode})")
     res = json.loads(proc.stdout.splitlines()[-1])
     print(f"[{name}] steady graphed RTF {res['rtf_graphed']:.4f}, eager "
           f"{res['rtf_eager']:.4f}; replay {res['replay_ms']} ms of "
@@ -74,6 +139,10 @@ def main(argv=None) -> int:
                         help="the other tree's root")
     parser.add_argument("--turns", type=int, default=2,
                         help="pairs of runs (parent, this, this, parent)")
+    parser.add_argument("--form", choices=("cruise", "scan"),
+                        default="cruise",
+                        help="the Session cell's cruise (phase 5) or the "
+                             "scan session (phase 11)")
     opts = parser.parse_args(argv)
     import torch
 
@@ -85,7 +154,9 @@ def main(argv=None) -> int:
     for turn in range(opts.turns):
         order = ("parent", "this") if turn % 2 == 0 else ("this", "parent")
         for name in order:
-            runs[name].append(run_tree(name, trees[name]))
+            runs[name].append(run_tree(
+                name, trees[name],
+                CHILD_SCAN if opts.form == "scan" else CHILD))
     print(json.dumps(runs), flush=True)
     return 0
 

@@ -12,6 +12,7 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
     python3 tools/torch_kernel_variants.py --k2 --bluestein --layouts --n 9722
     python3 tools/torch_kernel_variants.py --parent DIR [--n 4070 ...]
     python3 tools/torch_kernel_variants.py --pass-c [--parent DIR]
+    python3 tools/torch_kernel_variants.py --scan
 
 * K2 ``pcps_bins`` at n = 4092 (8 channels x 101 bins x 10 blocks), and
   with ``--n`` at any other length that is not prime: the device time of
@@ -92,6 +93,15 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
   kernel (its entry point without the warps argument) against this
   tree's at the cruise and pull-in shapes, in turns parent, this, this,
   parent, their outputs and states held equal bit for bit.
+
+* ``--scan``: the scan runtime's kernel (``csrc/scan_block.cu``) on
+  ``tests/_scan_inputs.py``'s mid-track blocks at the scan session's
+  shape (2.5 Msps, borre) and at 10 Msps with kaplan's 5 taps, at 1, 5,
+  20 and 40 epochs of 32 channels and at 20 epochs of one channel (a
+  launch's fixed cost, an epoch's, and whether channels wait for each
+  other), built as the source is, at other threads a CTA and with parts
+  taken out (:data:`SCAN_VARIANTS`: the correlation, the loop update),
+  each timed in two turns (a cut kernel's results are not checked).
 
 Device times are ``chip_smoke.device_ms`` (launches queued behind a
 spinning kernel, between CUDA events). Needs a CUDA device; imports no JAX.
@@ -1233,6 +1243,64 @@ def pass_c_variants(device) -> None:
             for label, v in times.items()), flush=True)
 
 
+# The scan kernel's variants: (label, [(text, its replacement)]).
+SCAN_VARIANTS = (
+    ("256 threads", [("constexpr int kThreads = 512;",
+                      "constexpr int kThreads = 256;")]),
+    ("1024 threads", [("constexpr int kThreads = 512;",
+                       "constexpr int kThreads = 1024;")]),
+    ("no correlation", [(
+        "  g.n_valid = min(max(q.required, 0), sc.window_size);",
+        "  g.n_valid = 0;")]),
+    ("no loop update", [(
+        "      const Disc d = discriminate(k, kProf, corr, cr.ip_prev, "
+        "cr.qp_prev);\n"
+        "      const LoopOut lu = filter_step(k, kProf, kOrder, d, in, "
+        "active);",
+        "      LoopOut lu = {};\n      lu.i_prompt = corr[2];")]),
+)
+# (epochs, channels) of the scan kernel's shapes.
+SCAN_SHAPES = ((1, 32), (5, 32), (20, 32), (40, 32), (20, 1))
+
+
+def scan_variants(device) -> None:
+    """``--scan`` (module note)."""
+    import dataclasses
+
+    from sydr_tpu_torch.ops import native
+    from sydr_tpu_torch.ops import scan_kernel as sk
+
+    kerns = {"source": sk.SCAN_KERNEL}
+    for k, (label, swaps) in enumerate(SCAN_VARIANTS):
+        kerns[label] = source_variant(sk.SCAN_KERNEL, f"scan_cut{k}", {},
+                                      swaps)
+    native.build_all(list(kerns.values()))
+    for label, kern in kerns.items():
+        usage = [ln.strip() for ln in kern.build_log.splitlines()
+                 if "registers" in ln]
+        print(f"scan {label}: {usage[:1] or 'cached'}", flush=True)
+    for name, extra in chip_smoke.SCAN_CASES:
+        base, *_ = chip_smoke.scan_inputs(extra, device)
+        for epochs, n_ch in SCAN_SHAPES:
+            cfg = dataclasses.replace(base, block_ms=epochs)
+            codes, st, wre, wim = chip_smoke.scan_module() \
+                .scan_block_tensors(cfg, n_ch, chip_smoke.SEED % 1000,
+                                    device)
+            _, args = sk.scan_launch_args(cfg, codes, st, wre, wim)
+            stream = native.stream_of(wre)
+            times = {label: [] for label in kerns}
+            for turn in range(2):
+                for label in (kerns if turn == 0
+                              else reversed(list(kerns))):
+                    fn = kerns[label].function()
+                    times[label].append(chip_smoke.device_ms(
+                        lambda: fn(*args, stream), 20))
+            print(f"scan {name}, {epochs} epochs x {n_ch} ch: device ms in "
+                  f"two turns: " + "; ".join(
+                      f"{label} " + " / ".join(f"{ms:.5f}" for ms in v)
+                      for label, v in times.items()), flush=True)
+
+
 def pass_c_against_parent(parent: str, device) -> None:
     """``--pass-c --parent DIR`` (module note)."""
     from pathlib import Path
@@ -1297,6 +1365,9 @@ def main(argv=None) -> int:
     parser.add_argument("--pass-c", action="store_true",
                         help="pass C's kernel with parts of its epoch "
                              "loop cut out")
+    parser.add_argument("--scan", action="store_true",
+                        help="the scan runtime's kernel at other shapes, "
+                             "threads a CTA and with parts cut out")
     parser.add_argument("--parent", metavar="DIR",
                         help="hold the K2 entries of the checkout DIR "
                              "against this tree's")
@@ -1314,6 +1385,9 @@ def main(argv=None) -> int:
         return 0
     if opts.pass_c:
         pass_c_variants(device)
+        return 0
+    if opts.scan:
+        scan_variants(device)
         return 0
     built = [acq_kernel.KERNEL, acq_kernel.CLUSTER_KERNEL,
              acq_kernel.TWOSTEP_KERNEL, acq_kernel.BLUESTEIN_KERNEL,
