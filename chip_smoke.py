@@ -57,10 +57,14 @@ printing its wall time:
    kernel) on a mid-track block of 32 channels x 20 epochs
    (``tests/_scan_inputs.py``: a declaration and a bit completion inside
    it, acquiring channels, a late first epoch) at the scan session's shape
-   (2.5 Msps, window 2756, borre) and at 10 Msps with kaplan's 5 taps,
-   against its plain version under the scan runtime's bounds (integers
-   equal, correlators by the tie rule, code phase within 1e-5 chips,
-   carrier within 0.05 Hz), a second launch bit-identical, with its
+   (2.5 Msps, window 2756, borre), at 10 Msps with kaplan's 5 taps and at
+   the classic front end's 16.368 Msps (borre), each channel on a cluster
+   of ``SCAN_CLUSTER`` CTAs (printed with the clusters the card runs at
+   once), against its plain version under the scan runtime's bounds
+   (integers equal, correlators by the tie rule, code phase within 1e-5
+   chips, carrier within 0.05 Hz), a second launch bit-identical, the
+   kernel's protocol-check build (``SCAN_CHECK_KERNEL``) bit-identical
+   and without a fault in ``SCAN_CHECK_LAUNCHES`` launches, with its
    latency bound beside the bytes and operations bound. Each case
    prints four times and a bound:
    ``ms``, the device time of the launch alone (:func:`device_ms`: the C
@@ -309,17 +313,23 @@ SCAN_SPACING_OPS = 10
 # mix and product, 25; the loop update from the correlators to the carrier
 # and code rate, with the Costas atanf and NNEML's square roots and
 # divisions, ~35; the next start's code rate, division and ceil, ~10),
-# plus the reduction's depth: a thread's samples added in series, 5
-# shuffle levels (2 each) and the warps' partials in series.
+# plus the least depth of any sum of the epoch's n_valid products, a tree
+# of ceil(log2(n_valid)) levels of adds: the same work whatever
+# implements it.
 SCAN_CHAIN_OPS = 70
 # The scan kernel's cases: (name, TrackingConfig fields), 32 channels x
-# 20 epochs: the scan session's shape, and a full-rate front end with
-# kaplan's 5 taps.
+# 20 epochs: the scan session's shape, a full-rate front end with kaplan's
+# 5 taps, and the classic 16.368 Msps front end (the 16.368 Msps cell's
+# rate) at full rate.
 SCAN_CASES = (
     ("scan session 32 ch x 20 epochs, 2.5 Msps, borre",
      dict(sampling_frequency=2.5e6, profile="borre", quantize_spacing=True)),
     ("full rate 32 ch x 20 epochs, 10 Msps, kaplan 5 taps",
-     dict(sampling_frequency=10e6, profile="kaplan")))
+     dict(sampling_frequency=10e6, profile="kaplan")),
+    ("classic front end 32 ch x 20 epochs, 16.368 Msps, borre",
+     dict(sampling_frequency=16.368e6, profile="borre")))
+# Launches of the scan kernel's protocol-check build a case.
+SCAN_CHECK_LAUNCHES = 20
 K2_RTOL = 1e-4
 K3_PREFIX_SIGMAS = 4.0
 CORR_KEYS = ("i_early", "q_early", "i_prompt", "q_prompt", "i_late",
@@ -809,15 +819,13 @@ def scan_inputs(extra, device):
 
 def scan_latency_ms(cfg, n_valid, empty_ms) -> float:
     """The scan kernel's latency bound: each epoch's carried chain of
-    SCAN_CHAIN_OPS operations plus its reduction's depth (the most samples
-    a thread sums, 5 shuffle levels of 2, the warps in series), at
-    PASS_C_OP_CYCLES cycles an operation at the largest SM clock, plus the
-    empty launch. ``n_valid``: the samples each epoch sums, the most over
-    the channels ``[block_ms]``."""
-    from sydr_tpu_torch.ops.scan_kernel import SCAN_THREADS
-
-    depth = sum(SCAN_CHAIN_OPS + -(-int(n) // SCAN_THREADS) + 10
-                + SCAN_THREADS // 32 - 1 for n in n_valid)
+    SCAN_CHAIN_OPS operations plus the depth of a tree over its samples'
+    products (ceil(log2(n)) levels of adds), at PASS_C_OP_CYCLES cycles an
+    operation at the largest SM clock, plus the empty launch. ``n_valid``:
+    the samples each epoch sums, the most over the channels
+    ``[block_ms]``. No launch shape enters it."""
+    depth = sum(SCAN_CHAIN_OPS + max(int(n) - 1, 0).bit_length()
+                for n in n_valid)
     return 1e3 * depth * PASS_C_OP_CYCLES / sm_clock_hz() + empty_ms
 
 
@@ -848,9 +856,19 @@ def scan_case(name, extra, device, empty_ms):
     def bits(t):
         return t.view(torch.int32) if t.dtype == torch.float32 else t
 
-    repeat = all(torch.equal(bits(got[k]), bits(again[k])) for k in got) \
-        and all(torch.equal(bits(getattr(got_st, f)),
-                            bits(getattr(again_st, f))) for f in FIELDS)
+    def same(a_st, a, b_st, b):
+        return all(torch.equal(bits(a[k]), bits(b[k])) for k in a) and all(
+            torch.equal(bits(getattr(a_st, f)), bits(getattr(b_st, f)))
+            for f in FIELDS)
+
+    repeat = same(got_st, got, again_st, again)
+    check_faults = dict.fromkeys(sk.PROTOCOL_FAULTS, 0)
+    checked_same = 0
+    for _ in range(SCAN_CHECK_LAUNCHES):
+        (chk_st, chk), faults = sk.check_protocol(cfg, codes, st, wre, wim)
+        checked_same += same(chk_st, chk, got_st, got)
+        for kind, n in faults.items():
+            check_faults[kind] += n
     peak = max(float(wre.abs().max()), float(wim.abs().max()))
     faults, errors = scan_module().bound_faults((got_st, got),
                                                 (ref_st, ref), peak)
@@ -860,6 +878,8 @@ def scan_case(name, extra, device, empty_ms):
     bufs, cargs = sk.scan_launch_args(cfg, codes, st, wre, wim)
     fn = sk.SCAN_KERNEL.function()
     stream = native.stream_of(wre)
+    cluster = sk.SCAN_CLUSTER
+    active = sk.max_active_clusters(cfg)
     n_valid = got["required"].clamp(0, cfg.window_size)
     n_bytes = tensor_bytes(*[getattr(st, f) for f in FIELDS], codes, wre,
                            wim, *bufs.values())
@@ -879,19 +899,28 @@ def scan_case(name, extra, device, empty_ms):
     report("scan", name, got["i_prompt"].shape,
            f"within the scan runtime's bounds: {not faults}; max abs err "
            f"{ {k: float(f'{v:.2e}') for k, v in errors.items()} }; second "
-           f"launch bit-identical: {repeat}; "
+           f"launch bit-identical: {repeat}; protocol check: "
+           f"{sum(check_faults.values())} faults, {checked_same} of "
+           f"{SCAN_CHECK_LAUNCHES} launches bit-identical; "
            f"{int(got['bit_ready'].sum())} bit completions, "
            f"{int((got_st.flags & 2).ne(st.flags & 2).sum())} declarations; "
-           f"{sk.SCAN_THREADS} threads a CTA, a CTA a channel; bound "
+           f"C = {cluster} CTAs a channel ({sk.SCAN_THREADS} correlating "
+           f"threads and 2 warps each), {active} clusters of {cluster} at "
+           f"once on the card (cudaOccupancyMaxActiveClusters; "
+           f"{n_ch} channels in {-(-n_ch // active)} wave(s)); bound "
            f"{res['bound_ms']:.3e} ms ({n_bytes} bytes, {flops:.3e} ops); "
            f"latency bound {res['latency_ms']:.5f} ms ({SCAN_CHAIN_OPS} "
-           f"chain ops + the reduction's depth an epoch x {cfg.block_ms} "
+           f"chain ops + ceil(log2 n_valid) adds an epoch x {cfg.block_ms} "
            f"epochs x {PASS_C_OP_CYCLES} cycles at "
            f"{sm_clock_hz() / 1e9:.3f} GHz + the empty launch), the empty "
            f"launch {empty_ms:.5f} ms", res)
     check(not faults, f"scan {name}: the kernel differs from the plain "
                       f"version beyond its bounds: {faults}")
     check(repeat, f"scan {name}: a second launch differs from the first")
+    check(not any(check_faults.values())
+          and checked_same == SCAN_CHECK_LAUNCHES,
+          f"scan {name}: the protocol check found {check_faults}, "
+          f"{SCAN_CHECK_LAUNCHES - checked_same} launches differ")
     check(not missed, f"scan {name}: the block did not reach {missed}")
     return res
 
@@ -3114,8 +3143,10 @@ def build_and_run(device, card, opts, sky, writer, soak_queue):
     from sydr_tpu_torch.ops import correlator_kernel, native
 
     t0 = time.perf_counter()
+    from sydr_tpu_torch.ops import scan_kernel
+
     built = [*kernels().values(), native.EMPTY_LAUNCH,
-             correlator_kernel.STORE_CEILING]
+             correlator_kernel.STORE_CEILING, scan_kernel.SCAN_CHECK_KERNEL]
     native.build_all(built)
     for kern in built:
         usage = [ln.strip() for ln in kern.build_log.splitlines()

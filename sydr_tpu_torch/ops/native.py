@@ -57,15 +57,17 @@ class CudaKernel:
     (a launch into a CUDA graph once per replay of the graph), and
     ``captured``, the launches recorded into graphs while they were
     captured. ``csrc_dir`` builds the source of another tree instead (into
-    that tree's ``_build/``), as a tool that compares two versions does.
+    that tree's ``_build/``), as a tool that compares two versions does;
+    ``flags`` are more ``nvcc`` flags (a checking build's ``-D``).
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list,
-                 csrc_dir: Path = CSRC_DIR):
+                 csrc_dir: Path = CSRC_DIR, flags: tuple = ()):
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
         self.csrc_dir = Path(csrc_dir)
+        self.flags = tuple(flags)
         self.launches = 0
         self.captured = 0
         self.build_seconds: float | None = None
@@ -79,7 +81,7 @@ class CudaKernel:
         text = src.read_bytes() + b"".join(
             h.read_bytes() for h in sorted(self.csrc_dir.glob("*.cuh")))
         digest = hashlib.sha256(
-            text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+            text + " ".join(NVCC_FLAGS + self.flags).encode()).hexdigest()
         return self.csrc_dir.parent / "_build" / \
             f"{src.stem}-{digest[:16]}.so"
 
@@ -90,7 +92,7 @@ class CudaKernel:
             return out
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [find_nvcc(), *NVCC_FLAGS, *self.flags, "-o", str(tmp),
                str(self.csrc_dir / self.source)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)

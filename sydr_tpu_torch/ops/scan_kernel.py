@@ -6,22 +6,28 @@
 n_ch]`` tensors with the same keys, dtypes and shapes. On CPU tensors it
 is that plain version (a Python loop over the block's epochs, ~314
 ``[n_ch]``-wide ops each). On CUDA tensors it launches
-``csrc/scan_block.cu`` once: a CTA a channel, its threads correlating each
-epoch's samples and one thread updating the loops, the counterpart of the
-JAX package's jitted ``lax.scan`` (``sydr_tpu/channels/runtime.py``
-``run_block``). It replaces no Pallas kernel. There is no fallback from
-one to the other.
+``csrc/scan_block.cu`` once: a cluster of :data:`SCAN_CLUSTER` CTAs a
+channel, their threads correlating each epoch's samples and each CTA's
+loop warp reducing the cluster's partials and updating the loops, the
+counterpart of the JAX package's jitted ``lax.scan``
+(``sydr_tpu/channels/runtime.py`` ``run_block``). It replaces no Pallas
+kernel. There is no fallback from one to the other.
 
 The kernel rounds every operation before a sum as the plain version's op
 does on the card, and sums each correlator in its own fixed order, not in
 PyTorch's reduction tree: it is held to the plain version within bounds
 (``tests/test_torch_cuda.py``), and to itself bit for bit across runs and
-channel slices.
+channel slices. The order depends on the cluster size, so that size is
+one constant, never a function of the channel count: a channel shard sums
+as the full launch does.
 
 The host side, which runs on any device: :func:`scan_consts` (the scan
 runtime's constants beside ``loop_kernel.loop_consts``, each the float32
 value the plain version's op sees), :func:`scan_launch_args` (the checks,
-the output tensors and the pointers the kernel takes); the outputs unpack
+the output tensors and the pointers the kernel takes),
+:func:`max_active_clusters` (how many clusters the card runs at once),
+:func:`check_protocol` (one launch of the kernel's checking build, for
+tests and tools); the outputs unpack
 with ``loop_kernel.unpack``, whose 24 keys and layout the scan outputs
 share.
 """
@@ -65,8 +71,12 @@ _INT = ctypes.c_int
 _F32 = ctypes.c_float
 
 MAX_SPACINGS = 5
-# Threads a CTA (csrc/scan_block.cu's kThreads): a channel's CTA.
-SCAN_THREADS = 512
+# Correlating threads a CTA (csrc/scan_block.cu's kThreads); each CTA also
+# has its loop warp and its bookkeeping warp.
+SCAN_THREADS = 256
+# The CTAs a channel (the kernel's kCluster): the fastest of 1, 2 and 4 at
+# every rate measured from 1.023 to 16.368 Msps (PERF.md section 6).
+SCAN_CLUSTER = 4
 # The largest window_size the kernel takes: its sample index is exact in
 # float32 below 2^24, as the plain version's float32 arange.
 MAX_WINDOW = 1 << 24
@@ -100,10 +110,23 @@ class ScanArgs(ctypes.Structure):
     ]
 
 
-SCAN_KERNEL = native.CudaKernel(
-    "scan_block.cu", "scan_block_launch",
-    [ctypes.POINTER(LoopConsts), ctypes.POINTER(ScanConsts),
-     ctypes.POINTER(ScanArgs)] + [_INT] * 3 + [_VP])
+_LAUNCH_ARGTYPES = [ctypes.POINTER(LoopConsts), ctypes.POINTER(ScanConsts),
+                    ctypes.POINTER(ScanArgs)] + [_INT] * 3 + [_VP]
+SCAN_KERNEL = native.CudaKernel("scan_block.cu", "scan_block_launch",
+                                _LAUNCH_ARGTYPES)
+# The same source built to check its own hand-offs as it runs (the
+# kernel's "protocol check": slots poisoned once consumed, epochs tagged,
+# warps delayed at hashed points); the outputs are SCAN_KERNEL's bit for
+# bit. Tests and tools launch it through check_protocol.
+SCAN_CHECK_KERNEL = native.CudaKernel(
+    "scan_block.cu", "scan_block_launch", _LAUNCH_ARGTYPES,
+    flags=("-DSCAN_CHECK_PROTOCOL",))
+# The check's fault kinds, in the kernel's order (its enum Fault).
+PROTOCOL_FAULTS = ("partial read before its store",
+                   "geometry read early or rewritten in use",
+                   "exchange barrier a phase ahead",
+                   "record read before its write",
+                   "record written before its use")
 
 
 def spacing_counts(cfg) -> tuple:
@@ -197,10 +220,52 @@ def scan_launch_args(cfg, codes, st: ChannelState, window_re, window_im):
                   n_ch, n_epochs, cfg.window_samples)
 
 
+def max_active_clusters(cfg, kernel=SCAN_KERNEL) -> int:
+    """How many clusters of ``cfg``'s instance of ``kernel`` (a build of
+    the scan kernel: :data:`SCAN_CLUSTER` CTAs a cluster in this tree's)
+    the card runs at once (``cudaOccupancyMaxActiveClusters``); launches
+    nothing."""
+    query = kernel.entry(
+        "scan_block_max_clusters",
+        [ctypes.POINTER(LoopConsts), ctypes.POINTER(ScanConsts),
+         ctypes.POINTER(_INT)])
+    out = _INT(0)
+    err = query(ctypes.byref(loop_consts(cfg)), ctypes.byref(scan_consts(cfg)),
+                ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"scan_block_max_clusters: CUDA error {err}: "
+                           f"{kernel.error_string(err)}")
+    return out.value
+
+
+def check_protocol(cfg, codes, st: ChannelState, window_re, window_im):
+    """One launch of :data:`SCAN_CHECK_KERNEL` on CUDA tensors: ``(outputs,
+    faults)``, the outputs as :func:`scan_block`'s (the buffers of
+    :func:`scan_launch_args`, unpacked) and ``faults`` the check's fault
+    counts of this launch by kind (:data:`PROTOCOL_FAULTS`)."""
+    bufs, args = scan_launch_args(cfg, codes, st, window_re, window_im)
+    read = SCAN_CHECK_KERNEL.entry("scan_block_protocol_faults",
+                                   [ctypes.POINTER(ctypes.c_uint)])
+    counts = (ctypes.c_uint * len(PROTOCOL_FAULTS))()
+
+    def read_and_clear():
+        torch.cuda.synchronize(window_re.device)
+        err = read(counts)
+        if err != 0:
+            raise RuntimeError(f"scan_block_protocol_faults: CUDA error "
+                               f"{err}: {SCAN_CHECK_KERNEL.error_string(err)}")
+
+    read_and_clear()       # an earlier launch's counts
+    SCAN_CHECK_KERNEL.launch(*args, native.stream_of(window_re))
+    read_and_clear()
+    return unpack(bufs), dict(zip(PROTOCOL_FAULTS, counts))
+
+
 def scan_block(cfg, codes, st: ChannelState, window_re, window_im):
     """One block of the scan runtime: ``(new_state, outputs)`` as
     ``channels.runtime._run_block_plain`` (its arguments). CPU tensors take
-    that plain version; CUDA tensors one launch of :data:`SCAN_KERNEL`."""
+    that plain version; CUDA tensors one launch of :data:`SCAN_KERNEL`, on
+    clusters of :data:`SCAN_CLUSTER` CTAs a channel."""
     if window_re.device.type == "cpu":
         from sydr_tpu_torch.channels.runtime import _run_block_plain
 

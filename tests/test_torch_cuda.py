@@ -808,6 +808,7 @@ def test_scan_kernel_channel_slices_and_repeats_are_bit_identical():
     from sydr_tpu_torch.ops import scan_kernel as sk
 
     cfg, codes, st, wre, wim = _scan_args(SCAN_CASES[0][1], _cuda())
+    assert sk.SCAN_CLUSTER > 1
     full = sk.scan_block(cfg, codes, st, wre, wim)
     _assert_pass_c_equal(sk.scan_block(cfg, codes, st, wre, wim), full,
                          "a second launch")
@@ -832,6 +833,7 @@ def test_scan_kernel_in_a_graph_equals_eager():
     from sydr_tpu_torch.ops import scan_kernel as sk
 
     cfg, codes, st, wre, wim = _scan_args(SCAN_CASES[0][1], _cuda())
+    assert sk.SCAN_CLUSTER > 1
     eager = sk.scan_block(cfg, codes, st, wre, wim)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -846,6 +848,68 @@ def test_scan_kernel_in_a_graph_equals_eager():
     graph.replay()
     torch.cuda.synchronize()
     _assert_pass_c_equal(static, eager, "graph replay")
+
+
+# The three rates of chip_smoke.py's scan cases: the scan session's 2.5
+# Msps borre, a full-rate 10 Msps front end with kaplan's 5 taps, and the
+# classic 16.368 Msps front end, borre.
+SCAN_RATES = [
+    ("2.5msps-borre", dict(profile="borre", quantize_spacing=True)),
+    ("10msps-kaplan", dict(profile="kaplan", sampling_frequency=10e6)),
+    ("16.368msps-borre", dict(profile="borre", sampling_frequency=16.368e6)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, extra", SCAN_RATES,
+                         ids=[c[0] for c in SCAN_RATES])
+def test_scan_kernel_at_each_rate_matches_plain(name, extra):
+    """Each rate: within the scan runtime's bounds of the plain version
+    (every integer equal), the branches reached, a second launch bit for
+    bit, and the card runs clusters of the kernel."""
+    from _scan_inputs import reached
+
+    from sydr_tpu_torch.channels import runtime as rt
+    from sydr_tpu_torch.ops import scan_kernel as sk
+
+    cfg, codes, st, wre, wim = _scan_args(extra, _cuda())
+    before = sk.SCAN_KERNEL.launches
+    got = sk.scan_block(cfg, codes, st, wre, wim)
+    again = sk.scan_block(cfg, codes, st, wre, wim)
+    assert sk.SCAN_KERNEL.launches == before + 2
+    ref = rt._run_block_plain(cfg, codes, st, wre, wim)
+    torch.cuda.synchronize()
+    peak = max(float(wre.abs().max()), float(wim.abs().max()))
+    _assert_scan_close(got, ref, peak, name)
+    _assert_pass_c_equal(again, got, f"{name}: a second launch")
+    assert {"declare", "bit", "idle", "late"} <= reached(st, *got)
+    assert sk.max_active_clusters(cfg) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, extra", SCAN_RATES,
+                         ids=[c[0] for c in SCAN_RATES])
+def test_scan_kernel_protocol_check(name, extra):
+    """The kernel's protocol-check build (slots poisoned once consumed,
+    geometries tagged with their epoch, warps delayed at hashed points) at
+    each rate, on 32 channels and on one: no fault in 20 launches, each
+    bit for bit with the production kernel; it is not counted as a launch
+    of the production kernel."""
+    from sydr_tpu_torch.channels.state import ChannelState
+    from sydr_tpu_torch.ops import scan_kernel as sk
+
+    cfg, codes, st, wre, wim = _scan_args(extra, _cuda())
+    one = ChannelState(**{f.name: getattr(st, f.name)[5:6].contiguous()
+                          for f in dataclasses.fields(st)})
+    for args in ((codes, st, wre, wim), (codes[5:6].contiguous(), one, wre,
+                                         wim)):
+        ref = sk.scan_block(cfg, *args)
+        before = sk.SCAN_KERNEL.launches
+        for k in range(20):
+            got, faults = sk.check_protocol(cfg, *args)
+            assert not any(faults.values()), (name, k, faults)
+            _assert_pass_c_equal(got, ref, f"{name}: check launch {k}")
+        assert sk.SCAN_KERNEL.launches == before
 
 
 @pytest.mark.cuda
@@ -893,6 +957,7 @@ def test_sharded_scan_step_on_nccl_world_of_one():
     from sydr_tpu_torch.parallel import distributed, mesh as pmesh
 
     cfg, codes, st, wre, wim = _scan_args(SCAN_CASES[0][1], _cuda())
+    assert sk.SCAN_CLUSTER > 1
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]

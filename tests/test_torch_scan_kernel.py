@@ -207,14 +207,21 @@ def test_structures_match_the_sources():
         (n, getattr(t, "_length_", 1)) for n, t in sk.ScanArgs._fields_]
     for name, value in (("kMaxSpacings", sk.MAX_SPACINGS),
                         ("kThreads", sk.SCAN_THREADS),
+                        ("kCluster", sk.SCAN_CLUSTER),
                         ("kCodeLen", sk.CODE_LEN)):
         assert re.search(rf"constexpr int {name} = (\d+);", cu).group(1) \
             == str(value), name
     assert f"window_size > (1 << {int(math.log2(sk.MAX_WINDOW))})" in cu
     # The launch's argument types: the three structures, n_ch, block_ms,
-    # the window's length and the stream.
+    # the window's length and the stream (no cluster size: it is compiled
+    # in).
     assert sk.SCAN_KERNEL.argtypes[3:] == [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
+    assert "extern \"C\" int scan_block_max_clusters(" in cu
+    # The protocol check's fault kinds are the host's, in order.
+    kinds = re.findall(r"^\s*(kFault\w+),", _c_block(cu, "enum Fault"), re.M)
+    assert len(kinds) == len(sk.PROTOCOL_FAULTS) == 5, kinds
+    assert "extern \"C\" int scan_block_protocol_faults(" in cu
 
 
 def _write_plain(bufs, new_st, out):
@@ -315,3 +322,78 @@ def test_launch_args_reject_bad_input():
         == (5,)
     assert sk.spacing_counts(dataclasses.replace(
         cfg, profile="kaplan", kaplan_narrow_only=True)) == (3,)
+
+
+# Rates the cluster size is held on: the scan runtime's, 1.023 to 99.375
+# Msps.
+RULE_RATES = (1.023e6, 2.5e6, 10e6, 16.368e6, 99.375e6)
+
+
+def test_scan_cluster_rule():
+    """The cluster size is one constant, the kernel's kCluster, whatever
+    the configuration and the channel count: the launch takes no cluster
+    argument, and its arguments at 1, 5, 8 and 32 channels differ only in
+    the channel count, at each rate and loop shape."""
+    cu = _c_source("scan_block.cu")
+    assert re.search(r"constexpr int kCluster = (\d+);", cu).group(1) \
+        == str(sk.SCAN_CLUSTER) == "4"
+    assert "attr.val.clusterDim.x = kCluster;" in cu
+    assert "cfg.gridDim = dim3(n_ch * kCluster);" in cu
+    for extra in (dict(profile="borre"), dict(profile="kaplan"),
+                  dict(profile="kaplan", kaplan_narrow_only=True)):
+        for fs in RULE_RATES:
+            cfg = scan_config(sampling_frequency=fs, block_ms=2, **extra)
+            for n_ch in (1, 5, 8, 32):
+                _, args = sk.scan_launch_args(cfg, *_tensors(cfg, n_ch))
+                assert args[3:] == (n_ch, 2, cfg.window_samples), (fs, n_ch)
+
+
+def _tensors(cfg, n_ch):
+    """Inputs of ``cfg``'s block on the CPU at ``n_ch`` channels, as
+    :func:`sk.scan_launch_args` takes them (values irrelevant)."""
+    from sydr_tpu_torch.channels.state import init_state
+
+    n = cfg.window_samples
+    return (torch.zeros(n_ch, sk.CODE_LEN), init_state(n_ch, CPU),
+            torch.zeros(n), torch.zeros(n))
+
+
+def test_check_build_is_the_source():
+    """The protocol check is the production kernel's source and entry
+    point built with ``-DSCAN_CHECK_PROTOCOL`` alone, into a library of its
+    own; every check in the source sits behind ``kCheck``."""
+    prod, check = sk.SCAN_KERNEL, sk.SCAN_CHECK_KERNEL
+    assert (check.source, check.symbol, check.argtypes, check.csrc_dir) == (
+        prod.source, prod.symbol, prod.argtypes, prod.csrc_dir)
+    assert prod.flags == () and check.flags == ("-DSCAN_CHECK_PROTOCOL",)
+    assert check.library_path() != prod.library_path()
+    assert check.library_path().parent == prod.library_path().parent
+    cu = _c_source("scan_block.cu")
+    assert cu.count("#ifdef SCAN_CHECK_PROTOCOL") == 1
+    assert "constexpr bool kCheck = true;" in cu
+    assert "constexpr bool kCheck = false;" in cu
+    # A fault is counted only in the check build; its waits likewise.
+    assert "if (kCheck && bad) atomicAdd(&scan_protocol_faults[kind], 1u);" \
+        in cu
+    assert "  if (!kCheck) return;\n  uint32_t h =" in cu
+
+
+def _scan_variant_tool():
+    from tools import torch_kernel_variants
+
+    return torch_kernel_variants
+
+
+@pytest.mark.parametrize(
+    "label", [v[0] for v in _scan_variant_tool().SCAN_VARIANTS])
+def test_scan_variants_apply_to_the_source(label):
+    """Each of ``tools/torch_kernel_variants.py --scan``'s variants matches
+    the kernel's source (its texts once each in the source and headers),
+    and changes it, checked on the CPU before any build on the card."""
+    tool = _scan_variant_tool()
+    lines, swaps = {v[0]: v[1:] for v in tool.SCAN_VARIANTS}[label]
+    texts = tool.variant_texts(sk.SCAN_KERNEL, lines, swaps)
+    source = {name: (sk.SCAN_KERNEL.csrc_dir / name).read_text()
+              for name in texts}
+    assert set(texts) >= {"scan_block.cu", "loop_update.cuh"}
+    assert texts != source

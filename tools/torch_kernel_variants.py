@@ -12,7 +12,7 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
     python3 tools/torch_kernel_variants.py --k2 --bluestein --layouts --n 9722
     python3 tools/torch_kernel_variants.py --parent DIR [--n 4070 ...]
     python3 tools/torch_kernel_variants.py --pass-c [--parent DIR]
-    python3 tools/torch_kernel_variants.py --scan
+    python3 tools/torch_kernel_variants.py --scan [--parent DIR]
 
 * K2 ``pcps_bins`` at n = 4092 (8 channels x 101 bins x 10 blocks), and
   with ``--n`` at any other length that is not prime: the device time of
@@ -95,13 +95,33 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
   parent, their outputs and states held equal bit for bit.
 
 * ``--scan``: the scan runtime's kernel (``csrc/scan_block.cu``) on
-  ``tests/_scan_inputs.py``'s mid-track blocks at the scan session's
-  shape (2.5 Msps, borre) and at 10 Msps with kaplan's 5 taps, at 1, 5,
-  20 and 40 epochs of 32 channels and at 20 epochs of one channel (a
-  launch's fixed cost, an epoch's, and whether channels wait for each
-  other), built as the source is, at other threads a CTA and with parts
-  taken out (:data:`SCAN_VARIANTS`: the correlation, the loop update),
-  each timed in two turns (a cut kernel's results are not checked).
+  ``tests/_scan_inputs.py``'s mid-track blocks at ``chip_smoke.py``'s
+  three scan cases (2.5 Msps borre, the scan session's; 10 Msps with
+  kaplan's 5 taps; 16.368 Msps borre): the source (C = 4 CTAs a
+  channel) and its C = 1 and C = 2 variants at 20 epochs of 32 and of
+  one channel, and at 1, 5 and 40 epochs (a launch's fixed cost, an
+  epoch's, whether channels wait for each other), with
+  ``cudaOccupancyMaxActiveClusters``; the kernel built with each of
+  :data:`SCAN_VARIANTS` (C = 1 and 2, other threads a CTA, occupancy
+  caps, the phase polled otherwise, no bookkeeping warp, the first
+  sample loaded late, no tree, no correlation, no discriminate, no loop
+  update), at 32 channels and at one, each timed in two turns; the
+  variants that change no arithmetic (:data:`SCAN_SAME_BITS`) held to
+  the source bit for bit (a cut kernel's results are not checked);
+  :data:`SCAN_CHECK_LAUNCHES` launches of the protocol check
+  (``scan_kernel.SCAN_CHECK_KERNEL``) a case, each bit for bit with the
+  production kernel and without a fault; and C = 1, 2, 4 at 32 channels
+  at 0.5-5 Msps (:data:`SCAN_SWEEP_FS`): the measurements behind
+  ``scan_kernel.SCAN_CLUSTER``. With ``--parent DIR``: DIR's kernel (a
+  checkout of another commit with the same entry point) cut by text
+  substitution (:data:`PARENT_SCAN_CUTS`: the output stores, bit sync
+  and C/N0, the serial warp sum, the phase advance's doubles, all four,
+  the correlation, the loop update) and timed in two turns, then
+  against this tree's on the same inputs at the three cases in turns
+  parent, this, this, parent (device times, and the call time of each
+  tree's ``scan_kernel.scan_block`` wrapper): each tree bit for bit
+  with itself, this tree within the scan runtime's bounds of the
+  parent's (``_scan_inputs.bound_faults``).
 
 Device times are ``chip_smoke.device_ms`` (launches queued behind a
 spinning kernel, between CUDA events). Needs a CUDA device; imports no JAX.
@@ -797,17 +817,13 @@ TWOSTEP_CHUNK_PAIRS = (4, 8, 16, 32)
 TWOSTEP_FORCED_N = (16368, 40920)
 
 
-def source_variant(kern, tag, lines, swap=None):
-    """``kern``'s source and the headers beside it with the lines that
-    start with a key of ``lines`` (each once in all the files) given that
-    value (``constexpr int kThreads = 256;`` with ``{"constexpr int
-    kThreads = ": 512}``), and the text ``swap[0]`` (once) replaced by
-    ``swap[1]`` (``swap`` may also be a list of such pairs), as a kernel
-    built from copies under ``_build/variants/<tag>``."""
-    from pathlib import Path
-
-    from sydr_tpu_torch.ops import native
-
+def variant_texts(kern, lines, swap=None) -> dict:
+    """``kern``'s source and the headers beside it ({file name: text}) with
+    the lines that start with a key of ``lines`` (each once in all the
+    files) given that value (``constexpr int kThreads = 256;`` with
+    ``{"constexpr int kThreads = ": 512}``), and the text ``swap[0]``
+    (once) replaced by ``swap[1]`` (``swap`` may also be a list of such
+    pairs)."""
     files = [kern.source] + sorted(h.name
                                    for h in kern.csrc_dir.glob("*.cuh"))
     texts = {name: (kern.csrc_dir / name).read_text() for name in files}
@@ -831,12 +847,22 @@ def source_variant(kern, tag, lines, swap=None):
         chip_smoke.check(len(hits) == 1 and texts[hits[0]].count(old)
                          == 1, f"{old} not in the sources once")
         texts[hits[0]] = texts[hits[0]].replace(old, new)
+    return texts
+
+
+def source_variant(kern, tag, lines, swap=None):
+    """:func:`variant_texts` of ``kern`` as a kernel (``kern``'s entry
+    point and flags) built from copies under ``_build/variants/<tag>``."""
+    from pathlib import Path
+
+    from sydr_tpu_torch.ops import native
+
     folder = Path(native.PACKAGE_DIR, "_build", "variants", tag)
     folder.mkdir(parents=True, exist_ok=True)
-    for name, text in texts.items():
+    for name, text in variant_texts(kern, lines, swap).items():
         (folder / name).write_text(text)
     return native.CudaKernel(kern.source, kern.symbol, kern.argtypes,
-                             csrc_dir=folder)
+                             csrc_dir=folder, flags=kern.flags)
 
 
 def radix16_caps(kern, tag) -> dict:
@@ -1243,24 +1269,153 @@ def pass_c_variants(device) -> None:
             for label, v in times.items()), flush=True)
 
 
-# The scan kernel's variants: (label, [(text, its replacement)]).
+# The scan kernel's variants: (label, lines, [(text, its replacement)]),
+# applied as source_variant applies them.
+_DISCRIMINATE = ("    const Disc d = discriminate(k, kProf, corr, cr.ip_prev, "
+                 "cr.qp_prev);\n")
 SCAN_VARIANTS = (
-    ("256 threads", [("constexpr int kThreads = 512;",
-                      "constexpr int kThreads = 256;")]),
-    ("1024 threads", [("constexpr int kThreads = 512;",
-                       "constexpr int kThreads = 1024;")]),
-    ("no correlation", [(
+    ("C = 1", {"constexpr int kCluster = ": 1}, []),
+    ("C = 2", {"constexpr int kCluster = ": 2}, []),
+    ("512 threads", {}, [("constexpr int kThreads = 256;   ",
+                          "constexpr int kThreads = 512;   ")]),
+    ("384 threads", {}, [("constexpr int kThreads = 256;   ",
+                          "constexpr int kThreads = 384;   ")]),
+    ("128 threads", {}, [("constexpr int kThreads = 256;   ",
+                          "constexpr int kThreads = 128;   ")]),
+    ("the phase polled by test_wait", {}, [(
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, ",
+        "mbarrier.test_wait.parity.acquire.cluster.shared::cta.b64 p, ")]),
+    ("the phase's acquire at CTA scope", {}, [(
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64",
+        "mbarrier.try_wait.parity.acquire.cta.shared::cta.b64")]),
+    ("no bookkeeping", {}, [
+        ("    if (!writer || lane != 0) continue;\n    // The epoch's record",
+         "    continue;\n    // The epoch's record"),
+        ("    if (rank == 0) {\n      bookkeeping_warp(",
+         "    if (rank == 0 && n_ch < 0) {\n      bookkeeping_warp(")]),
+    ("first sample loaded after the geometry", {}, [
+        ("    if (e == 0) first_sample(p, sc, g.read_ptr, first, n_window, "
+         "xr, xi);",
+         "    first_sample(p, sc, g.read_ptr, first, n_window, xr, xi);"),
+        ("    first_sample(p, sc, g.next_read_ptr, first, n_window, xr, "
+         "xi);\n", "")]),
+    ("two CTAs an SM", {}, [("__global__ void __launch_bounds__(kBlock, 1)",
+                             "__global__ void __launch_bounds__(kBlock, 2)")]),
+    ("at most two CTAs an SM", {}, [(
+        "  cfg.dynamicSmemBytes = 0;",
+        "  cfg.dynamicSmemBytes = 80 << 10;\n"
+        "  cudaFuncSetAttribute(kernel, "
+        "cudaFuncAttributeMaxDynamicSharedMemorySize, 80 << 10);")]),
+    ("at most one CTA an SM", {}, [(
+        "  cfg.dynamicSmemBytes = 0;",
+        "  cfg.dynamicSmemBytes = 150 << 10;\n"
+        "  cudaFuncSetAttribute(kernel, "
+        "cudaFuncAttributeMaxDynamicSharedMemorySize, 150 << 10);")]),
+    ("no correlation", {}, [(
         "  g.n_valid = min(max(q.required, 0), sc.window_size);",
         "  g.n_valid = 0;")]),
-    ("no loop update", [(
-        "      const Disc d = discriminate(k, kProf, corr, cr.ip_prev, "
-        "cr.qp_prev);\n"
-        "      const LoopOut lu = filter_step(k, kProf, kOrder, d, in, "
-        "active);",
-        "      LoopOut lu = {};\n      lu.i_prompt = corr[2];")]),
+    ("no tree", {}, [("      if (off < span) {", "      if (off < 0) {")]),
+    ("no discriminate", {}, [(
+        _DISCRIMINATE,
+        "    Disc d = {};\n    d.ie = corr[0];\n    d.qe = corr[1];\n"
+        "    d.ip = corr[2];\n    d.qp = corr[3];\n    d.il = corr[4];\n"
+        "    d.ql = corr[5];\n    d.dll = sub(corr[0], corr[4]);\n"
+        "    d.dll_w = d.dll;\n    d.costas = mul(corr[3], 1e-9f);\n")]),
+    ("no loop update", {}, [(
+        _DISCRIMINATE + "    const LoopOut lu = filter_step(k, kProf, "
+        "kOrder, d, li, active);",
+        "    LoopOut lu = {};\n    lu.i_prompt = corr[2];")]),
 )
+# The cluster sizes --scan compares: the source's (SCAN_CLUSTER) and the
+# variants'.
+SCAN_CLUSTERS = ("source", "C = 1", "C = 2")
+# The variants that change no arithmetic: their outputs and state must be
+# the source's bit for bit.
+SCAN_SAME_BITS = ("two CTAs an SM", "at most two CTAs an SM",
+                  "at most one CTA an SM", "the phase polled by test_wait",
+                  "the phase's acquire at CTA scope",
+                  "first sample loaded after the geometry")
 # (epochs, channels) of the scan kernel's shapes.
 SCAN_SHAPES = ((1, 32), (5, 32), (20, 32), (40, 32), (20, 1))
+# Rates of the cluster sweep beside chip_smoke.SCAN_CASES' (borre): the
+# measurements behind scan_kernel.SCAN_CLUSTER.
+SCAN_SWEEP_FS = (0.5e6, 1.023e6, 2.046e6, 4e6, 5e6)
+# Launches of the protocol check a case (SCAN_CHECK_KERNEL) by --scan.
+SCAN_CHECK_LAUNCHES = 500
+
+
+def scan_times(kerns, cfg, inputs, device, reps=20) -> dict:
+    """Device ms of each of ``kerns`` ({label: kernel}) on ``inputs``
+    (codes, state, window planes), in two turns (forwards, then
+    backwards): {label: [ms, ms]}."""
+    from sydr_tpu_torch.ops import native
+    from sydr_tpu_torch.ops import scan_kernel as sk
+
+    _, args = sk.scan_launch_args(cfg, *inputs)
+    stream = native.stream_of(inputs[2])
+    runs = {label: (lambda fn=kern.function(): fn(*args, stream))
+            for label, kern in kerns.items()}
+    times = {key: [] for key in runs}
+    for turn in range(2):
+        for key in (runs if turn == 0 else reversed(list(runs))):
+            times[key].append(chip_smoke.device_ms(runs[key], reps))
+    return times
+
+
+def results_equal(a, b) -> bool:
+    """Whether two ``(state, outputs)`` results are equal bit for bit."""
+    import torch
+
+    from sydr_tpu_torch.channels.state import FIELDS
+
+    (sa, oa), (sb, ob) = a, b
+    pairs = [(oa[k], ob[k]) for k in oa] + [
+        (getattr(sa, f), getattr(sb, f)) for f in FIELDS]
+    return list(oa) == list(ob) and all(
+        torch.equal(x.view(torch.int8), y.view(torch.int8))
+        for x, y in pairs)
+
+
+def scan_bits_equal(kern_a, kern_b, cfg, inputs) -> bool:
+    """Whether two builds of the scan kernel give the same outputs and
+    state, bit for bit, on ``inputs``."""
+    import torch
+
+    from sydr_tpu_torch.ops import native
+    from sydr_tpu_torch.ops import scan_kernel as sk
+    from sydr_tpu_torch.ops.loop_kernel import unpack
+
+    stream = native.stream_of(inputs[2])
+    outs = []
+    for kern in (kern_a, kern_b):
+        bufs, args = sk.scan_launch_args(cfg, *inputs)
+        chip_smoke.check(kern.function()(*args, stream) == 0,
+                         "a scan launch failed")
+        outs.append(bufs)
+    torch.cuda.synchronize()
+    return results_equal(unpack(outs[0]), unpack(outs[1]))
+
+
+def scan_protocol(name, cfg, inputs, launches) -> None:
+    """``launches`` launches of the scan kernel's protocol check on
+    ``inputs``: each the production kernel's results bit for bit, and no
+    fault of any kind."""
+    from sydr_tpu_torch.ops import scan_kernel as sk
+
+    ref = sk.scan_block(cfg, *inputs)
+    faults = dict.fromkeys(sk.PROTOCOL_FAULTS, 0)
+    same = 0
+    for _ in range(launches):
+        got, counts = sk.check_protocol(cfg, *inputs)
+        same += results_equal(got, ref)
+        for kind, n in counts.items():
+            faults[kind] += n
+    print(f"scan {name}: protocol check, {launches} launches of "
+          f"{inputs[0].shape[0]} channels: faults {faults}; bit for bit "
+          f"with the production kernel: {same} of {launches}", flush=True)
+    chip_smoke.check(not any(faults.values()) and same == launches,
+                     f"scan {name}: the protocol check failed: {faults}, "
+                     f"{launches - same} launches differ")
 
 
 def scan_variants(device) -> None:
@@ -1271,34 +1426,229 @@ def scan_variants(device) -> None:
     from sydr_tpu_torch.ops import scan_kernel as sk
 
     kerns = {"source": sk.SCAN_KERNEL}
-    for k, (label, swaps) in enumerate(SCAN_VARIANTS):
-        kerns[label] = source_variant(sk.SCAN_KERNEL, f"scan_cut{k}", {},
+    for k, (label, lines, swaps) in enumerate(SCAN_VARIANTS):
+        kerns[label] = source_variant(sk.SCAN_KERNEL, f"scan_cut{k}", lines,
                                       swaps)
-    native.build_all(list(kerns.values()))
-    for label, kern in kerns.items():
+    native.build_all([*kerns.values(), sk.SCAN_CHECK_KERNEL])
+    for label, kern in [*kerns.items(), ("check", sk.SCAN_CHECK_KERNEL)]:
         usage = [ln.strip() for ln in kern.build_log.splitlines()
-                 if "registers" in ln]
-        print(f"scan {label}: {usage[:1] or 'cached'}", flush=True)
-    for name, extra in chip_smoke.SCAN_CASES:
-        base, *_ = chip_smoke.scan_inputs(extra, device)
+                 if "registers" in ln or "spill" in ln]
+        print(f"scan {label}: built in {kern.build_seconds or 0:.2f} s; "
+              f"{usage or 'cached'}", flush=True)
+    clusters = {label: kerns[label] for label in SCAN_CLUSTERS}
+
+    def show(title, times):
+        print(f"scan {title}: device ms in two turns: " + "; ".join(
+            f"{label} " + " / ".join(f"{ms:.5f}" for ms in v)
+            for label, v in times.items()), flush=True)
+
+    mod = chip_smoke.scan_module()
+    cases = list(chip_smoke.SCAN_CASES) + [
+        (f"sweep {fs / 1e6:g} Msps, borre",
+         dict(sampling_frequency=fs, profile="borre"))
+        for fs in SCAN_SWEEP_FS]
+    for name, extra in cases:
+        base = mod.scan_config(**extra)
+        sweep = name.startswith("sweep")
+        active = {label: sk.max_active_clusters(base, kern)
+                  for label, kern in (clusters if sweep else kerns).items()}
+        print(f"scan {name}: active clusters a wave "
+              f"(cudaOccupancyMaxActiveClusters; source C = "
+              f"{sk.SCAN_CLUSTER}): {active}", flush=True)
+        inputs = mod.scan_block_tensors(base, 32, chip_smoke.SEED % 1000,
+                                        device)
+        show(f"{name}, 20 epochs x 32 ch, each C",
+             scan_times(clusters, base, inputs, device))
+        if sweep:
+            continue
+        show(f"{name}, 20 epochs x 32 ch, variants",
+             scan_times(kerns, base, inputs, device))
+        show(f"{name}, 20 epochs x 1 ch, variants",
+             scan_times(kerns, base, mod.scan_block_tensors(
+                 base, 1, chip_smoke.SEED % 1000, device), device))
+        same = {label: scan_bits_equal(sk.SCAN_KERNEL, kerns[label], base,
+                                       inputs)
+                for label in SCAN_SAME_BITS}
+        print(f"scan {name}: bit for bit with the source: {same}",
+              flush=True)
+        chip_smoke.check(all(same.values()), f"scan {name}: a variant that "
+                         f"changes no arithmetic changed the bits: {same}")
+        scan_protocol(name, base, inputs, SCAN_CHECK_LAUNCHES)
         for epochs, n_ch in SCAN_SHAPES:
             cfg = dataclasses.replace(base, block_ms=epochs)
-            codes, st, wre, wim = chip_smoke.scan_module() \
-                .scan_block_tensors(cfg, n_ch, chip_smoke.SEED % 1000,
-                                    device)
-            _, args = sk.scan_launch_args(cfg, codes, st, wre, wim)
-            stream = native.stream_of(wre)
-            times = {label: [] for label in kerns}
-            for turn in range(2):
-                for label in (kerns if turn == 0
-                              else reversed(list(kerns))):
-                    fn = kerns[label].function()
-                    times[label].append(chip_smoke.device_ms(
-                        lambda: fn(*args, stream), 20))
-            print(f"scan {name}, {epochs} epochs x {n_ch} ch: device ms in "
-                  f"two turns: " + "; ".join(
-                      f"{label} " + " / ".join(f"{ms:.5f}" for ms in v)
-                      for label, v in times.items()), flush=True)
+            show(f"{name}, {epochs} epochs x {n_ch} ch",
+                 scan_times(clusters, cfg, mod.scan_block_tensors(
+                     cfg, n_ch, chip_smoke.SEED % 1000, device), device))
+
+
+# Cuts of the scan kernel's first form (a CTA of 512 threads a channel,
+# one thread for the loops and the bookkeeping), applied by --scan
+# --parent to a checkout of that form: what its lone thread's time an
+# epoch outside the loop update splits into. (label, [(text, its
+# replacement)]).
+PARENT_SCAN_CUTS = (
+    ("no output stores", [
+        ("      // The epoch's outputs, row e of each [block_ms, n_ch] "
+         "output.\n",
+         "      if (e >= n_epochs) {\n"),
+        ("      ob[kOutBitReady * plane] = bit_complete;\n",
+         "      ob[kOutBitReady * plane] = bit_complete;\n      }\n")]),
+    ("no bit sync or C/N0", [
+        ("      if (counting && sydr::sign(cr.ip_prev) != "
+         "sydr::sign(lu.i_prompt)) {\n        hist[ms] += 1;\n      }\n",
+         ""),
+        ("      const bool declare = !had_sync && bit_sync_declare(k, hist, "
+         "argmax);",
+         "      const bool declare = false;"),
+        ("      const float cn0 = bit_complete\n"
+         "                            ? cn0_estimate(k, cr.ip_sum, cr.qp_sum, "
+         "cr.ip_sq,\n"
+         "                                           cr.qp_sq, cr.ratio_sum, "
+         "cr.cn0)\n"
+         "                            : cr.cn0;",
+         "      const float cn0 = cr.cn0;")]),
+    ("no serial warp sum", [
+        ("        for (int r = 1; r < kWarps; ++r) v = add(v, red[r][s]);\n",
+         "")]),
+    ("phase advance in float", [
+        ("      const float whole = __double2float_rn(__dadd_rn(\n"
+         "          __dmul_rn(static_cast<double>(static_cast<float>(\n"
+         "                        st.required - sc.samples_per_ms)),\n"
+         "                    sc.code_ratio),\n"
+         "          static_cast<double>(cr.rem_code)));\n"
+         "      const float rem_code = __double2float_rn(__dadd_rn(\n"
+         "          __dmul_rn(static_cast<double>(req_f),\n"
+         "                    static_cast<double>(mul(st.delta, "
+         "sc.rcp_fs))),\n"
+         "          static_cast<double>(whole)));\n",
+         "      const float whole = add(mul(static_cast<float>(\n"
+         "          st.required - sc.samples_per_ms),\n"
+         "          static_cast<float>(sc.code_ratio)), cr.rem_code);\n"
+         "      const float rem_code = add(mul(req_f, mul(st.delta, "
+         "sc.rcp_fs)),\n"
+         "                                 whole);\n")]),
+    ("no correlation", [(
+        "  g.n_valid = min(max(q.required, 0), sc.window_size);",
+        "  g.n_valid = 0;")]),
+    ("no loop update", [(
+        "      const Disc d = discriminate(k, kProf, corr, cr.ip_prev, "
+        "cr.qp_prev);\n"
+        "      const LoopOut lu = filter_step(k, kProf, kOrder, d, in, "
+        "active);",
+        "      LoopOut lu = {};\n      lu.i_prompt = corr[2];")]),
+)
+PARENT_SCAN_CUTS = PARENT_SCAN_CUTS + (
+    ("no bookkeeping (the first four cuts)",
+     [pair for _, pairs in PARENT_SCAN_CUTS[:4] for pair in pairs]),)
+
+
+def parent_scan_module(parent: str):
+    """The parent tree's ``sydr_tpu_torch/ops/scan_kernel.py`` as a module
+    of its own whose ``scan_block`` launches the parent's kernel (its
+    ``SCAN_KERNEL`` built from the parent's ``csrc``, with the module's own
+    ctypes structures): its host path, for the wrapper's call time."""
+    import importlib.util
+    from pathlib import Path
+
+    from sydr_tpu_torch.ops import native
+
+    path = Path(parent) / "sydr_tpu_torch" / "ops" / "scan_kernel.py"
+    spec = importlib.util.spec_from_file_location("parent_scan_kernel", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    kern = module.SCAN_KERNEL
+    module.SCAN_KERNEL = native.CudaKernel(
+        kern.source, kern.symbol, kern.argtypes,
+        csrc_dir=Path(parent, "sydr_tpu_torch", "csrc"))
+    return module
+
+
+def scan_against_parent(parent: str, device) -> None:
+    """``--scan --parent DIR`` (module note)."""
+    from pathlib import Path
+
+    import torch
+
+    from sydr_tpu_torch.ops import native
+    from sydr_tpu_torch.ops import scan_kernel as sk
+
+    theirs = native.CudaKernel(
+        "scan_block.cu", "scan_block_launch", sk.SCAN_KERNEL.argtypes,
+        csrc_dir=Path(parent, "sydr_tpu_torch", "csrc"))
+    wrapper = parent_scan_module(parent)
+    cuts = {"parent": theirs}
+    for k, (label, swaps) in enumerate(PARENT_SCAN_CUTS):
+        cuts[label] = source_variant(theirs, f"parent_scan_cut{k}", {},
+                                     swaps)
+    native.build_all([*cuts.values(), sk.SCAN_KERNEL])
+    for label, kern in [*cuts.items(), ("this", sk.SCAN_KERNEL)]:
+        usage = [ln.strip() for ln in kern.build_log.splitlines()
+                 if "registers" in ln]
+        print(f"scan {label}: built in {kern.build_seconds or 0:.2f} s; "
+              f"{usage[:1] or 'cached'}", flush=True)
+    mod = chip_smoke.scan_module()
+    for name, extra in chip_smoke.SCAN_CASES:
+        cfg, codes, st, wre, wim = chip_smoke.scan_inputs(extra, device)
+        stream = native.stream_of(wre)
+        _, args = sk.scan_launch_args(cfg, codes, st, wre, wim)
+        pargs = args
+        times = {label: [] for label in cuts}
+        for turn in range(2):
+            for label in (cuts if turn == 0 else reversed(list(cuts))):
+                fn = cuts[label].function()
+                times[label].append(chip_smoke.device_ms(
+                    lambda: fn(*pargs, stream), 20))
+        print(f"scan {name}: the parent's cuts, device ms in two turns: "
+              + "; ".join(f"{label} " + " / ".join(f"{ms:.5f}" for ms in v)
+                          for label, v in times.items()), flush=True)
+        runs = {}
+        results = {}
+        for label, kern, a in (("parent", theirs, pargs),
+                               ("this", sk.SCAN_KERNEL, args)):
+            outs = []
+            for _ in range(2):
+                bufs, fresh = sk.scan_launch_args(cfg, codes, st, wre, wim)
+                chip_smoke.check(kern.function()(*fresh, stream) == 0,
+                                 f"scan {name}: the {label} launch failed")
+                outs.append(bufs)
+            runs[label] = (lambda fn=kern.function(), a=a:
+                           fn(*a, stream))
+            results[label] = outs
+        torch.cuda.synchronize()
+        repeat = {label: all(torch.equal(o[0][k].view(torch.int8),
+                                         o[1][k].view(torch.int8))
+                             for k in o[0])
+                  for label, o in results.items()}
+        peak = max(float(wre.abs().max()), float(wim.abs().max()))
+        from sydr_tpu_torch.ops.loop_kernel import unpack
+
+        faults, errors = mod.bound_faults(unpack(results["this"][0]),
+                                          unpack(results["parent"][0]),
+                                          peak)
+        calls = {"parent": lambda: wrapper.scan_block(cfg, codes, st, wre,
+                                                      wim),
+                 "this": lambda: sk.scan_block(cfg, codes, st, wre, wim)}
+        times = {"parent": [], "this": []}
+        call = {"parent": [], "this": []}
+        for label in ("parent", "this", "this", "parent"):
+            times[label].append(chip_smoke.device_ms(runs[label], 20))
+            call[label].append(chip_smoke.cuda_ms(calls[label], 20))
+        print(f"scan {name}: parent -> this, in turns (parent, this, this, "
+              f"parent): device ms parent "
+              + " / ".join(f"{ms:.5f}" for ms in times["parent"])
+              + "; this " + " / ".join(f"{ms:.5f}" for ms in times["this"])
+              + "; the wrapper's call ms (chip_smoke's call_ms) parent "
+              + " / ".join(f"{ms:.5f}" for ms in call["parent"])
+              + "; this " + " / ".join(f"{ms:.5f}" for ms in call["this"])
+              + f"; each bit for bit with itself: {repeat}; this within "
+              f"the scan runtime's bounds of the parent: {not faults} "
+              f"(max abs err "
+              f"{ {k: float(f'{v:.2e}') for k, v in errors.items()} })",
+              flush=True)
+        chip_smoke.check(all(repeat.values()),
+                         f"scan {name}: a tree's second launch differs")
+        chip_smoke.check(not faults, f"scan {name}: the trees' kernels "
+                                     f"differ beyond the bounds: {faults}")
 
 
 def pass_c_against_parent(parent: str, device) -> None:
@@ -1369,8 +1719,9 @@ def main(argv=None) -> int:
                         help="the scan runtime's kernel at other shapes, "
                              "threads a CTA and with parts cut out")
     parser.add_argument("--parent", metavar="DIR",
-                        help="hold the K2 entries of the checkout DIR "
-                             "against this tree's")
+                        help="hold the K2 entries (with --pass-c, pass "
+                             "C's kernel; with --scan, the scan kernel) "
+                             "of the checkout DIR against this tree's")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -1385,6 +1736,9 @@ def main(argv=None) -> int:
         return 0
     if opts.pass_c:
         pass_c_variants(device)
+        return 0
+    if opts.scan and opts.parent:
+        scan_against_parent(opts.parent, device)
         return 0
     if opts.scan:
         scan_variants(device)
