@@ -91,7 +91,7 @@ printing its wall time:
    launch counts are checked. It runs twice, its device step eager
    (``graph=False``) and then as the session's default, one captured CUDA
    graph per configuration replayed on every later step
-   (``receiver/step_graph.py``): every output and the final state bit for
+   (``ops/step_graph.py``): every output and the final state bit for
    bit, the same launch counts, K1 and pass C's kernel inside the replayed
    cruise graph (one launch of each a block), each graph's capture and
    instantiation seconds and node count; then steady
@@ -158,8 +158,21 @@ printing its wall time:
     receiver of the demo's configuration loads;
 15. the multi-device layer (``sydr_tpu_torch.parallel``): (a) a one-rank
     NCCL process group, ``TrackingSession(mesh=make_mesh(1, 1))`` on the
-    first 2 s of phase 5's capture, every output of every call bit for bit
-    phase 5's; (b) two gloo ranks sharing the card (spawned processes):
+    first 2 s of phase 5's capture, its step graphed (the default on NCCL:
+    the channel shard's step and its two ``all_gather``s of state and
+    outputs captured in one graph) and then eager (``graph=False``), every
+    output of every call of each bit for bit phase 5's, with each form's
+    graphs (nodes by kind, capture and instantiation seconds, the
+    launches and collectives a replay makes), median call and launches;
+    both forms over the same steady cruise superblocks in turns with
+    their real-time factors, the cruise graph's replay between CUDA events
+    beside phase 5's unsharded graph's nodes and replay; the same pair in
+    the scan runtime on phase 11's 2 s, bit for bit phase 11's session, one
+    scan launch a block; the time-sharded full-rate block (10 Msps, 32
+    channels, 4 + 20 ms) and a superblock of 2 on a one-rank NCCL ``sp``
+    mesh through ``TimeShardGraph``, captured and replayed, bit for bit the
+    eager calls, in both forms of pass B; (b) two gloo ranks sharing the
+    card (spawned processes):
     the cruise superblock that follows (a) sharded 16 + 16 channels in
     both forms of pass B (K1, K3), bit for bit the 32-channel superblock;
     the full-rate block (10 Msps, 32 channels, 4 + 20 ms, 6 streams)
@@ -169,8 +182,9 @@ printing its wall time:
     the unsharded ``pcps_map`` + ``peak_metric``; each rank's launch
     counts and step times, the unsharded times beside them, and K1 and K3
     on a time shard timed as in phase 3; (c) ``python -m
-    sydr_tpu_torch.parallel.dryrun --world 2 --backend gloo``, which must
-    print its OK line;
+    sydr_tpu_torch.parallel.dryrun --world 2 --backend gloo`` and
+    ``--world 1 --backend nccl`` (its steps captured and held against
+    their eager runs), each of which must print its OK line;
 16. the measuring tools (``sydr_tpu_torch.tools``): (a) the soak, 60 s of
     the production receiver (10 Msps, decimate 4, kaplan pull-in, the
     narrow-only cruise at superblock 25, quantised taps, seed 3) within the
@@ -189,7 +203,8 @@ printing its wall time:
     Pfa 0/32; the 30 dB-Hz row and the grid rate printed); (d)
     ``trace_profile``'s superblock (5 blocks) in both boundary forms with
     its pass A/B/C split; (e) ``scaling_bench``'s per-shard curve (10-block
-    steps) at 32, 16, 8, 4 channels with eff(n); (f) ``acq_profile``'s two
+    steps) at 32, 16, 8, 4 channels with eff(n), the step captured as a
+    CUDA graph and, beside it in turns, eager; (f) ``acq_profile``'s two
     maps.
 
 Each of phases 5-16 sets every kernel's launch count to 0 just before it
@@ -1532,6 +1547,53 @@ def graph_stats(session) -> list:
     return lines
 
 
+def steady_turns(sessions, block_re, block_im):
+    """The same input to each of the two ``sessions`` (``{name: session}``,
+    both in cruise) in turns, ``2 * STEADY_TURNS`` calls each (a, b, b, a,
+    ...): each form's call walls, its real-time factor over their median,
+    and whether every call's outputs were bit-identical across forms."""
+    import torch
+
+    names = list(sessions)
+    walls = {name: [] for name in names}
+    same = True
+    for turn in range(2 * STEADY_TURNS):
+        got = {}
+        for name in names if turn % 2 == 0 else names[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[name] = sessions[name].process_block(block_re, block_im)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+        a, b = (got[name] for name in names)
+        same &= all(np.array_equal(a[k], b[k]) for k in a)
+    signal_s = len(block_re) / FS_IN
+    rtf = {name: signal_s / float(np.median(w)) for name, w in walls.items()}
+    return walls, rtf, same
+
+
+def step_alone(session, entry) -> tuple:
+    """The graph ``entry`` of ``session``'s cruise step replayed on its
+    static inputs three times (ms each, CUDA events), and the eager step
+    on the same inputs (ms, fenced wall)."""
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    replay_ms = []
+    for _ in range(3):
+        start.record()
+        entry.replay()
+        end.record()
+        torch.cuda.synchronize()
+        replay_ms.append(start.elapsed_time(end))
+    inner, _ = session._packed_runs[session.cruise_cfg]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inner(*entry.inputs)
+    torch.cuda.synchronize()
+    return replay_ms, 1e3 * (time.perf_counter() - t0)
+
+
 def session_pair_phase(device, capture, card) -> dict:
     """Phase 5: the Session cell twice, its step eager (``graph=False``)
     and then captured (the default): every output of every call and the
@@ -1587,40 +1649,10 @@ def session_pair_phase(device, capture, card) -> dict:
     check(gs.promoted and es.promoted and es.block_input_samples == n_in,
           "the paired sessions are not both in cruise")
     _, sig_re, sig_im = capture
-    walls = {"eager": [], "graphed": []}
-    same = True
-    for turn in range(2 * STEADY_TURNS):
-        order = ("eager", "graphed") if turn % 2 == 0 else \
-            ("graphed", "eager")
-        got = {}
-        for name in order:
-            session = es if name == "eager" else gs
-            sync()
-            t0 = time.perf_counter()
-            got[name] = session.process_block(sig_re[:n_in], sig_im[:n_in])
-            sync()
-            walls[name].append(time.perf_counter() - t0)
-        same &= all(np.array_equal(got["eager"][k], got["graphed"][k])
-                    for k in got["eager"])
+    walls, rtf, same = steady_turns({"eager": es, "graphed": gs},
+                                    sig_re[:n_in], sig_im[:n_in])
+    replay_ms, eager_step_ms = step_alone(gs, entry)
     signal_s = n_in / FS_IN
-    rtf = {name: signal_s / float(np.median(w)) for name, w in walls.items()}
-
-    # The step alone: the cruise graph's replay on its static inputs, and
-    # the eager step on the same inputs.
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    replay_ms = []
-    for _ in range(3):
-        start.record()
-        entry.replay()
-        end.record()
-        sync()
-        replay_ms.append(start.elapsed_time(end))
-    inner, _ = gs._packed_runs[gs.cruise_cfg]
-    sync()
-    t0 = time.perf_counter()
-    inner(*entry.inputs)
-    sync()
-    eager_step_ms = 1e3 * (time.perf_counter() - t0)
     print(f"session pair, steady cruise ({STEADY_TURNS * 2} superblocks "
           f"a form, {signal_s:g} s each, in turns): eager calls "
           f"{[round(w, 4) for w in walls['eager']]} s, RTF "
@@ -2172,7 +2204,7 @@ def prefix_receiver_phase(device, sky_path) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 14: the multi-device layer
+# Phase 15: the multi-device layer
 # ---------------------------------------------------------------------------
 
 MESH_SIGNAL_MS = 2000   # (a): the first 2 s of the session's capture
@@ -2218,60 +2250,358 @@ def timed_call(walls, name, fn, warm=0):
     return out
 
 
-def mesh_session_phase(device, capture, reference, card) -> dict:
-    """(a) ``TrackingSession(mesh=make_mesh(1, 1))`` in a one-rank NCCL
-    process group over the first MESH_SIGNAL_MS of the session's capture,
-    call by call against phase 5's unsharded session on the same samples:
-    every output bit for bit."""
+def mesh_session_run(device, capture, mesh, runtime, graph, signal_ms):
+    """``TrackingSession(mesh=mesh)`` over the first ``signal_ms`` of the
+    capture, its step graphed (``graph=None``, the default) or eager:
+    every call's outputs and wall, the kernels' and the collectives'
+    launches, the session and the samples fed."""
     import torch
 
-    from sydr_tpu_torch.parallel import distributed, mesh as pmesh
+    from sydr_tpu_torch.parallel import distributed
     from sydr_tpu_torch.receiver.session import TrackingSession
 
     _, sig_re, sig_im = capture
-    pull_in, cruise = session_configs(FS_IN, CRUISE_SUPERBLOCK)
-    in_per_ms = round(FS_IN * 1e-3)
-    distributed.initialize("nccl", rank=0, world_size=1,
-                           init_method=f"tcp://127.0.0.1:{free_port()}")
-    try:
-        session = TrackingSession(
-            pull_in, list(range(1, N_CHANNELS + 1)), cruise=cruise,
-            device=device, mesh=pmesh.make_mesh(1, 1))
-        outs, walls, pos = [], [], 0
-        reset_launches()
-        while pos + session.block_input_samples <= MESH_SIGNAL_MS * in_per_ms:
-            n_in = session.block_input_samples
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            outs.append(session.process_block(sig_re[pos:pos + n_in],
-                                              sig_im[pos:pos + n_in]))
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            pos += n_in
-        launches = read_launches()
-    finally:
-        distributed.shutdown()
-    ref = reference["outputs"]
-    check(len(ref) >= len(outs), "phase 5 made fewer calls than (a)")
-    diff = [(i, k) for i, (got, want) in enumerate(zip(outs, ref))
+    pull_in, cruise = session_configs(FS_IN, CRUISE_SUPERBLOCK, runtime)
+    session = TrackingSession(
+        pull_in, list(range(1, N_CHANNELS + 1)), cruise=cruise,
+        device=device, mesh=mesh, graph=graph)
+    outs, walls, pos = [], [], 0
+    reset_launches()
+    for counter in distributed.COLLECTIVES.values():
+        counter.launches = 0
+    while pos + session.block_input_samples <= signal_ms * round(
+            FS_IN * 1e-3):
+        n_in = session.block_input_samples
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(session.process_block(sig_re[pos:pos + n_in],
+                                          sig_im[pos:pos + n_in]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        pos += n_in
+    return {"outs": outs, "walls": walls, "launches": read_launches(),
+            "collectives": {name: c.launches for name, c
+                            in distributed.COLLECTIVES.items()},
+            "session": session, "pos": pos}
+
+
+def outputs_diff(outs, ref) -> list:
+    """The (call, key) pairs where ``outs`` and ``ref`` differ."""
+    return [(i, k) for i, (got, want) in enumerate(zip(outs, ref))
             for k in set(got) | set(want)
             if k not in got or k not in want
             or not np.array_equal(got[k], want[k])]
-    ref_walls = reference["call_walls"][:len(outs)]
-    print(f"multi-device (a): nccl, world 1, mesh {{'ch': 1, 'dop': 1}}: "
-          f"{len(outs)} calls, {pos // in_per_ms} ms of signal, promoted "
-          f"{session.promoted}; {sum(walls):.3f} s against "
-          f"{sum(ref_walls):.3f} s unsharded (phase 5, the same calls), "
-          f"first call {walls[0]:.3f} s against {ref_walls[0]:.3f} s, "
-          f"median call {1e3 * np.median(walls):.2f} ms against "
-          f"{1e3 * np.median(ref_walls):.2f} ms, on {card}; every output "
-          f"bit-identical: {not diff}; launches {launches}", flush=True)
-    check(not diff, f"the mesh session differs from the unsharded one at "
-                    f"(call, key) {diff[:5]}")
-    check(session.promoted, "the mesh session never promoted")
-    check(launches["epoch_correlate"] > 0 and launches["pcps_bins"] > 0,
-          f"K1 or K2 never launched on the mesh session's path: {launches}")
-    return {"launches": launches, "session": session, "pos": pos}
+
+
+def mesh_form_line(name, run, card) -> str:
+    """One form's figures: calls, the median call, its graphs (nodes by
+    kind, capture and instantiation seconds, launches a replay) and its
+    launches."""
+    session, walls = run["session"], run["walls"]
+    graphs = "eager" if session.graph is None else "; ".join(
+        f"{line} (nodes by kind {entry.node_kinds})" for line, entry in zip(
+            graph_stats(session), session.graph.graphs.values()))
+    return (f"{name}: {len(walls)} calls, first {walls[0]:.3f} s, median "
+            f"call {1e3 * np.median(walls):.2f} ms; graphs: {graphs}; "
+            f"launches {run['launches']}, collectives "
+            f"{run['collectives']}; on {card}")
+
+
+def replays_in_turns(entries, turns=3) -> dict:
+    """Each graph of ``entries`` (``{name: Captured}``) replayed on its
+    static inputs in turns (a, b, b, a, ...), ``2 * turns`` times each:
+    the ms of every replay (CUDA events), by name."""
+    import torch
+
+    names = list(entries)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ms = {name: [] for name in names}
+    for turn in range(2 * turns):
+        for name in names if turn % 2 == 0 else names[::-1]:
+            start.record()
+            entries[name].replay()
+            end.record()
+            torch.cuda.synchronize()
+            ms[name].append(start.elapsed_time(end))
+    return ms
+
+
+def replay_trace(entries, replays=3) -> dict:
+    """Each graph of ``entries`` (``{name: Captured}``) replayed
+    ``replays`` times, each replay alone under ``torch.profiler`` (CUPTI's
+    records of the kernels and copies that a graph launch runs). Per
+    graph, the mean over its replays of: the device's events (kernels and
+    copies), their busy time (the union of their intervals), the span
+    from the first start to the last end and the idle time in it, the
+    five longest idle gaps with the events on each side, and the device
+    time by event name. Empty where the trace holds no device event."""
+    import torch
+
+    from sydr_tpu_torch.tools import trace_profile
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for name, entry in entries.items():
+        runs = []
+        for _ in range(replays):
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                entry.replay()
+                torch.cuda.synchronize()
+            evts = sorted(((e.time_range.start, e.time_range.end, e.key)
+                           for e in trace_profile.kernel_rows(prof.events())),
+                          key=lambda r: r[0])
+            if not evts:
+                return {}
+            busy, gaps, reach, last = 0.0, [], evts[0][0], evts[0][2]
+            for lo, hi, key in evts:
+                if lo > reach:
+                    gaps.append((lo - reach, last, key))
+                busy += max(0.0, hi - max(lo, reach))
+                if hi > reach:
+                    reach, last = hi, key
+            by_name: dict = {}
+            for lo, hi, key in evts:
+                by_name[key] = by_name.get(key, 0.0) + (hi - lo) / 1e3
+            span = (reach - evts[0][0]) / 1e3
+            runs.append({"events": len(evts), "copies": sum(
+                "memcpy" in k.lower() or "memset" in k.lower()
+                for *_, k in evts), "busy_ms": busy / 1e3, "span_ms": span,
+                "idle_ms": span - busy / 1e3, "gaps": sorted(gaps)[::-1][:5],
+                "by_name": by_name})
+        keys = ("events", "copies", "busy_ms", "span_ms", "idle_ms")
+        out[name] = {k: float(np.mean([r[k] for r in runs])) for k in keys}
+        out[name]["gaps"] = [(round(g / 1e3, 4), a[:40], b[:40])
+                             for g, a, b in runs[-1]["gaps"]]
+        names = set().union(*(r["by_name"] for r in runs))
+        out[name]["by_name"] = {k: float(np.mean([r["by_name"].get(k, 0.0)
+                                                  for r in runs]))
+                                for k in names}
+    return out
+
+
+def replay_trace_line(trace, base, other) -> str:
+    """:func:`replay_trace`'s figures of ``other`` against ``base``, and
+    the event names whose device time differs most between the two."""
+    if not trace:
+        return "the trace holds no device event (not measured)"
+    a, b = trace[base], trace[other]
+    diff = sorted(((b["by_name"].get(k, 0.0) - a["by_name"].get(k, 0.0), k)
+                   for k in set(a["by_name"]) | set(b["by_name"])),
+                  key=lambda r: -abs(r[0]))[:8]
+    figs = "; ".join(
+        f"{name}: {t['events']:.0f} events ({t['copies']:.0f} copies), busy "
+        f"{t['busy_ms']:.4f} ms, span {t['span_ms']:.4f} ms, idle "
+        f"{t['idle_ms']:.4f} ms, longest gaps (ms, after, before) "
+        f"{t['gaps']}" for name, t in ((base, a), (other, b)))
+    return (f"{figs}; {other} - {base} by event name, ms: "
+            + ", ".join(f"{k[:60]} {d:+.4f}" for d, k in diff))
+
+
+def mesh_session_phase(device, capture, reference, scan_reference,
+                       card) -> dict:
+    """(a) ``TrackingSession(mesh=make_mesh(1, 1))`` in a one-rank NCCL
+    process group, its step graphed (the default on NCCL: the channel
+    shard's step and its two ``all_gather``s captured in one graph) and
+    then eager (``graph=False``), over the first MESH_SIGNAL_MS of the
+    session's capture: every output of every call bit for bit phase 5's
+    unsharded session; then both forms over the same steady cruise
+    superblocks in turns, their real-time factors, and the cruise step
+    alone (the replay between CUDA events beside phase 5's unsharded
+    graph's nodes, then the two graphs replayed in turns); the same pair
+    in the scan runtime against phase 11's
+    session; then the time-sharded full-rate block and superblock on a
+    one-rank NCCL ``sp`` mesh, captured and eager, in both forms of pass
+    B (:func:`timeshard_graph_phase`)."""
+    from sydr_tpu_torch.channels.state import state_to_numpy
+    from sydr_tpu_torch.parallel import distributed, mesh as pmesh
+    from sydr_tpu_torch.parallel import timeshard
+
+    distributed.initialize("nccl", rank=0, world_size=1,
+                           init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        mesh = pmesh.make_mesh(1, 1)
+        check(mesh.backend == "nccl" and mesh.captures,
+              f"the NCCL mesh reads backend {mesh.backend}")
+        runs = {name: mesh_session_run(device, capture, mesh, "batch",
+                                       graph, MESH_SIGNAL_MS)
+                for name, graph in (("graphed", None), ("eager", False))}
+        gs, es = runs["graphed"]["session"], runs["eager"]["session"]
+        check(gs.graph is not None and es.graph is None,
+              "the NCCL mesh session did not graph its step by default, "
+              "or graph=False did")
+        # (b) reads the superblock that follows, from here.
+        pos = runs["eager"]["pos"]
+        handoff = {"state": state_to_numpy(es.state),
+                   "tail": (es._tail_re.copy(), es._tail_im.copy()),
+                   "n_in": es.block_input_samples,
+                   "superblock": es.cfg.superblock, "pos": pos}
+        ref = reference["outputs"]
+        ref_walls = reference["call_walls"][:len(runs["eager"]["outs"])]
+        for name, run in runs.items():
+            diff = outputs_diff(run["outs"], ref)
+            print(f"multi-device (a): nccl, world 1, mesh {mesh.shape}, "
+                  + mesh_form_line(name, run, card)
+                  + f"; every output bit-identical to phase 5's: "
+                  f"{not diff}", flush=True)
+            check(len(ref) >= len(run["outs"]) and not diff,
+                  f"the {name} mesh session differs from the unsharded one "
+                  f"at (call, key) {diff[:5]}")
+        print(f"multi-device (a): {len(ref_walls)} calls unsharded (phase "
+              f"5, graphed, the same calls): first {ref_walls[0]:.3f} s, "
+              f"median call {1e3 * np.median(ref_walls):.2f} ms", flush=True)
+        check(not outputs_diff(runs["graphed"]["outs"], runs["eager"]["outs"]),
+              "the graphed mesh session differs from the eager one")
+        check(gs.promoted and es.promoted, "the mesh session never promoted")
+        launches = runs["eager"]["launches"]
+        check(launches["epoch_correlate"] > 0 and launches["pcps_bins"] > 0,
+              f"K1 or K2 never launched on the mesh session's path: "
+              f"{launches}")
+        check(runs["graphed"]["launches"] == launches,
+              "the graphed mesh session's launch counts differ from the "
+              "eager one's")
+        gather = distributed.COLLECTIVES["all_gather"]
+        calls = len(runs["graphed"]["outs"])
+        check(runs["graphed"]["collectives"]["all_gather"] == 2 * calls
+              == runs["eager"]["collectives"]["all_gather"],
+              f"not two all_gathers a call: {runs['graphed']['collectives']}"
+              f" graphed, {runs['eager']['collectives']} eager")
+        entry = next(e for k, e in gs.graph.graphs.items()
+                     if k[0] is gs.cruise_cfg)
+        check(entry.launches.get(gather) == 2,
+              f"the cruise graph does not hold the two all_gathers: "
+              f"{graph_stats(gs)}")
+
+        # Steady state, both in cruise: the same superblock, in turns.
+        _, sig_re, sig_im = capture
+        n_in = gs.block_input_samples
+        walls, rtf, same = steady_turns({"eager": es, "graphed": gs},
+                                        sig_re[:n_in], sig_im[:n_in])
+        replay_ms, eager_step_ms = step_alone(gs, entry)
+        plain = reference["session"]
+        plain_entry = next(e for k, e in plain.graph.graphs.items()
+                           if k[0] is plain.cruise_cfg)
+        plain_nodes = plain_entry.node_kinds
+        turns = replays_in_turns({"unsharded": plain_entry, "mesh": entry})
+        trace = replay_trace({"unsharded": plain_entry, "mesh": entry})
+        print(f"multi-device (a), steady cruise ({STEADY_TURNS * 2} "
+              f"superblocks a form, {n_in / FS_IN:g} s each, in turns): "
+              f"eager calls {[round(w, 4) for w in walls['eager']]} s, RTF "
+              f"{rtf['eager']:.4f}; graphed calls "
+              f"{[round(w, 4) for w in walls['graphed']]} s, RTF "
+              f"{rtf['graphed']:.4f}; graphed / eager "
+              f"{rtf['graphed'] / rtf['eager']:.2f}x; outputs "
+              f"bit-identical: {same}; the step alone: replay "
+              f"{[round(x, 3) for x in replay_ms]} ms (CUDA events) of "
+              f"{entry.nodes} nodes {entry.node_kinds} (phase 5's unsharded "
+              f"cruise graph: {sum(plain_nodes.values())} nodes "
+              f"{plain_nodes}; its replay {reference['replay_ms']} ms), "
+              f"eager {eager_step_ms:.1f} ms (fenced wall); the two graphs "
+              f"replayed in turns, ms: " + ", ".join(
+                  f"{name} {[round(x, 3) for x in ms]}"
+                  for name, ms in turns.items()) + f"; on {card}",
+              flush=True)
+        print(f"multi-device (a), one replay of each cruise graph under "
+              f"torch.profiler (mean of 3): "
+              + replay_trace_line(trace, "unsharded", "mesh")
+              + f"; on {card}", flush=True)
+        check(same and entry.replays > 0, "the steady graphed mesh "
+                                          "superblocks differ from the eager "
+                                          "ones, or did not replay")
+
+        # The scan runtime's mesh step, against phase 11's session.
+        scan = {name: mesh_session_run(device, capture, mesh, "scan", graph,
+                                       SCAN_SIGNAL_MS)
+                for name, graph in (("graphed", None), ("eager", False))}
+        for name, run in scan.items():
+            diff = outputs_diff(run["outs"], scan_reference["outputs"])
+            print(f"multi-device (a), scan runtime: "
+                  + mesh_form_line(name, run, card)
+                  + f"; every output bit-identical to phase 11's: "
+                  f"{not diff}", flush=True)
+            check(len(run["outs"]) == len(scan_reference["outputs"])
+                  and not diff, f"the {name} scan mesh session differs "
+                  f"from the unsharded one at (call, key) {diff[:5]}")
+            check(run["launches"]["scan_block"] == len(run["outs"]),
+                  f"the {name} scan mesh session did not launch the scan "
+                  f"kernel once a block: {run['launches']}")
+        ts_launches = timeshard_graph_phase(
+            device, timeshard.make_sp_mesh(), card)
+    finally:
+        distributed.shutdown()
+    launches = {name: sum(run["launches"][name]
+                          for run in (*runs.values(), *scan.values()))
+                + ts_launches[name] for name in launches}
+    return {"launches": launches, "handoff": handoff}
+
+
+def timeshard_graph_phase(device, sp_mesh, card) -> dict:
+    """The full-rate block (10 Msps, 32 channels, 4 + 20 ms) and a
+    superblock of 2 such blocks on the ``sp`` mesh through
+    ``TimeShardGraph`` (graphed on NCCL) and eagerly, in both forms of
+    pass B: the capture's call and two replays, each on the state the
+    eager call before it left, bit for bit the eager call; the graphs'
+    nodes, the replay between CUDA events and the eager call's fenced
+    wall. Returns the kernels' launches."""
+    import torch
+
+    from sydr_tpu_torch.parallel import timeshard
+
+    reset_launches()
+    _, st0, wre, wim, bits = random_tracking(
+        SP_FS, 20, "narrow", True, device, np.random.default_rng(SEED + 15))
+    for form, cfg in pass_b_forms(random_config(SP_FS, 20, "narrow", True)):
+        spms = cfg.samples_per_ms
+        sre = torch.cat([wre, wre[cfg.tail_ms * spms:]])
+        sim = torch.cat([wim, wim[cfg.tail_ms * spms:]])
+        runner = timeshard.TimeShardGraph(sp_mesh, device)
+        check(runner.graph is not None,
+              "the time shards on NCCL did not graph by default")
+        calls = {
+            "block": (lambda s: runner.block(cfg, bits, s, wre, wim),
+                      lambda s: timeshard.run_block_batched_timesharded(
+                          cfg, sp_mesh, bits, s, wre, wim)),
+            "superblock of 2": (
+                lambda s: runner.superblock(cfg, 2, bits, s, sre, sim),
+                lambda s: timeshard.run_superblock_timesharded(
+                    cfg, sp_mesh, 2, bits, s, sre, sim))}
+        for name, (graphed, eager) in calls.items():
+            state, same, eager_ms = st0, True, []
+            for _ in range(3):
+                got = graphed(state)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = eager(state)
+                torch.cuda.synchronize()
+                eager_ms.append(1e3 * (time.perf_counter() - t0))
+                same &= all(torch.equal(got[1][k], want[1][k])
+                            for k in want[1]) and all(
+                    torch.equal(getattr(got[0], f.name),
+                                getattr(want[0], f.name))
+                    for f in dataclasses.fields(want[0]))
+                state = want[0]
+            entry = list(runner.graph.graphs.values())[-1]
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            entry.replay()
+            end.record()
+            torch.cuda.synchronize()
+            kern = {k.source.removesuffix(".cu"): n
+                    for k, n in entry.launches.items()}
+            print(f"multi-device (a), time shards on nccl world 1: {form} "
+                  f"{name} ({SP_FS / 1e6:g} Msps, {N_CHANNELS} ch): "
+                  f"captured and two replays bit-identical to eager: {same}; "
+                  f"graph {entry.nodes} nodes {entry.node_kinds}, capture "
+                  f"{entry.capture_s:.3f} s, instantiate "
+                  f"{entry.instantiate_s:.3f} s, launches a replay {kern}; "
+                  f"replay {start.elapsed_time(end):.3f} ms (CUDA events), "
+                  f"eager calls {[round(x, 3) for x in eager_ms]} ms (fenced "
+                  f"wall); on {card}", flush=True)
+            check(same, f"the captured time-sharded {form} {name} differs "
+                        f"from the eager one")
+    return read_launches()
 
 
 def mesh_inputs(device, capture, mesh_run) -> dict:
@@ -2282,22 +2612,20 @@ def mesh_inputs(device, capture, mesh_run) -> dict:
     capture, decimated, for the acquisition."""
     from sydr_tpu_torch.channels.state import state_to_numpy
 
-    session, pos = mesh_run["session"], mesh_run["pos"]
+    handoff = mesh_run["handoff"]
+    pos, n_in, (tail_re, tail_im) = (handoff[k] for k in ("pos", "n_in",
+                                                          "tail"))
     _, sig_re, sig_im = capture
-    n_in = session.block_input_samples
-    check(session.cfg.superblock == CRUISE_SUPERBLOCK
+    check(handoff["superblock"] == CRUISE_SUPERBLOCK
           and pos + n_in <= len(sig_re),
           "(a) did not leave a cruise superblock of the capture")
 
     def decimated(x, lo, n):
         return np.float32(x[lo:lo + n]).reshape(-1, DECIMATE).sum(axis=1)
 
-    data = {"ch_re": np.concatenate([session._tail_re,
-                                     decimated(sig_re, pos, n_in)]),
-            "ch_im": np.concatenate([session._tail_im,
-                                     decimated(sig_im, pos, n_in)])}
-    data.update({f"ch_st_{k}": v
-                 for k, v in state_to_numpy(session.state).items()})
+    data = {"ch_re": np.concatenate([tail_re, decimated(sig_re, pos, n_in)]),
+            "ch_im": np.concatenate([tail_im, decimated(sig_im, pos, n_in)])}
+    data.update({f"ch_st_{k}": v for k, v in handoff["state"].items()})
     _, st, wre, wim, _ = random_tracking(
         SP_FS, 20, "narrow", True, device, np.random.default_rng(SEED + 14))
     data.update({f"sp_st_{k}": v for k, v in state_to_numpy(st).items()})
@@ -2630,26 +2958,33 @@ def sp_shard_cases(data, device) -> dict:
 
 
 def dryrun_phase() -> None:
-    """(c) ``python -m sydr_tpu_torch.parallel.dryrun --world 2 --backend
-    gloo`` as a child process, on the card."""
-    cmd = [sys.executable, "-m", "sydr_tpu_torch.parallel.dryrun",
-           "--world", str(MESH_WORLD), "--backend", "gloo"]
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                          timeout=RANK_TIMEOUT_S)
-    text = proc.stdout + proc.stderr
-    print("\n".join(ln for ln in text.splitlines()
-                    if ln.startswith(("rank ", "dryrun_multichip",
-                                      "Traceback"))), flush=True)
-    check(proc.returncode == 0,
-          f"the dry run exited {proc.returncode}:\n{text[-3000:]}")
-    check("dryrun_multichip OK" in proc.stdout, "the dry run printed no OK")
+    """(c) ``python -m sydr_tpu_torch.parallel.dryrun`` as a child process
+    on the card, twice: ``--world 2 --backend gloo`` (two ranks share the
+    card; no graph) and ``--world 1 --backend nccl`` (the steps and their
+    collectives captured, held against their eager runs)."""
+    for world, backend, graphs in ((MESH_WORLD, "gloo", "none"),
+                                   (1, "nccl", "captured")):
+        cmd = [sys.executable, "-m", "sydr_tpu_torch.parallel.dryrun",
+               "--world", str(world), "--backend", backend]
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=RANK_TIMEOUT_S)
+        text = proc.stdout + proc.stderr
+        print("\n".join(ln for ln in text.splitlines()
+                        if ln.startswith(("rank ", "dryrun_multichip",
+                                          "Traceback"))), flush=True)
+        check(proc.returncode == 0, f"the {backend} dry run exited "
+                                    f"{proc.returncode}:\n{text[-3000:]}")
+        check("dryrun_multichip OK" in proc.stdout
+              and f"graphs={graphs}" in proc.stdout,
+              f"the {backend} dry run printed no OK with graphs={graphs}")
 
 
-def multi_device_phase(device, capture, session_run, card) -> dict:
-    """Phase 14: (a) NCCL at world size 1, (b) two gloo ranks on the card,
-    (c) the dry run."""
+def multi_device_phase(device, capture, session_run, scan_run,
+                       card) -> dict:
+    """Phase 15: (a) NCCL at world size 1, its steps graphed and eager,
+    (b) two gloo ranks on the card, (c) the dry run."""
     mesh_run = timed("multi-device (a)", mesh_session_phase, device,
-                     capture, session_run, card)
+                     capture, session_run, scan_run, card)
     res = timed("multi-device (b)", mesh_ranks_phase, device, capture,
                 mesh_run, card)
     timed("multi-device (c)", dryrun_phase)
@@ -2923,16 +3258,19 @@ def trace_phase(device) -> dict:
 def scaling_phase(device) -> dict:
     """(e) the per-shard curve: the production step (cut to
     SCALING_SUPERBLOCK blocks) at 32, 16, 8 and 4 channels, 3 timed steps
-    each."""
+    each, captured as a CUDA graph (the primary curve) and eager beside
+    it, in turns."""
     from sydr_tpu_torch.tools import scaling_bench
 
     reset_launches()
     res = scaling_bench.chip_section(device, superblock=SCALING_SUPERBLOCK,
                                      n_blocks=3, warmup=1)
     launches = read_launches()
-    eff = res["ch_mesh_strong_32ch"]
-    check(all(n in eff for n in (2, 4, 8)),
-          f"scaling_bench: eff(n) missing: {eff}")
+    for suffix in ("", "_eager"):
+        eff = res[f"ch_mesh_strong_32ch{suffix}"]
+        check(all(n in eff for n in (2, 4, 8)),
+              f"scaling_bench: eff{suffix}(n) missing: {eff}")
+    check(res["graph"] == "captured", "scaling_bench did not graph its step")
     print(f"scaling_bench: {json.dumps(res)}", flush=True)
     check(launches["epoch_correlate"] > 0,
           f"scaling_bench never ran K1: {launches}")
@@ -3132,7 +3470,8 @@ def more_phases(device, card, sky, writer, capture, lanes,
     paths["direct map"] = timed("direct map", direct_map_phase, device,
                                 capture, card)
     paths["multi-device"] = timed("multi-device", multi_device_phase,
-                                  device, capture, session_run, card)
+                                  device, capture, session_run,
+                                  paths["scan session"], card)
     paths.update(timed("tools", tools_phase, device, lanes))
     return paths
 

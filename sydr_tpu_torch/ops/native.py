@@ -34,9 +34,9 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-# Every kernel object made, so that a graph's captured launches can be
-# read across all of them.
-_KERNELS: "weakref.WeakSet[CudaKernel]" = weakref.WeakSet()
+# Every counter made (each kernel's, each collective's), so that a
+# graph's captured launches can be read across all of them.
+_KERNELS: "weakref.WeakSet[LaunchCounter]" = weakref.WeakSet()
 
 
 def find_nvcc() -> str:
@@ -51,30 +51,46 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-class CudaKernel:
+class LaunchCounter:
+    """The launch counters of one thing that puts work on the device (a
+    kernel, or a collective of ``parallel.distributed``), named by
+    ``source``: ``launches``, incremented once per launch (a launch into a
+    CUDA graph once per replay of the graph), and ``captured``, the
+    launches recorded into graphs while they were captured."""
+
+    def __init__(self, source: str):
+        self.source = source
+        self.launches = 0
+        self.captured = 0
+        _KERNELS.add(self)
+
+    def count(self, capturing: bool) -> None:
+        """Count one launch, into ``captured`` while a graph captures."""
+        if capturing:
+            self.captured += 1
+        else:
+            self.launches += 1
+
+
+class CudaKernel(LaunchCounter):
     """One ``csrc/<source>`` kernel: its build, its C entry point and its
-    launch counters: ``launches``, incremented once per successful launch
-    (a launch into a CUDA graph once per replay of the graph), and
-    ``captured``, the launches recorded into graphs while they were
-    captured. ``csrc_dir`` builds the source of another tree instead (into
-    that tree's ``_build/``), as a tool that compares two versions does;
-    ``flags`` are more ``nvcc`` flags (a checking build's ``-D``).
+    launch counters (:class:`LaunchCounter`). ``csrc_dir`` builds the
+    source of another tree instead (into that tree's ``_build/``), as a
+    tool that compares two versions does; ``flags`` are more ``nvcc``
+    flags (a checking build's ``-D``).
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list,
                  csrc_dir: Path = CSRC_DIR, flags: tuple = ()):
-        self.source = source
+        super().__init__(source)
         self.symbol = symbol
         self.argtypes = argtypes
         self.csrc_dir = Path(csrc_dir)
         self.flags = tuple(flags)
-        self.launches = 0
-        self.captured = 0
         self.build_seconds: float | None = None
         self.build_log = ""
         self._lib = None
         self._fn = None
-        _KERNELS.add(self)
 
     def library_path(self) -> Path:
         src = self.csrc_dir / self.source
@@ -137,10 +153,7 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err}: "
                                f"{self.error_string(err)}")
-        if stream_capturing():
-            self.captured += 1
-        else:
-            self.launches += 1
+        self.count(stream_capturing())
 
 
 def stream_capturing() -> bool:
@@ -151,7 +164,7 @@ def stream_capturing() -> bool:
 
 
 def captured_counts() -> dict:
-    """``{kernel: captured launches}`` of every kernel made so far."""
+    """``{counter: captured launches}`` of every counter made so far."""
     return {kern: kern.captured for kern in _KERNELS}
 
 

@@ -1,12 +1,16 @@
-"""The session's device step as one captured CUDA graph per configuration.
+"""A device step as one captured CUDA graph per key.
 
-The port's counterpart of the JAX session's jitted step
-(``sydr_tpu.receiver.session._make_packed_run``): where XLA compiles the
-step into one executable, :class:`StepGraph` captures it into a
+The port's counterpart of the JAX package's jitted steps: the session's
+(``sydr_tpu.receiver.session._make_packed_run``) and the multi-device
+ones (``receiver.session``'s channel-sharded step,
+``parallel.timeshard.TimeShardGraph``). Where XLA compiles a step into
+one executable, :class:`StepGraph` captures it into a
 ``torch.cuda.CUDAGraph`` and replays it. The step is a pure function of
 tensors, ``fn(*args) -> outputs`` (the session's ``inner``), and a graph
 replays the same kernels in the same order on the same inputs, so its
-outputs equal the eager step's bit for bit.
+outputs equal the eager step's bit for bit. It lives beside the kernels'
+launch counters (``ops.native``), below both the receiver and the
+parallel layers that use it.
 
 One graph per key (the session's ``(cfg, input length, input dtype)``):
 
@@ -25,6 +29,16 @@ its stead. Tensors that ``fn`` reads from its closure (code tables) are
 captured by address and must stay alive and unchanged while the graph
 lives. The kernels' launch counters count a replay as the launches the
 graph holds (``ops.native.count_replay``).
+
+A step whose body calls NCCL collectives (a channel- or time-sharded
+step on an NCCL ``parallel.distributed.Mesh``) is captured the same way,
+its collectives graph nodes (at one rank, device-to-device copies): the
+warm-up reaches every collective first, which creates the communicator
+(never created inside a capture), and the collectives' counters
+(``distributed.COLLECTIVES``) count a replay as the kernels' do. Every
+rank must make the same calls, so that all capture at the same call and
+replay in the same order. gloo's collectives copy through the host and
+cannot be captured; :func:`use_graph` is the rule that decides.
 
 ``capture=False`` is the CPU tests' stand-in for the graph: the same
 static buffers and copies, with ``fn`` run eagerly on the buffers where a
@@ -53,12 +67,40 @@ class Captured:
     launches: dict                 # kernel -> launches a replay makes
     capture_s: float = 0.0         # host time of the capture
     instantiate_s: float = 0.0     # cudaGraphInstantiate
-    nodes: int | None = None       # the graph's node count
+    node_kinds: dict | None = None  # the graph's nodes by kind
     replays: int = 0
+
+    @property
+    def nodes(self) -> int | None:
+        """The graph's node count."""
+        return None if self.node_kinds is None else sum(
+            self.node_kinds.values())
+
+
+def use_graph(graph: bool | None, device, mesh=None) -> bool:
+    """Whether a step on ``device`` whose collectives go over ``mesh``
+    (None: no collective) runs as a captured graph: ``graph`` True or
+    False, or the default (None), which is True on a CUDA device when no
+    mesh's backend stands in the way (``Mesh.captures``: NCCL can be
+    captured, gloo cannot). ``graph=True`` where a graph cannot run
+    raises a ``ValueError`` naming the device or the backend."""
+    device = torch.device(device)
+    if graph is False:
+        return False
+    why = None
+    if device.type != "cuda":
+        why = f"a CUDA graph needs a CUDA device, got {device}"
+    elif mesh is not None and not mesh.captures:
+        why = (f"the mesh's {mesh.backend} backend copies its collectives "
+               f"through the host and cannot be captured in a CUDA graph "
+               f"(nccl can)")
+    if why is not None and graph:
+        raise ValueError(why)
+    return why is None
 
 
 class StepGraph:
-    """Captured steps of one session, by key (see the module note)."""
+    """Captured steps of one caller, by key (see the module note)."""
 
     def __init__(self, device, *, capture: bool = True):
         self.device = torch.device(device)
@@ -130,18 +172,39 @@ class StepGraph:
         graph.instantiate()
         entry = Captured(inputs, tuple(static), graph.replay, launches,
                          capture_s, time.perf_counter() - t0,
-                         _node_count(graph))
+                         node_kinds(graph))
         return entry, outs
 
 
-def _node_count(graph) -> int | None:
-    """The nodes of a kept graph, through ``cuGraphGetNodes`` of
-    ``libcuda`` (None if the call fails)."""
-    get_nodes = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+# ``CUgraphNodeType``, in ``cuda.h``'s order.
+NODE_KINDS = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+              "wait_event", "event_record", "ext_semas_signal",
+              "ext_semas_wait", "mem_alloc", "mem_free", "batch_mem_op",
+              "conditional")
+
+
+def node_kinds(graph) -> dict | None:
+    """The nodes of a kept graph by kind (``NODE_KINDS``), through
+    ``cuGraphGetNodes`` and ``cuGraphNodeGetType`` of ``libcuda`` (None if
+    a call fails)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    get_nodes, get_type = cuda.cuGraphGetNodes, cuda.cuGraphNodeGetType
     get_nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                           ctypes.POINTER(ctypes.c_size_t)]
-    get_nodes.restype = ctypes.c_int
+    get_type.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    raw = ctypes.c_void_p(int(graph.raw_cuda_graph()))
     count = ctypes.c_size_t(0)
-    if get_nodes(int(graph.raw_cuda_graph()), None, ctypes.byref(count)):
+    if get_nodes(raw, None, ctypes.byref(count)):
         return None
-    return int(count.value)
+    nodes = (ctypes.c_void_p * count.value)()
+    if count.value and get_nodes(raw, nodes, ctypes.byref(count)):
+        return None
+    kinds: dict = {}
+    kind = ctypes.c_int(0)
+    for node in nodes[:count.value]:
+        if get_type(ctypes.c_void_p(node), ctypes.byref(kind)):
+            return None
+        name = NODE_KINDS[kind.value] if kind.value < len(NODE_KINDS) \
+            else str(kind.value)
+        kinds[name] = kinds.get(name, 0) + 1
+    return kinds

@@ -17,6 +17,17 @@ ranks that share a card (PyTorch's gloo backend takes CUDA tensors in
 ``broadcast``, ``all_reduce`` and ``all_gather``, the three collectives
 used here, and copies them through the host itself).
 
+A step that holds NCCL collectives can be captured in a CUDA graph
+(``Mesh.captures``; ``ops.step_graph``) with no setting at
+:func:`initialize`: on PyTorch 2.11 with NCCL 2.28, capture in the
+default (global) mode holds while the process group's watchdog thread
+polls, with ``TORCH_NCCL_ASYNC_ERROR_HANDLING`` as found, and eager
+collectives between replays on the same communicator
+(``tools/torch_nccl_capture_probe.py`` checks this on a machine). The
+communicator is created at a group's first collective, which must come
+before a capture: the graph runner's eager warm-up makes it. gloo's
+collectives cannot be captured.
+
 A 2-process channel-sharded session, the same script in each process::
 
     from sydr_tpu_torch.parallel import distributed, mesh as pmesh
@@ -37,8 +48,19 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from sydr_tpu_torch.ops import native
+
 BACKENDS = ("nccl", "gloo")
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+# Every call into the backend, counted as the kernels' launches are (a
+# call captured into a CUDA graph counts once per replay).
+COLLECTIVES = {name: native.LaunchCounter(name)
+               for name in ("all_gather", "all_reduce", "broadcast")}
+
+
+def _count(name: str, tensor: torch.Tensor) -> None:
+    COLLECTIVES[name].count(
+        tensor.is_cuda and torch.cuda.is_current_stream_capturing())
 
 
 def initialize(backend: str, rank: int | None = None,
@@ -113,6 +135,9 @@ class Mesh:
                              f"has {world}")
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, shape))
+        # The backend the process group was started with (the caller's
+        # choice); None without a process group.
+        self.backend = dist.get_backend() if dist.is_initialized() else None
         self.rank = rank()
         self.coords = {a: int(c) for a, c in zip(
             axis_names, np.unravel_index(self.rank, shape))}
@@ -138,6 +163,14 @@ class Mesh:
         """Whether a collective along ``axis`` goes through the backend."""
         return self._talks[axis]
 
+    @property
+    def captures(self) -> bool:
+        """Whether a step that holds this mesh's collectives can be
+        captured in a CUDA graph: NCCL's collectives are stream work and
+        can; gloo's copy through the host and cannot. Without a process
+        group no collective goes through a backend."""
+        return self.backend in (None, "nccl")
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank {self.rank} at {self.coords})"
 
@@ -158,6 +191,7 @@ def all_reduce(mesh: Mesh, axis: str, tensor: torch.Tensor,
         return tensor
     buf = tensor.detach().clone()
     dist.all_reduce(buf, op=_OPS[op], group=mesh.group(axis))
+    _count("all_reduce", buf)
     return buf
 
 
@@ -169,6 +203,7 @@ def all_gather(mesh: Mesh, axis: str, tensor: torch.Tensor) -> list:
     src = tensor.detach().contiguous()
     parts = [torch.empty_like(src) for _ in range(mesh.shape[axis])]
     dist.all_gather(parts, src, group=mesh.group(axis))
+    _count("all_gather", src)
     return parts
 
 
@@ -190,6 +225,7 @@ def replicate_from_host(mesh: Mesh, array, device, broadcast: bool = False):
     t = torch.tensor(np.asarray(array), device=device)
     if broadcast and world_size() > 1:
         dist.broadcast(t, src=0)
+        _count("broadcast", t)
     return t
 
 

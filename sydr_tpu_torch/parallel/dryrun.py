@@ -12,12 +12,20 @@ the time shards so that the prefix form applies):
 2. one channel-sharded step in each runtime: a batch superblock of 2
    blocks, and a scan-runtime block;
 3. one time-sharded block over all N ranks in each pass B form: K1 row
-   sums and the K3 prefix.
+   sums and the K3 prefix;
+4. the session's channel-sharded step (2., with its ``all_gather`` of
+   state and outputs) in each runtime and the time-sharded block (3.) in
+   each form through their graphs (``ops.step_graph.StepGraph``,
+   ``timeshard.TimeShardGraph``): captured CUDA graphs with ``nccl``, the
+   graph's stand-in (``capture=False``) on the CPU; none with ``gloo`` on
+   a card, which cannot be captured. The first call (the warm-up) and a
+   second (the replay) are each held bit for bit against the eager run.
 
-Each rank prints its step times and kernel launches; rank 0 then prints
-``dryrun_multichip OK: mesh=... sp_shards=... n_channels=...``. The
-channel step is held bit for bit against the unsharded step on the rank's
-rows. A failing rank fails the run (non-zero exit).
+Each rank prints its step times, its graphs' nodes and its kernel and
+collective launches; rank 0 then prints ``dryrun_multichip OK: mesh=...
+sp_shards=... n_channels=... graphs=...``. The channel step is held bit
+for bit against the unsharded step on the rank's rows. A failing rank
+fails the run (non-zero exit).
 
 Devices: ``--device cuda`` (the default) puts rank r on card ``r mod
 count``; ``nccl`` needs one card per rank (it refuses two ranks on one
@@ -29,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import socket
 import sys
 import time
@@ -77,24 +86,85 @@ def _timed(fn, device):
 def _kernels():
     from sydr_tpu_torch.ops import acq_kernel
     from sydr_tpu_torch.ops import correlator_kernel as ck
-    from sydr_tpu_torch.ops import loop_kernel
+    from sydr_tpu_torch.ops import loop_kernel, scan_kernel
 
     return {"epoch_correlate": ck.KERNEL,
             "block_cumsum_streams": ck.CUMSUM_KERNEL,
             "pass_c": loop_kernel.PASS_C_KERNEL,
+            "scan_block": scan_kernel.SCAN_KERNEL,
             "pcps_bins": acq_kernel.KERNEL,
             "pcps_bins_cluster": acq_kernel.CLUSTER_KERNEL,
             "pcps_bins_twostep": acq_kernel.TWOSTEP_KERNEL,
             "pcps_bins_bluestein": acq_kernel.BLUESTEIN_KERNEL}
 
 
+def _graph_runner(device, mesh):
+    """The ``StepGraph`` for steps whose collectives go over ``mesh`` (see
+    the module note, 4.): captured where the session's rule graphs them,
+    the stand-in on the CPU, else None."""
+    from sydr_tpu_torch.ops.step_graph import StepGraph, use_graph
+
+    if use_graph(None, device, mesh):
+        return StepGraph(device)
+    if device.type == "cpu":
+        return StepGraph(device, capture=False)
+    return None
+
+
+def _same(got, want) -> bool:
+    """Two nests of tensors (tuples, dicts, states) equal bit for bit."""
+    if isinstance(got, torch.Tensor):
+        return torch.equal(got, want)
+    if isinstance(got, dict):
+        return got.keys() == want.keys() and all(
+            _same(got[k], want[k]) for k in got)
+    if dataclasses.is_dataclass(got):
+        return all(_same(getattr(got, f.name), getattr(want, f.name))
+                   for f in dataclasses.fields(got))
+    return len(got) == len(want) and all(map(_same, got, want))
+
+
+def _graph_phase(device, mesh, sp_mesh, steps, sp_cases, times) -> tuple:
+    """4.: each channel step ``(name, fn, args)`` through a graph runner
+    and each time-sharded case ``(name, cfg, bits, state, wre, wim)``
+    through a ``TimeShardGraph``, twice, against the eager run. Returns
+    what the runners were and their graphs' nodes by kind."""
+    from sydr_tpu_torch.parallel import timeshard
+
+    runner = _graph_runner(device, mesh)
+    if runner is None:
+        return "none", {}
+    nodes = {}
+    for name, fn, args in steps:
+        want = fn(*args)
+        for call in range(2):
+            got, times[f"{name} graph {call}"] = _timed(
+                lambda: runner.run(name, fn, args), device)
+            assert _same(got, want), f"{name}: graph call {call} differs"
+        nodes[name] = runner.graphs[name].node_kinds
+    sp_graph = timeshard.TimeShardGraph(sp_mesh, device,
+                                        graph=_graph_runner(device, sp_mesh))
+    for name, cfg, bits, state, wre, wim in sp_cases:
+        want = timeshard.run_block_batched_timesharded(cfg, sp_mesh, bits,
+                                                       state, wre, wim)
+        for call in range(2):
+            got, times[f"{name} graph {call}"] = _timed(
+                lambda: sp_graph.block(cfg, bits, state, wre, wim), device)
+            assert _same(got, want), f"{name}: graph call {call} differs"
+    nodes.update({f"sp {key[0].boundary_mode} block": entry.node_kinds
+                  for key, entry in sp_graph.graph.graphs.items()})
+    return "captured" if runner.capture else "stand-in", nodes
+
+
 def run_rank(rank: int, world: int, backend: str, device_kind: str,
              port: int) -> None:
     from sydr_tpu_torch.channels import batch_runtime as br
     from sydr_tpu_torch.channels import runtime
-    from sydr_tpu_torch.channels.state import FIELDS, ChannelState, code_table
+    from sydr_tpu_torch.channels.state import (
+        FIELDS, ChannelState, code_table, pack_state)
     from sydr_tpu_torch.ops import acquisition as acq
     from sydr_tpu_torch.parallel import distributed, mesh as pmesh, timeshard
+    from sydr_tpu_torch.receiver.session import _sharded_step
 
     if device_kind == "cuda":
         device = torch.device("cuda", rank % torch.cuda.device_count())
@@ -155,6 +225,7 @@ def run_rank(rank: int, world: int, backend: str, device_kind: str,
 
     # 3. Time-sharded blocks in both pass B forms.
     sp_block = 2 * world - 2 if world > 1 else 2
+    sp_cases = []
     for form in ("rowsum", "prefix"):
         sp_cfg = runtime.TrackingConfig(**dict(
             TINY, sampling_frequency=2.046e6, window_size=2304,
@@ -168,17 +239,38 @@ def run_rank(rank: int, world: int, backend: str, device_kind: str,
                 sp_cfg, sp_mesh, bits, sp_state, wre, wim), device)
         assert out["i_prompt"].shape == (sp_block, n_channels)
         assert bool(torch.isfinite(out["i_prompt"]).all())
+        sp_cases.append((f"sp {form} block", sp_cfg, bits, sp_state, wre,
+                         wim))
+
+    # 4. The session's channel steps (the step and its gathers over ch)
+    # and the time-sharded blocks through their graphs.
+    state_f, state_i = pack_state(state)
+    steps = []
+    for name, step_cfg, tables, win in (
+            ("ch batch superblock", cfg, bits, (sre, sim)),
+            ("ch scan block", scan_cfg, codes,
+             (sre[:scan_cfg.window_samples], sim[:scan_cfg.window_samples]))):
+        sharded = functools.partial(
+            _sharded_step, pmesh.make_sharded_batch_step(
+                step_cfg, mesh, k_blocks=step_cfg.superblock),
+            mesh, rows, n_channels, tables[rows], {})
+        steps.append((name, sharded, (state_f, state_i, *win)))
+    graphs, nodes = _graph_phase(device, mesh, sp_mesh, steps, sp_cases,
+                                 times)
 
     launches = {name: k.launches for name, k in _kernels().items()}
+    collectives = {name: c.launches
+                   for name, c in distributed.COLLECTIVES.items()}
     print(f"rank {rank} on {device}: " + ", ".join(
         f"{name} {ms:.1f} ms" for name, ms in times.items())
-        + f"; launches {launches}", flush=True)
+        + f"; graphs {graphs}, nodes {nodes}; launches {launches}; "
+        f"collectives {collectives}", flush=True)
     distributed.all_reduce(sp_mesh, "sp", torch.ones(1, device=device))
     if rank == 0:
         print(f"dryrun_multichip OK: mesh={mesh.shape} sp_shards={world} "
               f"n_channels={n_channels} block_ms={cfg.block_ms} "
               f"ch_step_ms={ch_step_ms:.1f} backend={backend} "
-              f"device={device_kind}", flush=True)
+              f"device={device_kind} graphs={graphs}", flush=True)
     distributed.shutdown()
 
 

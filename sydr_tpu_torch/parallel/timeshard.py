@@ -27,6 +27,13 @@ millisecond's anchors exactly as the unsharded kernel does, not the
 clamped continuation of its last one. Every per-sample stream value is
 then the unsharded one; only the order of the sums differs.
 
+:class:`TimeShardGraph` runs the block and the superblock as captured
+CUDA graphs, the counterpart of the JAX package's two ``@jax.jit``
+functions: on an NCCL mesh each call of a configuration and shape after
+the first replays one graph that holds the passes, the kernels and the
+pass B collectives. :func:`pass_b_timesharded` makes no host sync, so it
+can be captured.
+
 The JAX package has a second variant, ``run_block_batched_timesharded_
 pallas``, for its production row-sum kernel: it exists for the packed
 words and ``_rowsum_boundary_prefix`` that its TPU kernel needs. K1 reads
@@ -41,11 +48,13 @@ import torch
 
 from sydr_tpu_torch.channels import batch_runtime as br
 from sydr_tpu_torch.channels.runtime import TrackingConfig, _slew_anchor
-from sydr_tpu_torch.channels.state import ChannelState
+from sydr_tpu_torch.channels.state import (
+    ChannelState, pack_state, unpack_state)
 from sydr_tpu_torch.ops import correlator_kernel as ck
 from sydr_tpu_torch.ops import loop_kernel
 from sydr_tpu_torch.parallel import distributed
 from sydr_tpu_torch.parallel.distributed import Mesh
+from sydr_tpu_torch.ops.step_graph import StepGraph, use_graph
 
 
 def make_sp_mesh(n_devices: int | None = None) -> Mesh:
@@ -129,3 +138,68 @@ def run_superblock_timesharded(cfg: TrackingConfig, mesh: Mesh,
         cfg, k_blocks, state, samples_re, samples_im,
         lambda st, wre, wim: run_block_batched_timesharded(
             cfg, mesh, bits3x, st, wre, wim))
+
+
+class TimeShardGraph:
+    """:func:`run_block_batched_timesharded` and
+    :func:`run_superblock_timesharded` over ``mesh``, each configuration
+    and input shape captured once as a CUDA graph and replayed
+    (``ops.step_graph.StepGraph``), as the JAX package jits them.
+
+    ``graph`` is the runner itself (a ``StepGraph``, such as
+    ``StepGraph(cpu, capture=False)``, the CPU tests' stand-in) or
+    follows the session's rule (``step_graph.use_graph``): graphed on a
+    CUDA device with an NCCL mesh by default (None), eager on the CPU and
+    on gloo, and True where a graph cannot run raises. The first call of
+    a key returns its eager warm-up's result; every rank must make the
+    same calls in the same order (a capture holds collectives). The state
+    and outputs returned are copies: a later replay does not overwrite
+    them.
+    """
+
+    def __init__(self, mesh: Mesh, device,
+                 graph: bool | None | StepGraph = None):
+        self.mesh = mesh
+        if not isinstance(graph, StepGraph):
+            graph = (StepGraph(device)
+                     if use_graph(graph, device, mesh) else None)
+        self.graph = graph
+        self._names: dict = {}
+
+    def block(self, cfg: TrackingConfig, bits3x, state: ChannelState,
+              window_re, window_im):
+        """:func:`run_block_batched_timesharded` on this mesh."""
+        return self._run(cfg, None, bits3x, state, window_re, window_im)
+
+    def superblock(self, cfg: TrackingConfig, k_blocks: int, bits3x,
+                   state: ChannelState, samples_re, samples_im):
+        """:func:`run_superblock_timesharded` on this mesh."""
+        return self._run(cfg, k_blocks, bits3x, state, samples_re,
+                         samples_im)
+
+    def _run(self, cfg, k_blocks, bits3x, state, samples_re, samples_im):
+        mesh = self.mesh
+        if k_blocks is None:
+            def step(bits, st, sre, sim):
+                return run_block_batched_timesharded(cfg, mesh, bits, st,
+                                                     sre, sim)
+        else:
+            def step(bits, st, sre, sim):
+                return run_superblock_timesharded(cfg, mesh, k_blocks, bits,
+                                                  st, sre, sim)
+        if self.graph is None:
+            return step(bits3x, state, samples_re, samples_im)
+        args = (bits3x, *pack_state(state), samples_re, samples_im)
+        key = (cfg, k_blocks,
+               tuple((tuple(a.shape), a.dtype) for a in args))
+        names = self._names.setdefault(key, [])
+
+        def fn(bits, state_f, state_i, sre, sim):
+            st, outputs = step(bits, unpack_state(state_f, state_i), sre,
+                               sim)
+            names[:] = outputs
+            return (*pack_state(st), *(outputs[k] for k in names))
+
+        state_f, state_i, *outs = self.graph.run(key, fn, args)
+        return unpack_state(state_f, state_i), {
+            k: v.clone() for k, v in zip(names, outs)}

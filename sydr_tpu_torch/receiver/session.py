@@ -14,8 +14,8 @@ the block or superblock, pack the outputs) is a pure function of tensors,
 built per configuration by :meth:`TrackingSession._make_packed_run`, the
 JAX session's jitted step. On a CUDA device the session captures it as
 one CUDA graph per configuration and input and replays it
-(``receiver.step_graph.StepGraph``; ``graph=``); on the CPU, and under a
-mesh, it runs eagerly.
+(``ops.step_graph.StepGraph``; ``graph=``), with a mesh too when its
+backend is NCCL; on the CPU, and with a gloo mesh, it runs eagerly.
 
 Sample accounting: the session counts the samples fed
 (``total_samples``); each channel's read position is
@@ -27,9 +27,16 @@ Channel sharding (``mesh=``, ``parallel.mesh.make_mesh``): every rank of
 the process group runs the same session over the same samples. Code
 tables, state, acquisition and its hand-off stay whole and replicated on
 every rank; each tracking step runs on this rank's channel rows
-(``parallel.mesh.make_sharded_batch_step``), and the new state and the
-packed outputs are gathered over ``ch`` in one float32 and one int32
-``all_gather``.
+(``parallel.mesh.make_sharded_batch_step``, in either runtime), and the
+new state and the packed outputs are gathered over ``ch`` in one float32
+and one int32 ``all_gather``. On an NCCL mesh the step and its two
+gathers are one captured graph, the counterpart of the JAX session's
+jitted sharded step (``jax.jit`` of ``make_sharded_batch_step`` with its
+collectives). Every rank captures at the same call and replays in the
+same order: a graph's key (configuration, input length and dtype) and
+promotion are decided from data that every rank holds alike (the
+gathered outputs), and acquisition and its hand-off, between steps, run
+eagerly in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -62,7 +69,7 @@ from sydr_tpu_torch.constants import (
 from sydr_tpu_torch.ops import acquisition as acq
 from sydr_tpu_torch.parallel import distributed
 from sydr_tpu_torch.parallel import mesh as pmesh
-from sydr_tpu_torch.receiver.step_graph import StepGraph
+from sydr_tpu_torch.ops.step_graph import StepGraph, use_graph
 
 logger = logging.getLogger(__name__)
 
@@ -136,8 +143,10 @@ class TrackingSession:
         must divide over ``mesh.shape['ch']`` (pad ``prns`` with 0).
         ``graph``: replay the device step as a captured CUDA graph (True),
         run it eagerly (False), or the default (None): graphed on a CUDA
-        device without a mesh, else eager. True on the CPU, or with a mesh
-        (whose collectives are not captured), raises.
+        device without a mesh or with an NCCL mesh (its collectives
+        captured with the step), else eager
+        (``ops.step_graph.use_graph``). True on the CPU, or with a
+        gloo mesh, raises.
         """
         for c in (cfg, cruise):
             if c is not None and c.runtime != "batch" and c.superblock != 1:
@@ -152,13 +161,8 @@ class TrackingSession:
             raise ValueError("cruise and pull-in configs must share rate, "
                              "decimation, IF and tail length")
         self.device = torch.device(device)
-        if graph is None:
-            graph = self.device.type == "cuda" and mesh is None
-        if graph and mesh is not None:
-            raise ValueError("the mesh step runs eagerly: graph=True needs "
-                             "a session without a mesh")
-        # StepGraph refuses a device other than CUDA.
-        self.graph = StepGraph(self.device) if graph else None
+        self.graph = (StepGraph(self.device)
+                      if use_graph(graph, self.device, mesh) else None)
         self._packed_runs: dict = {}
         self.cfg = cfg
         self._pullin_cfg = cfg

@@ -10,15 +10,17 @@ Card section (``--chip``): the production superblock step (10 Msps input,
 device boxcar by 4, narrow-only kaplan at 20 ms x 50 blocks, K1) at {32,
 16, 8, 4} channels on one device: the per-shard step time of {1, 2, 4, 8}
 -card channel meshes, with ``eff(n) = t(32) / (n * t(32 / n))`` and the
-fit ``t(n_ch) = fixed + per_channel * n_ch``.
+fit ``t(n_ch) = fixed + per_channel * n_ch``; the step captured as a CUDA
+graph (the JAX tool times a jitted step), with the eager step's curve
+beside it (``eager_*``, ``*_eager``).
 
 Rank section (the default): ``gloo`` process groups of 1..N ranks on the
 CPU (``--cpu``; or ranks sharing the card), in place of the JAX tool's
 eight virtual devices:
   1. **collective census**: every call the channel-sharded step and the
-     time-sharded block make into ``parallel.distributed``'s collectives
+     time-sharded block make into the backend's collectives
      (``all_reduce``, ``all_gather``; ``gather_axis`` counts as its
-     ``all_gather``), counted by wrapping them in the rank's process. The
+     ``all_gather``), read from ``parallel.distributed.COLLECTIVES``. The
      JAX design: 0 for the channel-sharded step; 1 all-gather + 1
      all-reduce per time-sharded block;
   2. **sharding overhead**: the 1-shard step against the unsharded step,
@@ -57,28 +59,17 @@ SP_FS = 2.046e6     # at least 1024 samples a ms: the prefix form applies
 
 @contextlib.contextmanager
 def count_collectives():
-    """Count the calls into ``parallel.distributed``'s collectives while
-    the block runs; yields the ``Counter``. The wrappers replace the
-    module's functions in this process only, and are removed on exit."""
+    """Count the calls into the backend's collectives
+    (``parallel.distributed.COLLECTIVES``) while the block runs; yields a
+    ``Counter`` that holds them, by name, once the block has run."""
     from sydr_tpu_torch.parallel import distributed
 
     counts = collections.Counter()
-    saved = {name: getattr(distributed, name)
-             for name in ("all_reduce", "all_gather")}
-
-    def wrap(name, fn):
-        def counted(*args, **kwargs):
-            counts[name] += 1
-            return fn(*args, **kwargs)
-        return counted
-
-    for name, fn in saved.items():
-        setattr(distributed, name, wrap(name, fn))
-    try:
-        yield counts
-    finally:
-        for name, fn in saved.items():
-            setattr(distributed, name, fn)
+    before = {name: c.launches for name, c in distributed.COLLECTIVES.items()}
+    yield counts
+    for name, c in distributed.COLLECTIVES.items():
+        if c.launches > before[name]:
+            counts[name] = c.launches - before[name]
 
 
 # --------------------------------------------------------------------------
@@ -87,54 +78,97 @@ def count_collectives():
 def chip_section(device, fs=10e6, decimate=4, superblock=50, n_blocks=10,
                  channel_counts=(32, 16, 8, 4), warmup=3,
                  block_ms=20) -> dict:
+    """The per-shard curve. Each point times the step captured as one
+    CUDA graph (``ops.step_graph.StepGraph``; the JAX tool times a
+    jitted step): ``n_blocks`` replays between fences, each copying the
+    state in and out; that is the primary curve. The eager step, which is
+    launch-bound (each rank launches as many ops for 8 channels as for
+    32), is timed beside it in turns (graphed, eager, eager, graphed;
+    each form's mean): its ``eager_*`` numbers. On the CPU the graph is
+    its stand-in (``capture=False``)."""
+    import torch
+
+    from sydr_tpu_torch.channels.state import pack_state, unpack_state
+    from sydr_tpu_torch.ops.step_graph import StepGraph
     from sydr_tpu_torch.tools import device_name, sync
     from sydr_tpu_torch.tools.trace_profile import superblock_setup
 
+    captured = torch.device(device).type == "cuda"
     out: dict = {"fs": fs, "decimate": decimate, "superblock": superblock,
-                 "device": device_name(device), "points": {}}
+                 "device": device_name(device),
+                 "graph": "captured" if captured else "stand-in",
+                 "points": {}}
     signal_s = n_blocks * superblock * block_ms * 1e-3
     for n_ch in channel_counts:
         *_, state, _, _, step = superblock_setup(
             device, n_channels=n_ch, fs=fs, decimate=decimate,
             block_ms=block_ms, superblock=superblock)
-        st = state
-        for _ in range(1 + warmup):       # the first builds the kernels
-            st, _ = step(st)
-        sync(device)
-        t0 = time.perf_counter()
-        for _ in range(n_blocks):
-            st, _ = step(st)
-        sync(device)
-        wall = time.perf_counter() - t0
-        out["points"][n_ch] = {"step_s": wall / n_blocks,
-                               "rtf": signal_s / wall}
-        print(f"{device_name(device)} {n_ch:2d} ch: "
-              f"{wall / n_blocks * 1e3:9.1f} ms/step (RTF "
-              f"{signal_s / wall:.3f})", flush=True)
+        runner = StepGraph(device, capture=captured)
 
-    # Fixed/variable decomposition: t(n_ch) = a + b * n_ch (least squares).
-    # ``a`` is channel-count-independent work that every card of a ch mesh
-    # repeats and bounds strong scaling; ``b`` is what shards away.
+        def packed(state_f, state_i):
+            st, outputs = step(unpack_state(state_f, state_i))
+            return (*pack_state(st), *outputs.values())
+
+        def graphed(st):
+            state_f, state_i, *_ = runner.run(n_ch, packed, pack_state(st))
+            return unpack_state(state_f, state_i), None
+
+        forms = {"graphed": graphed, "eager": step}
+        walls = {name: [] for name in forms}
+        for name in ("graphed", "eager", "eager", "graphed"):
+            st = state
+            if not walls[name]:           # the first builds the kernels
+                for _ in range(1 + warmup):
+                    st, _ = forms[name](st)
+            sync(device)
+            t0 = time.perf_counter()
+            for _ in range(n_blocks):
+                st, _ = forms[name](st)
+            sync(device)
+            walls[name].append((time.perf_counter() - t0) / n_blocks)
+        step_s = {name: float(np.mean(w)) for name, w in walls.items()}
+        out["points"][n_ch] = {
+            "step_s": step_s["graphed"], "rtf": signal_s / n_blocks
+            / step_s["graphed"], "eager_step_s": step_s["eager"],
+            "eager_rtf": signal_s / n_blocks / step_s["eager"],
+            "nodes": runner.graphs[n_ch].nodes}
+        print(f"{device_name(device)} {n_ch:2d} ch: graphed "
+              f"{step_s['graphed'] * 1e3:9.3f} ms/step (RTF "
+              f"{signal_s / n_blocks / step_s['graphed']:.3f}), eager "
+              f"{step_s['eager'] * 1e3:9.3f} ms/step (RTF "
+              f"{signal_s / n_blocks / step_s['eager']:.3f})", flush=True)
+
+    for suffix, key in (("", "step_s"), ("_eager", "eager_step_s")):
+        _curve(out, suffix, key)
+    return out
+
+
+def _curve(out, suffix, key) -> None:
+    """The fit ``t(n_ch) = fixed + per_channel * n_ch`` and ``eff(n)`` of
+    the points' ``key`` times, as ``step_fit<suffix>`` and
+    ``ch_mesh_strong_<n>ch<suffix>``."""
+    # ``fixed`` is channel-count-independent work that every card of a ch
+    # mesh repeats and bounds strong scaling; ``per_channel`` is what
+    # shards away.
     ns = np.array(sorted(out["points"]), dtype=np.float64)
-    ts = np.array([out["points"][int(n)]["step_s"] for n in ns])
+    ts = np.array([out["points"][int(n)][key] for n in ns])
     if len(ns) > 1:
         b_fit, a_fit = np.polyfit(ns, ts, 1)
-        out["step_fit"] = {"fixed_s": float(a_fit),
-                           "per_channel_s": float(b_fit)}
+        out[f"step_fit{suffix}"] = {"fixed_s": float(a_fit),
+                                    "per_channel_s": float(b_fit)}
     n_max = int(max(ns))
-    t_max = out["points"][n_max]["step_s"]
+    t_max = out["points"][n_max][key]
     eff = {}
     for n in (1, 2, 4, 8):
         if n_max % n == 0 and n_max // n in out["points"]:
-            tn = out["points"][n_max // n]["step_s"]
+            tn = out["points"][n_max // n][key]
             eff[n] = {"channels_per_card": n_max // n,
                       "per_shard_step_s": tn,
                       "efficiency": t_max / (n * tn)}
-    out[f"ch_mesh_strong_{n_max}ch"] = eff
-    print("eff(n) = t(%d) / (n t(%d/n)): " % (n_max, n_max) + ", ".join(
+    out[f"ch_mesh_strong_{n_max}ch{suffix}"] = eff
+    print(f"eff{suffix}(n) = t({n_max}) / (n t({n_max}/n)): " + ", ".join(
         f"n={n} ({e['channels_per_card']} ch) {e['efficiency']:.3f}"
         for n, e in eff.items()), flush=True)
-    return out
 
 
 # --------------------------------------------------------------------------

@@ -217,6 +217,49 @@ def suite_mesh(inputs, rank, world, workdir):
         raised = str(e)
     _save(workdir, "indivisible", rank, raised=np.array(raised))
 
+    mesh = meshes["2x2"]
+    _save(workdir, "mesh_backend", rank, backend=np.array(mesh.backend),
+          captures=np.array(mesh.captures),
+          default_graph=np.array(session.graph is None))
+    for runtime in ("batch", "scan"):
+        for form in ("eager", "graph"):
+            _graph_session_case(inputs, mesh, runtime, form, rank, workdir)
+
+
+def _graph_session_case(inputs, mesh, runtime, form, rank, workdir):
+    """A pull-in -> cruise mesh session over ``graph__re/im``, its step
+    eager or through the graph's CPU stand-in
+    (``StepGraph(cpu, capture=False)``): every call's outputs, the call
+    lengths, the final state, and the stand-in's graphs and replays."""
+    from sydr_tpu_torch.receiver.session import (
+        AcquisitionConfig, TrackingSession)
+    from sydr_tpu_torch.ops.step_graph import StepGraph
+
+    session = TrackingSession(
+        _config(inputs, f"graph_{runtime}_pull_in"),
+        [int(p) for p in inputs["session__prns"]],
+        AcquisitionConfig(coherent=2, non_coherent=3),
+        cruise=_config(inputs, f"graph_{runtime}_cruise"), device="cpu",
+        mesh=mesh)
+    if form == "graph":
+        session.graph = StepGraph("cpu", capture=False)
+    sre, sim = inputs["graph__re"], inputs["graph__im"]
+    outs, pos, promoted_at = [], 0, -1
+    while pos + session.block_input_samples <= len(sre):
+        n = session.block_input_samples
+        outs.append(session.process_block(sre[pos:pos + n],
+                                          sim[pos:pos + n]))
+        pos += n
+        if promoted_at < 0 and session.promoted:
+            promoted_at = len(outs)
+    graphs = session.graph.graphs if session.graph is not None else {}
+    _save(workdir, f"graph_{runtime}_{form}", rank, session.state, None,
+          **{f"out_{k}": np.concatenate([o[k] for o in outs])
+             for k in outs[0]},
+          lengths=np.array([len(o["flags"]) for o in outs]),
+          promoted_at=np.array(promoted_at),
+          replays=np.array([e.replays for e in graphs.values()], int))
+
 
 def suite_session_closed_loop(inputs, rank, world, workdir):
     from sydr_tpu_torch.parallel import mesh as pmesh
@@ -279,6 +322,42 @@ def suite_timeshard(inputs, rank, world, workdir):
         cfg, meshes[4], 2, _tensor(bits), _state(inputs, "state"),
         _tensor(inputs["sre"]), _tensor(inputs["sim"]))
     _save(workdir, "superblock", rank, st, out)
+
+    _timeshard_graph_cases(inputs, meshes, rank, workdir)
+
+
+def _timeshard_graph_cases(inputs, meshes, rank, workdir):
+    """Every case above, and the superblock, through ``TimeShardGraph``
+    with the graph's CPU stand-in: the first call (the warm-up) and the
+    second (where a replay runs)."""
+    from sydr_tpu_torch.parallel import mesh as pmesh
+    from sydr_tpu_torch.parallel import timeshard
+    from sydr_tpu_torch.ops.step_graph import StepGraph
+
+    bits = inputs["bits3x"]
+    wre, wim = _tensor(inputs["wre"]), _tensor(inputs["wim"])
+    default = timeshard.TimeShardGraph(meshes[4], "cpu")
+    _save(workdir, "ts_graph_default", rank,
+          eager=np.array(default.graph is None))
+    runners = {}
+    for n_sp, mesh in meshes.items():
+        runners[n_sp] = timeshard.TimeShardGraph(
+            mesh, "cpu", graph=StepGraph("cpu", capture=False))
+    for case in [str(c) for c in inputs["cases"]]:
+        cfg = _config(inputs, case)
+        runner = runners[int(inputs[f"{case}__n_sp"])]
+        rows = (pmesh.channel_slice(runner.mesh, bits.shape[0])
+                if "ch" in runner.mesh.shape else slice(0, bits.shape[0]))
+        for call in (0, 1):
+            st, out = runner.block(cfg, _tensor(bits[rows]),
+                                   _state(inputs, "state", rows), wre, wim)
+            _save(workdir, f"{case}_graph{call}", rank, st, out)
+    cfg = _config(inputs, "superblock")
+    for call in (0, 1):
+        st, out = runners[4].superblock(
+            cfg, 2, _tensor(bits), _state(inputs, "state"),
+            _tensor(inputs["sre"]), _tensor(inputs["sim"]))
+        _save(workdir, f"superblock_graph{call}", rank, st, out)
 
 
 def main(argv) -> None:

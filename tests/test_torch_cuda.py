@@ -25,7 +25,7 @@ order: it is held to its plain version by the scan runtime's bounds
 (``_scan_inputs.bound_faults``), and to itself bit for bit across runs,
 channel slices, a graph replay and the mesh's scan step.
 
-The session's step as a captured CUDA graph (``receiver/step_graph.py``)
+The session's step as a captured CUDA graph (``ops/step_graph.py``)
 is held to the eager step bit for bit: every output, the final state and
 the kernels' launch counts, in the K1, prefix (K3) and scan forms, across
 a promotion and a ``reset_channel``; a capture that fails raises. The
@@ -979,7 +979,7 @@ def test_sharded_scan_step_on_nccl_world_of_one():
         _assert_pass_c_equal(got, ref, "the mesh's scan step")
 
 
-# The session's step as a captured CUDA graph (receiver/step_graph.py)
+# The session's step as a captured CUDA graph (ops/step_graph.py)
 # against the eager step: tests/test_torch_session.py's stream (8 Msps
 # decimated to 2 Msps, the satellites at 46 dB-Hz) over 8 channels, the
 # pull-in at 5 ms blocks and the narrow-only cruise at 20 ms x 5 blocks,
@@ -1015,11 +1015,13 @@ def _kernel_counts():
             "scan": sk.SCAN_KERNEL.launches}
 
 
-def _graph_session_run(form, graph, dev):
-    """One session over the stream: every call's outputs, the final packed
-    state, the kernels' launches, the calls at which it promoted and was
-    reset, and the session."""
+def _graph_session_run(form, graph, dev, mesh=None):
+    """One session over the stream (on ``mesh``, if given): every call's
+    outputs, the final packed state, the kernels' and the collectives'
+    launches, the calls at which it promoted and was reset, and the
+    session."""
     from sydr_tpu_torch.channels.state import pack_state
+    from sydr_tpu_torch.parallel import distributed
     from sydr_tpu_torch.receiver.session import TrackingSession
     from sydr_tpu_torch.signal.synthetic import IQGenerator
 
@@ -1030,9 +1032,10 @@ def _graph_session_run(form, graph, dev):
                           cn0_dbhz=46.0, nav_bits=bits)
     pull_in, cruise = _graph_configs(form)
     session = TrackingSession(pull_in, GRAPH_PRNS, cruise=cruise,
-                              device=dev, graph=graph)
+                              device=dev, graph=graph, mesh=mesh)
     per_ms = round(GRAPH_FS_IN * 1e-3)
     before = _kernel_counts()
+    gathers = distributed.COLLECTIVES["all_gather"].launches
     outs, fed, promoted_at, reset_at = [], 0, None, None
 
     def call():
@@ -1051,8 +1054,9 @@ def _graph_session_run(form, graph, dev):
         call()
     torch.cuda.synchronize()
     launches = {k: v - before[k] for k, v in _kernel_counts().items()}
+    gathers = distributed.COLLECTIVES["all_gather"].launches - gathers
     state = [t.cpu() for t in pack_state(session.state)]
-    return dict(outs=outs, state=state, launches=launches,
+    return dict(outs=outs, state=state, launches=launches, gathers=gathers,
                 promoted_at=promoted_at, reset_at=reset_at, session=session,
                 calls=len(outs))
 
@@ -1146,7 +1150,7 @@ def test_failed_capture_raises():
     """A step that reads a CUDA tensor on the host cannot be captured: the
     runner raises, after the warm-up ran it eagerly once, and does not
     keep a graph for it."""
-    from sydr_tpu_torch.receiver.step_graph import StepGraph
+    from sydr_tpu_torch.ops.step_graph import StepGraph
 
     dev = _cuda()
     runner = StepGraph(dev)
@@ -1169,7 +1173,7 @@ def test_capture_survives_a_collected_graph():
     invalidate the capture): the runner holds the collector off."""
     import gc
 
-    from sydr_tpu_torch.receiver.step_graph import StepGraph
+    from sydr_tpu_torch.ops.step_graph import StepGraph
 
     dev = _cuda()
     x = torch.ones(256, device=dev)
@@ -1198,3 +1202,151 @@ def test_capture_survives_a_collected_graph():
         gc.set_threshold(*threshold)
     torch.cuda.synchronize()
     assert torch.equal(first, again)
+
+
+# The multi-device steps as captured graphs on a one-rank NCCL process
+# group, whose collectives run through NCCL at world size 1: the mesh
+# session's step (the channel shard's step and its two all_gathers over
+# ch) graphed by default and eager, and the unsharded session beside them,
+# on the stream above through pull-in, promotion, cruise, a reset and
+# three more calls, in the batch (K1) and the scan runtime; the
+# time-sharded full-rate block and superblock, captured and eager, in both
+# forms of pass B.
+def _nccl_world_of_one():
+    import socket
+
+    from sydr_tpu_torch.parallel import distributed
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    distributed.initialize("nccl", rank=0, world_size=1,
+                           init_method=f"tcp://127.0.0.1:{port}")
+
+
+@pytest.fixture(scope="module", params=["k1", "scan"])
+def mesh_graph_runs(request):
+    from sydr_tpu_torch.parallel import distributed, mesh as pmesh
+
+    dev = _cuda()
+    form = request.param
+    runs = {"unsharded": _graph_session_run(form, None, dev)}
+    _nccl_world_of_one()
+    try:
+        mesh = pmesh.make_mesh(1, 1)
+        runs["graphed"] = _graph_session_run(form, None, dev, mesh)
+        runs["eager"] = _graph_session_run(form, False, dev, mesh)
+    finally:
+        distributed.shutdown()
+    return form, mesh, runs
+
+
+@pytest.mark.cuda
+def test_mesh_graphed_session_equals_eager_bit_for_bit(mesh_graph_runs):
+    form, mesh, runs = mesh_graph_runs
+    assert mesh.backend == "nccl" and mesh.captures
+    graphed = runs["graphed"]
+    assert graphed["session"].graph is not None
+    assert runs["eager"]["session"].graph is None
+    for name in ("eager", "unsharded"):
+        other = runs[name]
+        assert len(graphed["outs"]) == len(other["outs"])
+        for i, (a, b) in enumerate(zip(other["outs"], graphed["outs"])):
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(b[k], a[k],
+                                              err_msg=f"{name} {i} {k}")
+        for a, b in zip(other["state"], graphed["state"]):
+            assert torch.equal(a, b), name
+        assert other["promoted_at"] == graphed["promoted_at"]
+        assert other["launches"] == graphed["launches"], name
+    if form == "k1":
+        assert graphed["promoted_at"] is not None
+
+
+@pytest.mark.cuda
+def test_mesh_graph_holds_the_collectives(mesh_graph_runs):
+    """Each graph of the mesh session holds its two all_gathers (state and
+    outputs) as launches a replay counts, and more nodes than the
+    unsharded session's graph of the same configuration; the collective
+    launches equal the eager mesh session's, two a call."""
+    from sydr_tpu_torch.parallel import distributed
+
+    form, _, runs = mesh_graph_runs
+    gather = distributed.COLLECTIVES["all_gather"]
+    graphs = runs["graphed"]["session"].graph.graphs
+    plain = runs["unsharded"]["session"].graph.graphs
+    assert graphs.keys() == plain.keys()
+    for key, entry in graphs.items():
+        assert entry.launches.get(gather) == 2 and entry.replays > 0
+        assert gather not in plain[key].launches
+        assert entry.nodes > plain[key].nodes, (entry.node_kinds,
+                                                plain[key].node_kinds)
+        assert {k: n for k, n in entry.launches.items() if k is not gather} \
+            == plain[key].launches
+    calls = runs["graphed"]["calls"]
+    assert runs["graphed"]["gathers"] == runs["eager"]["gathers"] == 2 * calls
+    assert runs["unsharded"]["gathers"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["rowsum", "prefix"])
+def test_timeshard_graph_on_nccl_world_of_one(form):
+    """``TimeShardGraph`` on a one-rank NCCL ``sp`` mesh (graphed by
+    default): the full-rate block (10 Msps, 32 channels, 4 + 20 ms) and a
+    superblock of 2 such blocks, captured, then replayed on the next
+    state, each equal to the eager time-sharded call bit for bit; the
+    graphs hold the pass B collectives and K1 or K3."""
+    from sydr_tpu_torch.ops import loop_kernel as lk
+    from sydr_tpu_torch.parallel import distributed, timeshard
+
+    dev = _cuda()
+    rng = np.random.default_rng(17)
+    cfg = TrackingConfig(sampling_frequency=10e6, block_ms=20, tail_ms=4,
+                         window_size=10256, runtime="batch",
+                         profile="kaplan", kaplan_narrow_only=True,
+                         quantize_spacing=True, use_pallas=form == "prefix",
+                         boundary_mode=form)
+    spms = cfg.samples_per_ms
+    st = dataclasses.replace(
+        init_state(N_CH, dev),
+        mode=torch.full((N_CH,), MODE_TRACKING, dtype=torch.int32,
+                        device=dev),
+        carrier_freq=torch.tensor(rng.uniform(-4000, 4000, N_CH),
+                                  dtype=torch.float32, device=dev),
+        unread=torch.full((N_CH,), spms + 300, dtype=torch.int32,
+                          device=dev))
+    bits = torch.tensor(br.tiled_code_bits(list(range(1, N_CH + 1))),
+                        device=dev)
+    n_in = (cfg.tail_ms + 2 * cfg.block_ms) * spms
+    sre, sim = (torch.tensor(rng.normal(0, 2, n_in), dtype=torch.float32,
+                             device=dev) for _ in range(2))
+    wre, wim = sre[:cfg.window_samples], sim[:cfg.window_samples]
+    _nccl_world_of_one()
+    try:
+        mesh = timeshard.make_sp_mesh()
+        runner = timeshard.TimeShardGraph(mesh, dev)
+        assert runner.graph is not None
+        calls = [("block", lambda s: runner.block(cfg, bits, s, wre, wim),
+                  lambda s: timeshard.run_block_batched_timesharded(
+                      cfg, mesh, bits, s, wre, wim)),
+                 ("superblock",
+                  lambda s: runner.superblock(cfg, 2, bits, s, sre, sim),
+                  lambda s: timeshard.run_superblock_timesharded(
+                      cfg, mesh, 2, bits, s, sre, sim))]
+        for name, graphed, eager in calls:
+            state = st
+            for call in range(3):            # capture, replay, replay
+                got, want = graphed(state), eager(state)
+                _assert_pass_c_equal(got, want, f"{form} {name} {call}")
+                state = want[0]
+    finally:
+        distributed.shutdown()
+    corr = ck.KERNEL if form == "rowsum" else ck.CUMSUM_KERNEL
+    reduce = distributed.COLLECTIVES["all_reduce"]
+    entries = list(runner.graph.graphs.values())
+    assert len(entries) == 2 and all(e.replays == 2 for e in entries)
+    for entry, blocks in zip(entries, (1, 2)):
+        assert entry.launches[corr] == entry.launches[lk.PASS_C_KERNEL] \
+            == blocks
+        assert entry.launches[reduce] == blocks

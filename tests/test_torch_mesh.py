@@ -22,7 +22,15 @@ once for the module) runs every case; the meshes are ``(ch, dop)`` =
   ``peak_metric``: Doppler and code index exact, metric within 1e-6;
 * ``TrackingSession(mesh=...)`` on ``(2, 2)`` (4 channels, 2 of them PRN 0
   padding) through acquisition and 5 superblocks, bit for bit against the
-  unsharded session; a channel count that does not divide raises.
+  unsharded session; a channel count that does not divide raises;
+* the same mesh session's step through the graph's CPU stand-in
+  (``StepGraph(cpu, capture=False)``: static buffers, the step run where a
+  replay runs) against the eager mesh session, in the batch and the scan
+  runtime, from acquisition through pull-in (borre, 5 ms blocks),
+  promotion and cruise (20 ms blocks; the batch runtime's superblocks of
+  2): every output of every call and the final state bit for bit, both
+  graphs replayed. The gloo mesh records its backend, cannot be captured,
+  and the session's default there is eager.
 """
 
 import dataclasses
@@ -67,6 +75,16 @@ SESSION_FS = 4e6
 SESSION_PRNS = [5, 12, 0, 0]            # padded to divide over 2 'ch' shards
 SESSION_CFG = dict(sampling_frequency=SESSION_FS, block_ms=20, tail_ms=4,
                    window_size=4224, runtime="batch", superblock=2)
+# The stand-in's sessions: SESSION_FS decimated by 2, borre pull-in at 5 ms
+# (it promotes at 370 ms), cruise at 20 ms blocks; over the first 560 ms
+# of the session's signal.
+GRAPH_PULL_IN = dict(sampling_frequency=SESSION_FS / 2, input_decimate=2,
+                     window_size=2256, tail_ms=4, quantize_spacing=True,
+                     profile="borre", block_ms=5)
+GRAPH_CRUISE = {"batch": dict(block_ms=20, superblock=2),
+                "scan": dict(block_ms=20)}
+GRAPH_BLOCKS = 14
+WORLD_TIMEOUT_S = 300
 
 
 def _case_inputs(case):
@@ -178,6 +196,18 @@ def _session_entries(prns, sre, sim):
             "session__im": sim}
 
 
+def _graph_entries():
+    """The stand-in sessions' configurations and signal."""
+    entries = {}
+    for runtime, cruise in GRAPH_CRUISE.items():
+        pull_in = trt.TrackingConfig(runtime=runtime, **GRAPH_PULL_IN)
+        entries.update(w.config_entries(f"graph_{runtime}_pull_in", pull_in))
+        entries.update(w.config_entries(
+            f"graph_{runtime}_cruise", dataclasses.replace(pull_in, **cruise)))
+    entries["graph__re"], entries["graph__im"] = _session_samples(GRAPH_BLOCKS)
+    return entries
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """Spawn the 4-rank world once; meanwhile run the unsharded port here."""
@@ -196,6 +226,7 @@ def world(tmp_path_factory):
     sre, sim = _session_samples(5)
     entries.update(pcps)
     entries.update(_session_entries(SESSION_PRNS, sre, sim))
+    entries.update(_graph_entries())
     np.savez(f"{workdir}/inputs.npz", **entries)
     procs = w.spawn("mesh", 4, workdir)
     try:
@@ -214,7 +245,7 @@ def world(tmp_path_factory):
             corr, torch.from_numpy(pcps["pcps__bins"]), samples_per_chip=1)]
         port["session"] = _drive_session(SESSION_PRNS, sre, sim)
     finally:
-        w.wait(procs)
+        w.wait(procs, timeout=WORLD_TIMEOUT_S)
     return workdir, inputs, port
 
 
@@ -318,6 +349,34 @@ def test_session_channel_count_must_divide(world):
     for r in range(4):
         raised = str(w.load(world[0], "indivisible", r)["raised"])
         assert "3 channels do not divide over 2 'ch' shards" in raised
+
+
+def test_gloo_mesh_is_not_captured(world):
+    for r in range(4):
+        got = w.load(world[0], "mesh_backend", r)
+        assert str(got["backend"]) == "gloo"
+        assert not bool(got["captures"])
+        assert bool(got["default_graph"])          # the session's is eager
+
+
+@pytest.mark.parametrize("rank", [0, 1, 2, 3])
+@pytest.mark.parametrize("runtime", list(GRAPH_CRUISE))
+def test_mesh_session_graph_stand_in_equals_eager(world, runtime, rank):
+    eager = w.load(world[0], f"graph_{runtime}_eager", rank)
+    graph = w.load(world[0], f"graph_{runtime}_graph", rank)
+    head = w.load(world[0], f"graph_{runtime}_eager", 0)
+    assert sorted(eager) == sorted(graph)
+    for key in eager:
+        if key != "replays":
+            np.testing.assert_array_equal(graph[key], eager[key],
+                                          err_msg=key)
+            np.testing.assert_array_equal(eager[key], head[key],
+                                          err_msg=f"rank 0 {key}")
+    promoted_at, calls = int(eager["promoted_at"]), len(eager["lengths"])
+    assert 0 < promoted_at < calls - 1            # cruise replayed
+    assert len(eager["replays"]) == 0
+    assert len(graph["replays"]) == 2 and (graph["replays"] > 0).all()
+    assert eager["out_active"][-20:, :2].all()
 
 
 @pytest.mark.slow

@@ -15,14 +15,17 @@ bookkeeping, on the CPU.
     ``active`` and the flags exact, the carrier within 1 Hz; the ring is
     the dequantised window in both and equal bit for bit, and the packed
     output names equal.
-(b) ``receiver.step_graph.StepGraph`` with ``capture=False`` (its static
+(b) ``ops.step_graph.StepGraph`` with ``capture=False`` (its static
     buffers, copies in and out, one step function per key, the step run
     on the buffers where a replay runs) inside a ``Receiver``, held bit
     for bit against the plain eager receiver over one run: promotion,
     ``or_flags``, ``reset_channel`` -> demotion -> reacquisition (a
     hand-off) -> re-promotion (both graphs reused), and a checkpoint saved
     by the graphed receiver mid-run and resumed by a fresh one.
-(c) ``graph=`` on the CPU, and the launch counters through a replay.
+(c) ``graph=`` on the CPU and with a mesh (the rule,
+    ``step_graph.use_graph``: an NCCL mesh on a card is graphed, a gloo
+    mesh eager, ``graph=True`` with gloo or on the CPU raises), and the
+    launch counters through a replay.
 """
 
 import dataclasses
@@ -48,7 +51,9 @@ from sydr_tpu_torch.ops import native
 from sydr_tpu_torch.receiver import checkpoint
 from sydr_tpu_torch.receiver.receiver import Receiver, ReceiverConfig
 from sydr_tpu_torch.receiver.session import TrackingSession
-from sydr_tpu_torch.receiver.step_graph import StepGraph
+from sydr_tpu_torch.parallel import distributed
+from sydr_tpu_torch.parallel.timeshard import TimeShardGraph
+from sydr_tpu_torch.ops.step_graph import StepGraph, use_graph
 from sydr_tpu_torch.signal.synthetic import IQGenerator
 
 torch.set_num_threads(2)
@@ -371,11 +376,46 @@ def test_graph_default_on_the_cpu_is_eager():
                            graph=False).graph is None
 
 
+def _mesh_of(backend):
+    """A ``Mesh`` whose process group was started on ``backend``, made
+    without one (only its backend is read here)."""
+    mesh = object.__new__(distributed.Mesh)
+    mesh.backend = backend
+    return mesh
+
+
 def test_graph_true_with_a_mesh_raises():
+    """A gloo mesh's collectives copy through the host: ``graph=True``
+    raises, naming the backend, before any tensor is made."""
     pull_in, _ = _configs(TrackingConfig)
-    with pytest.raises(ValueError, match="mesh"):
+    with pytest.raises(ValueError, match="gloo backend"):
         TrackingSession(pull_in, PRNS, device=torch.device("cuda"),
-                        mesh=object(), graph=True)
+                        mesh=_mesh_of("gloo"), graph=True)
+    with pytest.raises(ValueError, match="gloo backend"):
+        TimeShardGraph(_mesh_of("gloo"), "cuda", graph=True)
+
+
+@pytest.mark.parametrize("graph, device, backend, want", [
+    (None, "cuda", "nccl", True),       # an NCCL mesh on a card: graphed
+    (None, "cuda", "gloo", False),      # a gloo mesh: eager
+    (None, "cuda", None, True),         # no process group: no collective
+    (None, "cpu", "nccl", False),
+    (None, "cpu", "gloo", False),
+    (False, "cuda", "nccl", False),
+    (True, "cuda", "nccl", True),
+])
+def test_graph_default_follows_the_mesh_backend(graph, device, backend,
+                                                want):
+    mesh = _mesh_of(backend)
+    assert mesh.captures == (backend != "gloo")
+    assert use_graph(graph, device, mesh) is want
+    assert use_graph(graph, device, None) is (graph is not False
+                                              and device == "cuda")
+
+
+def test_graph_true_on_the_cpu_with_a_mesh_raises():
+    with pytest.raises(ValueError, match="CUDA device, got cpu"):
+        use_graph(True, "cpu", _mesh_of("nccl"))
 
 
 def test_stand_in_refuses_a_cuda_device():

@@ -23,6 +23,12 @@ A block whose milliseconds do not divide over the shards raises, and
 unsharded superblock as above and to the JAX block loop at
 tests/test_timeshard.py's superblock bounds. The JAX references are
 computed once, while the ranks run.
+
+The captured form, ``timeshard.TimeShardGraph``, runs every case and the
+superblock on the same ranks through the graph's CPU stand-in
+(``StepGraph(cpu, capture=False)``), twice: the first call (the warm-up)
+and the second (where a replay runs) equal the eager call bit for bit. On
+gloo its default is eager.
 """
 
 import dataclasses
@@ -265,3 +271,21 @@ def test_timesharded_superblock_matches_unsharded(world):
                                    err_msg=key)
     np.testing.assert_allclose(st["carrier_freq"],
                                np.asarray(jst.carrier_freq), atol=0.1)
+
+
+@pytest.mark.parametrize("case", [*CASES, "superblock"])
+def test_timeshard_graph_stand_in_equals_eager(world, case):
+    for r in range(4):
+        want = w.load(world["workdir"], case, r)
+        keys = sorted(k for k in want if k.startswith(("out_", "st_")))
+        for call in (0, 1):
+            got = w.load(world["workdir"], f"{case}_graph{call}", r)
+            assert sorted(got) == keys
+            for key in keys:
+                np.testing.assert_array_equal(
+                    got[key], want[key], err_msg=f"rank {r} call {call} {key}")
+
+
+def test_timeshard_graph_default_on_gloo_is_eager(world):
+    for r in range(4):
+        assert bool(w.load(world["workdir"], "ts_graph_default", r)["eager"])
