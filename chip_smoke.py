@@ -40,8 +40,17 @@ printing its wall time:
    and of n = 2^20 + 2 before any launch), K3
    ``block_cumsum_streams`` (with its two launches timed apart, the time
    of a kernel that only makes its stores, and a second run that must be
-   bit-identical), and pass C's kernel ``pass_c`` (``ops/loop_kernel.py``,
-   the JAX package's fused ``lax.scan``; it replaces no TPU kernel) on a
+   bit-identical), the geometry kernel ``block_geometry``
+   (``ops/geometry_kernel.py``: pass A and pass B's geometry, what XLA
+   fuses ahead of the correlation in the JAX package's jitted
+   ``run_block_batched``; it replaces no TPU kernel) at the cruise (20
+   epochs) and pull-in (5) shapes, 32 channels, every output bit for bit
+   the plain version's on 40 states each (``tests/_geometry_inputs.py``:
+   chip-boundary ties, carrier phases at 0 and 2 pi, sample deficits
+   among them), its device
+   time beside its latency bound, and pass C's kernel ``pass_c``
+   (``ops/loop_kernel.py``, the JAX package's fused ``lax.scan`` and the
+   anchor slew after it; it replaces no TPU kernel) on a
    mid-track block of 32 channels (``tests/_pass_c_inputs.py``) at the
    cruise shape (narrow-only kaplan, 20 epochs) and the pull-in shape
    (kaplan, 5 epochs), every output and the new state bit for bit the
@@ -92,9 +101,10 @@ printing its wall time:
    (``graph=False``) and then as the session's default, one captured CUDA
    graph per configuration replayed on every later step
    (``ops/step_graph.py``): every output and the final state bit for
-   bit, the same launch counts, K1 and pass C's kernel inside the replayed
-   cruise graph (one launch of each a block), each graph's capture and
-   instantiation seconds and node count; then steady
+   bit, the same launch counts, the geometry kernel, K1 and pass C's
+   kernel inside the replayed cruise graph (one launch of each a block),
+   each graph's capture and instantiation seconds and node count (the
+   cruise graph's nodes a block printed); then steady
    cruise superblocks in turns (eager, graphed, graphed, eager) with both
    real-time factors, and the step alone (the replay between CUDA events,
    the eager step between fences). Every later session, receiver and CLI
@@ -249,6 +259,10 @@ N_VISIBLE = 12
 CN0_DBHZ = 45.0
 SIGNAL_MS = 3000
 CRUISE_SUPERBLOCK = 50
+# The most nodes the cruise step's graph may hold: a block's three kernels
+# (the geometry, K1, pass C) x CRUISE_SUPERBLOCK, and the step's own
+# dequantising, ring and output ops (~64 nodes, torch 2.11 on an H100).
+CRUISE_GRAPH_NODES = 300
 # The demo sky (sydr_tpu_torch/main.py's --demo) for phases 6 and 7.
 RX_MS = 16000
 DEMO_T0, DEMO_WEEK = 302400.0, 2190
@@ -315,6 +329,30 @@ PASS_C_CASES = (
      dict(profile="kaplan", kaplan_narrow_only=True), 20),
     ("pull-in 32 ch x 5 epochs, kaplan", 5, dict(profile="kaplan"), 21))
 PASS_C_WARP_SWEEP = (1, 2, 4, 8, 8, 4, 2, 1)
+# The geometry kernel (pass A and pass B's geometry): operations counted
+# for its bound, per channel and epoch (the epoch boundary's double
+# multiply-add, division and ceil, its budget, the code and carrier phases
+# with the remainder's ~10, the bounds: ~40) and per channel and anchor
+# millisecond (two products, a sum, a difference and a remainder: ~15).
+GEOMETRY_EPOCH_OPS = 40
+GEOMETRY_ANCHOR_OPS = 15
+# Its latency bound: the longest dependent chain from a channel's state to
+# its last output, at PASS_C_OP_CYCLES cycles an operation, plus the empty
+# launch: the carrier anchors' (omega, 2 products; its remainder over a
+# millisecond, a product and ~10 for fmodf; the first epoch's carrier
+# phase, 2 products, a sum, a difference, ~10 for its remainder, and the
+# activity's select; phic0, a product and 2 sums; the anchor, a product, a
+# difference and ~10 for its remainder): 48.
+GEOMETRY_CHAIN_OPS = 48
+# States a geometry case holds the kernel to its plain version on, ten of
+# each of tests/_geometry_inputs.py's kinds (random, ties, carrier phase
+# edges, deficits).
+GEOMETRY_STATES = 40
+# The geometry kernel's cases: (name, fs, block_ms, loops), the Session
+# cell's cruise and pull-in shapes at 32 channels.
+GEOMETRY_CASES = (
+    ("cruise 32 ch x 20 epochs, 2.5 Msps", 2.5e6, 20, "narrow"),
+    ("pull-in 32 ch x 5 epochs, 2.5 Msps", 2.5e6, 5, "kaplan"))
 # The scan runtime's kernel: operations counted for its bound, per sample
 # and channel of an epoch (the carrier phase's 2, accurate cosf and sinf at
 # ~15 each, the mix's 6) and per spacing of a sample (the chip index in
@@ -510,17 +548,16 @@ def random_tracking(fs, block_ms, profile, quantize, device, rng):
 
 
 def random_block(fs, block_ms, profile, quantize, device, rng):
-    """A random 32-channel tracking state and window: the K1 arguments."""
+    """A random 32-channel tracking state and window: the K1 arguments,
+    the geometry from the geometry kernel (``block_geometry_all``)."""
     from sydr_tpu_torch.channels import batch_runtime as br
+    from sydr_tpu_torch.ops import geometry_kernel as gk
 
     cfg, st, wre, wim, bits = random_tracking(fs, block_ms, profile,
                                               quantize, device, rng)
-    spms = cfg.samples_per_ms
-    geo = br._pass_a_closed(cfg, st)
-    bg = br.block_geometry(cfg, st, geo)
-    return (wre, wim, bits, bg["c_int"], geo["omega"], geo["code_step"],
-            bg["fb_q"].contiguous(), bg["phic_q"].contiguous(),
-            br.epoch_bounds(cfg, geo, bg["base"]), br.taps_for(cfg), spms)
+    _, inputs, bounds = gk.block_geometry_all(cfg, st)
+    return (wre, wim, bits, *inputs, bounds, br.taps_for(cfg),
+            cfg.samples_per_ms)
 
 
 def stream_flops(n_samples: int, n_taps: int) -> float:
@@ -691,9 +728,9 @@ def pass_c_inputs(block_ms, extra, device):
     channels, every clamp acting): ``(cfg, state, geo, corr)``."""
     import torch
 
-    from sydr_tpu_torch.channels import batch_runtime as br
     from sydr_tpu_torch.channels.runtime import TrackingConfig
     from sydr_tpu_torch.channels.state import state_from_numpy
+    from sydr_tpu_torch.ops import geometry_kernel as gk
 
     cfg = TrackingConfig(sampling_frequency=FS_IN / DECIMATE,
                          block_ms=block_ms, tail_ms=4,
@@ -701,7 +738,8 @@ def pass_c_inputs(block_ms, extra, device):
                          runtime="batch", quantize_spacing=True, **extra)
     leaves, corr = pass_c_module().mid_track(cfg, N_CHANNELS, SEED % 1000)
     st = state_from_numpy(leaves, device)
-    return cfg, st, br._pass_a(cfg, st), torch.tensor(corr, device=device)
+    geo, _, _ = gk.block_geometry_all(cfg, st)
+    return cfg, st, geo, torch.tensor(corr, device=device)
 
 
 _SM_CLOCK_HZ: list[float] = []
@@ -728,15 +766,15 @@ def pass_c_latency_ms(block_ms, chain_ops, empty_ms) -> float:
 
 def pass_c_case(name, block_ms, extra, device, empty_ms, chain_ops=None,
                 inputs=None, claims=()):
-    """Kernel vs plain pass C (``batch_runtime._pass_c``) on the card:
-    every output and the new state bit for bit. ``inputs``: ``(cfg,
+    """Kernel vs plain pass C (``loop_kernel.pass_c_plain``:
+    ``batch_runtime._pass_c`` and the anchor slew) on the card: every
+    output and the new state bit for bit. ``inputs``: ``(cfg,
     state, geo, corr)`` (default: :func:`pass_c_inputs`); ``chain_ops``:
     with it, the latency bound and the device time at every warps-a-CTA
     width of PASS_C_WARP_SWEEP in turns; ``claims``: the branches the
     kernel's run must reach (``_pass_c_inputs.CLAIMS``)."""
     import torch
 
-    from sydr_tpu_torch.channels import batch_runtime as br
     from sydr_tpu_torch.channels.state import FIELDS
     from sydr_tpu_torch.ops import loop_kernel as lk
     from sydr_tpu_torch.ops import native
@@ -749,7 +787,7 @@ def pass_c_case(name, block_ms, extra, device, empty_ms, chain_ops=None,
                 if v != before[k]}
     check(launched == {"pass_c": 1},
           f"pass C {name}: the wrapper launched {launched}")
-    ref_st, ref = br._pass_c(cfg, st, geo, corr)
+    ref_st, ref = lk.pass_c_plain(cfg, st, geo, corr)
     torch.cuda.synchronize()
     pairs = [(k, got[k], ref[k]) for k in ref] + [
         (f"state {f}", getattr(got_st, f), getattr(ref_st, f))
@@ -772,7 +810,8 @@ def pass_c_case(name, block_ms, extra, device, empty_ms, chain_ops=None,
     res = {"max_abs_err": err,
            "ms": device_ms(lambda: fn(*cargs, stream), 200),
            "call_ms": cuda_ms(lambda: lk.pass_c(cfg, st, geo, corr), 50),
-           "plain_ms": cuda_ms(lambda: br._pass_c(cfg, st, geo, corr), 5),
+           "plain_ms": cuda_ms(lambda: lk.pass_c_plain(cfg, st, geo, corr),
+                               5),
            "library_ms": None,
            **roofline(n_bytes, float(block_ms * n_ch * PASS_C_EPOCH_OPS))}
     warps = lk.PASS_C_WARPS
@@ -810,6 +849,84 @@ def pass_c_case(name, block_ms, extra, device, empty_ms, chain_ops=None,
                       f"version in {differ}")
     missed = set(claims) - pass_c_module().reached(st, got_st, got)
     check(not missed, f"pass C {name}: the block did not reach {missed}")
+    return res
+
+
+def geometry_module():
+    """``tests/_geometry_inputs.py``, the geometry states shared with the
+    tests."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import _geometry_inputs
+
+    return _geometry_inputs
+
+
+def geometry_case(name, fs, block_ms, profile, device, rng, empty_ms):
+    """Kernel vs plain pass A and pass B's geometry
+    (``geometry_kernel.geometry_plain``) on the card: every output of
+    :data:`GEOMETRY_STATES` states of ``tests/_geometry_inputs.py`` bit
+    for bit, the device time of a launch beside the latency bound, the
+    call and the plain version."""
+    import torch
+
+    from sydr_tpu_torch.ops import geometry_kernel as gk
+    from sydr_tpu_torch.ops import native
+
+    cfg = random_config(fs, block_ms, profile, True)
+    mod = geometry_module()
+    states = [mod.geometry_state(cfg, N_CHANNELS, kind, rng, device)
+              for kind in mod.KINDS * (GEOMETRY_STATES // len(mod.KINDS))]
+    differ, err, active = {}, 0.0, 0
+    for i, st in enumerate(states):
+        before = read_launches()
+        got = gk.block_geometry_all(cfg, st)
+        launched = {k: v - before[k] for k, v in read_launches().items()
+                    if v != before[k]}
+        check(launched == {"block_geometry": 1},
+              f"geometry {name}: the wrapper launched {launched}")
+        ref = gk.geometry_plain(cfg, st)
+        torch.cuda.synchronize()
+        (geo, inputs, bounds), (rgeo, rinputs, rbounds) = got, ref
+        pairs = [(k, geo[k], rgeo[k]) for k in rgeo] + [
+            (f"input {j}", a, b) for j, (a, b) in enumerate(
+                zip(inputs, rinputs))] + [("bounds", bounds, rbounds)]
+        for key, a, b in pairs:
+            if a.dtype == torch.float32:
+                err = max(err, float((a - b).abs().max()))
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                differ[(i, key)] = int((a.long() - b.long()).abs().max())
+        active += int(geo["active"][0].sum())
+    st = states[0]
+    bufs, cargs = gk.geometry_launch_args(cfg, st)
+    fn = gk.GEOMETRY_KERNEL.function()
+    stream = native.stream_of(st.rem_code)
+    fields = [getattr(st, n) for n in gk.STATE_F32 + gk.STATE_I32]
+    n_bytes = tensor_bytes(*fields, *bufs.values())
+    n_q = cfg.tail_ms + cfg.block_ms
+    res = {"max_abs_err": err,
+           "ms": device_ms(lambda: fn(*cargs, stream), 200),
+           "call_ms": cuda_ms(lambda: gk.block_geometry_all(cfg, st), 50),
+           "plain_ms": cuda_ms(lambda: gk.geometry_plain(cfg, st), 10),
+           "library_ms": None,
+           **roofline(n_bytes, float(N_CHANNELS * (
+               block_ms * GEOMETRY_EPOCH_OPS + n_q * GEOMETRY_ANCHOR_OPS))),
+           "latency_ms": pass_c_latency_ms(1, GEOMETRY_CHAIN_OPS, empty_ms)}
+    report("geometry", name, bufs["seq_f"].shape,
+           f"{len(states)} states ({active} of {len(states) * N_CHANNELS} "
+           f"channels active), every output bit-identical: {not differ}"
+           + (f" (differing, max ulp or count: "
+              f"{dict(list(differ.items())[:8])})" if differ else "")
+           + f"; {gk.GEO_WARPS} warps a CTA; bound {res['bound_ms']:.3e} ms "
+           f"({n_bytes} bytes); latency bound {res['latency_ms']:.5f} ms "
+           f"({GEOMETRY_CHAIN_OPS} chain ops x {PASS_C_OP_CYCLES} cycles at "
+           f"{sm_clock_hz() / 1e9:.3f} GHz + the empty launch), the empty "
+           f"launch {empty_ms:.5f} ms", res)
+    check(not differ, f"geometry {name}: the kernel differs from the plain "
+                      f"version in {dict(list(differ.items())[:8])}")
+    check(0 < active < len(states) * N_CHANNELS,
+          f"geometry {name}: {active} channels active: the states do not "
+          f"reach both the running and the deferred block")
     return res
 
 
@@ -1303,6 +1420,9 @@ def kernel_phase(device) -> dict:
               ("cruise 2.5 Msps 20 ms 6 streams", 2.5e6, 20, "narrow"),
               ("pull-in 2.5 Msps 5 ms 10 streams", 2.5e6, 5, "kaplan"),
               ("full-rate 10 Msps 20 ms 6 streams", 10e6, 20, "narrow"))}
+    geometry = {name: geometry_case(name, fs, bm, prof, device, rng,
+                                    empty_ms)
+                for name, fs, bm, prof in GEOMETRY_CASES}
     pc = {name: pass_c_case(name, bm, extra, device, empty_ms, chain)
           for name, bm, extra, chain in PASS_C_CASES}
     mod = pass_c_module()
@@ -1316,7 +1436,7 @@ def kernel_phase(device) -> dict:
     return {"epoch_correlate": k1, "pcps_bins": k2,
             "pcps_bins_cluster": k2c, "pcps_bins_twostep": k2t,
             "pcps_bins_bluestein": k2b, "block_cumsum_streams": k3,
-            "pass_c": pc, "scan_block": scan}
+            "block_geometry": geometry, "pass_c": pc, "scan_block": scan}
 
 
 # ---------------------------------------------------------------------------
@@ -1506,10 +1626,10 @@ def slice_phase(device, capture=None, signal_ms=SIGNAL_MS, fs_in=FS_IN,
           "the session never promoted to cruise")
     check(all(m != MODE_TRACKING for m in absent_modes.values()),
           "an absent PRN is tracking")
-    # K1 and pass C in the batch runtime, the scan kernel in the scan
-    # runtime, the named K2 entry, and nothing else.
+    # K1, the geometry and pass C in the batch runtime, the scan kernel in
+    # the scan runtime, the named K2 entry, and nothing else.
     expected = {name: name == acq_kernel_name
-                or (name in ("epoch_correlate", "pass_c")
+                or (name in ("epoch_correlate", "block_geometry", "pass_c")
                     and runtime == "batch")
                 or (name == "scan_block" and runtime == "scan")
                 for name in launches}
@@ -1519,6 +1639,10 @@ def slice_phase(device, capture=None, signal_ms=SIGNAL_MS, fs_in=FS_IN,
     check(runtime != "scan" or launches["scan_block"] == calls,
           f"the scan runtime launched its kernel {launches['scan_block']} "
           f"times in {calls} blocks, not once a block")
+    check(launches["block_geometry"] == launches["pass_c"]
+          == launches["epoch_correlate"],
+          f"the geometry, K1 and pass C did not launch once a block each: "
+          f"{launches}")
     check(all(np.isfinite(merged[k]).all() for k in
               ("i_prompt", "q_prompt", "carrier_freq")),
           "non-finite tracking output")
@@ -1607,6 +1731,7 @@ def session_pair_phase(device, capture, card) -> dict:
 
     from sydr_tpu_torch.channels.state import pack_state
     from sydr_tpu_torch.ops import correlator_kernel as ck
+    from sydr_tpu_torch.ops import geometry_kernel as gk
     from sydr_tpu_torch.ops import loop_kernel as lk
 
     sync = torch.cuda.synchronize
@@ -1642,6 +1767,15 @@ def session_pair_phase(device, capture, card) -> dict:
     check(entry.launches.get(lk.PASS_C_KERNEL, 0) == CRUISE_SUPERBLOCK,
           f"pass C's kernel did not launch once a block inside the "
           f"replayed cruise graph: {graph_stats(gs)}")
+    check(entry.launches.get(gk.GEOMETRY_KERNEL, 0) == CRUISE_SUPERBLOCK,
+          f"the geometry kernel did not launch once a block inside the "
+          f"replayed cruise graph: {graph_stats(gs)}")
+    check(entry.nodes is not None and entry.nodes <= CRUISE_GRAPH_NODES,
+          f"the cruise graph holds {entry.nodes} nodes, above "
+          f"{CRUISE_GRAPH_NODES}: a block is more than its three kernels")
+    print(f"session pair: the cruise graph holds {entry.nodes} nodes "
+          f"({entry.node_kinds}) for {CRUISE_SUPERBLOCK} blocks, "
+          f"{entry.nodes / CRUISE_SUPERBLOCK:.2f} a block", flush=True)
 
     # Steady state: both sessions are in cruise; the same superblock of
     # input to each, in turns.
@@ -2024,13 +2158,14 @@ def kernels():
     """Every CUDA kernel of the port, by name."""
     from sydr_tpu_torch.ops import acq_kernel
     from sydr_tpu_torch.ops import correlator_kernel as ck
-    from sydr_tpu_torch.ops import loop_kernel, scan_kernel
+    from sydr_tpu_torch.ops import geometry_kernel, loop_kernel, scan_kernel
 
     return {"epoch_correlate": ck.KERNEL, "pcps_bins": acq_kernel.KERNEL,
             "pcps_bins_cluster": acq_kernel.CLUSTER_KERNEL,
             "pcps_bins_twostep": acq_kernel.TWOSTEP_KERNEL,
             "pcps_bins_bluestein": acq_kernel.BLUESTEIN_KERNEL,
             "block_cumsum_streams": ck.CUMSUM_KERNEL,
+            "block_geometry": geometry_kernel.GEOMETRY_KERNEL,
             "pass_c": loop_kernel.PASS_C_KERNEL,
             "scan_block": scan_kernel.SCAN_KERNEL}
 
@@ -2188,8 +2323,10 @@ def prefix_receiver_phase(device, sky_path) -> dict:
           f"last fix error {errors[-1]} m >= {FIX_BOUND_M} m")
     check(all(m != MODE_TRACKING for m in absent_modes.values()),
           "an absent PRN is tracking")
-    check(launches["block_cumsum_streams"] > 0 and launches["pcps_bins"] > 0,
-          f"K3 or K2 never launched on the prefix path: {launches}")
+    check(launches["block_cumsum_streams"] > 0 and launches["pcps_bins"] > 0
+          and launches["block_geometry"] == launches["pass_c"] > 0,
+          f"K3, K2, the geometry or pass C never launched on the prefix "
+          f"path, or not once a block: {launches}")
     check(launches["epoch_correlate"] == 0,
           f"K1 launched on the prefix path: {launches}")
     from sydr_tpu_torch.ops import correlator_kernel as ck
@@ -2739,6 +2876,7 @@ def mesh_ranks_phase(device, capture, mesh_run, card) -> dict:
     from sydr_tpu_torch.channels.state import FIELDS, state_from_numpy
     from sydr_tpu_torch.ops import acquisition as acq
     from sydr_tpu_torch.ops import correlator_kernel as ck
+    from sydr_tpu_torch.ops import geometry_kernel as gk
 
     data = mesh_inputs(device, capture, mesh_run)
     bits, code_k, bins, acq_re, acq_im, t = mesh_tensors(data, device)
@@ -2818,10 +2956,10 @@ def mesh_ranks_phase(device, capture, mesh_run, card) -> dict:
         ref = refs[f"sp_{form}"]
         st = state_from_numpy({n: data[f"sp_st_{n}"] for n in FIELDS},
                               device)
-        inputs, _ = br.pass_b_inputs(cfg, bits, st, br._pass_a(cfg, st))
+        _, inputs, _ = gk.block_geometry_all(cfg, st)
         prefix = ck.block_cumsum_streams(
-            t(data["sp_re"]), t(data["sp_im"]), *inputs, br.taps_for(cfg),
-            cfg.samples_per_ms)
+            t(data["sp_re"]), t(data["sp_im"]), bits, *inputs,
+            br.taps_for(cfg), cfg.samples_per_ms)
         max_prefix = float(prefix.abs().max())
         del prefix
         corr_ref = np.stack([ref[k] for k in CORR_KEYS])
@@ -2871,12 +3009,12 @@ def mesh_ranks_phase(device, capture, mesh_run, card) -> dict:
     for r, (_, info) in enumerate(ranks):
         n = info["launches"]
         check(n["epoch_correlate"] > 0 and n["block_cumsum_streams"] > 0
-              and n["pass_c"] > 0
+              and n["pass_c"] > 0 and n["block_geometry"] == n["pass_c"]
               and n["pcps_bins"] == 0 and n["pcps_bins_cluster"] == 0
               and n["pcps_bins_twostep"] == 0
               and n["pcps_bins_bluestein"] == 0,
-              f"rank {r} launched {n}: expected K1, K3 and pass C, and no "
-              f"K2")
+              f"rank {r} launched {n}: expected K1, K3, the geometry and "
+              f"pass C (once a block), and no K2")
     launches = {name: sum(info["launches"][name] for _, info in ranks)
                 for name in ranks[0][1]["launches"]}
     return {"launches": launches, "sp_cases": sp_shard_cases(data, device)}
@@ -2890,14 +3028,16 @@ def sp_shard_cases(data, device) -> dict:
     from sydr_tpu_torch.channels import batch_runtime as br
     from sydr_tpu_torch.channels.state import FIELDS, state_from_numpy
     from sydr_tpu_torch.ops import correlator_kernel as ck
+    from sydr_tpu_torch.ops import geometry_kernel as gk
     from sydr_tpu_torch.parallel import timeshard
 
     bits = torch.tensor(br.tiled_code_bits(list(range(1, N_CHANNELS + 1))),
                         device=device)
     cfg = random_config(SP_FS, 20, "narrow", True)
     st = state_from_numpy({n: data[f"sp_st_{n}"] for n in FIELDS}, device)
-    inputs, bounds = br.pass_b_inputs(cfg, bits, st, br._pass_a(cfg, st))
-    code_bits, c_int, omega, code_step, fb_q, phic_q = inputs
+    _, inputs, bounds = gk.block_geometry_all(cfg, st)
+    c_int, omega, code_step, fb_q, phic_q = inputs
+    code_bits = bits
     wre = torch.from_numpy(data["sp_re"]).to(device)
     wim = torch.from_numpy(data["sp_im"]).to(device)
     win_re, win_im, fb_l, ph_l, m0 = timeshard.shard_inputs(
@@ -3337,6 +3477,10 @@ RECORD = (
     ("block_cumsum_streams", "block_cumsum_streams.cu",
      "sydr_tpu/ops/correlator_kernel.py:282",
      "cruise 2.5 Msps 20 ms 6 streams", "prefix receiver"),
+    # No TPU kernel: what XLA fuses ahead of the correlation in the JAX
+    # run_block_batched (its pass A's closed form, intercept and anchors).
+    ("block_geometry", "block_geometry.cu",
+     "sydr_tpu/channels/batch_runtime.py:197", GEOMETRY_CASES[0][0], "cli"),
     # No TPU kernel: the XLA-fused lax.scan of the JAX pass C.
     ("pass_c", "pass_c.cu", "sydr_tpu/channels/batch_runtime.py:1205",
      PASS_C_CASES[0][0], "cli"),

@@ -16,11 +16,16 @@ a block splits into:
       CUDA kernel K3 (``ops.correlator_kernel.block_cumsum_streams``).
   Pass C: discriminators, loop filters with virtual-NCO compensation,
       bit-edge histogram sync, C/N0 and lock indicators, epoch by epoch;
-      corrections take effect at the next block. On the card one launch
-      of a CUDA kernel a block (``ops.loop_kernel.pass_c``, the JAX
-      package's fused ``lax.scan``); :func:`_pass_c` is its plain version
-      (``[n_ch]``-wide ops, one Python iteration per epoch), which runs on
-      CPU tensors.
+      corrections take effect at the next block; then the anchor slew. On
+      the card one launch of a CUDA kernel a block
+      (``ops.loop_kernel.pass_c``, the JAX package's fused ``lax.scan``);
+      :func:`_pass_c` is its plain version (``[n_ch]``-wide ops, one Python
+      iteration per epoch), which runs on CPU tensors.
+
+Pass A and pass B's geometry (:func:`_pass_a` and :func:`pass_b_inputs`,
+the plain versions here) run on the card as one launch of a CUDA kernel a
+block (``ops.geometry_kernel.block_geometry_all``), so that a block is
+three launches: the geometry, K1 (or K3) and pass C.
 
 The JAX package's packed-word machinery (``_build_words``,
 ``_kernel_word_table``, ``make_wordpack``, ``_rowsum_boundary_prefix``)
@@ -59,6 +64,7 @@ from sydr_tpu_torch.constants import (
     GPS_L1CA_CODE_LENGTH,
 )
 from sydr_tpu_torch.ops import correlator_kernel as ck
+from sydr_tpu_torch.ops import geometry_kernel
 from sydr_tpu_torch.ops import loop_kernel
 from sydr_tpu_torch.ops.correlator_kernel import fma32
 from sydr_tpu_torch.ops import profiles as prof
@@ -345,20 +351,23 @@ def prefix_epoch_sums(prefix, bounds):
     return boundary_differences(picked)
 
 
-def pass_b_inputs(cfg: TrackingConfig, bits3x, st: ChannelState, geo):
-    """The kernels' arguments after the window planes: ``(code_bits, c_int,
-    omega, code_step, fb_q, phic_q)``, and the epoch bounds."""
+def pass_b_inputs(cfg: TrackingConfig, st: ChannelState, geo):
+    """The kernels' arguments after the window planes and the code bits,
+    ``(c_int, omega, code_step, fb_q, phic_q)``, and the epoch bounds:
+    the plain version of their part of
+    ``ops.geometry_kernel.block_geometry_all``."""
     bg = block_geometry(cfg, st, geo)
     bounds = epoch_bounds(cfg, geo, bg["base"])
-    return (bits3x, bg["c_int"], geo["omega"], geo["code_step"],
+    return (bg["c_int"], geo["omega"], geo["code_step"],
             bg["fb_q"].contiguous(), bg["phic_q"].contiguous()), bounds
 
 
-def _pass_b(cfg: TrackingConfig, bits3x, st: ChannelState, geo,
-            window_re, window_im, grid_ch=None):
-    """Correlators ``[block_ms, n_ch, 2 * n_taps]`` for the whole block."""
-    inputs, bounds = pass_b_inputs(cfg, bits3x, st, geo)
-    args = (window_re, window_im, *inputs)
+def _pass_b(cfg: TrackingConfig, bits3x, inputs, bounds, window_re,
+            window_im, grid_ch=None):
+    """Correlators ``[block_ms, n_ch, 2 * n_taps]`` for the whole block,
+    from the geometry's ``inputs`` and ``bounds``
+    (``ops.geometry_kernel.block_geometry_all``)."""
+    args = (window_re, window_im, bits3x, *inputs)
     if prefix_form(cfg):
         prefix = ck.block_cumsum_streams(*args, taps_for(cfg),
                                          cfg.samples_per_ms, grid_ch=grid_ch)
@@ -559,8 +568,9 @@ def _pass_c(cfg: TrackingConfig, st: ChannelState, geo, corr):
 
 def run_block_batched(cfg: TrackingConfig, bits3x, state: ChannelState,
                       window_re, window_im, *, grid_ch=None):
-    """One block: pass A, pass B (K1, or K3 in the prefix form), pass C
-    (``ops.loop_kernel.pass_c``), then the anchor slew.
+    """One block: pass A and pass B's geometry
+    (``ops.geometry_kernel.block_geometry_all``), pass B (K1, or K3 in the
+    prefix form), pass C and the anchor slew (``ops.loop_kernel.pass_c``).
 
     ``bits3x`` is the ``tiled_code_bits`` table (``[n_ch, 4160]`` f32 on
     the state's device); ``window_re/im`` hold ``tail_ms + block_ms``
@@ -569,10 +579,10 @@ def run_block_batched(cfg: TrackingConfig, bits3x, state: ChannelState,
     ``correlator_kernel.epoch_correlate``). Returns (state, outputs
     ``[block_ms, n_ch]``).
     """
-    geo = _pass_a(cfg, state)
-    corr = _pass_b(cfg, bits3x, state, geo, window_re, window_im, grid_ch)
-    new_state, outputs = loop_kernel.pass_c(cfg, state, geo, corr)
-    return runtime_mod._slew_anchor(cfg, new_state), outputs
+    geo, inputs, bounds = geometry_kernel.block_geometry_all(cfg, state)
+    corr = _pass_b(cfg, bits3x, inputs, bounds, window_re, window_im,
+                   grid_ch)
+    return loop_kernel.pass_c(cfg, state, geo, corr)
 
 
 def superblock_loop(cfg: TrackingConfig, k_blocks: int, state: ChannelState,

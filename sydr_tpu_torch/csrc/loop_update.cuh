@@ -82,6 +82,8 @@ struct LoopConsts {
   float cn0_floor;         // 1e-12
   float n_accum;           // 20
   float code_freq;         // GPS_L1CA_CODE_FREQ
+  int slew_on;             // anchor_slew_hz_per_s > 0 and freq_rail_hz > 0
+  float slew_step;         // anchor_slew_hz_per_s * block_ms * 1e-3
 };
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }

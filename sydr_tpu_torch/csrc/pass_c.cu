@@ -15,9 +15,11 @@
 // the bit-edge histogram and its declaration, the bit accumulators, C/N0
 // and flags; each [block_ms, n_ch] output row is written where the plain
 // version stacks it. After the last epoch it writes the end-of-block phase
-// catch-up and the new state. Every operation rounds as the plain version's
-// op does on the card (loop_update.cuh), so the two agree bit for bit
-// wherever the card's math functions do.
+// catch-up and the new state, its rail anchor slewed toward the carrier
+// (channels/runtime.py::_slew_anchor, which the plain version,
+// ops/loop_kernel.py::pass_c_plain, runs after _pass_c). Every operation
+// rounds as the plain version's op does on the card (loop_update.cuh), so
+// the two agree bit for bit wherever the card's math functions do.
 //
 // Bound on the H100: latency. The bytes (the correlators in, ~25 words a
 // channel and epoch out) and the operations are microseconds below what one
@@ -603,9 +605,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   if (w >= live) return;
 
   // End-of-block phase catch-up: realise the virtual-NCO phase the
-  // within-block corrections assumed.
+  // within-block corrections assumed. Then the per-block rail re-anchoring
+  // (runtime.py::_slew_anchor) on the new state.
   if (lane < kHistBins) p.new_hist[c * kHistBins + lane] = cr.hist;
   if (lane != 0) return;
+  if (k.slew_on && (cr.flags & kFlagBitSync) != 0) {
+    anchor = add(anchor, sydr::clamp(sub(cr.carrier, anchor), -k.slew_step,
+                                     k.slew_step));
+  }
   float* nf = p.new_f + c;
   nf[kCarrierFreq * n_ch] = cr.carrier;
   nf[kFreqAnchor * n_ch] = anchor;

@@ -1,15 +1,17 @@
 """Pass C of the batched runtime as one CUDA kernel launch a block.
 
-``pass_c(cfg, st, geo, corr)`` returns what
-``channels.batch_runtime._pass_c`` returns: the new ``ChannelState`` and
-the outputs, a dict of ``[block_ms, n_ch]`` tensors with the same keys,
+``pass_c(cfg, st, geo, corr)`` returns what :func:`pass_c_plain` returns:
+``channels.batch_runtime._pass_c`` followed by the block's anchor slew
+(``channels.runtime._slew_anchor``), the new ``ChannelState`` and the
+outputs, a dict of ``[block_ms, n_ch]`` tensors with ``_pass_c``'s keys,
 dtypes and shapes. On CPU tensors it is that plain version (a Python loop
-over the block's epochs, ~280 ``[n_ch]``-wide ops each). On CUDA tensors
-it launches ``csrc/pass_c.cu`` once: a warp a channel, its lanes computing
-the epochs' carry-free values side by side and the loop filters' carry in
-series (:data:`PASS_C_WARPS` channels a CTA), the counterpart of the JAX
-package's fused ``lax.scan`` (``sydr_tpu/channels/batch_runtime.py``
-``_pass_c``). It replaces no Pallas kernel. There is no fallback from one
+over the block's epochs, ~280 ``[n_ch]``-wide ops each, and the slew's
+few). On CUDA tensors it launches ``csrc/pass_c.cu`` once: a warp a
+channel, its lanes computing the epochs' carry-free values side by side
+and the loop filters' carry in series (:data:`PASS_C_WARPS` channels a
+CTA), the slew in its epilogue, the counterpart of the JAX package's fused
+``lax.scan`` (``sydr_tpu/channels/batch_runtime.py`` ``_pass_c``) and the
+slew after it. It replaces no Pallas kernel. There is no fallback from one
 to the other.
 
 The host side, which runs on any device: :func:`loop_consts` (the
@@ -84,6 +86,7 @@ class LoopConsts(ctypes.Structure):
             "block_step", "code_rail", "dominance", "two_pi", "pi",
             "half_pi", "rcp_two_pi", "rcp_dt", "rcp_ten", "cn0_alpha",
             "cn0_one_minus_alpha", "cn0_floor", "n_accum", "code_freq")],
+        ("slew_on", _INT), ("slew_step", _F32),
     ]
 
 
@@ -145,7 +148,8 @@ def profile_code(cfg) -> int:
 def loop_consts(cfg) -> LoopConsts:
     """The kernel's constants for ``cfg`` (cached per configuration), as
     the plain version's ops see them (``ops/profiles.py::loop_update``,
-    ``ops/tracking.py``, ``batch_runtime._pass_c``)."""
+    ``ops/tracking.py``, ``batch_runtime._pass_c``,
+    ``runtime._slew_anchor``)."""
     dll_t1, dll_t2 = trk.loop_filter_taus(
         cfg.dll_bandwidth, cfg.dll_damping, cfg.dll_gain)
     pll_t1, pll_t2 = trk.loop_filter_taus(
@@ -197,7 +201,9 @@ def loop_consts(cfg) -> LoopConsts:
         half_pi=f32(math.pi / 2.0), rcp_two_pi=rcp(2.0 * math.pi),
         rcp_dt=rcp(1e-3), rcp_ten=rcp(10.0), cn0_alpha=f32(0.1),
         cn0_one_minus_alpha=f32(1.0 - 0.1), cn0_floor=f32(1e-12),
-        n_accum=f32(20), code_freq=f32(GPS_L1CA_CODE_FREQ))
+        n_accum=f32(20), code_freq=f32(GPS_L1CA_CODE_FREQ),
+        slew_on=int(cfg.anchor_slew_hz_per_s > 0 and cfg.freq_rail_hz > 0),
+        slew_step=f32(cfg.anchor_slew_hz_per_s * cfg.block_ms * 1e-3))
 
 
 def active_stride(active) -> int:
@@ -295,14 +301,23 @@ def unpack(bufs):
     return ChannelState(**leaves), {k: rows[k] for k in OUTPUT_KEYS}
 
 
-def pass_c(cfg, st: ChannelState, geo, corr):
-    """Pass C of one block: ``(new_state, outputs)`` as
-    ``batch_runtime._pass_c`` (its arguments). CPU tensors take that plain
-    version; CUDA tensors one launch of :data:`PASS_C_KERNEL`."""
-    if corr.device.type == "cpu":
-        from sydr_tpu_torch.channels.batch_runtime import _pass_c
+def pass_c_plain(cfg, st: ChannelState, geo, corr):
+    """The plain version of :func:`pass_c`: ``batch_runtime._pass_c``,
+    then ``runtime._slew_anchor`` on its new state."""
+    from sydr_tpu_torch.channels.batch_runtime import _pass_c
+    from sydr_tpu_torch.channels.runtime import _slew_anchor
 
-        return _pass_c(cfg, st, geo, corr)
+    new_state, outputs = _pass_c(cfg, st, geo, corr)
+    return _slew_anchor(cfg, new_state), outputs
+
+
+def pass_c(cfg, st: ChannelState, geo, corr):
+    """Pass C of one block and the anchor slew: ``(new_state, outputs)``
+    as :func:`pass_c_plain` (``batch_runtime._pass_c``'s arguments). CPU
+    tensors take that plain version; CUDA tensors one launch of
+    :data:`PASS_C_KERNEL`."""
+    if corr.device.type == "cpu":
+        return pass_c_plain(cfg, st, geo, corr)
     if corr.device.type != "cuda":
         raise ValueError(f"pass_c: unsupported device {corr.device}")
     bufs, args = pass_c_launch_args(cfg, st, geo, corr)

@@ -3,9 +3,10 @@
 Port of ``sydr_tpu.parallel.timeshard``. Rank ``d`` of the ``sp`` axis
 owns the millisecond-aligned sub-window ``[d * L, (d + 1) * L)`` of the
 block's ``tail_ms + block_ms`` milliseconds (``L`` of them each, which
-must divide). Pass A and pass C run replicated on every rank; pass B runs
-the port's kernels on the rank's sub-window, in the form the
-configuration picks (``batch_runtime.prefix_form``):
+must divide). Pass A with pass B's geometry
+(``ops.geometry_kernel.block_geometry_all``) and pass C run replicated on
+every rank; pass B runs the port's kernels on the rank's sub-window, in
+the form the configuration picks (``batch_runtime.prefix_form``):
 
 * row sums (K1, ``epoch_correlate``): per-epoch sums are additive over
   sample ranges, so each rank sums the part of every epoch inside its
@@ -47,11 +48,11 @@ from __future__ import annotations
 import torch
 
 from sydr_tpu_torch.channels import batch_runtime as br
-from sydr_tpu_torch.channels.runtime import TrackingConfig, _slew_anchor
+from sydr_tpu_torch.channels.runtime import TrackingConfig
 from sydr_tpu_torch.channels.state import (
     ChannelState, pack_state, unpack_state)
 from sydr_tpu_torch.ops import correlator_kernel as ck
-from sydr_tpu_torch.ops import loop_kernel
+from sydr_tpu_torch.ops import geometry_kernel, loop_kernel
 from sydr_tpu_torch.parallel import distributed
 from sydr_tpu_torch.parallel.distributed import Mesh
 from sydr_tpu_torch.ops.step_graph import StepGraph, use_graph
@@ -83,18 +84,19 @@ def shard_inputs(cfg: TrackingConfig, n_sp: int, d: int, window_re,
             q0 * spms)
 
 
-def pass_b_timesharded(cfg: TrackingConfig, mesh: Mesh, bits3x,
-                       state: ChannelState, geo, window_re, window_im):
+def pass_b_timesharded(cfg: TrackingConfig, mesh: Mesh, bits3x, inputs,
+                       bounds, window_re, window_im):
     """Correlators ``[block_ms, n_ch, 2 * n_taps]`` of the block, equal on
-    every rank of the ``sp`` line, from this rank's sub-window."""
-    inputs, bounds = br.pass_b_inputs(cfg, bits3x, state, geo)
-    code_bits, c_int, omega, code_step, fb_q, phic_q = inputs
+    every rank of the ``sp`` line, from this rank's sub-window and the
+    block's geometry (``inputs`` and ``bounds`` of
+    ``ops.geometry_kernel.block_geometry_all``)."""
+    c_int, omega, code_step, fb_q, phic_q = inputs
     win_re, win_im, fb_l, ph_l, m0 = shard_inputs(
         cfg, mesh.shape["sp"], mesh.coords["sp"], window_re, window_im, fb_q,
         phic_q)
     shard_len = (cfg.tail_ms + cfg.block_ms) // mesh.shape["sp"] \
         * cfg.samples_per_ms
-    args = (win_re, win_im, code_bits, c_int, omega, code_step, fb_l, ph_l)
+    args = (win_re, win_im, bits3x, c_int, omega, code_step, fb_l, ph_l)
     taps, spms = br.taps_for(cfg), cfg.samples_per_ms
     if not br.prefix_form(cfg):
         local = torch.clamp(bounds - m0, 0, shard_len).to(torch.int32)
@@ -122,11 +124,10 @@ def run_block_batched_timesharded(cfg: TrackingConfig, mesh: Mesh, bits3x,
     mesh's ``sp`` axis; every rank holds the whole window and returns the
     same state and outputs. Requires ``(tail_ms + block_ms) %
     mesh.shape["sp"] == 0`` (:func:`shard_inputs` asserts it)."""
-    geo = br._pass_a(cfg, state)
-    corr = pass_b_timesharded(cfg, mesh, bits3x, state, geo, window_re,
+    geo, inputs, bounds = geometry_kernel.block_geometry_all(cfg, state)
+    corr = pass_b_timesharded(cfg, mesh, bits3x, inputs, bounds, window_re,
                               window_im)
-    new_state, outputs = loop_kernel.pass_c(cfg, state, geo, corr)
-    return _slew_anchor(cfg, new_state), outputs
+    return loop_kernel.pass_c(cfg, state, geo, corr)
 
 
 def run_superblock_timesharded(cfg: TrackingConfig, mesh: Mesh,

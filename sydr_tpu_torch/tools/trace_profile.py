@@ -10,17 +10,20 @@ boundary form (``rowsum``: pass B on K1; ``prefix``: on K3):
   * kernel launches per superblock and the device's busy share (device
     time over the unprofiled wall of the same superblock);
   * the pass A / B / C split: one superblock's blocks run pass by pass
-    (``batch_runtime._pass_a``, ``_pass_b``, and pass C,
-    ``ops.loop_kernel.pass_c``, with the anchor slew), each pass under a
-    ``record_function`` range whose kernels' device time the profiler
-    sums, and, unprofiled, each pass's wall between device fences. A
-    block's pass-C range holds one launch of the pass-C kernel and the
-    anchor slew's few ops (on the CPU: the plain version). The profiler
-    ties the PyTorch ops' kernels to the range they ran in, but not the
-    kernels the package launches through ``ctypes`` (no op launches them):
-    those are tied to their pass by name (:data:`CTYPES_KERNELS`: K1 or K3
-    to pass B, pass C's kernel to pass C). What is still tied to no pass
-    is the ``unattributed`` row.
+    (pass A with pass B's geometry,
+    ``ops.geometry_kernel.block_geometry_all``; pass B,
+    ``batch_runtime._pass_b``; pass C with the anchor slew,
+    ``ops.loop_kernel.pass_c``), each pass under a ``record_function``
+    range whose kernels' device time the profiler sums, and, unprofiled,
+    each pass's wall between device fences. On the card a block's pass-A
+    range holds one launch of the geometry kernel and its pass-C range one
+    launch of the pass-C kernel (on the CPU: the plain versions). The
+    profiler ties the PyTorch ops' kernels to the range they ran in, but
+    not the kernels the package launches through ``ctypes`` (no op
+    launches them): those are tied to their pass by name
+    (:data:`CTYPES_KERNELS`: the geometry kernel to pass A, K1 or K3 to
+    pass B, pass C's kernel to pass C). What is still tied to no pass is
+    the ``unattributed`` row.
 
 Usage: python -m sydr_tpu_torch.tools.trace_profile [prefix] [rowsum]
            [--channels 32] [--fs 10e6] [--decimate 4] [--superblock 50]
@@ -41,7 +44,8 @@ import time
 PASSES = ("pass A", "pass B", "pass C")
 # The kernels the package launches through ctypes (csrc/*.cu, each in an
 # anonymous namespace), by the pass that launches them.
-CTYPES_KERNELS = {"epoch_correlate_kernel": "pass B",
+CTYPES_KERNELS = {"block_geometry_kernel": "pass A",
+                  "epoch_correlate_kernel": "pass B",
                   "totals_kernel": "pass B", "prefix_kernel": "pass B",
                   "pass_c_kernel": "pass C"}
 _CTYPES_NAME = re.compile(r"\(anonymous namespace\)::(\w+)[<(]")
@@ -180,8 +184,7 @@ def pass_split(cfg, bits3x, state, window_re, window_im, device):
     import torch
 
     from sydr_tpu_torch.channels import batch_runtime as br
-    from sydr_tpu_torch.channels import runtime
-    from sydr_tpu_torch.ops import loop_kernel
+    from sydr_tpu_torch.ops import geometry_kernel, loop_kernel
     from sydr_tpu_torch.tools import sync
 
     sb = cfg.block_ms * cfg.samples_per_ms
@@ -191,11 +194,12 @@ def pass_split(cfg, bits3x, state, window_re, window_im, device):
         for k in range(cfg.superblock):
             wre = window_re[k * sb:k * sb + win]
             wim = window_im[k * sb:k * sb + win]
-            geo = on_pass("pass A", lambda: br._pass_a(cfg, st))
+            geo, inputs, bounds = on_pass(
+                "pass A", lambda: geometry_kernel.block_geometry_all(cfg, st))
             corr = on_pass("pass B", lambda: br._pass_b(
-                cfg, bits3x, st, geo, wre, wim))
-            st = on_pass("pass C", lambda: runtime._slew_anchor(
-                cfg, loop_kernel.pass_c(cfg, st, geo, corr)[0]))
+                cfg, bits3x, inputs, bounds, wre, wim))
+            st = on_pass("pass C", lambda: loop_kernel.pass_c(
+                cfg, st, geo, corr)[0])
 
     walls = dict.fromkeys(PASSES, 0.0)
 

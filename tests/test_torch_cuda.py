@@ -19,7 +19,9 @@ order than ``torch.cumsum``: the raw prefix within ``4 * sqrt(n_win) *
 n_win additions, four sigma), and the per-epoch correlators picked from it
 within K1's bound.
 
-Pass C's kernel is held to its plain version bit for bit. The scan
+Pass C's kernel (with the anchor slew it carries) and the geometry kernel
+(``csrc/block_geometry.cu``: pass A and pass B's geometry) are held to
+their plain versions bit for bit. The scan
 runtime's kernel (``csrc/scan_block.cu``) sums each correlator in its own
 order: it is held to its plain version by the scan runtime's bounds
 (``_scan_inputs.bound_faults``), and to itself bit for bit across runs,
@@ -32,6 +34,7 @@ a promotion and a ``reset_channel``; a capture that fails raises. The
 scan form's graph holds one kernel launch a block.
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -501,7 +504,8 @@ def test_sharded_step_on_nccl_world_of_one():
 
 
 # Pass C's kernel (ops/loop_kernel.py, csrc/pass_c.cu) against its plain
-# version on the card, ``batch_runtime._pass_c``, on tests/_pass_c_inputs.py's
+# version on the card, ``loop_kernel.pass_c_plain`` (``batch_runtime._pass_c``
+# and the anchor slew), on tests/_pass_c_inputs.py's
 # mid-track blocks at 32 channels: the Session cell's cruise (narrow-only
 # kaplan, 20 epochs) and pull-in (kaplan, 5 epochs) shapes and every other
 # branch (profile, DLF order, FLL discriminator, C/N0 estimator, rails, pass
@@ -527,6 +531,12 @@ PASS_C_CASES = [
      dict(profile="kaplan", kaplan_narrow_only=True, dlf_order=3,
           freq_rail_hz=0.0, max_block_freq_step=0.0, code_rail_hz=0.0)),
     ("kaplan-scan-pass-a", 5, dict(profile="kaplan", pass_a="scan")),
+    ("narrow-fast-slew", 20,
+     dict(profile="kaplan", kaplan_narrow_only=True, freq_rail_hz=400.0,
+          anchor_slew_hz_per_s=30.0)),
+    ("narrow-no-slew", 20,
+     dict(profile="kaplan", kaplan_narrow_only=True,
+          anchor_slew_hz_per_s=0.0)),
 ]
 
 
@@ -574,7 +584,7 @@ def test_pass_c_kernel_matches_plain(name, block_ms, extra):
     before = lk.PASS_C_KERNEL.launches
     got = lk.pass_c(cfg, st, geo, corr)
     assert lk.PASS_C_KERNEL.launches == before + 1
-    ref = br._pass_c(cfg, st, geo, corr)
+    ref = lk.pass_c_plain(cfg, st, geo, corr)
     torch.cuda.synchronize()
     _assert_pass_c_equal(got, ref, name)
     assert got[1]["bit_ready"].any() or block_ms < 20
@@ -596,7 +606,7 @@ def test_pass_c_kernel_matches_plain_on_shapes(case):
     name, block_ms, n_ch, kind, extra, claims = case
     cfg, st, geo, corr = shaped_block(block_ms, n_ch, kind, extra, _cuda())
     got = lk.pass_c(cfg, st, geo, corr)
-    ref = br._pass_c(cfg, st, geo, corr)
+    ref = lk.pass_c_plain(cfg, st, geo, corr)
     torch.cuda.synchronize()
     _assert_pass_c_equal(got, ref, name)
     assert set(claims) <= reached(st, *got), (name, reached(st, *got))
@@ -616,7 +626,7 @@ def test_pass_c_kernel_any_warps_per_cta(warps):
     cfg, st, geo, corr = shaped_block(45, 33, "gaps", NARROW, _cuda())
     bufs, args = lk.pass_c_launch_args(cfg, st, geo, corr, warps=warps)
     assert lk.PASS_C_KERNEL.function()(*args, native.stream_of(corr)) == 0
-    ref = br._pass_c(cfg, st, geo, corr)
+    ref = lk.pass_c_plain(cfg, st, geo, corr)
     torch.cuda.synchronize()
     _assert_pass_c_equal(lk.unpack(bufs), ref, f"{warps} warps a CTA")
 
@@ -693,10 +703,10 @@ def test_pass_c_rejects_bad_input():
 
 @pytest.mark.cuda
 def test_run_block_batched_launches_pass_c_once_a_block():
-    """``run_superblock`` on the card runs pass C as one kernel launch a
-    block, and its block equals pass A, B and the plain pass C with the
-    anchor slew, bit for bit."""
-    from sydr_tpu_torch.channels.runtime import _slew_anchor
+    """``run_superblock`` on the card runs the geometry and pass C as one
+    kernel launch a block each, and its block equals the plain geometry,
+    pass B and the plain pass C with the anchor slew, bit for bit."""
+    from sydr_tpu_torch.ops import geometry_kernel as gk
     from sydr_tpu_torch.ops import loop_kernel as lk
 
     dev = _cuda()
@@ -718,16 +728,177 @@ def test_run_block_batched_launches_pass_c_once_a_block():
                              device=dev) for _ in range(2))
     bits = torch.tensor(br.tiled_code_bits(list(range(1, N_CH + 1))),
                         device=dev)
-    before = lk.PASS_C_KERNEL.launches
+    before = lk.PASS_C_KERNEL.launches, gk.GEOMETRY_KERNEL.launches
     br.run_superblock(cfg, 3, bits, st, sre, sim)
-    assert lk.PASS_C_KERNEL.launches == before + 3
+    assert lk.PASS_C_KERNEL.launches == before[0] + 3
+    assert gk.GEOMETRY_KERNEL.launches == before[1] + 3
     win = cfg.window_samples
-    geo = br._pass_a(cfg, st)
-    corr = br._pass_b(cfg, bits, st, geo, sre[:win], sim[:win])
-    new_st, out = br._pass_c(cfg, st, geo, corr)
+    geo, inputs, bounds = gk.geometry_plain(cfg, st)
+    corr = br._pass_b(cfg, bits, inputs, bounds, sre[:win], sim[:win])
     _assert_pass_c_equal(
         br.run_block_batched(cfg, bits, st, sre[:win], sim[:win]),
-        (_slew_anchor(cfg, new_st), out), "run_block_batched")
+        lk.pass_c_plain(cfg, st, geo, corr), "run_block_batched")
+
+
+# The geometry kernel (ops/geometry_kernel.py, csrc/block_geometry.cu)
+# against its plain version on the card, ``geometry_kernel.geometry_plain``
+# (``_pass_a`` and ``pass_b_inputs``), bit for bit: every output, integers
+# and floats, on tests/_geometry_inputs.py's states (random channels,
+# chip-boundary ties, carrier phases at 0 and 2 pi, sample deficits).
+GEOMETRY_CONFIGS = [
+    # (id, TrackingConfig fields, channels)
+    ("cruise", dict(sampling_frequency=2.5e6, block_ms=20), 32),
+    ("pull-in", dict(sampling_frequency=2.5e6, block_ms=5), 32),
+    ("full-rate-if", dict(sampling_frequency=10e6, block_ms=20,
+                          intermediate_frequency=2.58e6), 33),
+    ("no-aiding-45-epochs", dict(sampling_frequency=4.092e6, block_ms=45,
+                                 tail_ms=3, carrier_aiding=False), 7),
+    ("64-epochs-1-ch", dict(sampling_frequency=16.368e6, block_ms=64), 1),
+    ("1.023msps-no-tail", dict(sampling_frequency=1.023e6, block_ms=33,
+                               tail_ms=0), 13),
+]
+
+
+def _geometry_cfg(fields):
+    fs = fields["sampling_frequency"]
+    base = dict(tail_ms=4, window_size=round(fs * 1e-3) + 256,
+                runtime="batch", profile="kaplan", kaplan_narrow_only=True,
+                quantize_spacing=True)
+    base.update(fields)
+    return TrackingConfig(**base)
+
+
+def _assert_geometry_equal(got, ref, what=""):
+    """Two ``(geo, inputs, bounds)`` bit for bit; a failure names every
+    output that differs."""
+    (geo, inputs, bounds), (rgeo, rinputs, rbounds) = got, ref
+    assert list(geo) == list(rgeo)
+    pairs = [(k, geo[k], rgeo[k]) for k in rgeo] + [
+        (f"input {i}", a, b) for i, (a, b) in enumerate(zip(inputs, rinputs))]
+    pairs.append(("bounds", bounds, rbounds))
+    diff = {}
+    for key, a, b in pairs:
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        if not torch.equal(_bits(a), _bits(b)):
+            diff[key] = int((_bits(a).long() - _bits(b).long()).abs().max())
+    assert not diff, f"{what}: outputs that differ (max ulp or count): {diff}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, fields, n_ch", GEOMETRY_CONFIGS,
+                         ids=[c[0] for c in GEOMETRY_CONFIGS])
+def test_geometry_kernel_matches_plain(name, fields, n_ch):
+    """40 states a configuration (240 in all), ten of each kind, one
+    launch each, every output bit for bit the plain version's."""
+    from _geometry_inputs import KINDS, geometry_state
+
+    from sydr_tpu_torch.ops import geometry_kernel as gk
+
+    dev = _cuda()
+    cfg = _geometry_cfg(fields)
+    rng = np.random.default_rng(23)
+    kinds = KINDS * 10
+    active = 0
+    for i, kind in enumerate(kinds):
+        st = geometry_state(cfg, n_ch, kind, rng, dev)
+        before = gk.GEOMETRY_KERNEL.launches
+        got = gk.block_geometry_all(cfg, st)
+        assert gk.GEOMETRY_KERNEL.launches == before + 1
+        ref = gk.geometry_plain(cfg, st)
+        torch.cuda.synchronize()
+        _assert_geometry_equal(got, ref, f"{name} {kind} {i}")
+        active += int(got[0]["active"][0].sum())
+    assert 0 < active < len(kinds) * n_ch or n_ch == 1
+
+
+@pytest.mark.cuda
+def test_geometry_kernel_partial_cta_and_chunks():
+    """33 channels (the last CTA partial) over 45 epochs (two 32-epoch
+    chunks, the second partial) give the plain version's results."""
+    from _geometry_inputs import geometry_state
+
+    from sydr_tpu_torch.ops import geometry_kernel as gk
+
+    dev = _cuda()
+    cfg = _geometry_cfg(GEOMETRY_CONFIGS[3][1])
+    st = geometry_state(cfg, 33, "random", np.random.default_rng(29), dev)
+    got = gk.block_geometry_all(cfg, st)
+    ref = gk.geometry_plain(cfg, st)
+    torch.cuda.synchronize()
+    _assert_geometry_equal(got, ref, "33 channels x 45 epochs")
+
+
+@pytest.mark.cuda
+def test_geometry_kernel_channel_slice_and_graph():
+    """The kernel on the last 16 of 32 channels gives those channels of
+    the 32-channel launch bit for bit; the launch captured into a CUDA
+    graph and replayed gives the eager launch's results and counts once
+    as captured."""
+    from _geometry_inputs import geometry_state
+
+    from sydr_tpu_torch.channels.state import ChannelState
+    from sydr_tpu_torch.ops import geometry_kernel as gk
+
+    dev = _cuda()
+    cfg = _geometry_cfg(GEOMETRY_CONFIGS[0][1])
+    st = geometry_state(cfg, 32, "random", np.random.default_rng(31), dev)
+    geo, inputs, bounds = gk.block_geometry_all(cfg, st)
+    rows = slice(16, 32)
+    part = gk.block_geometry_all(cfg, ChannelState(**{
+        f.name: getattr(st, f.name)[rows].contiguous()
+        for f in dataclasses.fields(st)}))
+    torch.cuda.synchronize()
+    _assert_geometry_equal(part, (
+        {k: v[..., rows].contiguous() for k, v in geo.items()},
+        tuple(t[rows].contiguous() for t in inputs),
+        bounds[:, rows].contiguous()), "16 of 32 channels")
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gk.block_geometry_all(cfg, st)           # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    captured = gk.GEOMETRY_KERNEL.captured
+    with torch.cuda.graph(graph):
+        static = gk.block_geometry_all(cfg, st)
+    assert gk.GEOMETRY_KERNEL.captured == captured + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_geometry_equal(static, (geo, inputs, bounds), "graph replay")
+
+
+@pytest.mark.cuda
+def test_geometry_kernel_rejects_bad_input():
+    """The wrapper refuses a field on another device or of another dtype;
+    the C entry point refuses what the kernel cannot run and launches
+    nothing; the scan form keeps the plain ops on the card."""
+    from _geometry_inputs import geometry_state
+
+    from sydr_tpu_torch.ops import geometry_kernel as gk
+    from sydr_tpu_torch.ops import native
+
+    dev = _cuda()
+    cfg = _geometry_cfg(GEOMETRY_CONFIGS[1][1])
+    st = geometry_state(cfg, 8, "random", np.random.default_rng(37), dev)
+    with pytest.raises(ValueError, match="unread"):
+        gk.block_geometry_all(cfg, dataclasses.replace(
+            st, unread=st.unread.cpu()))
+    with pytest.raises(ValueError, match="carrier_freq"):
+        gk.block_geometry_all(cfg, dataclasses.replace(
+            st, carrier_freq=st.carrier_freq.double()))
+    _, args = gk.geometry_launch_args(cfg, st)
+    fn = gk.GEOMETRY_KERNEL.function()
+    stream = native.stream_of(st.rem_code)
+    assert fn(*args[:2], 0, stream) != 0             # no channel
+    k = gk.GeoConsts.from_buffer_copy(args[0]._obj)
+    k.n_anchors += 1                                   # not tail + block
+    assert fn(ctypes.byref(k), args[1], args[2], stream) != 0
+    before = gk.GEOMETRY_KERNEL.launches
+    scan = dataclasses.replace(cfg, pass_a="scan")
+    _assert_geometry_equal(gk.block_geometry_all(scan, st),
+                           gk.geometry_plain(scan, st), "scan form")
+    assert gk.GEOMETRY_KERNEL.launches == before
 
 
 # The scan runtime's kernel (ops/scan_kernel.py, csrc/scan_block.cu) against
@@ -1006,11 +1177,13 @@ def _graph_configs(form):
 
 
 def _kernel_counts():
+    from sydr_tpu_torch.ops import geometry_kernel as gk
     from sydr_tpu_torch.ops import loop_kernel as lk
     from sydr_tpu_torch.ops import scan_kernel as sk
 
     return {"k1": ck.KERNEL.launches, "k3": ck.CUMSUM_KERNEL.launches,
             "k2": acq_kernel.KERNEL.launches,
+            "geometry": gk.GEOMETRY_KERNEL.launches,
             "pass_c": lk.PASS_C_KERNEL.launches,
             "scan": sk.SCAN_KERNEL.launches}
 
@@ -1111,7 +1284,8 @@ def test_graphed_session_launch_counts_equal_eager(graph_runs):
     form, runs = graph_runs
     assert runs[True]["launches"] == runs[False]["launches"]
     want = {"k1": form == "k1", "k3": form == "prefix", "k2": True,
-            "pass_c": form != "scan", "scan": form == "scan"}
+            "geometry": form != "scan", "pass_c": form != "scan",
+            "scan": form == "scan"}
     assert {k: n > 0 for k, n in runs[True]["launches"].items()} == want
     held = {}
     for entry in runs[True]["session"].graph.graphs.values():
@@ -1126,11 +1300,17 @@ def test_graphed_session_launch_counts_equal_eager(graph_runs):
         assert held == {sk.SCAN_KERNEL: 1}
         assert runs[True]["launches"]["scan"] == runs[True]["calls"]
     else:
+        from sydr_tpu_torch.ops import geometry_kernel as gk
         from sydr_tpu_torch.ops import loop_kernel as lk
 
+        # A block is three launches: the geometry, K1 or K3, pass C.
         corr = ck.KERNEL if form == "k1" else ck.CUMSUM_KERNEL
         assert held.get(corr, 0) > 0
         assert held.get(lk.PASS_C_KERNEL, 0) == held[corr]
+        assert held.get(gk.GEOMETRY_KERNEL, 0) == held[corr]
+        assert set(held) == {corr, lk.PASS_C_KERNEL, gk.GEOMETRY_KERNEL}
+        assert runs[True]["launches"]["geometry"] \
+            == runs[True]["launches"]["pass_c"]
 
 
 @pytest.mark.cuda
@@ -1297,6 +1477,7 @@ def test_timeshard_graph_on_nccl_world_of_one(form):
     superblock of 2 such blocks, captured, then replayed on the next
     state, each equal to the eager time-sharded call bit for bit; the
     graphs hold the pass B collectives and K1 or K3."""
+    from sydr_tpu_torch.ops import geometry_kernel as gk
     from sydr_tpu_torch.ops import loop_kernel as lk
     from sydr_tpu_torch.parallel import distributed, timeshard
 
@@ -1348,5 +1529,5 @@ def test_timeshard_graph_on_nccl_world_of_one(form):
     assert len(entries) == 2 and all(e.replays == 2 for e in entries)
     for entry, blocks in zip(entries, (1, 2)):
         assert entry.launches[corr] == entry.launches[lk.PASS_C_KERNEL] \
-            == blocks
+            == entry.launches[gk.GEOMETRY_KERNEL] == blocks
         assert entry.launches[reduce] == blocks

@@ -5,11 +5,13 @@ The same numpy-seeded mid-track state and correlators
 (``tests/_pass_c_inputs.py``: bit-sync declarations and bit completions
 inside the block, inactive channels, every clamp acting, lock states
 across the kaplan state machine) go through the JAX ``_pass_c`` (jitted,
-its ``lax.scan``) and the port's ``pass_c`` on CPU tensors, each with the
-geometry of its own package's ``_pass_a``, for every branch the kernel
-has: profile borre, kaplan and kaplan narrow-only; ``dlf_order`` 2 and 3;
+its ``lax.scan``, then its ``_slew_anchor``) and the port's ``pass_c`` on
+CPU tensors (``_pass_c`` and the anchor slew), each with the geometry of
+its own package's ``_pass_a``, for every branch the kernel has: profile
+borre, kaplan and kaplan narrow-only; ``dlf_order`` 2 and 3;
 ``fll_discriminator`` atan and atan2; ``cn0_estimator`` nwpr and
-beaulieu; the rails on and off; pass A's closed and scan forms.
+beaulieu; the rails on and off; the anchor slew on (the default rail and
+slew, and a faster slew) and off; pass A's closed and scan forms.
 
 Bounds: integer outputs and state (flags, counters, histogram, bit edge,
 lock state, activity, bit completions) exact; every float within 1e-5 of
@@ -50,6 +52,7 @@ from _pass_c_inputs import (
 )
 from sydr_tpu.channels import batch_runtime as jbr
 from sydr_tpu.channels.runtime import TrackingConfig as JaxConfig
+from sydr_tpu.channels.runtime import _slew_anchor as jax_slew_anchor
 from sydr_tpu.channels.state import ChannelState as JaxState
 from sydr_tpu_torch.channels import batch_runtime as tbr
 from sydr_tpu_torch.channels.runtime import TrackingConfig
@@ -103,6 +106,9 @@ CASES = [
     ("narrow-o3-atan-nwpr-norails", 10,
      dict(profile="kaplan", kaplan_narrow_only=True, dlf_order=3,
           **RAILS_OFF)),
+    ("narrow-o2-fast-slew", 20,
+     dict(profile="kaplan", kaplan_narrow_only=True, freq_rail_hz=400.0,
+          anchor_slew_hz_per_s=30.0)),
 ]
 
 
@@ -132,6 +138,7 @@ def test_pass_c_matches_jax(name, block_ms, extra):
     jgeo = jbr._pass_a(jcfg, jst)
     jnew, jout = jax.jit(jbr._pass_c, static_argnums=0)(
         jcfg, jst, jgeo, jnp.asarray(corr.numpy()))
+    jnew = jax_slew_anchor(jcfg, jnew)
 
     def same(key, got, want):
         want = np.asarray(want)
@@ -166,6 +173,12 @@ def test_pass_c_matches_jax(name, block_ms, extra):
         if fields["profile"] == "kaplan":
             step = np.float32(leaves["carrier_freq"][1] + np.float32(125))
             assert float(out["carrier_freq"][0, 1]) == step
+    # The anchor slew moves the synced channels' anchors, and only theirs.
+    moved = new_st.freq_anchor.numpy() != leaves["freq_anchor"]
+    synced = (new_st.flags.numpy() & 2) != 0
+    slews = fields.get("anchor_slew_hz_per_s", 5.0) > 0 \
+        and fields.get("freq_rail_hz", 400.0) > 0
+    assert moved.any() == slews and not (moved & ~synced).any()
 
 
 @pytest.mark.parametrize("fields", [
@@ -242,6 +255,12 @@ def test_loop_consts_match_plain_expressions(fields):
             k.bit_sync_unanimous, k.bit_sync_flips) == (
         lk.profile_code(cfg), cfg.dlf_order, cfg.min_convergence_ms,
         cfg.bit_sync_unanimous, cfg.bit_sync_flips)
+    # The anchor slew's clamp bound (runtime._slew_anchor's max_step, a
+    # Python float that torch.clamp rounds) and its switch.
+    max_step = cfg.anchor_slew_hz_per_s * cfg.block_ms * 1e-3
+    assert k.slew_step == float(torch.clamp(t(1e9), -max_step, max_step))
+    assert k.slew_on == int(cfg.anchor_slew_hz_per_s > 0
+                            and cfg.freq_rail_hz > 0)
 
 
 def _c_source(name):
@@ -455,17 +474,31 @@ def test_activity_patterns():
 
 
 def test_pass_c_on_cpu_is_the_plain_version():
-    """On CPU tensors ``pass_c`` is ``_pass_c`` and launches nothing; so
-    is ``run_block_batched``'s pass C."""
-    cfg, _, st, geo, corr = _port_inputs(_fields(
+    """On CPU tensors ``pass_c`` is ``_pass_c`` followed by the anchor
+    slew (``pass_c_plain``) and launches nothing; so is
+    ``run_block_batched``'s pass C."""
+    from sydr_tpu_torch.channels.runtime import _slew_anchor
+
+    cfg, leaves, st, geo, corr = _port_inputs(_fields(
         20, dict(profile="kaplan", kaplan_narrow_only=True)))
     before = lk.PASS_C_KERNEL.launches + lk.PASS_C_KERNEL.captured
     new_st, out = lk.pass_c(cfg, st, geo, corr)
     ref_st, ref = tbr._pass_c(cfg, st, geo, corr)
+    ref_st = _slew_anchor(cfg, ref_st)
     for key in out:
         assert torch.equal(out[key], ref[key]), key
     for key in FIELDS:
         assert torch.equal(getattr(new_st, key), getattr(ref_st, key)), key
+    plain_st, plain = lk.pass_c_plain(cfg, st, geo, corr)
+    for key in FIELDS:
+        assert torch.equal(getattr(plain_st, key), getattr(ref_st, key)), key
+    assert all(torch.equal(plain[k], ref[k]) for k in ref)
+    # The slew moved a synced channel's anchor toward its carrier, by at
+    # most the block's step and the anchor's rounding.
+    step = np.float32(cfg.anchor_slew_hz_per_s * cfg.block_ms * 1e-3)
+    moved = new_st.freq_anchor.numpy() - leaves["freq_anchor"]
+    ulp = np.spacing(np.abs(new_st.freq_anchor.numpy()))
+    assert (moved != 0).any() and (np.abs(moved) <= step + ulp).all()
     assert lk.PASS_C_KERNEL.launches + lk.PASS_C_KERNEL.captured == before
     with pytest.raises(ValueError, match="device"):
         lk.pass_c(cfg, st, geo, corr.to("meta"))

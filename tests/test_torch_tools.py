@@ -47,9 +47,10 @@ def test_tool_exits_2_without_cuda(name, capsys, monkeypatch):
 def test_trace_profile_ties_ctypes_kernels_to_their_pass():
     """On a synthetic list of profiler events: each pass's range keeps
     the device time the profiler tied to it; the package's ``ctypes``
-    kernels (K1, K3's two, pass C's) of a name it tied to no op count for
-    their pass by name; a kernel of a name tied to an op is not counted
-    again; any other kernel tied to no op is unattributed."""
+    kernels (the geometry kernel, K1, K3's two, pass C's, which carries
+    the anchor slew) of a name it tied to no op count for their pass by
+    name; a kernel of a name tied to an op is not counted again; any other
+    kernel tied to no op is unattributed."""
     from types import SimpleNamespace as Evt
 
     from sydr_tpu_torch.tools import trace_profile as tp
@@ -71,24 +72,26 @@ def test_trace_profile_ties_ctypes_kernels_to_their_pass():
         host("pass A", 100.0),
         host("aten::add", 100.0, ["void at::native::add_kernel(...)"]),
         host("pass B", 60.0, ["void at::native::cat_kernel(...)"]),
-        host("pass C", 12.0, [tied_c, "void at::native::slew_kernel(...)"]),
+        host("pass C", 5.0, [tied_c]),
         host("cudaLaunchKernel", 0.0),
         kernel("void at::native::add_kernel(...)", 100.0),
+        kernel(f"{ns}block_geometry_kernel(sydr::GeoConsts, int)", 4.0),
         kernel("void at::native::cat_kernel(...)", 60.0),
         kernel(f"{ns}epoch_correlate_kernel(float const*, int)", 14.0),
         kernel(f"{ns}totals_kernel(float const*)", 3.0),
         kernel(f"{ns}prefix_kernel(float const*)", 2.0),
         kernel(f"{ns}pass_c_kernel<2>(sydr::LoopConsts, int)", 8.0),
         kernel(tied_c, 5.0),
-        kernel("void at::native::slew_kernel(...)", 7.0),
         kernel("void some_unlinked_kernel()", 1.5),
     ]
     split = tp.split_device_ms(events)
-    assert split["pass A"] == pytest.approx(0.1)
+    assert split["pass A"] == pytest.approx((100.0 + 4.0) / 1e3)
     assert split["pass B"] == pytest.approx((60.0 + 14.0 + 3.0 + 2.0) / 1e3)
-    assert split["pass C"] == pytest.approx((12.0 + 8.0) / 1e3)
+    assert split["pass C"] == pytest.approx((5.0 + 8.0) / 1e3)
     assert split["unattributed"] == pytest.approx(1.5 / 1e3)
     assert tp.ctypes_pass(f"void {ns}pass_c_kernel<0>(int)") == "pass C"
+    assert tp.ctypes_pass(
+        f"{ns}block_geometry_kernel(sydr::GeoConsts, int)") == "pass A"
     assert tp.ctypes_pass("void at::native::prefix_kernel(int)") is None
 
 

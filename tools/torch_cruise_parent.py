@@ -16,7 +16,13 @@ this, this, parent (``--turns`` pairs):
   (``session_pair_phase``: the 32-channel session on the same 3 s
   capture, eager then graphed, bits, steady cruise superblocks in turns,
   the cruise graph's replay between CUDA events, its nodes and its capture
-  and instantiation seconds);
+  and instantiation seconds); then, in a one-rank NCCL process group, the
+  mesh session (``TrackingSession(mesh=make_mesh(1, 1))``, graphed and
+  eager, on the first 2 s of the capture) and the full-rate time-sharded
+  block and superblock of 2 on a one-rank ``sp`` mesh (captured, and
+  eager), in both forms of pass B. Each run's outputs and final state go
+  into a SHA-256 digest a run, and the digests of the two trees are held
+  equal: the trees compute the same bits;
 - ``--form scan`` runs that tree's phase 11 session (``slice_phase`` with
   ``runtime="scan"``: 32 channels, borre, 20 ms blocks, on the first 2 s
   of the same capture) twice, its step eager (``graph=False``) and then
@@ -40,13 +46,16 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# The child: one tree's phase 5, its numbers as the last line.
+# The child: one tree's phase 5 and the NCCL world-1 runs, its numbers
+# and digests as the last line.
 CHILD = r"""
-import json, sys
+import hashlib, json, sys
 import numpy as np
 import torch
 sys.path.insert(0, {tree!r})
 import chip_smoke as cs
+from sydr_tpu_torch.channels.state import pack_state
+from sydr_tpu_torch.parallel import distributed, mesh as pmesh, timeshard
 device = torch.device("cuda")
 card = cs.card_line()
 capture = cs.make_scenario(np.random.default_rng(cs.SEED), cs.SIGNAL_MS,
@@ -54,12 +63,65 @@ capture = cs.make_scenario(np.random.default_rng(cs.SEED), cs.SIGNAL_MS,
 res = cs.session_pair_phase(device, capture, card)
 gs = res["session"]
 entry = next(e for k, e in gs.graph.graphs.items() if k[0] is gs.cruise_cfg)
+
+
+def digest(outs, state):
+    h = hashlib.sha256()
+    for out in outs:
+        for key in sorted(out):
+            value = out[key]
+            if isinstance(value, torch.Tensor):
+                value = value.cpu().numpy()
+            h.update(key.encode())
+            h.update(np.ascontiguousarray(value).tobytes())
+    for t in pack_state(state):
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+bits = {{"session (graphed = eager)": digest(res["outputs"], gs.state)}}
+distributed.initialize("nccl", rank=0, world_size=1,
+                       init_method=f"tcp://127.0.0.1:{{cs.free_port()}}")
+try:
+    mesh = pmesh.make_mesh(1, 1)
+    for graph in (None, False):
+        run = cs.mesh_session_run(device, capture, mesh, "batch", graph,
+                                  cs.MESH_SIGNAL_MS)
+        bits[f"mesh session graph={{graph}}"] = digest(
+            run["outs"], run["session"].state)
+    sp = timeshard.make_sp_mesh()
+    _, st0, wre, wim, code = cs.random_tracking(
+        cs.SP_FS, 20, "narrow", True, device,
+        np.random.default_rng(cs.SEED + 15))
+    for form, cfg in cs.pass_b_forms(cs.random_config(cs.SP_FS, 20,
+                                                      "narrow", True)):
+        spms = cfg.samples_per_ms
+        sre = torch.cat([wre, wre[cfg.tail_ms * spms:]])
+        sim = torch.cat([wim, wim[cfg.tail_ms * spms:]])
+        runner = timeshard.TimeShardGraph(sp, device)
+        for name, graphed, eager in (
+                ("block", lambda s: runner.block(cfg, code, s, wre, wim),
+                 lambda s: timeshard.run_block_batched_timesharded(
+                     cfg, sp, code, s, wre, wim)),
+                ("superblock of 2",
+                 lambda s: runner.superblock(cfg, 2, code, s, sre, sim),
+                 lambda s: timeshard.run_superblock_timesharded(
+                     cfg, sp, 2, code, s, sre, sim))):
+            for kind, fn in (("graphed", graphed), ("eager", eager)):
+                state, outs = st0, []
+                for _ in range(3):
+                    state, out = fn(state)
+                    outs.append(out)
+                bits[f"time shards {{form}} {{name}} {{kind}}"] = digest(
+                    outs, state)
+finally:
+    distributed.shutdown()
 print(json.dumps({{
     "rtf_graphed": res["steady_rtf"]["graphed"],
     "rtf_eager": res["steady_rtf"]["eager"],
     "replay_ms": res["replay_ms"], "eager_step_ms": res["eager_step_ms"],
     "nodes": entry.nodes, "capture_s": entry.capture_s,
-    "instantiate_s": entry.instantiate_s, "card": card}}))
+    "instantiate_s": entry.instantiate_s, "bits": bits, "card": card}}))
 """
 
 
@@ -157,8 +219,19 @@ def main(argv=None) -> int:
             runs[name].append(run_tree(
                 name, trees[name],
                 CHILD_SCAN if opts.form == "scan" else CHILD))
+    ok = True
+    if opts.form == "cruise":
+        # Every run of both trees: one digest a part.
+        for key in runs["this"][0]["bits"]:
+            seen = {run["bits"].get(key) for name in runs
+                    for run in runs[name]}
+            same = len(seen) == 1
+            ok &= same
+            print(f"bits: {key}: the two trees {'agree' if same else 'DIFFER'}"
+                  f" ({len(seen)} digest(s) over {2 * opts.turns} runs)",
+                  flush=True)
     print(json.dumps(runs), flush=True)
-    return 0
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

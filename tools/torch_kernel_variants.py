@@ -90,9 +90,11 @@ one GPU: the numbers behind the choices in ``sydr_tpu_torch/ops``.
   cosf, the output stores), each timed in two turns: where a block's
   device time goes (a cut kernel's results are not checked: they are
   wrong by construction). With ``--parent DIR``, only DIR's pass C
-  kernel (its entry point without the warps argument) against this
-  tree's at the cruise and pull-in shapes, in turns parent, this, this,
-  parent, their outputs and states held equal bit for bit.
+  kernel (launched through DIR's own ``ops/loop_kernel.py``, so its own
+  launch signature) against this tree's at the cruise and pull-in shapes,
+  in turns parent, this, this, parent, their outputs and states held equal
+  bit for bit (a parent without the folded anchor slew with the plain
+  slew applied to its state).
 
 * ``--scan``: the scan runtime's kernel (``csrc/scan_block.cu``) on
   ``tests/_scan_inputs.py``'s mid-track blocks at ``chip_smoke.py``'s
@@ -1542,24 +1544,25 @@ PARENT_SCAN_CUTS = PARENT_SCAN_CUTS + (
      [pair for _, pairs in PARENT_SCAN_CUTS[:4] for pair in pairs]),)
 
 
-def parent_scan_module(parent: str):
-    """The parent tree's ``sydr_tpu_torch/ops/scan_kernel.py`` as a module
-    of its own whose ``scan_block`` launches the parent's kernel (its
-    ``SCAN_KERNEL`` built from the parent's ``csrc``, with the module's own
-    ctypes structures): its host path, for the wrapper's call time."""
+def parent_module(parent: str, name: str, kernel: str):
+    """The parent tree's ``sydr_tpu_torch/ops/<name>.py`` as a module of
+    its own whose kernel ``kernel`` (a module attribute) is built from the
+    parent's ``csrc``, with the module's own ctypes structures and launch
+    arguments: its host path, for the wrapper's call time and its
+    launch."""
     import importlib.util
     from pathlib import Path
 
     from sydr_tpu_torch.ops import native
 
-    path = Path(parent) / "sydr_tpu_torch" / "ops" / "scan_kernel.py"
-    spec = importlib.util.spec_from_file_location("parent_scan_kernel", path)
+    path = Path(parent) / "sydr_tpu_torch" / "ops" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"parent_{name}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    kern = module.SCAN_KERNEL
-    module.SCAN_KERNEL = native.CudaKernel(
+    kern = getattr(module, kernel)
+    setattr(module, kernel, native.CudaKernel(
         kern.source, kern.symbol, kern.argtypes,
-        csrc_dir=Path(parent, "sydr_tpu_torch", "csrc"))
+        csrc_dir=Path(parent, "sydr_tpu_torch", "csrc")))
     return module
 
 
@@ -1575,7 +1578,7 @@ def scan_against_parent(parent: str, device) -> None:
     theirs = native.CudaKernel(
         "scan_block.cu", "scan_block_launch", sk.SCAN_KERNEL.argtypes,
         csrc_dir=Path(parent, "sydr_tpu_torch", "csrc"))
-    wrapper = parent_scan_module(parent)
+    wrapper = parent_module(parent, "scan_kernel", "SCAN_KERNEL")
     cuts = {"parent": theirs}
     for k, (label, swaps) in enumerate(PARENT_SCAN_CUTS):
         cuts[label] = source_variant(theirs, f"parent_scan_cut{k}", {},
@@ -1652,31 +1655,43 @@ def scan_against_parent(parent: str, device) -> None:
 
 
 def pass_c_against_parent(parent: str, device) -> None:
-    """``--pass-c --parent DIR`` (module note)."""
-    from pathlib import Path
-
+    """``--pass-c --parent DIR`` (module note). The parent's kernel is
+    launched through the parent's own wrapper module
+    (:func:`parent_module`: its constants, pointer structures and launch
+    arguments), so any parent's launch signature serves. A parent whose
+    pass C does not carry the anchor slew (its ``LoopConsts`` has no
+    ``slew_on``) is held to this tree's kernel with the plain slew
+    (``runtime._slew_anchor``) applied to its new state."""
     import torch
 
+    from sydr_tpu_torch.channels.runtime import _slew_anchor
+    from sydr_tpu_torch.channels.state import FIELDS
     from sydr_tpu_torch.ops import loop_kernel as lk
     from sydr_tpu_torch.ops import native
 
-    theirs = native.CudaKernel(
-        "pass_c.cu", "pass_c_launch", lk.PASS_C_KERNEL.argtypes[:-2]
-        + lk.PASS_C_KERNEL.argtypes[-1:],
-        csrc_dir=Path(parent, "sydr_tpu_torch", "csrc"))
+    wrapper = parent_module(parent, "loop_kernel", "PASS_C_KERNEL")
+    theirs = wrapper.PASS_C_KERNEL
+    slews = "slew_on" in dict(wrapper.LoopConsts._fields_)
     native.build_all([theirs, lk.PASS_C_KERNEL])
     for name, bm, extra, _ in chip_smoke.PASS_C_CASES:
         cfg, st, geo, corr = chip_smoke.pass_c_inputs(bm, extra, device)
         stream = native.stream_of(corr)
         bufs, args = lk.pass_c_launch_args(cfg, st, geo, corr)
-        pbufs, pargs = lk.pass_c_launch_args(cfg, st, geo, corr)
-        runs = {"parent": lambda: theirs.function()(*pargs[:-1], stream),
+        pbufs, pargs = wrapper.pass_c_launch_args(cfg, st, geo, corr)
+        runs = {"parent": lambda: theirs.function()(*pargs, stream),
                 "this": lambda: lk.PASS_C_KERNEL.function()(*args, stream)}
         for run in runs.values():
             chip_smoke.check(run() == 0, f"pass C {name}: a launch failed")
         torch.cuda.synchronize()
-        same = all(torch.equal(bufs[k].view(torch.int8),
-                               pbufs[k].view(torch.int8)) for k in bufs)
+        (got_st, got), (want_st, want) = lk.unpack(bufs), \
+            wrapper.unpack(pbufs)
+        if not slews:
+            want_st = _slew_anchor(cfg, want_st)
+        same = all(torch.equal(got[k].view(torch.int8),
+                               want[k].view(torch.int8)) for k in want) \
+            and all(torch.equal(getattr(got_st, f).view(torch.int8),
+                                getattr(want_st, f).view(torch.int8))
+                    for f in FIELDS)
         times = {"parent": [], "this": []}
         for label in ("parent", "this", "this", "parent"):
             times[label].append(chip_smoke.device_ms(runs[label], 200))
