@@ -1,0 +1,8 @@
+"""``device.idle.track``: the share of the traced stretch of cruise
+superblocks in which no kernel or copy ran on the device."""
+
+from benchmark.trace import idle_pct
+
+
+def read(trace):
+    return idle_pct(trace)
