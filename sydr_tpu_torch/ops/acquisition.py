@@ -31,6 +31,7 @@ import torch
 from sydr_tpu_torch.constants import GPS_L1CA_CODE_FREQ, GPS_L1CA_CODE_LENGTH
 from sydr_tpu_torch.ops import acq_kernel
 from sydr_tpu_torch.signal import cacode
+from sydr_tpu_torch.utils.metrics import span
 
 
 def doppler_bins(doppler_range: float, doppler_step: float) -> np.ndarray:
@@ -169,13 +170,19 @@ def pcps_shift_map(iq_re, iq_im, code_k, *, sampling_frequency,
         iq_re, iq_im: ``[n_ch, non_coherent * coherent * n]`` f32 samples.
         code_k: ``[n_ch, n]`` complex64 conj(DFT(code replica)).
         phases, bin_shifts: the :func:`shift_plan` of the Doppler bins.
+
+    Spans (``utils.metrics``): ``sydr.acq.spectra`` (the forward spectra;
+    device time too) and ``sydr.acq.k2`` (K2's launch: arguments, plan
+    tables, output).
     """
     n = code_k.shape[-1]
-    spectra = phase_spectra(
-        iq_re, iq_im, n=n, sampling_frequency=sampling_frequency,
-        intermediate_frequency=intermediate_frequency, coherent=coherent,
-        non_coherent=non_coherent, phases=phases)
-    return acq_kernel.pcps_bins(spectra, code_k.contiguous(), bin_shifts)
+    with span("sydr.acq.spectra", device=iq_re.device):
+        spectra = phase_spectra(
+            iq_re, iq_im, n=n, sampling_frequency=sampling_frequency,
+            intermediate_frequency=intermediate_frequency, coherent=coherent,
+            non_coherent=non_coherent, phases=phases)
+    with span("sydr.acq.k2"):
+        return acq_kernel.pcps_bins(spectra, code_k.contiguous(), bin_shifts)
 
 
 def peak_metric(corr_map, bins, *, samples_per_chip: int):
@@ -220,27 +227,38 @@ def acquire(iq, code_ffts, bins, *, sampling_frequency: float,
 
     Returns (doppler [n_ch], code_index [n_ch], metric [n_ch],
     map [n_ch, n_dop, n]) as tensors on ``iq``'s device.
+
+    Spans (``utils.metrics``): ``sydr.acq`` a call (``searches``, the
+    rows), and under it ``.prepare`` (the code spectra and the bins to the
+    device, the plan), :func:`pcps_shift_map`'s ``.spectra`` and ``.k2``
+    (without a plan ``.spectra`` holds the direct map), and ``.peak`` (the
+    peak metric; device time too).
     """
     iq_re, iq_im = iq
     dev = iq_re.device
-    code_k = torch.as_tensor(code_ffts).to(device=dev, dtype=torch.complex64)
-    n = code_k.shape[-1]
-    bins = np.asarray(bins, dtype=np.float32)
-    plan = shift_plan(bins, sampling_frequency, n)
-    bins_dev = torch.from_numpy(bins).to(dev)
-    common = dict(sampling_frequency=sampling_frequency,
-                  intermediate_frequency=intermediate_frequency,
-                  coherent=coherent, non_coherent=non_coherent)
-    if plan is not None:
-        phases, bin_shifts = plan
-        corr = pcps_shift_map(iq_re, iq_im, code_k, phases=phases,
-                              bin_shifts=bin_shifts, **common)
-    else:
-        corr = pcps_map(iq_re, iq_im, code_k, bins_dev,
-                        doppler_chunk=doppler_chunk, **common)
-    samples_per_chip = round(sampling_frequency / GPS_L1CA_CODE_FREQ)
-    doppler, code_idx, metric = peak_metric(
-        corr, bins_dev, samples_per_chip=samples_per_chip)
+    with span("sydr.acq", searches=iq_re.shape[0]):
+        with span("sydr.acq.prepare"):
+            code_k = torch.as_tensor(code_ffts).to(device=dev,
+                                                   dtype=torch.complex64)
+            n = code_k.shape[-1]
+            bins = np.asarray(bins, dtype=np.float32)
+            plan = shift_plan(bins, sampling_frequency, n)
+            bins_dev = torch.from_numpy(bins).to(dev)
+        common = dict(sampling_frequency=sampling_frequency,
+                      intermediate_frequency=intermediate_frequency,
+                      coherent=coherent, non_coherent=non_coherent)
+        if plan is not None:
+            phases, bin_shifts = plan
+            corr = pcps_shift_map(iq_re, iq_im, code_k, phases=phases,
+                                  bin_shifts=bin_shifts, **common)
+        else:
+            with span("sydr.acq.spectra", device=dev):
+                corr = pcps_map(iq_re, iq_im, code_k, bins_dev,
+                                doppler_chunk=doppler_chunk, **common)
+        samples_per_chip = round(sampling_frequency / GPS_L1CA_CODE_FREQ)
+        with span("sydr.acq.peak", device=dev):
+            doppler, code_idx, metric = peak_metric(
+                corr, bins_dev, samples_per_chip=samples_per_chip)
     return doppler, code_idx, metric, corr
 
 

@@ -49,12 +49,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import gc
 import time
 
 import torch
 
 from sydr_tpu_torch.ops import native
+from sydr_tpu_torch.utils.metrics import count, span
 
 
 @dataclasses.dataclass
@@ -70,7 +72,7 @@ class Captured:
     node_kinds: dict | None = None  # the graph's nodes by kind
     replays: int = 0
 
-    @property
+    @functools.cached_property
     def nodes(self) -> int | None:
         """The graph's node count."""
         return None if self.node_kinds is None else sum(
@@ -116,18 +118,30 @@ class StepGraph:
     def run(self, key, fn, args) -> tuple:
         """``fn(*args)`` through the graph of ``key``, captured on the
         first call (which returns its warm-up's outputs), replayed on every
-        later one (which returns the static outputs)."""
+        later one (which returns the static outputs).
+
+        Spans (``utils.metrics``): ``sydr.step`` a call (request id: the
+        call's index for ``key``), and under it ``sydr.step.capture`` on
+        the first call (warm-up, capture, instantiation; the counter
+        ``sydr.step.captures``), else ``.copy_in`` (the input buffers'
+        copies) and ``.replay`` (the graph's launch; ``nodes``)."""
         entry = self.graphs.get(key)
-        if entry is None:
-            entry, outs = self._make(fn, args)
-            self.graphs[key] = entry
-            return outs
-        for buf, arg in zip(entry.inputs, args):
-            buf.copy_(arg)
-        entry.replay()
-        entry.replays += 1
-        native.count_replay(entry.launches)
-        return entry.outputs
+        with span("sydr.step", request=0 if entry is None
+                  else entry.replays + 1):
+            if entry is None:
+                with span("sydr.step.capture"):
+                    count("sydr.step.captures")
+                    entry, outs = self._make(fn, args)
+                self.graphs[key] = entry
+                return outs
+            with span("sydr.step.copy_in"):
+                for buf, arg in zip(entry.inputs, args):
+                    buf.copy_(arg)
+            with span("sydr.step.replay", nodes=entry.nodes):
+                entry.replay()
+            entry.replays += 1
+            native.count_replay(entry.launches)
+            return entry.outputs
 
     def _make(self, fn, args):
         inputs = tuple(torch.empty_like(a).copy_(a) for a in args)

@@ -70,6 +70,7 @@ from sydr_tpu_torch.ops import acquisition as acq
 from sydr_tpu_torch.parallel import distributed
 from sydr_tpu_torch.parallel import mesh as pmesh
 from sydr_tpu_torch.ops.step_graph import StepGraph, use_graph
+from sydr_tpu_torch.utils.metrics import count, span
 
 logger = logging.getLogger(__name__)
 
@@ -224,8 +225,9 @@ class TrackingSession:
             self._hist_im[-n:] = block_im
 
     # ------------------------------------------------------------------
-    def _maybe_acquire(self):
-        """Search for channels in ACQUIRING mode once enough history."""
+    def _maybe_acquire(self) -> int:
+        """Search for channels in ACQUIRING mode once enough history;
+        returns the number of channels searched."""
         pending = [
             i for i in range(self.n_channels)
             if self.mode_host[i] == MODE_ACQUIRING
@@ -233,10 +235,10 @@ class TrackingSession:
         ]
         need = self.acq_cfg.required_ms * self.cfg.samples_per_ms
         if not pending or self.total_samples < need:
-            return
+            return 0
         if self.acq_cfg.method == "serial":
             self._acquire_serial(pending)
-            return
+            return len(pending)
         if self._code_ffts is None:
             self._code_ffts = {
                 i: acq.code_fft_conj(self.prns[i],
@@ -275,6 +277,7 @@ class TrackingSession:
                 "corr_dopplers": np.asarray(bins, np.float32),
             }
         self._hand_off(pending)
+        return len(pending)
 
     def _acquire_serial(self, pending) -> None:
         """Time-domain serial-search acquisition (one code period)."""
@@ -418,6 +421,14 @@ class TrackingSession:
         """Process ``superblock * block_ms`` milliseconds of IQ.
 
         Returns host outputs ``[superblock * block_ms, n_ch]``.
+
+        Spans (``utils.metrics``): ``sydr.session.block`` a call, and under
+        it, in turn, ``.boxcar`` (the host's decimation), ``.quantise``
+        (the window and its int8 form), ``.upload`` (to the device),
+        ``.step`` (the device step: ``sydr.step.*`` under it when graphed),
+        ``.history`` (the tail and the acquisition history), ``.acquire``
+        (``searches``; ``sydr.acq.*`` under it), ``.copy_back`` (the
+        outputs to the host: waits for the step) and ``.promote``.
         """
         cfg = self.cfg
         expect = cfg.superblock * cfg.block_ms * cfg.samples_per_ms
@@ -425,47 +436,57 @@ class TrackingSession:
         if len(block_re) != expect * dec or len(block_im) != expect * dec:
             raise ValueError(
                 f"block of {len(block_re)} samples, expected {expect * dec}")
-        if dec > 1:
-            # Boxcar pre-correlation decimation (cfg.input_decimate), on
-            # the host so the upload also shrinks by the factor.
-            block_re = np.float32(block_re).reshape(-1, dec).sum(axis=1)
-            block_im = np.float32(block_im).reshape(-1, dec).sum(axis=1)
-
-        window_re = np.concatenate([self._tail_re, block_re])
-        window_im = np.concatenate([self._tail_im, block_im])
-        if cfg.upload_int8:
-            peak = max(
-                float(np.max(np.abs(window_re))),
-                float(np.max(np.abs(window_im))), 1e-12,
-            )
-            scale = 120.0 / peak
-            up_re = np.clip(np.rint(window_re * scale), -127, 127
-                            ).astype(np.int8)
-            up_im = np.clip(np.rint(window_im * scale), -127, 127
-                            ).astype(np.int8)
-            inv_scale = np.float32(1.0 / scale)
-        else:
-            up_re, up_im = window_re, window_im
-            inv_scale = np.float32(1.0)
-        packed_f, packed_i, keys_f, keys_i = self._step(
-            torch.from_numpy(up_re).to(self.device),
-            torch.from_numpy(up_im).to(self.device), inv_scale)
-        self.total_samples += expect
-        tail = cfg.tail_ms * cfg.samples_per_ms
-        self._tail_re = window_re[-tail:]
-        self._tail_im = window_im[-tail:]
-        self._update_hist(block_re, block_im)
-        self._maybe_acquire()
-        # Two bulk copies instead of one per output key (copies on the CPU
-        # too: a graph's packed outputs are its static tensors).
-        host_f = packed_f.to("cpu", copy=True).numpy()
-        host_i = packed_i.to("cpu", copy=True).numpy()
-        out = {k: host_f[..., j] for j, k in enumerate(keys_f)}
-        for j, k in enumerate(keys_i):
-            col = host_i[..., j]
-            out[k] = col.astype(bool) if k in self._BOOL_KEYS else col
-        self._maybe_promote(out)
-        return out
+        with span("sydr.session.block"):
+            with span("sydr.session.block.boxcar"):
+                if dec > 1:
+                    # Boxcar pre-correlation decimation (cfg.input_decimate),
+                    # on the host so the upload also shrinks by the factor.
+                    block_re = np.float32(block_re).reshape(-1, dec).sum(1)
+                    block_im = np.float32(block_im).reshape(-1, dec).sum(1)
+            with span("sydr.session.block.quantise"):
+                window_re = np.concatenate([self._tail_re, block_re])
+                window_im = np.concatenate([self._tail_im, block_im])
+                if cfg.upload_int8:
+                    peak = max(
+                        float(np.max(np.abs(window_re))),
+                        float(np.max(np.abs(window_im))), 1e-12,
+                    )
+                    scale = 120.0 / peak
+                    up_re = np.clip(np.rint(window_re * scale), -127, 127
+                                    ).astype(np.int8)
+                    up_im = np.clip(np.rint(window_im * scale), -127, 127
+                                    ).astype(np.int8)
+                    inv_scale = np.float32(1.0 / scale)
+                else:
+                    up_re, up_im = window_re, window_im
+                    inv_scale = np.float32(1.0)
+            with span("sydr.session.block.upload"):
+                up_re = torch.from_numpy(up_re).to(self.device)
+                up_im = torch.from_numpy(up_im).to(self.device)
+            with span("sydr.session.block.step"):
+                packed_f, packed_i, keys_f, keys_i = self._step(
+                    up_re, up_im, inv_scale)
+            self.total_samples += expect
+            with span("sydr.session.block.history"):
+                tail = cfg.tail_ms * cfg.samples_per_ms
+                self._tail_re = window_re[-tail:]
+                self._tail_im = window_im[-tail:]
+                self._update_hist(block_re, block_im)
+            with span("sydr.session.block.acquire") as acquiring:
+                acquiring.set(searches=self._maybe_acquire())
+            with span("sydr.session.block.copy_back"):
+                # Two bulk copies instead of one per output key (copies on
+                # the CPU too: a graph's packed outputs are its static
+                # tensors).
+                host_f = packed_f.to("cpu", copy=True).numpy()
+                host_i = packed_i.to("cpu", copy=True).numpy()
+            out = {k: host_f[..., j] for j, k in enumerate(keys_f)}
+            for j, k in enumerate(keys_i):
+                col = host_i[..., j]
+                out[k] = col.astype(bool) if k in self._BOOL_KEYS else col
+            with span("sydr.session.block.promote"):
+                self._maybe_promote(out)
+            return out
 
     def _step(self, up_re, up_im, inv_scale):
         """One device step of the current configuration: the packed run's
@@ -584,6 +605,7 @@ class TrackingSession:
         :meth:`_maybe_promote` restores cruise once every channel is stable
         again.
         """
+        count("sydr.session.resets")
         self._demote()
         fresh = init_state(self.n_channels, self.device)
         fresh.mode.fill_(MODE_ACQUIRING)

@@ -1531,3 +1531,33 @@ def test_timeshard_graph_on_nccl_world_of_one(form):
         assert entry.launches[corr] == entry.launches[lk.PASS_C_KERNEL] \
             == entry.launches[gk.GEOMETRY_KERNEL] == blocks
         assert entry.launches[reduce] == blocks
+
+
+@pytest.mark.cuda
+def test_span_counts_host_waits_and_reads_device_time():
+    """The recorder on the card (``utils.metrics``): a span around
+    ``.item()`` counts one wait on the device, a non-blocking
+    device-to-device copy none, a span with ``device=`` reads its kernel's
+    time on the device, and the sync debug mode is restored after."""
+    from sydr_tpu_torch.utils import metrics
+
+    dev = _cuda()
+    rec = metrics.StageTimers()
+    x = torch.ones(1 << 20, device=dev)
+    y = torch.empty_like(x)
+    metrics.enable()
+    try:
+        with rec.time("stage"):
+            with metrics.span("item") as item:
+                x.sum().item()
+            with metrics.span("copy") as copy:
+                y.copy_(x, non_blocking=True)
+            with metrics.span("kernel", device=dev) as kernel:
+                torch.cuda._sleep(1_000_000)
+    finally:
+        metrics.enable(False)
+    torch.cuda.synchronize()
+    assert (item.syncs, copy.syncs, kernel.syncs) == (1, 0, 0)
+    assert kernel.device_ms > 0 and item.device_ms is None
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert rec.summary()["item"]["syncs"] == 1

@@ -66,29 +66,19 @@ CHANGED = {
             [st.unread.to(torch.float32), st.rem_code,
              st.carrier_freq, st.code_freq_offset], dim=0).cpu().numpy()'''),
     ],
+    # The port's recorder of spans and counters (test_torch_spans.py):
+    # the JAX module's stage report, rewritten, around its ``store`` and the
+    # head of ``device_trace``. A ``(start, end)`` pair is the stretch from
+    # ``start`` up to ``end`` (None: the end of the module).
     "utils/metrics.py": [
-        ("wraps ``jax.profiler`` trace", "wraps ``torch.profiler`` trace"),
-        ('''    """Capture a jax.profiler trace around a code region."""
-    import jax
-
-    jax.profiler.start_trace(log_dir)
-    try:
-        yield
-    finally:
-        jax.profiler.stop_trace()''',
-         '''    """Capture a torch.profiler trace (CPU, plus CUDA when present) around
-    a code region and write it to ``log_dir/trace.json`` (Chrome format)."""
-    import os
-
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))'''),
+        (('"""Per-stage timing', "\nfrom __future__"),
+         ('"""The program\'s recorder', "\nfrom __future__")),
+        (("import contextlib\n", "    def store(self, db)"),
+         ("import collections\n", "    def store(self, db)")),
+        (("    def report(self)", "@contextlib.contextmanager\n"),
+         ("    def report(self)", "@contextlib.contextmanager\n")),
+        (('    """Capture a jax.profiler trace', None),
+         ('    """Capture a torch.profiler trace', None)),
     ],
     "main.py": [
         ('''                        help="force the CPU backend (development machines)")
@@ -135,13 +125,22 @@ def test_copied_modules_equal_their_sources():
         assert _port(rel) == _copy_of(rel), rel
 
 
+def _stretch(text, start, end):
+    """The one stretch of ``text`` from ``start`` up to ``end``."""
+    assert text.count(start) == 1, start
+    i = text.index(start)
+    return text[i:] if end is None else text[i:text.index(end, i)]
+
+
 def test_changed_modules_differ_only_in_listed_lines():
     """receiver.py, main.py and utils/metrics.py are their JAX sources with
     only the listed blocks replaced: the device argument, the bulk state
-    fetch, the profiler and the CLI's device handling."""
+    fetch, the recorder and its profiler, and the CLI's device handling."""
     for rel, blocks in CHANGED.items():
         expect = _copy_of(rel)
         for old, new in blocks:
+            if isinstance(old, tuple):
+                old, new = _stretch(expect, *old), _stretch(_port(rel), *new)
             assert expect.count(old) == 1, (rel, old)
             expect = expect.replace(old, new)
         assert _port(rel) == expect, rel
