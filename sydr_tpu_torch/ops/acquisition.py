@@ -8,9 +8,13 @@ DFT-bin shift ``k`` of one of a few fractional phase offsets, so carrier
 mixing and the forward transform run once per phase (``torch.fft.fft`` in
 complex64) and each bin costs one spectrum product with a rolled code
 spectrum plus one inverse transform — the per-bin chain of kernel K2
-(``ops.acq_kernel.pcps_bins``). The direct map (:func:`pcps_map`) mixes and
-transforms once per bin, a few bins at a time, and serves bin grids that
-do not decompose or reuse too few phases (:func:`shift_plan`). The serial
+(``ops.acq_kernel.pcps_bins``). Where every row is one snapshot (the
+session and a snapshot server search every PRN on the same samples, an
+``expand`` with row stride 0), the snapshot is mixed for all phases in one
+batch and transformed once, not once a row (:func:`phase_spectra`). The
+direct map (:func:`pcps_map`) mixes and transforms once per bin, a few
+bins at a time, and serves bin grids that do not decompose or reuse too
+few phases (:func:`shift_plan`). The serial
 search (:func:`serial_search`) wipes the carrier per Doppler bin and
 correlates one code period against all 1023 chip shifts in one matrix
 product.
@@ -31,7 +35,7 @@ import torch
 from sydr_tpu_torch.constants import GPS_L1CA_CODE_FREQ, GPS_L1CA_CODE_LENGTH
 from sydr_tpu_torch.ops import acq_kernel
 from sydr_tpu_torch.signal import cacode
-from sydr_tpu_torch.utils.metrics import span
+from sydr_tpu_torch.utils.metrics import count, span
 
 
 def doppler_bins(doppler_range: float, doppler_step: float) -> np.ndarray:
@@ -143,6 +147,12 @@ def phase_spectra(iq_re, iq_im, *, n, sampling_frequency,
     restarting at every non-coherent block, the reference semantics),
     transforms each ``n``-sample code period and sums the ``coherent``
     periods of a block (the sum commutes with the linear inverse DFT).
+
+    Rows that are one snapshot (:func:`one_snapshot`) are mixed for every
+    phase in one batch, transformed and summed once, and the spectra
+    copied to each row: the same float32 operations on the same samples
+    as a row of the per-row loop, so the same numbers wherever the FFT
+    gives a row the same result whatever the batch.
     """
     n_ch = iq_re.shape[0]
     dev = iq_re.device
@@ -150,6 +160,20 @@ def phase_spectra(iq_re, iq_im, *, n, sampling_frequency,
     blocks_im = iq_im.reshape(n_ch, non_coherent, coherent, n)
     t = (torch.arange(coherent * n, dtype=torch.float32, device=dev)
          / sampling_frequency).reshape(coherent, n)
+    if one_snapshot(iq_re, iq_im):
+        # Each phase's coefficient rounded to float32 once, as the loop's
+        # Python scalar is; its copy to the device does not wait for it.
+        coef = torch.tensor(
+            [-2.0 * math.pi * (intermediate_frequency + f_p)
+             for f_p in phases], dtype=torch.float32).to(dev,
+                                                         non_blocking=True)
+        ph = coef[:, None, None, None] * t            # [n_ph, 1, coh, n]
+        cos, sin = torch.cos(ph), torch.sin(ph)
+        b_re, b_im = blocks_re[:1], blocks_im[:1]     # [1, nc, coh, n]
+        mre = b_re * cos - b_im * sin
+        mim = b_re * sin + b_im * cos
+        spec = torch.fft.fft(torch.complex(mre, mim), dim=-1).sum(dim=2)
+        return spec[:, None].expand(-1, n_ch, -1, -1).contiguous()
     spectra = []
     for f_p in phases:
         ph = -2.0 * math.pi * (intermediate_frequency + f_p) * t
@@ -159,6 +183,13 @@ def phase_spectra(iq_re, iq_im, *, n, sampling_frequency,
         spec = torch.fft.fft(torch.complex(mre, mim), dim=-1)
         spectra.append(spec.sum(dim=2))               # [n_ch, nc, n]
     return torch.stack(spectra).contiguous()
+
+
+def one_snapshot(iq_re, iq_im) -> bool:
+    """Whether every row of the samples is the same snapshot: one row, or
+    both planes with row stride 0 (an ``expand`` of one row)."""
+    return iq_re.shape[0] == 1 or (iq_re.stride(0) == 0
+                                   and iq_im.stride(0) == 0)
 
 
 def pcps_shift_map(iq_re, iq_im, code_k, *, sampling_frequency,
@@ -172,11 +203,17 @@ def pcps_shift_map(iq_re, iq_im, code_k, *, sampling_frequency,
         phases, bin_shifts: the :func:`shift_plan` of the Doppler bins.
 
     Spans (``utils.metrics``): ``sydr.acq.spectra`` (the forward spectra;
-    device time too) and ``sydr.acq.k2`` (K2's launch: arguments, plan
-    tables, output).
+    device time too; ``rows``: the rows mixed and transformed, 1 where
+    every row is one snapshot) and ``sydr.acq.k2`` (K2's launch:
+    arguments, plan tables, output). Counter ``sydr.acq.spectra.shared``:
+    the calls whose rows were one snapshot.
     """
     n = code_k.shape[-1]
-    with span("sydr.acq.spectra", device=iq_re.device):
+    shared = one_snapshot(iq_re, iq_im)
+    with span("sydr.acq.spectra", device=iq_re.device,
+              rows=1 if shared else iq_re.shape[0]):
+        if shared:
+            count("sydr.acq.spectra.shared")
         spectra = phase_spectra(
             iq_re, iq_im, n=n, sampling_frequency=sampling_frequency,
             intermediate_frequency=intermediate_frequency, coherent=coherent,
@@ -231,8 +268,8 @@ def acquire(iq, code_ffts, bins, *, sampling_frequency: float,
     Spans (``utils.metrics``): ``sydr.acq`` a call (``searches``, the
     rows), and under it ``.prepare`` (the code spectra and the bins to the
     device, the plan), :func:`pcps_shift_map`'s ``.spectra`` and ``.k2``
-    (without a plan ``.spectra`` holds the direct map), and ``.peak`` (the
-    peak metric; device time too).
+    (without a plan ``.spectra`` holds the direct map, ``rows`` every
+    row), and ``.peak`` (the peak metric; device time too).
     """
     iq_re, iq_im = iq
     dev = iq_re.device
@@ -252,7 +289,7 @@ def acquire(iq, code_ffts, bins, *, sampling_frequency: float,
             corr = pcps_shift_map(iq_re, iq_im, code_k, phases=phases,
                                   bin_shifts=bin_shifts, **common)
         else:
-            with span("sydr.acq.spectra", device=dev):
+            with span("sydr.acq.spectra", device=dev, rows=iq_re.shape[0]):
                 corr = pcps_map(iq_re, iq_im, code_k, bins_dev,
                                 doppler_chunk=doppler_chunk, **common)
         samples_per_chip = round(sampling_frequency / GPS_L1CA_CODE_FREQ)

@@ -23,6 +23,7 @@ from sydr_tpu.ops import fft as mmfft
 from sydr_tpu.signal.synthetic import IQGenerator
 from sydr_tpu_torch.ops import acq_kernel
 from sydr_tpu_torch.ops import acquisition as tacq
+from sydr_tpu_torch.utils import metrics
 
 torch.set_num_threads(2)
 
@@ -185,6 +186,60 @@ def test_acquire_matches_jax_map(case, jax_map):
     assert float(d_r[0]) == float(dop[0])
     assert int(c_r[0]) == int(ci[0])
     assert abs(float(m_r[0]) - float(metric[0])) < 0.05
+
+
+@pytest.mark.parametrize("rows", [1, 3, 32])
+def test_one_snapshot_over_rows_equals_the_per_row_path(case, rows,
+                                                        monkeypatch):
+    """The module's capture expanded over ``rows`` rows (row stride 0) is
+    mixed and transformed once for all phases, and gives bit for bit what
+    the per-row path gives on the same snapshot materialised as ``rows``
+    rows with one other snapshot after them (``torch.cat`` of distinct
+    snapshots: the per-row path even at one row); a snapshot with only
+    one plane expanded takes the per-row path. ``acquire``'s
+    ``sydr.acq.spectra`` span reads ``rows`` 1 and the counter
+    ``sydr.acq.spectra.shared`` one a call on the shared path."""
+    re, im = (torch.from_numpy(case[k][0]) for k in ("iq_re", "iq_im"))
+    shared = (re[None].expand(rows, -1), im[None].expand(rows, -1))
+    per_row = tuple(torch.cat([s, torch.roll(x, 1000)[None]])
+                    for s, x in zip(shared, (re, im)))
+    kw = dict(n=N, sampling_frequency=FS, intermediate_frequency=1250.0,
+              coherent=COHER, non_coherent=NONCOH, phases=case["phases"])
+    ffts = []
+    fft = torch.fft.fft
+    monkeypatch.setattr(torch.fft, "fft",
+                        lambda x, **k: ffts.append(x.shape[0]) or fft(x, **k))
+    got = tacq.phase_spectra(*shared, **kw)
+    assert ffts == [len(case["phases"])]
+    ref = tacq.phase_spectra(*per_row, **kw)
+    assert ffts[1:] == [rows + 1] * len(case["phases"])
+    assert got.shape == (len(case["phases"]), rows, NONCOH, N)
+    np.testing.assert_array_equal(got.numpy(), ref[:, :rows].numpy())
+    del ffts[:]
+    half = tacq.phase_spectra(shared[0], shared[1].contiguous(), **kw)
+    assert ffts == ([len(case["phases"])] if rows == 1
+                    else [rows] * len(case["phases"]))
+    np.testing.assert_array_equal(half.numpy(), got.numpy())
+    monkeypatch.setattr(torch.fft, "fft", fft)
+
+    code = np.stack([tacq.code_fft_conj(p, FS) for p in range(1, rows + 2)])
+    kw = dict(sampling_frequency=FS, intermediate_frequency=1250.0,
+              coherent=COHER, non_coherent=NONCOH)
+    code_k = torch.from_numpy(code).to(torch.complex64)
+    np.testing.assert_array_equal(
+        tacq.pcps_shift_map(*shared, code_k[:rows], phases=case["phases"],
+                            bin_shifts=case["bin_shifts"], **kw).numpy(),
+        tacq.pcps_shift_map(*per_row, code_k, phases=case["phases"],
+                            bin_shifts=case["bin_shifts"], **kw)[:rows].numpy())
+    monkeypatch.setattr(metrics, "RECORDER", metrics.StageTimers())
+    monkeypatch.setattr(metrics, "_enabled", True)
+    got = tacq.acquire(shared, code[:rows], case["bins"], **kw)
+    ref = tacq.acquire(per_row, code, case["bins"], **kw)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), r[:rows].numpy())
+    assert [s.attrs["rows"] for s in
+            metrics.RECORDER.find("sydr.acq.spectra")] == [1, rows + 1]
+    assert metrics.RECORDER.counters == {"sydr.acq.spectra.shared": 1}
 
 
 # A 16.368 Msps front end (the classic GPS L1 clock): n = 16368 =

@@ -382,6 +382,60 @@ def test_pcps_bins_rejects_bad_input():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fs, rows", [
+    (16.368e6, 32),     # K2's cluster entry: the cold-start snapshot server
+    (4e6, 32),          # one-block entry: the session's pull-in rate
+    (70e6, 8),          # two-step entry, n = 70000 = 250 x 280
+])
+def test_acquire_on_one_snapshot_equals_its_rows(fs, rows):
+    """``acquire`` on one 50 ms snapshot expanded over the PRN rows (forward
+    spectra once, for all phases in one batch) against the same snapshot
+    materialised as contiguous rows (forward spectra a row): the same
+    Doppler and code index, each row's map within 1e-6 of its peak (cuFFT
+    may pick other kernels for another batch), the metric within 1e-6
+    relative; the shared call's ``sydr.acq.spectra`` reads ``rows`` 1 and
+    counts ``sydr.acq.spectra.shared`` once."""
+    from sydr_tpu_torch.ops import acquisition as acq
+    from sydr_tpu_torch.signal.synthetic import IQGenerator
+    from sydr_tpu_torch.utils import metrics
+
+    dev = _cuda()
+    gen = IQGenerator(fs, noise=True, seed=7)
+    gen.add_satellite(3, doppler_hz=-2360.0, code_phase_chips=77.7,
+                      cn0_dbhz=45.0)
+    gen.add_satellite(7, doppler_hz=1420.0, code_phase_chips=512.3,
+                      cn0_dbhz=42.0)
+    iq = gen.generate_ms(50)
+    re = torch.tensor(np.float32(iq.real), device=dev)
+    im = torch.tensor(np.float32(iq.imag), device=dev)
+    code = np.stack([acq.code_fft_conj(p, fs) for p in range(1, rows + 1)])
+    bins = acq.doppler_bins(5000, 100)
+    kw = dict(sampling_frequency=fs, coherent=5, non_coherent=10)
+    shared = (re[None].expand(rows, -1), im[None].expand(rows, -1))
+    metrics.enable()
+    try:
+        rec = metrics.StageTimers()
+        with rec.time("shared"):
+            got = acq.acquire(shared, code, bins, **kw)
+        with rec.time("per_row"):
+            ref = acq.acquire(tuple(x.contiguous() for x in shared), code,
+                              bins, **kw)
+    finally:
+        metrics.enable(False)
+    torch.cuda.synchronize()
+    assert [s.attrs["rows"] for s in rec.find("sydr.acq.spectra")] == \
+        [1, rows]
+    assert rec.counters == {"sydr.acq.spectra.shared": 1}
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    peak = ref[3].amax(dim=(1, 2))
+    assert bool(((got[3] - ref[3]).abs().amax(dim=(1, 2))
+                 <= 1e-6 * peak).all())
+    assert bool(((got[2] - ref[2]).abs() <= 1e-6 * ref[2].abs()).all())
+    assert abs(float(got[0][2]) + 2360.0) <= 50.0      # PRN 3
+    assert abs(float(got[0][6]) - 1420.0) <= 50.0      # PRN 7
+
+
+@pytest.mark.cuda
 def test_epoch_correlate_ragged_epochs_and_unaligned_window():
     """An epoch of 0 samples, bounds off the 4-sample grid and a window
     that starts off a 16-byte address (a slice at an odd offset, as a

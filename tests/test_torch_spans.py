@@ -232,23 +232,33 @@ def _snapshot(rows, seed=0):
     (130.0, ["sydr.acq.prepare", "sydr.acq.spectra", "sydr.acq.peak"]),
 ])
 def test_acquire_emits_its_spans_once_a_call(step, children):
+    """Distinct rows, then one snapshot expanded over the rows: the shift
+    map mixes and transforms one row of it (``rows`` 1, the counter
+    ``sydr.acq.spectra.shared``), the direct map every row."""
     code_k = np.stack([acq.code_fft_conj(p, FS) for p in PRNS])
     bins = acq.doppler_bins(ACQ.doppler_range, step)
+    shift = "sydr.acq.k2" in children
     metrics.enable()
     for call in range(2):
-        acq.acquire(_snapshot(len(PRNS), call), code_k, bins,
+        iq = _snapshot(len(PRNS), call)
+        if call:
+            iq = tuple(x[:1].expand(len(PRNS), -1) for x in iq)
+        acq.acquire(iq, code_k, bins,
                     sampling_frequency=FS, coherent=ACQ.coherent,
                     non_coherent=ACQ.non_coherent)
     trees = metrics.RECORDER.trees("sydr.acq")
     assert len(trees) == 2
-    for tree in trees:
+    for tree, rows in zip(trees, (len(PRNS), 1 if shift else len(PRNS))):
         root = tree[-1]
         assert [s.name for s in tree] == children + ["sydr.acq"]
         assert root.attrs == {"searches": len(PRNS)}
+        assert tree[1].attrs == {"rows": rows}
         assert all(s.parent == root.id and s.request == root.request
                    for s in tree[:-1])
         assert all(s.syncs == 0 for s in tree)
     assert trees[0][-1].request != trees[1][-1].request
+    assert metrics.RECORDER.counters == (
+        {"sydr.acq.spectra.shared": 1} if shift else {})
 
 
 def test_step_graph_run_emits_capture_then_copy_in_and_replay():
@@ -314,8 +324,10 @@ def test_process_block_emits_its_eight_children():
                     "sydr.acq.k2", "sydr.acq.peak"} if k == 0 else set()
         assert under == step | searched
         assert kids[5].attrs == {"searches": len(PRNS) if k == 0 else 0}
+    # The session searches every pending PRN on its one history ring.
     assert metrics.RECORDER.counters == {"sydr.step.captures": 1,
-                                 "sydr.session.resets": 1}
+                                 "sydr.session.resets": 1,
+                                 "sydr.acq.spectra.shared": 1}
 
 
 @pytest.mark.parametrize("on", [False, True], ids=["off", "enabled"])
@@ -370,7 +382,8 @@ def _fill_acq():
             [(25.0, 0.5, 1), (26.0, 0.4, 1), (24.0, 0.6, 2)]):
         root = _span("sydr.acq", prep + k2 + 1.0, request=k, searches=32)
         for child in (_span("sydr.acq.prepare", prep, root, k, syncs),
-                      _span("sydr.acq.spectra", 0.1, root, k),
+                      _span("sydr.acq.spectra", 0.1, root, k,
+                            rows=(1, 1, 32)[k]),
                       _span("sydr.acq.k2", k2, root, k),
                       _span("sydr.acq.peak", 0.05, root, k)):
             metrics.RECORDER._add(child)
@@ -392,6 +405,7 @@ READINGS = [
     ("acq.syncs", _fill_acq, 1),
     ("acq.prepare_ms", _fill_acq, 25.0),
     ("acq.k2_call_ms", _fill_acq, 0.5),
+    ("acq.spectra_rows", _fill_acq, 1),
     ("track.syncs", _fill_track, 0),
     ("track.copy_in_ms", _fill_track, 0.02),
     ("track.graph_nodes", _fill_track, 214),
