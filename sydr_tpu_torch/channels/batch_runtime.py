@@ -585,34 +585,12 @@ def run_block_batched(cfg: TrackingConfig, bits3x, state: ChannelState,
     return loop_kernel.pass_c(cfg, state, geo, corr)
 
 
-def superblock_loop(cfg: TrackingConfig, k_blocks: int, state: ChannelState,
-                    samples_re, samples_im, run_block):
-    """``k_blocks`` consecutive blocks through ``run_block(state,
-    window_re, window_im) -> (state, outputs)``.
-
-    ``samples_re/im`` hold ``tail_ms + k_blocks * block_ms`` milliseconds
-    laid out contiguously; block k's window is the slice starting at
-    ``k * block_ms`` milliseconds (its tail is the previous block's last
-    ``tail_ms``). Returns (state, outputs ``[k_blocks*block_ms, n_ch]``).
-    """
-    sb = cfg.block_ms * cfg.samples_per_ms
-    win_len = cfg.window_samples
-    outs = []
-    for k in range(k_blocks):
-        start = k * sb
-        state, out = run_block(state, samples_re[start:start + win_len],
-                               samples_im[start:start + win_len])
-        outs.append(out)
-    merged = {key: torch.cat([o[key] for o in outs]) for key in outs[0]}
-    return state, merged
-
-
 def run_superblock(cfg: TrackingConfig, k_blocks: int, bits3x,
                    state: ChannelState, samples_re, samples_im, *,
                    grid_ch=None):
     """Process ``k_blocks`` consecutive blocks of :func:`run_block_batched`
-    (:func:`superblock_loop`)."""
-    return superblock_loop(
+    (``runtime.superblock_loop``)."""
+    return runtime_mod.superblock_loop(
         cfg, k_blocks, state, samples_re, samples_im,
         lambda st, wre, wim: run_block_batched(cfg, bits3x, st, wre, wim,
                                                grid_ch=grid_ch))

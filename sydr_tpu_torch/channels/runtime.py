@@ -16,7 +16,10 @@ the JAX ``lax.scan`` over epochs is one launch of a hand-written kernel
 epochs with the channel ``vmap`` the leading axis of ``[n_ch, ...]``
 tensors. The sliding window is ``tail_ms + block_ms`` milliseconds of IQ;
 the tail carries the previous block's last ``tail_ms`` ms for channels
-whose read cursor lags the write head.
+whose read cursor lags the write head. :func:`run_superblock` runs
+``k`` consecutive blocks over one contiguous stretch of samples
+(:func:`superblock_loop`, the layout the batched runtime's superblock
+shares), one dispatch for ``k * block_ms`` milliseconds.
 
 :class:`TrackingConfig` keeps every
 field and default of the JAX configuration so existing configs load
@@ -53,6 +56,7 @@ from sydr_tpu_torch.ops import profiles as prof
 from sydr_tpu_torch.ops import scan_kernel
 from sydr_tpu_torch.ops import tracking as trk
 from sydr_tpu_torch.ops.correlator_kernel import fma32
+from sydr_tpu_torch.utils.metrics import count, span
 
 TWO_PI = 2.0 * math.pi
 F32 = torch.float32
@@ -354,6 +358,59 @@ def run_block(cfg: TrackingConfig, codes, state: ChannelState,
     the same arguments and results).
     """
     return scan_kernel.scan_block(cfg, codes, state, window_re, window_im)
+
+
+def superblock_loop(cfg: TrackingConfig, k_blocks: int, state: ChannelState,
+                    samples_re, samples_im, run_block):
+    """``k_blocks`` consecutive blocks through ``run_block(state,
+    window_re, window_im) -> (state, outputs)``, the window layout of both
+    runtimes' superblocks (:func:`run_superblock` and
+    ``batch_runtime.run_superblock``).
+
+    ``samples_re/im`` hold ``tail_ms + k_blocks * block_ms`` milliseconds
+    laid out contiguously; block k's window is the slice starting at
+    ``k * block_ms`` milliseconds (its tail is the previous block's last
+    ``tail_ms``). Returns (state, outputs ``[k_blocks*block_ms, n_ch]``);
+    one block's outputs come back as ``run_block`` gave them.
+    """
+    sb = cfg.block_ms * cfg.samples_per_ms
+    win_len = cfg.window_samples
+    outs = []
+    for k in range(k_blocks):
+        start = k * sb
+        state, out = run_block(state, samples_re[start:start + win_len],
+                               samples_im[start:start + win_len])
+        outs.append(out)
+    if k_blocks == 1:
+        return state, outs[0]
+    merged = {key: torch.cat([o[key] for o in outs]) for key in outs[0]}
+    return state, merged
+
+
+def run_superblock(cfg: TrackingConfig, k_blocks: int, codes,
+                   state: ChannelState, samples_re, samples_im):
+    """``k_blocks`` consecutive blocks of :func:`run_block` over
+    ``samples_re/im`` (``tail_ms + k_blocks * block_ms`` milliseconds,
+    :func:`superblock_loop`'s layout): ``k_blocks`` launches of
+    ``csrc/scan_block.cu`` on CUDA tensors, ``k_blocks`` calls of
+    :func:`_run_block_plain` on CPU tensors, each block ending in its own
+    anchor slew. Returns (state, outputs ``[k_blocks * block_ms, n_ch]``).
+
+    Span ``sydr.scan.superblock`` (``blocks``, ``channels``; ``tracking``,
+    the tracking channels, where the state is on the host: on the card
+    counting them would wait on the device) and counter
+    ``sydr.scan.blocks``, the blocks enqueued. Under a captured graph both
+    record at the capture, not at a replay.
+    """
+    n_ch = codes.shape[0]
+    attrs = {"blocks": k_blocks, "channels": n_ch}
+    if state.mode.device.type == "cpu":
+        attrs["tracking"] = int((state.mode == MODE_TRACKING).sum())
+    with span("sydr.scan.superblock", **attrs):
+        count("sydr.scan.blocks", k_blocks)
+        return superblock_loop(
+            cfg, k_blocks, state, samples_re, samples_im,
+            lambda st, wre, wim: run_block(cfg, codes, st, wre, wim))
 
 
 def _run_block_plain(cfg: TrackingConfig, codes, state: ChannelState,

@@ -47,7 +47,7 @@ def _build_demo(args):
         # loop_bandwidth * block_length < ~0.15).
         profile="kaplan" if args.runtime == "batch" else "borre",
         block_ms=5 if args.runtime == "batch" else 20,
-        superblock=args.superblock if args.runtime == "batch" else 1,
+        superblock=args.superblock,
         quantize_spacing=args.quantize,
     )
     # Pull-in -> cruise handoff (batch runtime default): once every channel
@@ -59,13 +59,20 @@ def _build_demo(args):
     # ~k*25 Hz on ~15% of cold-start code phases — C/N0 -18 dB, PLL lock
     # ~0 — found by tools/track_benchmark.py; the FLL-assisted kaplan
     # loop at the same shape never cycles, at equal kernel cost.)
+    # The scan runtime's loops already run at the reference's per-ms
+    # cadence: its cruise, when --cruise-superblock asks for one, keeps
+    # them and only dispatches more blocks a call.
+    import dataclasses as _dc
+
     cruise = None
     if args.runtime == "batch" and not args.no_cruise:
-        import dataclasses as _dc
-
         cruise = _dc.replace(
             pull_in, profile="kaplan", kaplan_narrow_only=True, block_ms=20,
-            superblock=max(1, int(args.cruise_superblock)))
+            superblock=max(1, 50 if args.cruise_superblock is None
+                             else int(args.cruise_superblock)))
+    elif args.cruise_superblock is not None and not args.no_cruise:
+        cruise = _dc.replace(pull_in,
+                             superblock=max(1, int(args.cruise_superblock)))
     run_cfg = RunConfig(
         receiver=ReceiverConfig(
             prns=tuple(e.prn for e in sats),
@@ -103,13 +110,15 @@ def main(argv=None) -> int:
     parser.add_argument("--pallas", action="store_true",
                         help="use the fused Pallas correlation kernel")
     parser.add_argument("--superblock", type=int, default=1,
-                        help="blocks per device dispatch (batch runtime)")
+                        help="blocks per device dispatch")
     parser.add_argument("--no-cruise", action="store_true",
                         help="stay in the pull-in configuration (no "
                              "promotion to the cruise shape)")
-    parser.add_argument("--cruise-superblock", type=int, default=50,
-                        help="superblock of the cruise configuration "
-                             "(borre/20ms blocks after promotion)")
+    parser.add_argument("--cruise-superblock", type=int, default=None,
+                        help="superblock of the cruise configuration after "
+                             "promotion (batch: kaplan/20ms blocks, 50 "
+                             "unless given; scan: the pull-in loops, no "
+                             "cruise unless given)")
     parser.add_argument("--decimate", type=int, default=1,
                         help="boxcar pre-correlation decimation factor: "
                              "track at fs/D (trades ~0.2-0.5 dB of "

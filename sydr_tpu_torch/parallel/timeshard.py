@@ -48,6 +48,7 @@ from __future__ import annotations
 import torch
 
 from sydr_tpu_torch.channels import batch_runtime as br
+from sydr_tpu_torch.channels import runtime
 from sydr_tpu_torch.channels.runtime import TrackingConfig
 from sydr_tpu_torch.channels.state import (
     ChannelState, pack_state, unpack_state)
@@ -135,7 +136,7 @@ def run_superblock_timesharded(cfg: TrackingConfig, mesh: Mesh,
                                samples_re, samples_im):
     """``batch_runtime.run_superblock`` with every block's pass B sharded
     over ``sp`` (:func:`run_block_batched_timesharded`)."""
-    return br.superblock_loop(
+    return runtime.superblock_loop(
         cfg, k_blocks, state, samples_re, samples_im,
         lambda st, wre, wim: run_block_batched_timesharded(
             cfg, mesh, bits3x, st, wre, wim))

@@ -141,8 +141,10 @@ class TrackingSession:
         code tables, sample ring and all tracking/acquisition work live.
         ``mesh``: optional ``parallel.mesh.make_mesh`` mesh; tracking then
         runs channel-sharded over its ``ch`` axis, and the channel count
-        must divide over ``mesh.shape['ch']`` (pad ``prns`` with 0).
-        ``graph``: replay the device step as a captured CUDA graph (True),
+        must divide over ``mesh.shape['ch']`` (pad ``prns`` with 0); a
+        configuration of the scan runtime with ``superblock > 1`` raises
+        there (the sharded step runs one scan block a call). ``graph``:
+        replay the device step as a captured CUDA graph (True),
         run it eagerly (False), or the default (None): graphed on a CUDA
         device without a mesh or with an NCCL mesh (its collectives
         captured with the step), else eager
@@ -150,8 +152,10 @@ class TrackingSession:
         gloo mesh, raises.
         """
         for c in (cfg, cruise):
-            if c is not None and c.runtime != "batch" and c.superblock != 1:
-                raise ValueError("superblock requires the batch runtime")
+            if (mesh is not None and c is not None and c.runtime != "batch"
+                    and c.superblock != 1):
+                raise ValueError("a superblock under a mesh requires the "
+                                 "batch runtime")
         self.acq_cfg = acq_cfg or AcquisitionConfig()
         if cruise is not None and not (
                 cruise.tail_ms == cfg.tail_ms
@@ -561,8 +565,8 @@ class TrackingSession:
                 return state_f, state_i, packed_f, packed_i, ring_re, ring_im
             state = unpack_state(state_f, state_i)
             if cfg.runtime != "batch":
-                state, outputs = runtime.run_block(
-                    cfg, codes, state, wre, wim)
+                state, outputs = runtime.run_superblock(
+                    cfg, cfg.superblock, codes, state, wre, wim)
             elif cfg.superblock > 1:
                 state, outputs = batch_runtime.run_superblock(
                     cfg, cfg.superblock, bits3x, state, wre, wim)

@@ -1075,6 +1075,45 @@ def test_scan_kernel_in_a_graph_equals_eager():
     _assert_pass_c_equal(static, eager, "graph replay")
 
 
+@pytest.mark.cuda
+def test_scan_superblock_graph_equals_eager_launches():
+    """``runtime.run_superblock`` over three blocks captured as one graph
+    (``StepGraph``) and replayed gives the eager launches' state and
+    outputs bit for bit; eager and captured alike, one ``scan_block``
+    launch a block."""
+    from _scan_inputs import scan_block_tensors, scan_config
+
+    from sydr_tpu_torch.channels import runtime as rt
+    from sydr_tpu_torch.channels.state import pack_state, unpack_state
+    from sydr_tpu_torch.ops import scan_kernel as sk
+    from sydr_tpu_torch.ops.step_graph import StepGraph
+
+    k = 3
+    cfg = scan_config(profile="borre", sampling_frequency=10e6)
+    long_cfg = scan_config(profile="borre", sampling_frequency=10e6,
+                           block_ms=k * cfg.block_ms)
+    codes, st, sre, sim = scan_block_tensors(long_cfg, N_CH, 7, _cuda())
+    before = sk.SCAN_KERNEL.launches
+    eager = rt.run_superblock(cfg, k, codes, st, sre, sim)
+    assert sk.SCAN_KERNEL.launches == before + k
+    keys = list(eager[1])
+
+    def step(state_f, state_i, wre, wim):
+        new, out = rt.run_superblock(cfg, k, codes,
+                                     unpack_state(state_f, state_i), wre, wim)
+        return (*pack_state(new), *(out[key] for key in keys))
+
+    graph = StepGraph(_cuda())
+    args = (*pack_state(st), sre, sim)
+    graph.run("scan", step, args)              # warm-up and capture
+    replayed = graph.run("scan", step, args)
+    torch.cuda.synchronize()
+    assert graph.graphs["scan"].launches == {sk.SCAN_KERNEL: k}
+    _assert_pass_c_equal(
+        (unpack_state(*replayed[:2]), dict(zip(keys, replayed[2:]))),
+        eager, "superblock graph replay")
+
+
 # The three rates of chip_smoke.py's scan cases: the scan session's 2.5
 # Msps borre, a full-rate 10 Msps front end with kaplan's 5 taps, and the
 # classic 16.368 Msps front end, borre.

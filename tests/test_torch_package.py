@@ -102,6 +102,46 @@ CHANGED = {
 '''),
         ("    receiver = Receiver(run_cfg.receiver)\n",
          "    receiver = Receiver(run_cfg.receiver, device=device)\n"),
+        # The scan runtime's superblock: --superblock in either runtime, and
+        # a scan cruise (the pull-in's loops) when --cruise-superblock
+        # names one.
+        ('''        superblock=args.superblock if args.runtime == "batch" else 1,
+''', '''        superblock=args.superblock,
+'''),
+        ('''    cruise = None
+    if args.runtime == "batch" and not args.no_cruise:
+        import dataclasses as _dc
+
+        cruise = _dc.replace(
+            pull_in, profile="kaplan", kaplan_narrow_only=True, block_ms=20,
+            superblock=max(1, int(args.cruise_superblock)))
+''', '''    # The scan runtime's loops already run at the reference's per-ms
+    # cadence: its cruise, when --cruise-superblock asks for one, keeps
+    # them and only dispatches more blocks a call.
+    import dataclasses as _dc
+
+    cruise = None
+    if args.runtime == "batch" and not args.no_cruise:
+        cruise = _dc.replace(
+            pull_in, profile="kaplan", kaplan_narrow_only=True, block_ms=20,
+            superblock=max(1, 50 if args.cruise_superblock is None
+                             else int(args.cruise_superblock)))
+    elif args.cruise_superblock is not None and not args.no_cruise:
+        cruise = _dc.replace(pull_in,
+                             superblock=max(1, int(args.cruise_superblock)))
+'''),
+        ('''                        help="blocks per device dispatch (batch runtime)")
+''', '''                        help="blocks per device dispatch")
+'''),
+        ('''    parser.add_argument("--cruise-superblock", type=int, default=50,
+                        help="superblock of the cruise configuration "
+                             "(borre/20ms blocks after promotion)")
+''', '''    parser.add_argument("--cruise-superblock", type=int, default=None,
+                        help="superblock of the cruise configuration after "
+                             "promotion (batch: kaplan/20ms blocks, 50 "
+                             "unless given; scan: the pull-in loops, no "
+                             "cruise unless given)")
+'''),
     ],
 }
 
@@ -135,7 +175,8 @@ def _stretch(text, start, end):
 def test_changed_modules_differ_only_in_listed_lines():
     """receiver.py, main.py and utils/metrics.py are their JAX sources with
     only the listed blocks replaced: the device argument, the bulk state
-    fetch, the recorder and its profiler, and the CLI's device handling."""
+    fetch, the recorder and its profiler, and the CLI's device handling
+    and scan superblocks."""
     for rel, blocks in CHANGED.items():
         expect = _copy_of(rel)
         for old, new in blocks:

@@ -36,6 +36,7 @@ from sydr_tpu_torch import parity
 from sydr_tpu_torch.channels import runtime as trt
 from sydr_tpu_torch.channels.state import FLAG_BIT_SYNC, state_from_numpy
 from sydr_tpu_torch.ops import tracking as ttrk
+from sydr_tpu_torch.parallel import mesh as pmesh
 from sydr_tpu_torch.receiver.session import TrackingSession
 from sydr_tpu_torch.signal.synthetic import IQGenerator
 
@@ -314,7 +315,11 @@ def test_scan_session_closed_loop_matches_jax(sessions):
 
 
 def test_scan_runtime_refuses_superblock():
+    """Under a mesh (here a CPU mesh of one rank) a scan configuration of
+    more than one block a call raises: the sharded step runs one scan
+    block a call. Without a mesh the session takes it
+    (``tests/test_torch_scan_superblock.py``)."""
     cfg = trt.TrackingConfig(sampling_frequency=FS, window_size=4224,
                              runtime="scan", superblock=4)
     with pytest.raises(ValueError, match="superblock"):
-        TrackingSession(cfg, [5], device=CPU)
+        TrackingSession(cfg, [5], device=CPU, mesh=pmesh.make_mesh(1, 1))

@@ -282,6 +282,36 @@ def test_step_graph_run_emits_capture_then_copy_in_and_replay():
     assert graph.graphs["k"].replays == 2
 
 
+@pytest.mark.parametrize("on", [False, True], ids=["off", "enabled"])
+def test_scan_superblock_emits_its_span_and_counter(on):
+    """``runtime.run_superblock``: one ``sydr.scan.superblock`` a call
+    (``blocks``, ``channels`` and, the state being on the host,
+    ``tracking``) with each block's epochs under it, and the counter
+    ``sydr.scan.blocks`` the blocks enqueued; nothing while the recorder
+    is off."""
+    from _scan_inputs import scan_block_tensors, scan_config
+
+    from sydr_tpu_torch.channels import runtime as rt
+    from sydr_tpu_torch.channels.state import MODE_TRACKING
+
+    cfg = scan_config(profile="borre", block_ms=4)
+    long_cfg = scan_config(profile="borre", block_ms=8)
+    codes, st, sre, sim = scan_block_tensors(long_cfg, 8, 3, CPU)
+    metrics.enable(on)
+    for _ in range(2):
+        rt.run_superblock(cfg, 2, codes, st, sre, sim)
+    spans = metrics.RECORDER.find("sydr.scan.superblock")
+    if not on:
+        assert not spans and not metrics.RECORDER.counters
+        return
+    tracking = int((st.mode == MODE_TRACKING).sum())
+    assert 0 < tracking < 8
+    assert [s.attrs for s in spans] == [
+        {"blocks": 2, "channels": 8, "tracking": tracking}] * 2
+    assert all(s.parent is None and s.syncs == 0 for s in spans)
+    assert metrics.RECORDER.counters == {"sydr.scan.blocks": 4}
+
+
 SESSION_CHILDREN = ["boxcar", "quantise", "upload", "step", "history",
                     "acquire", "copy_back", "promote"]
 
@@ -498,6 +528,33 @@ def test_readers_are_declared_for_their_cells():
         source = ("device_trace" if name == "acq.forward_ms"
                   else "program_span")
         assert m["source"] == source and m["workloads"] == [cell]
+
+
+SCAN_READERS = [("scan.graph_nodes", "program_span"),
+                ("scan.kernel_roofline", "device_trace"),
+                ("scan.device_ms", "device_trace"),
+                ("device.idle.scan", "device_trace")]
+
+
+@pytest.mark.parametrize("name, source", SCAN_READERS,
+                         ids=[r[0] for r in SCAN_READERS])
+def test_scan_readers_are_declared_for_the_scan_cell(name, source):
+    spec = harness.load_json(harness.HERE.parent / "BENCHMARK.json")
+    m = {m["name"]: m for m in spec["per_layer"]}[name]
+    assert m["source"] == source and m["moves"] == "rtf"
+    assert m["workloads"] == ["track.scan.l1ca_10msps"]
+    harness.reader(name)
+
+
+def test_scan_graph_nodes_reads_the_replays(monkeypatch):
+    """``scan.graph_nodes``: the ``nodes`` of the replays' spans; ``None``
+    without them and for a program without the recorder."""
+    read = harness.reader("scan.graph_nodes")
+    assert read(_trace()) is None
+    _fill_track()
+    assert read(_trace()) == 214
+    monkeypatch.delattr(metrics, "RECORDER")
+    assert read(_trace()) is None
 
 
 def test_a_traced_run_of_the_cold_cell_carries_the_span_metrics():
